@@ -11,13 +11,28 @@ Phases (any failure raises and exits non-zero, with no result line):
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
    decode step (B=4) and the decode window (K in 1, 8, 37, 64), and the
    window bit for bit against K chained single steps;
-3. the main path: full-size rwkv6-1.6b in bf16 (random weights from a
+2b. the training kernels against their plain versions, at the same widths
+   and dtypes, B=4, T=256 chunk 16 and T=100 chunk 10: the training forward
+   on (out, S, s_hist), the backward on its six outputs with random
+   cotangents, and ``WKVFunction``'s grads on the card against the same
+   Function on CPU copies;
+3. the serving path: full-size rwkv6-1.6b in bf16 (random weights from a
    seed) through ``ServeEngine.generate`` (B=4, 256-token prompts, 32 new
    tokens, K=8) and ``ServeEngine.serve`` (6 ragged requests, 4 slots,
    K=8), with every kernel's launch count set to 0 just before and read
    just after; then the reduced f32 model on the card against the same
-   model on the CPU (logits and greedy tokens);
-4. each kernel's median time at the main path's shapes beside its plain
+   model on the CPU (logits and greedy tokens), and one generate call
+   under the profiler;
+3b. the training path: the serving engine freed, full-size rwkv6-1.6b in
+   bf16 through ``init_train_state`` and ``make_train_step`` (microbatch 2,
+   full remat), 6 steps of B=8, T=256 from ``data.make_batch``, with the
+   training kernels' launch counts set to 0 just before and read just
+   after (they must equal the counts the step's structure gives); finite
+   losses and parameters, the last loss below the first; then one step
+   under the profiler;
+3c. one train step of the reduced f32 model on the card against the CPU:
+   loss, grad norm and updated parameters;
+4. each kernel's median time at its main path's shapes beside its plain
    version's time and its bound, printed as one ``{"kernels": [...]}``
    line; then the card's name and power limit, and the result line.
 """
@@ -44,6 +59,15 @@ TOLERANCE = {
     "float32": (1e-5, 2e-5),
     # bf16: out is rounded to bf16 (8-bit mantissa) by both versions, so
     # f32 sums that differ in the last bits may round one bf16 ulp apart.
+    "bfloat16": (1e-3, 8e-3),
+}
+#: The training kernels, per output: (max error) <= ATOL + RTOL * max|plain|
+#: of that output.  The backward's grads reach the hundreds (dw divides by
+#: w) and sum products of e^{+-64}-scaled factors, so f32 is held relative
+#: to each output's largest value; bf16 grads are rounded to bf16 by both
+#: versions, one ulp (2**-8 relative) plus the f32 difference.
+TRAIN_TOLERANCE = {
+    "float32": (1e-5, 1e-4),
     "bfloat16": (1e-3, 8e-3),
 }
 
@@ -124,6 +148,7 @@ def main():
 
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import common
+    from repro_torch.kernels.wkv import bwd as BW
     from repro_torch.kernels.wkv import decode as D
     from repro_torch.kernels.wkv import kernel as KC
     from repro_torch.model import model as M
@@ -194,7 +219,10 @@ def main():
                 if not same:
                     raise SystemExit("decode window differs from chained single steps")
 
-    # ---- 3. the main path ---------------------------------------------------
+    # ---- 2b. the training kernels against their plain versions -------------
+    worst.update(_train_kernel_checks(torch, KC, BW))
+
+    # ---- 3. the serving path -------------------------------------------------
     cfg = get_config("rwkv6-1.6b")
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
@@ -247,6 +275,14 @@ def main():
         raise SystemExit(f"a kernel of the main path never launched: {launches}")
 
     _reference_check(torch, get_config, M, ServeEngine, np)
+    _profile_generate(torch, engine, prompts)
+
+    # ---- 3b. the training path ----------------------------------------------
+    del engine, params
+    torch.cuda.empty_cache()
+    train_launches = _train_main_path(torch, cfg, KC, BW)
+    _train_reference_check(torch, get_config)
+    launches.update(train_launches)
 
     # ---- 4. times at the main path's shapes --------------------------------
     bf = torch.bfloat16
@@ -293,8 +329,7 @@ def main():
         ms, call_ms = _time_ms(torch, D.wkv_decode_window_cuda, sets, 100)
         print(f"[time] wkv_decode_window_cuda   B=4 H=32 T=64 Dh=64 bf16{'':9s}"
               f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us")
-
-    _profile_generate(torch, engine, prompts)
+    rows += _time_train_kernels(torch, KC, BW, launches, worst)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
@@ -306,18 +341,242 @@ def main():
         "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count()}}))
 
 
+def _cotangents(torch, b, t, dtype, seed):
+    """Random output cotangents on the card: d_out (B,H,T,Dh) in ``dtype``,
+    d_s_out (B,H,Dh,Dh) f32."""
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    d_out = torch.randn((b, H, t, DH), generator=g, device="cuda").to(dtype)
+    d_s = torch.randn((b, H, DH, DH), generator=g, device="cuda")
+    return d_out, d_s
+
+
+def _train_kernel_checks(torch, KC, BW):
+    """Phase 2b.  Returns the worst max abs error of each training kernel."""
+    from repro_torch.kernels.wkv.vjp import WKVFunction
+
+    worst = {"wkv_train_cuda": 0.0, "wkv_bwd_cuda": 0.0, "WKVFunction": 0.0}
+
+    def check(kname, case, dtype, got, want):
+        atol, rtol = TRAIN_TOLERANCE[str(dtype).split(".")[-1]]
+        errs = [float((a.float().cpu() - b.float().cpu()).abs().max())
+                for a, b in zip(got, want)]
+        tols = [atol + rtol * float(b.float().abs().max()) for b in want]
+        ok = (all(e <= t for e, t in zip(errs, tols))
+              and all(bool(torch.isfinite(a).all()) for a in got))
+        print(f"[train-kernels] {kname:16s} {case:22s} {str(dtype):15s} "
+              f"max_abs_err per output {['%.2e' % e for e in errs]} "
+              f"tol {['%.2e' % t for t in tols]} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{kname} {case} {dtype}: errors {errs} > {tols}")
+        worst[kname] = max(worst[kname], max(errs))
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, t, chunk in ((4, 256, 16), (4, 100, 10)):
+            a = _inputs(torch, b, t, dtype, seed=11)
+            case = f"B={b} T={t} chunk={chunk}"
+            with torch.no_grad():
+                got = KC.wkv_train_cuda(*a, chunk=chunk)
+                torch.cuda.synchronize()
+                check("wkv_train_cuda", case, dtype, got, KC.wkv_train_plain(*a, chunk=chunk))
+                inf = KC.wkv_cuda(*a, chunk=chunk)
+                if not (torch.equal(inf[0], got[0]) and torch.equal(inf[1], got[1])):
+                    raise SystemExit("the training forward's (out, S) differ from inference")
+                d_out, d_s = _cotangents(torch, b, t, dtype, seed=t)
+                bargs = (*a[:5], got[2], d_out, d_s)
+                gb = BW.wkv_bwd_cuda(*bargs, chunk=chunk)
+                torch.cuda.synchronize()
+                check("wkv_bwd_cuda", case, dtype, gb, BW.wkv_bwd_plain(*bargs, chunk=chunk))
+                again = BW.wkv_bwd_cuda(*bargs, chunk=chunk)
+                if not all(torch.equal(x, y) for x, y in zip(gb, again)):
+                    raise SystemExit("wkv_bwd_cuda does not repeat bit for bit")
+        # WKVFunction: the same Function on the card and on CPU copies.
+        a = _inputs(torch, 4, 256, dtype, seed=12)
+        d_out, d_s = _cotangents(torch, 4, 256, dtype, seed=12)
+        grads = {}
+        for dev in ("cuda", "cpu"):
+            args = [x.detach().to(dev).requires_grad_(True) for x in a]
+            out, s_fin = WKVFunction.apply(*args, 16)
+            loss = ((out.float() * d_out.to(dev).float()).sum()
+                    + (s_fin * d_s.to(dev)).sum())
+            grads[dev] = torch.autograd.grad(loss, args)
+        torch.cuda.synchronize()
+        check("WKVFunction", "grads B=4 T=256 card/cpu", dtype, grads["cuda"], grads["cpu"])
+    del worst["WKVFunction"]
+    return worst
+
+
+def _train_main_path(torch, cfg, KC, BW, steps=6, batch=8, seq=256):
+    """Phase 3b: full-size training through the port's entry points.
+    Returns the training kernels' launch counts over the ``steps`` steps."""
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TS.init_train_state(cfg, 0)
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name} {cfg.dtype}: train state initialized in "
+          f"{time.perf_counter() - t0:.1f}s; microbatch {cfg.microbatch}, remat {cfg.remat}")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    step_fn = TS.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps))
+    n_micro = max(1, cfg.microbatch)
+    remat_runs = 2 if cfg.remat == "full" else 1    # first pass + recompute
+    want = {"wkv_train_cuda": remat_runs * cfg.num_layers * n_micro * steps,
+            "wkv_bwd_cuda": cfg.num_layers * n_micro * steps}
+    batches = [make_batch(dcfg, i) for i in range(steps)]
+    counters = (KC.wkv_train_cuda, BW.wkv_bwd_cuda, KC.wkv_cuda)
+    for fn in counters:
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        print(f"[train] step {i}  loss {loss:.4f}  grad_norm {gnorm:.3f}  "
+              f"{times[-1] * 1e3:.1f} ms  {batch * seq / times[-1]:,.0f} tok/s")
+        if not math.isfinite(loss) or not math.isfinite(gnorm):
+            raise SystemExit(f"train: non-finite loss {loss} / grad norm {gnorm}")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"[train] launches during {steps} steps: {launches}; derived {want}")
+    print(f"[train] B={batch} T={seq}: median step (steps 1-{steps - 1}) "
+          f"{steady * 1e3:.1f} ms, {batch * seq / steady:,.0f} tok/s; first step "
+          f"{times[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)):
+        raise SystemExit("train: a parameter is not finite")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"train: loss did not fall: {losses}")
+    if launches["wkv_cuda"] != 0 or any(launches[k] != n for k, n in want.items()):
+        raise SystemExit(f"train: launch counts {launches} != derived {want}")
+    _profile(torch, lambda: step_fn(state, batches[0]),
+             f"train step B={batch} T={seq}", top=10)
+    return {k: launches[k] for k in want}
+
+
+def _train_reference_check(torch, get_config):
+    """Phase 3c: one train step (microbatch 2) of the reduced f32 model on
+    the card against the CPU, from the same weights and batch: loss and
+    grad norm within 1e-5 / 1e-4 relative, parameters within 1e-5 (a first
+    AdamW step moves each by at most 2 lr = 6e-6 at these settings)."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(), microbatch=2)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=2)
+    params = TS.init_train_state(cfg, 1, device="cpu").params
+    out = {}
+    for dev in ("cpu", "cuda"):
+        # A copy per device: the step updates the parameters in place.
+        moved = tree_map(lambda p: p.detach().to(dev, copy=True).requires_grad_(True), params)
+        state = TS.TrainState(moved, adamw.init_state(moved), None)
+        state, m = TS.make_train_step(cfg)(state, make_batch(dcfg, 0, device=dev))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    [p.detach().cpu() for p in tree_leaves(state.params)])
+    (l_c, g_c, p_c), (l_g, g_g, p_g) = out["cpu"], out["cuda"]
+    perr = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c))
+    print(f"[reference] reduced f32 train step, card vs CPU: loss {l_g:.6f} vs "
+          f"{l_c:.6f}, grad norm {g_g:.6f} vs {g_c:.6f}, params max_abs_err "
+          f"{perr:.2e} (tol 1e-5)")
+    if (abs(l_g - l_c) > 1e-5 * abs(l_c) or abs(g_g - g_c) > 1e-4 * abs(g_c)
+            or perr > 1e-5):
+        raise SystemExit("card and CPU disagree on the reduced train step")
+
+
+def _time_train_kernels(torch, KC, BW, launches, worst, b=4, t=256, chunk=16):
+    """Phase 4 rows of the training kernels at the training path's shape."""
+    bf = torch.bfloat16
+    n = t // chunk
+    hist_bytes = b * H * n * DH * DH * 4
+    state_bytes = b * H * DH * DH * 4
+    rows = []
+    with torch.inference_mode():
+        one = _inputs(torch, b, t, bf, seed=0)
+        io = _nbytes(one[:1])                      # one (B,H,T,Dh) bf16 tensor
+        fwd_bytes = _nbytes(one) + io + state_bytes + hist_bytes
+        fwd_sets = _cold_sets(lambda s: _inputs(torch, b, t, bf, s), fwd_bytes)
+
+        def bwd_set(seed):
+            a = _inputs(torch, b, t, bf, seed)
+            hist = KC.wkv_train_cuda(*a, chunk=chunk)[2]
+            return (*a[:5], hist, *_cotangents(torch, b, t, bf, seed))
+
+        bwd_bytes = (_nbytes(one[:5]) + hist_bytes + io + state_bytes      # in
+                     + 4 * io + b * H * DH * 4 + state_bytes)             # out
+        bwd_sets = _cold_sets(bwd_set, bwd_bytes)
+        specs = (
+            (KC.wkv_train_cuda, lambda *a: KC.wkv_train_cuda(*a, chunk=chunk),
+             lambda *a: KC.wkv_train_plain(*a, chunk=chunk), fwd_sets, fwd_bytes,
+             _flops(b, t, chunk, windowed=False),
+             "src/repro_torch/kernels/wkv/csrc/wkv_chunked.cu",
+             "src/repro/kernels/wkv/kernel.py:237 (wkv_pallas_train)"),
+            (BW.wkv_bwd_cuda, lambda *a: BW.wkv_bwd_cuda(*a, chunk=chunk),
+             lambda *a: BW.wkv_bwd_plain(*a, chunk=chunk), bwd_sets, bwd_bytes,
+             _bwd_flops(b, t, chunk),
+             "src/repro_torch/kernels/wkv/csrc/wkv_bwd.cu",
+             "src/repro/kernels/wkv/bwd.py:164 (wkv_pallas_bwd)"),
+        )
+        for counter, kern, plain, sets, nbytes, flops, source, replaces in specs:
+            ms, call_ms = _time_ms(torch, kern, sets, reps=50)
+            plain_ms, _ = _time_ms(torch, plain, sets, reps=3)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            f_ms = flops / PEAK_BF16_FLOPS * 1e3
+            rows.append({
+                "name": counter.__name__, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches[counter.__name__],
+                "max_abs_err": worst[counter.__name__],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
+                "bound_by": "bytes" if b_ms >= f_ms else "operations",
+                "library_ms": None, "call_ms": call_ms,
+                "shape": f"B={b} H=32 T={t} Dh=64 bf16 chunk={chunk}",
+            })
+            print(f"[time] {counter.__name__:24s} {rows[-1]['shape']:32s} "
+                  f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us "
+                  f"(plain {plain_ms * 1e3:9.1f} us, bound "
+                  f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']}; "
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return rows
+
+
+def _bwd_flops(b, t, chunk):
+    """Floating-point operations of one backward call, a multiply-add as
+    two, per chunk of L: scores, dscores, the dscores products for d_rdec
+    and d_kinv and scores^T do (5 triangles of L(L-1)/2 Dh), do S^T, V G^T,
+    k_rem G and r_dec^T do (4 L Dh^2), the S.G row sums (Dh^2), and about
+    40 elementwise operations per (token, column)."""
+    n, L = t // chunk, chunk
+    per_chunk = 2 * (5 * L * (L - 1) // 2 * DH + 4 * L * DH * DH + DH * DH) + 40 * L * DH
+    return b * H * n * per_chunk
+
+
 def _profile_generate(torch, engine, prompts):
     """Where the time of one ``generate`` call (B=4, P=256, 16 new tokens)
-    goes: wall time, the card's busy and idle shares, and the kernels with
-    the most device time, from the device-side kernel events of
-    ``torch.profiler`` (whose own overhead lengthens the wall time, so the
-    busy share it gives is a lower bound)."""
+    goes."""
+    _profile(torch, lambda: engine.generate(prompts, 16), "generate B=4 P=256 +16 K=8")
+
+
+def _profile(torch, fn, what, top=8):
+    """Wall time of ``fn()``, the card's busy and idle shares, and the
+    kernels with the most device time, from the device-side kernel events
+    of ``torch.profiler`` (whose own overhead lengthens the wall time, so
+    the busy share it gives is a lower bound)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.generate(prompts, 16)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_name: dict[str, list] = {}
@@ -330,10 +589,10 @@ def _profile_generate(torch, engine, prompts):
         print("[profile] the profiler recorded no kernels: device time not measured")
         return
     busy = sum(us for us, _ in by_name.values())
-    print(f"[profile] generate B=4 P=256 +16 K=8 under the profiler: wall "
+    print(f"[profile] {what} under the profiler: wall "
           f"{wall_us / 1e3:.1f} ms, kernels {busy / 1e3:.1f} ms, card busy "
           f"{100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[profile]   {us / 1e3:8.2f} ms {n:6d}x  {name[:90]}")
 
 

@@ -77,6 +77,7 @@ _PKG = Path(__file__).resolve().parent
 KERNEL_SOURCES = {
     "wkv_chunked": _PKG / "wkv" / "csrc" / "wkv_chunked.cu",
     "wkv_decode": _PKG / "wkv" / "csrc" / "wkv_decode.cu",
+    "wkv_bwd": _PKG / "wkv" / "csrc" / "wkv_bwd.cu",
 }
 #: ``build/`` at the root of the checkout (listed in ``.gitignore``).
 BUILD_DIR = _PKG.parents[2] / "build"

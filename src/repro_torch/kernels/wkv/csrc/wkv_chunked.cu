@@ -1,7 +1,9 @@
 // Chunked RWKV6 WKV forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces: src/repro/kernels/wkv/kernel.py:wkv_pallas (body _wkv_fwd_body,
-// launcher _wkv_pallas_call), the prefill of prompts longer than 64 tokens.
+// launcher _wkv_pallas_call), the prefill of prompts longer than 64 tokens,
+// and wkv_pallas_train (the same sweep that also writes s_hist, the state
+// entering each chunk, for the backward in wkv_bwd.cu).
 //
 //   S_t = diag(w_t) S_{t-1} + k_t^T v_t,   o_t = r_t . (S_{t-1} + u k_t^T v_t)
 //
@@ -24,6 +26,12 @@
 // the card even at B=1 with no cross-block reduction; each block recomputes
 // the r.k scores it needs.  Simple and correct first: CUDA-core f32 FMAs,
 // no tensor cores, no TMA.
+//
+// Training (s_hist not null): at the top of chunk c each block writes its
+// 64 x 32 tile of the entering state to s_hist[b, h, c], B*H*(T/L)*16 KiB in
+// all (33.5 MB at B=4, H=32, T=256, L=16), which makes the training forward
+// about 2.3x the inference bytes.  With s_hist null the kernel does exactly
+// what the inference launch does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +61,8 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ w, const T* __restrict__ u,
     const float* __restrict__ h0, T* __restrict__ out,
-    float* __restrict__ s_out, int H, int T_len, int L) {
+    float* __restrict__ s_out, float* __restrict__ s_hist, int H, int T_len,
+    int L) {
   extern __shared__ float smem[];
   float* s_r = smem;
   float* s_k = s_r + L * LD;
@@ -85,6 +94,15 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
   const int n_chunks = T_len / L;
   for (int c = 0; c < n_chunks; ++c) {
     const size_t base = seq0 + (size_t)c * L * DH;
+    if (s_hist != nullptr) {
+      // s_S is the state entering chunk c (the previous hand-off ended in a
+      // barrier) and is not written again before the next barrier.
+      float* dst = s_hist + ((size_t)bh * n_chunks + c) * DH * DH;
+      for (int idx = tid; idx < DH * JT; idx += NT) {
+        const int i = idx / JT, jj = idx % JT;
+        dst[(size_t)i * DH + j0 + jj] = s_S[idx];
+      }
+    }
     for (int idx = tid; idx < L * DH; idx += NT) {
       const int t = idx / DH, i = idx % DH;
       s_r[t * LD + i] = to_f(r[base + idx]);
@@ -168,8 +186,8 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
-           const void* u, const void* h0, void* out, void* s_out, int B,
-           int H, int T_len, int L, cudaStream_t stream) {
+           const void* u, const void* h0, void* out, void* s_out,
+           void* s_hist, int B, int H, int T_len, int L, cudaStream_t stream) {
   const size_t smem = smem_floats(L) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       wkv_chunked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -180,8 +198,25 @@ int launch(const void* r, const void* k, const void* v, const void* w,
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(u), static_cast<const float*>(h0),
-      static_cast<T*>(out), static_cast<float*>(s_out), H, T_len, L);
+      static_cast<T*>(out), static_cast<float*>(s_out),
+      static_cast<float*>(s_hist), H, T_len, L);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const void* r, const void* k, const void* v, const void* w,
+             const void* u, const void* h0, void* out, void* s_out,
+             void* s_hist, int B, int H, int T_len, int Dh, int chunk,
+             int dtype, void* stream) {
+  if (Dh != DH || chunk < 1 || chunk > MAX_CHUNK || T_len < 1 ||
+      T_len % chunk != 0 || B < 1 || H < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(r, k, v, w, u, h0, out, s_out, s_hist, B, H, T_len, chunk, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(r, k, v, w, u, h0, out, s_out, s_hist, B, H,
+                                 T_len, chunk, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -192,12 +227,18 @@ extern "C" int wkv_chunked_fwd(const void* r, const void* k, const void* v,
                                const void* w, const void* u, const void* h0,
                                void* out, void* s_out, int B, int H, int T_len,
                                int Dh, int chunk, int dtype, void* stream) {
-  if (Dh != DH || chunk < 1 || chunk > MAX_CHUNK || T_len < 1 ||
-      T_len % chunk != 0 || B < 1 || H < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(r, k, v, w, u, h0, out, s_out, B, H, T_len, chunk, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(r, k, v, w, u, h0, out, s_out, B, H, T_len, chunk, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(r, k, v, w, u, h0, out, s_out, nullptr, B, H, T_len, Dh,
+                  chunk, dtype, stream);
+}
+
+// The training forward: as wkv_chunked_fwd, and s_hist (B, H, T/chunk, 64,
+// 64) float32 receives the state entering each chunk.
+extern "C" int wkv_chunked_train_fwd(const void* r, const void* k,
+                                     const void* v, const void* w,
+                                     const void* u, const void* h0, void* out,
+                                     void* s_out, void* s_hist, int B, int H,
+                                     int T_len, int Dh, int chunk, int dtype,
+                                     void* stream) {
+  return dispatch(r, k, v, w, u, h0, out, s_out, s_hist, B, H, T_len, Dh,
+                  chunk, dtype, stream);
 }

@@ -12,6 +12,11 @@ Counterpart of ``repro.kernels.wkv.ops.wkv_fused``, with the same contract:
 * ``chunk`` is a request: when it does not divide T, the largest divisor
   below it is used, with a warning once per ``(T, chunk)`` per warn scope.
 * ``h0=None`` means zeros; ``out`` comes back in r.dtype and S in f32.
+* Under autograd (grad enabled and any input requiring grad) the chunked
+  path runs through :class:`~repro_torch.kernels.wkv.vjp.WKVFunction`: the
+  training forward and the reverse-sweep backward, kernels on the card and
+  plain versions on the CPU.  The decode path has no backward yet and
+  raises under autograd.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from repro_torch.kernels.wkv.decode import (
     wkv_decode_window_cuda,
 )
 from repro_torch.kernels.wkv.kernel import wkv_cuda, wkv_plain
+from repro_torch.kernels.wkv.vjp import WKVFunction
 
 # (T, chunk) pairs already warned about, keyed by warn scope.
 _CHUNK_WARNED: dict[str | None, set[tuple[int, int]]] = {}
@@ -74,13 +80,26 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
             f"cannot run on {r.device}")
     if decode is None:
         decode = t == 1
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (r, k, v, w, u, h0))
     if decode and t <= DECODE_WINDOW_MAX:
+        if grad:
+            raise NotImplementedError(
+                "wkv_fused: the decode path has no backward in repro_torch yet; "
+                "training takes the chunked path (decode=False)")
         if not kernel:
             return wkv_decode_plain(r, k, v, w, u, h0)
         if t == 1:
             return wkv_decode_cuda(r, k, v, w, u, h0)
         return wkv_decode_window_cuda(r, k, v, w, u, h0)
     c = resolve_chunk(t, chunk, scope=warn_scope)
+    if grad:
+        if r.is_cuda != bool(kernel):
+            raise ValueError(
+                "wkv_fused: under autograd the kernels run on CUDA tensors and "
+                "the plain versions on CPU tensors; use_kernel=False on the card "
+                "has no backward")
+        return WKVFunction.apply(r, k, v, w, u, h0, c)
     if not kernel:
         return wkv_plain(r, k, v, w, u, h0, chunk=c)
     return wkv_cuda(r, k, v, w, u, h0, chunk=c)

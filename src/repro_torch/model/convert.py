@@ -10,7 +10,12 @@ needs neither JAX nor the reference package:
   nodes (anything with ``.h`` and ``.conv``) into the port's
   :class:`~repro_torch.model.recurrent.RecState` tree;
 * :func:`state_to_jax_numpy` goes back: the same tree with numpy leaves,
-  whose leaves the caller can unflatten into the reference's tree.
+  whose leaves the caller can unflatten into the reference's tree;
+* :func:`train_state_from_jax` / :func:`train_state_to_numpy` do the same
+  for a train state (params, AdamW step and moments, and the
+  error-feedback residual), so training can move between the frameworks
+  mid-run.  The reference's ``TrainState``/``AdamWState``/
+  ``ErrorFeedbackState`` have the same fields as the port's.
 """
 
 from __future__ import annotations
@@ -19,6 +24,10 @@ import numpy as np
 import torch
 
 from repro_torch.model.recurrent import RecState
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.optim.compression import ErrorFeedbackState
+from repro_torch.train.step import TrainState
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -72,3 +81,27 @@ def state_to_jax_numpy(state):
         else [node(n) for n in state["scanned"]],
         "remainder": [node(n) for n in state["remainder"]],
     }
+
+
+def train_state_from_jax(state, *, device="cpu"):
+    """A reference train state (``.params``, ``.opt.step/.mu/.nu``,
+    ``.ef`` None or with ``.residual``; numpy leaves) -> the port's
+    :class:`~repro_torch.train.step.TrainState`, params requiring grad."""
+    params = params_from_jax(state.params, device=device)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    opt = AdamWState(
+        step=_tensor(np.asarray(state.opt.step, np.int32), device),
+        mu=params_from_jax(state.opt.mu, device=device),
+        nu=params_from_jax(state.opt.nu, device=device),
+    )
+    ef = None if state.ef is None else ErrorFeedbackState(
+        residual=params_from_jax(state.ef.residual, device=device))
+    return TrainState(params=params, opt=opt, ef=ef)
+
+
+def train_state_to_numpy(state):
+    """The port's train state -> the same NamedTuples with numpy leaves;
+    the caller rebuilds the reference's tree from their fields."""
+    return tree_map(_numpy, state)
+

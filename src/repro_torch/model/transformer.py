@@ -4,11 +4,21 @@ periods plus a remainder (counterpart of ``repro.model.transformer``).
 The reference scans a jitted period body over the stacked parameters; the
 port walks the same ``{"scanned": [...], "remainder": [...]}`` layout in a
 Python loop.  Only the ``rwkv`` kind is ported; any other kind raises.
+
+Under autograd, ``cfg.remat == "full"`` (the reference's default,
+``jax.checkpoint`` with nothing saveable) wraps each period in
+``torch.utils.checkpoint``: a period keeps only its input, and its forward
+runs again in the backward (the remainder layers, as in the reference,
+are not recomputed).  ``"none"`` keeps every activation; ``"dots"``
+is not ported.  Without grad (serving) the stack runs plain.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.model import recurrent as rec_mod
 from repro_torch.model.layers import apply_mlp, init_mlp, init_rmsnorm, rms_norm
@@ -51,11 +61,27 @@ def plan_groups(cfg, num_layers: int | None = None):
     return pattern, n_periods, remainder
 
 
-def _index(tree, i):
-    """Period ``i`` of a stacked parameter tree (views, no copies)."""
+def _unstack(tree, n: int) -> list:
+    """The ``n`` periods of a stacked parameter tree, as views.  One
+    ``unbind`` per leaf: under autograd the periods' grads come back as one
+    stack per leaf, where indexing each period would add ``n`` zero-padded
+    full-size grads per leaf."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
+def _remat(cfg) -> bool:
+    """Whether to recompute each period in the backward (grad on only)."""
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return False
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            'remat="dots" is not ported to repro_torch yet; use "full" or "none"')
+    return True
 
 
 def apply_stack(stack_params, x, cfg, *, states=None, token_mask=None):
@@ -64,13 +90,26 @@ def apply_stack(stack_params, x, cfg, *, states=None, token_mask=None):
     into it in place (the reference donates the state to its jit), and the
     same tree is returned; without, ``(x, None)``."""
     pattern, n_periods, remainder = plan_groups(cfg)
+    periods = [_unstack(tree, n_periods) for tree in stack_params["scanned"] or []]
+    if states is None and _remat(cfg):
+        def period(x, p):
+            for j, kind in enumerate(pattern):
+                x, _ = apply_block(periods[j][p], x, cfg, kind)
+            return x
+
+        for p in range(n_periods):
+            x = checkpoint(period, x, p, use_reentrant=False)
+        # The reference remats the scanned periods only.
+        for i, kind in enumerate(remainder):
+            x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind)
+        return x, None
     for p in range(n_periods):
         for j, kind in enumerate(pattern):
             st = None
             if states is not None:
                 node = states["scanned"][j]
                 st = RecState(h=node.h[p], conv=node.conv[p])
-            x, ns = apply_block(_index(stack_params["scanned"][j], p), x, cfg,
+            x, ns = apply_block(periods[j][p], x, cfg,
                                 kind, state=st, token_mask=token_mask)
             if st is not None:
                 st.h.copy_(ns.h)

@@ -13,9 +13,12 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.wkv import ops
+from repro_torch.launch import train as train_launch
 from repro_torch.model import model as M
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train.step import init_train_state
 
 # Tiny tensors: one intra-op thread, so parallel test workers do not
 # oversubscribe the cores.
@@ -24,7 +27,8 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-WRAPPERS = [PORT / "kernels" / "wkv" / n for n in ("kernel.py", "decode.py", "ops.py")]
+WRAPPERS = [PORT / "kernels" / "wkv" / n
+            for n in ("kernel.py", "decode.py", "ops.py", "bwd.py", "vjp.py")]
 
 
 def _imports(path):
@@ -79,6 +83,18 @@ def test_entry_points_need_the_card_by_default(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg, params)
     assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_need_the_card_by_default(no_card):
+    cfg = get_config("rwkv6-1.6b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_train_state(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=8, global_batch=2), 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_launch.main(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "1"])
+    state = init_train_state(cfg, device="cpu")
+    assert state.params["tok"]["embedding"].device.type == "cpu"
 
 
 def test_use_kernel_true_on_cpu_raises():
