@@ -32,9 +32,26 @@ Phases (any failure raises and exits non-zero, with no result line):
    under the profiler;
 3c. one train step of the reduced f32 model on the card against the CPU:
    loss, grad norm and updated parameters;
+3d. RecurrentGemma's kernels against their plain versions on the card, in
+   f32 with TF32 off and in bf16: the chunked elevator scan (B=4, T=256 and
+   B=1, T=4096, D=2560), its decode window (K in 1, 8, 37, 64, bit for bit
+   against K chained single launches), the token shift (T in 4, 67, 259,
+   4096) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
+   T=4096, causal full, a non-causal window, the decode offset T=8 against
+   S=300, T not a block multiple);
+3e. the RecurrentGemma path, the RWKV6 engines and train state freed:
+   full-size recurrentgemma-2b in bf16 (random weights from a seed, depth
+   not cut) through ``ServeEngine.generate`` (B=4, 256-token prompts, 32
+   new tokens, K=8), ``ServeEngine.serve`` (6 ragged requests, 4 slots,
+   K=8) and prompt scoring (``make_prefill_step``, the cache-free
+   ``forward``) at B=1, T=4096, every kernel's launch count set to 0 just
+   before each call and held just after to the count the code's structure
+   gives; then the reduced f32 model on the card against the CPU, and one
+   generate call and one forward under the profiler;
 4. each kernel's median time at its main path's shapes beside its plain
-   version's time and its bound, printed as one ``{"kernels": [...]}``
-   line; then the card's name and power limit, and the result line.
+   version's time, its bound and, where one PyTorch call computes the same
+   function, that call's time, printed as one ``{"kernels": [...]}`` line;
+   then the card's name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -51,6 +68,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
 H, DH = 32, 64
 
 #: (max error) <= ATOL + RTOL * max|plain|, per dtype, with the reason.
@@ -61,6 +79,15 @@ TOLERANCE = {
     # f32 sums that differ in the last bits may round one bf16 ulp apart.
     "bfloat16": (1e-3, 8e-3),
 }
+#: Flash attention in f32 is held to TOLERANCE; in bf16, per element,
+#: scaled to the element and to the RMS of its output row (over D):
+#: |got - want| <= ULP * |want| + ROW * rms(want row).  Both versions round
+#: the output to bf16 (one ulp apart at most, 2**-7 of the value); the
+#: kernel also rounds P to bf16 before the P.V product, 2**-9 relative per
+#: term, a random walk over the row's keys that stays several times under
+#: 2**-5 of the row's RMS.  A fault that moves whole late rows by a few
+#: percent exceeds the row term; a fully masked row must be exactly 0.
+ATTN_BF16_ULP, ATTN_BF16_ROW = 2.0 ** -7, 2.0 ** -5
 #: The training kernels, per output: (max error) <= ATOL + RTOL * max|plain|
 #: of that output.  The backward's grads reach the hundreds (dw divides by
 #: w) and sum products of e^{+-64}-scaled factors, so f32 is held relative
@@ -98,7 +125,9 @@ def _err(got, want):
 def _time_ms(torch, fn, arg_sets, reps):
     """(device ms, call ms) per call, medians over ``reps`` calls that
     cycle through ``arg_sets`` (more bytes than the 50 MB L2, so every call
-    finds its inputs cold, as the decode loop does).
+    finds its inputs cold, as the decode loop does).  The cycle runs on
+    across the repetitions, so no set is used again before the others
+    have passed through the L2.
 
     Device time: the calls are queued behind a ``torch.cuda._sleep`` so the
     card runs them back to back, and the span between two CUDA events is
@@ -107,23 +136,25 @@ def _time_ms(torch, fn, arg_sets, reps):
     for args in arg_sets[:2]:
         fn(*args)
     torch.cuda.synchronize()
-    dev = []
+    dev, n = [], 2
     for _ in range(5):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(200_000_000)
         e0.record()
-        for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
+        for _ in range(reps):
+            fn(*arg_sets[n % len(arg_sets)])
+            n += 1
         e1.record()
         e1.synchronize()
         dev.append(e0.elapsed_time(e1) / reps)
     call = []
-    for i in range(reps):
+    for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        fn(*arg_sets[i % len(arg_sets)])
+        fn(*arg_sets[n % len(arg_sets)])
+        n += 1
         e1.record()
         e1.synchronize()
         call.append(e0.elapsed_time(e1))
@@ -131,6 +162,7 @@ def _time_ms(torch, fn, arg_sets, reps):
 
 
 def _cold_sets(make, nbytes_each):
+    """Input sets that together exceed the 50 MB L2 cache twice over."""
     n = max(2, math.ceil(128 * 2**20 / nbytes_each))
     return [make(seed) for seed in range(n)]
 
@@ -283,6 +315,14 @@ def main():
     train_launches = _train_main_path(torch, cfg, KC, BW)
     _train_reference_check(torch, get_config)
     launches.update(train_launches)
+    torch.cuda.empty_cache()
+
+    # ---- 3d. RecurrentGemma's kernels against their plain versions ---------
+    worst.update(_rg_kernel_checks(torch))
+
+    # ---- 3e. the RecurrentGemma path ----------------------------------------
+    launches.update(_rg_main_path(torch, np))
+    _rg_reference_check(torch, np)
 
     # ---- 4. times at the main path's shapes --------------------------------
     bf = torch.bfloat16
@@ -330,6 +370,7 @@ def main():
         print(f"[time] wkv_decode_window_cuda   B=4 H=32 T=64 Dh=64 bf16{'':9s}"
               f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us")
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
+    rows += _time_rg_kernels(torch, launches, worst)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
@@ -604,6 +645,432 @@ def _flops(b, t, chunk, windowed):
         return b * H * t * 5 * DH * DH
     n, L = t // chunk, chunk
     return b * H * n * (L * (L - 1) * DH + 2 * L * L * DH + 4 * L * DH * DH)
+
+
+# ---------------------------------------------------------------------------
+# RecurrentGemma: the elevator scan and its decode window, the token shift
+# and flash attention (phases 3d, 3e and their rows of phase 4).
+# ---------------------------------------------------------------------------
+
+RG_D = 2560                      # d_rnn of recurrentgemma-2b
+RG_HQ, RG_HKV, RG_DH, RG_WINDOW = 10, 1, 256, 2048
+RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
+              "token_shift_cuda", "flash_attention_cuda")
+WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
+               "wkv_train_cuda", "wkv_bwd_cuda")
+
+
+def _rg_modules():
+    from repro_torch.kernels.elevator_scan import decode as ED
+    from repro_torch.kernels.elevator_scan import kernel as EK
+    from repro_torch.kernels.local_attention import kernel as FA
+    from repro_torch.kernels.token_shift import kernel as TS
+    return EK, ED, TS, FA
+
+
+def _counters():
+    """Every kernel wrapper of the port, by name."""
+    from repro_torch.kernels.wkv import bwd as BW
+    from repro_torch.kernels.wkv import decode as D
+    from repro_torch.kernels.wkv import kernel as KC
+
+    EK, ED, TS, FA = _rg_modules()
+    fns = (KC.wkv_cuda, D.wkv_decode_cuda, D.wkv_decode_window_cuda, KC.wkv_train_cuda,
+           BW.wkv_bwd_cuda, EK.elevator_scan_cuda, ED.elevator_decode_window_cuda,
+           TS.token_shift_cuda, FA.flash_attention_cuda)
+    return {fn.__name__: fn for fn in fns}
+
+
+def _scan_inputs(torch, b, t, dtype, seed):
+    """Elevator-scan inputs on the card in the RG-LRU regime: decay a in
+    (0.5, 1), x ~ N(0, 1), h0 ~ N(0, 1) f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.rand((b, t, RG_D), generator=g, device="cuda") * 0.5 + 0.5
+    x = torch.randn((b, t, RG_D), generator=g, device="cuda")
+    h0 = torch.randn((b, RG_D), generator=g, device="cuda")
+    return a.to(dtype), x.to(dtype), h0
+
+
+def _shift_inputs(torch, b, t, dtype, seed, taps=4):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, t, RG_D), generator=g, device="cuda")
+    w = torch.randn((taps, RG_D), generator=g, device="cuda") * 0.1
+    return x.to(dtype), w.to(dtype)
+
+
+def _attn_inputs(torch, b, t, s, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, RG_HQ, t, RG_DH), generator=g, device="cuda")
+    k = torch.randn((b, RG_HKV, s, RG_DH), generator=g, device="cuda")
+    v = torch.randn((b, RG_HKV, s, RG_DH), generator=g, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+#: (T, S, causal, window) of the flash-attention checks.
+ATTN_CASES = (
+    (4096, 4096, True, RG_WINDOW),     # the local layers of a 4096-token forward
+    (1024, 1024, True, None),          # causal, full
+    (640, 640, False, 200),            # non-causal window
+    (8, 300, True, None),              # decode offset
+    (1000, 1000, True, 256),           # T not a block multiple
+)
+
+
+def _rg_kernel_checks(torch):
+    """Phase 3d.  Returns the worst max abs error of each kernel."""
+    EK, ED, TS, FA = _rg_modules()
+    worst = dict.fromkeys(RG_KERNELS, 0.0)
+
+    def check(kname, case, dtype, got, want):
+        atol, rtol = TOLERANCE[str(dtype).split(".")[-1]]
+        e, s = _err(got, want)
+        tol = atol + rtol * s
+        ok = e <= tol and all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"[rg-kernels] {kname:28s} {case:30s} {str(dtype):15s} "
+              f"max_abs_err={e:.3e} tol={tol:.3e} (max|plain|={s:.2f}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{kname} {case} {dtype}: error {e} > {tol}")
+        worst[kname] = max(worst[kname], e)
+
+    def check_bf16_attention(case, got, want):
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        tol = ATTN_BF16_ULP * w.abs() + ATTN_BF16_ROW * w.pow(2).mean(-1, keepdim=True).sqrt()
+        ratio = torch.where(tol > 0, err / tol.clamp_min(1e-30), err * float("inf"))
+        r, e = float(ratio.nan_to_num(0.0).max()), float(err.max())
+        ok = r <= 1.0 and bool(torch.isfinite(got).all())
+        print(f"[rg-kernels] {'flash_attention_cuda':28s} {case:30s} torch.bfloat16  "
+              f"max_abs_err={e:.3e} worst err/tol per element={r:.3f} "
+              f"(tol {ATTN_BF16_ULP:.4g}*|plain| + {ATTN_BF16_ROW:.4g}*rms(row)) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"flash_attention_cuda {case} bfloat16: error {r} x tolerance")
+        worst["flash_attention_cuda"] = max(worst["flash_attention_cuda"], e)
+
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, t in ((4, 256), (1, 4096)):
+                a, x, h0 = _scan_inputs(torch, b, t, dtype, seed=t)
+                got = EK.elevator_scan_cuda(a, x, h0)
+                torch.cuda.synchronize()
+                check("elevator_scan_cuda", f"B={b} T={t} D={RG_D}", dtype, [got],
+                      [EK.elevator_scan_ref(a, x, h0)])
+            for kw in (1, 8, 37, 64):
+                a, x, h0 = _scan_inputs(torch, 4, kw, dtype, seed=100 + kw)
+                got = ED.elevator_decode_window_cuda(a, x, h0)
+                torch.cuda.synchronize()
+                check("elevator_decode_window_cuda", f"B=4 K={kw} D={RG_D}", dtype, got,
+                      ED.elevator_decode_window_plain(a, x, h0))
+                h, outs = h0, []
+                for i in range(kw):
+                    o, h = ED.elevator_decode_window_cuda(a[:, i:i + 1].contiguous(),
+                                                          x[:, i:i + 1].contiguous(), h)
+                    outs.append(o)
+                same = torch.equal(torch.cat(outs, 1), got[0]) and torch.equal(h, got[1])
+                print(f"[rg-kernels] elevator window K={kw} {dtype} bit-identical to "
+                      f"{kw} chained single launches: {same}")
+                if not same:
+                    raise SystemExit("elevator window differs from chained single launches")
+            for b, t in ((4, 4), (4, 67), (4, 259), (1, 4096)):
+                x, w = _shift_inputs(torch, b, t, dtype, seed=t)
+                got = TS.token_shift_cuda(x, w)
+                torch.cuda.synchronize()
+                want = TS.token_shift_ref(x, w)
+                check("token_shift_cuda", f"B={b} T={t} D={RG_D}", dtype, [got], [want])
+                print(f"[rg-kernels] token shift T={t} {dtype} bit-identical to the plain "
+                      f"version: {torch.equal(got, want)}")
+            for t, s, causal, window in ATTN_CASES:
+                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s)
+                got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+                torch.cuda.synchronize()
+                case = f"T={t} S={s} {'causal' if causal else 'full'} W={window}"
+                want = FA.attention_ref(q, k, v, causal=causal, window=window)
+                if dtype == torch.bfloat16:
+                    check_bf16_attention(case, got, want)
+                else:
+                    check("flash_attention_cuda", case, dtype, [got], [want])
+    return worst
+
+
+def _rg_requests(rng, vocab):
+    from repro_torch.serve.engine import Request
+
+    return [Request(tokens=rng.integers(0, vocab, int(rng.integers(8, 49))),
+                    max_new_tokens=int(rng.integers(2, 17))) for _ in range(6)]
+
+
+def _rg_main_path(torch, np, batch=4, prompt=256, new=32, k_w=8, score_t=4096):
+    """Phase 3e: full-size recurrentgemma-2b through generate, serve and
+    prompt scoring, each call's launch counts held to the counts its
+    structure gives.  Returns the counts of the whole phase."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.elevator_scan.decode import ELEVATOR_DECODE_WINDOW_MAX
+    from repro_torch.model import model as M
+    from repro_torch.serve.engine import ServeEngine, _bucket32, make_prefill_step
+
+    cfg = get_config("recurrentgemma-2b")
+    n_rec = cfg.layer_kinds.count("rec")
+    n_local = cfg.layer_kinds.count("local")
+    counters = _counters()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"[rg] {cfg.name}: {n_params / 1e9:.3f}B params in {cfg.dtype} "
+          f"({cfg.num_layers} layers: {n_rec} rec, {n_local} local), initialized in "
+          f"{time.perf_counter() - t0:.1f}s")
+    engine = ServeEngine(cfg, params, max_len=512, decode_window=k_w)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt))
+    reqs = _rg_requests(rng, cfg.vocab_size)
+    scoring = make_prefill_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, score_t))).cuda()
+    with torch.inference_mode():                              # warm-up
+        engine.generate(prompts[:, :80], 2)
+        engine.serve(reqs[:1], slots=4)
+        scoring(params, tokens[:, :256])
+    torch.cuda.synchronize()
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
+
+    def hold(what, got, want):
+        want = {**dict.fromkeys(counters, 0), **want}
+        print(f"[rg] launches during {what}: "
+              f"{ {n: got[n] for n in RG_KERNELS} }; derived "
+              f"{ {n: want[n] for n in RG_KERNELS} }; WKV kernels "
+              f"{sum(got[n] for n in WKV_KERNELS)}")
+        if got != want:
+            raise SystemExit(f"{what}: launch counts {got} != derived {want}")
+
+    total = dict.fromkeys(RG_KERNELS, 0)
+    # generate: one prefill window of P tokens, then new - 1 single-token steps.
+    out, dt, got = counted(lambda: engine.generate(prompts, new))
+    steps = 1 + (new - 1)
+    long_prefill = prompt > ELEVATOR_DECODE_WINDOW_MAX
+    hold("generate", got, {
+        "token_shift_cuda": n_rec * steps,
+        "elevator_scan_cuda": n_rec * long_prefill,
+        "elevator_decode_window_cuda": n_rec * (steps - long_prefill),
+    })
+    gen = out[:, prompt:].cpu().numpy()
+    gen_ok = bool(M.decode_state_finite(engine.last_state).all())
+    print(f"[rg-main] generate B={batch} P={prompt} +{new} K={k_w}: {dt:.3f}s, "
+          f"{batch * new / dt:.1f} tok/s incl. prefill; state finite: {gen_ok}")
+    if gen.shape != (batch, new) or gen.min() < 0 or gen.max() >= cfg.vocab_size or not gen_ok:
+        raise SystemExit(f"rg generate: bad tokens or state, shape {gen.shape}")
+    for n in RG_KERNELS:
+        total[n] += got[n]
+
+    # serve: one masked admission window per round and K single-token steps
+    # per decode window; every admission bucket here is at most 64 tokens.
+    results, dt, got = counted(lambda: engine.serve(reqs, slots=4))
+    st = engine.last_serve_stats
+    if _bucket32(max(len(r.tokens) for r in reqs)) > ELEVATOR_DECODE_WINDOW_MAX:
+        raise SystemExit("rg serve: an admission bucket exceeds the window kernel")
+    steps = st["admissions"] + st["decode_dispatches"] * k_w
+    hold("serve", got, {"token_shift_cuda": n_rec * steps,
+                        "elevator_decode_window_cuda": n_rec * steps})
+    emitted = sum(r.size for r in results)
+    serve_ok = bool(M.decode_state_finite(engine.last_state).all())
+    print(f"[rg-main] serve 6 requests, 4 slots, K={k_w}: {emitted} tokens in {dt:.3f}s, "
+          f"{emitted / dt:.1f} tok/s; {st}; outcomes {[r.outcome for r in results]}; "
+          f"state finite: {serve_ok}")
+    for req, res in zip(reqs, results):
+        if res.outcome != "ok" or res.size != req.max_new_tokens:
+            raise SystemExit(f"rg serve: {res.outcome} with {res.size} tokens")
+        if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+            raise SystemExit("rg serve: token outside the vocabulary")
+    if not serve_ok:
+        raise SystemExit("rg serve: decode state not finite")
+    for n in RG_KERNELS:
+        total[n] += got[n]
+
+    # prompt scoring: one cache-free forward (prefill_chunks 1).
+    with torch.inference_mode():
+        logits, dt, got = counted(lambda: scoring(params, tokens))
+    hold(f"forward B=1 T={score_t}", got, {
+        "token_shift_cuda": n_rec, "elevator_scan_cuda": n_rec,
+        "flash_attention_cuda": n_local})
+    fin = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    nll = float(torch.nn.functional.cross_entropy(
+        logits[0, :-1, :cfg.vocab_size].float(), tokens[0, 1:]))
+    print(f"[rg-main] forward (make_prefill_step) B=1 T={score_t}: {dt:.3f}s, "
+          f"{score_t / dt:,.0f} tok/s; logits {tuple(logits.shape)} finite: {fin}; "
+          f"mean NLL {nll:.3f} (random weights; ln V = {math.log(cfg.vocab_size):.3f})")
+    if logits.shape != (1, score_t, cfg.padded_vocab) or not fin:
+        raise SystemExit("rg forward: bad logits")
+    for n in RG_KERNELS:
+        total[n] += got[n]
+    del logits
+
+    _profile(torch, lambda: engine.generate(prompts, 16),
+             f"rg generate B={batch} P={prompt} +16 K={k_w}")
+    with torch.inference_mode():
+        _profile(torch, lambda: scoring(params, tokens), f"rg forward B=1 T={score_t}", top=10)
+    del engine, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rg_reference_check(torch, np):
+    """The reduced f32 RecurrentGemma with the kernels on the card against
+    the same weights with the plain versions on the CPU: forward logits
+    at T=200 (past its window of 64) within 1e-4, and greedy tokens (a
+    40-token prefill through the window kernels, then single steps)
+    equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("recurrentgemma-2b").reduced()
+    p_cpu = M.init_params(cfg, seed=1, device="cpu")
+    p_gpu = _to(p_cpu, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 200)))
+    with torch.inference_mode():
+        l_cpu = M.forward(p_cpu, cfg, toks)
+        l_gpu = M.forward(p_gpu, cfg, toks.cuda()).cpu()
+    err = float((l_cpu - l_gpu).abs().max())
+    g_cpu = ServeEngine(cfg, p_cpu, max_len=128, device="cpu").generate(toks[:, :40], 12)
+    g_gpu = ServeEngine(cfg, p_gpu, max_len=128).generate(toks[:, :40].cuda(), 12).cpu()
+    same = torch.equal(g_cpu, g_gpu)
+    print(f"[reference] reduced f32 recurrentgemma, card vs CPU: forward T=200 "
+          f"max_abs_err={err:.2e} (tol 1e-4), greedy tokens equal: {same}")
+    if err > 1e-4 or not same:
+        raise SystemExit("card and CPU disagree on the reduced recurrentgemma")
+
+
+def _visible_pairs(t, s, causal, window):
+    """Query-key pairs the attention mask admits (the work of this call)."""
+    off = s - t
+    total = 0
+    for i in range(t):
+        if causal:
+            hi = min(s, i + off + 1)
+            lo = max(0, i + off - window + 1) if window else 0
+        else:
+            hi = min(s, i + window) if window else s
+            lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _time_rg_kernels(torch, launches, worst):
+    """Phase 4 rows of RecurrentGemma's kernels at the main path's shapes:
+    the scan and the token shift of a 4096-token forward (B=1), the window
+    at a generated token (K=1, B=4) and flash attention of a local layer
+    of the forward.  ``library_ms``: a depthwise ``F.conv1d`` for the
+    token shift and ``F.scaled_dot_product_attention`` with the same
+    boolean mask and GQA for attention; no single PyTorch call computes a
+    decayed linear scan, so the scan rows have none."""
+    F = torch.nn.functional
+    EK, ED, TS, FA = _rg_modules()
+    f32, bf = torch.float32, torch.bfloat16
+    rows = []
+
+    def row(name, source, replaces, shape, sets, kern, plain, nbytes, flops,
+            library=None, peak=PEAK_BF16_FLOPS, reps=50):
+        ms, call_ms = _time_ms(torch, kern, sets, reps=reps)
+        plain_ms, _ = _time_ms(torch, plain, sets, reps=3)
+        lib_ms = _time_ms(torch, library, sets, reps=reps)[0] if library else None
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / peak * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": worst[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations",
+            "library_ms": lib_ms, "call_ms": call_ms, "shape": shape,
+        })
+        lib = f", library {lib_ms * 1e3:.2f} us" if lib_ms is not None else ""
+        print(f"[time] {name:28s} {shape:40s} device {ms * 1e3:9.2f} us, per call "
+              f"{call_ms * 1e3:9.2f} us (plain {plain_ms * 1e3:10.1f} us, bound "
+              f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']}{lib}; "
+              f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+
+    scan_src = "src/repro_torch/kernels/elevator_scan/csrc/elevator_scan.cu"
+    with torch.inference_mode():
+        # The chunked scan of a 4096-token forward (f32 a and x, as the
+        # model passes them) and of the generate prefill (B=4, T=256).
+        for b, t in ((1, 4096), (4, 256)):
+            nbytes = 3 * b * t * RG_D * 4 + b * RG_D * 4
+            sets = _cold_sets(lambda s: _scan_inputs(torch, b, t, f32, s), nbytes)
+            row("elevator_scan_cuda", scan_src,
+                "src/repro/kernels/elevator_scan/kernel.py:78 (elevator_scan_pallas)",
+                f"B={b} T={t} D={RG_D} f32", sets, EK.elevator_scan_cuda,
+                EK.elevator_scan_ref, nbytes, 2 * b * t * RG_D, peak=PEAK_F32_FLOPS,
+                reps=50 if t < 4096 else 20)
+        # The window at one generated token: K=1, B=4.
+        nbytes = 3 * 4 * RG_D * 4 + 2 * 4 * RG_D * 4
+        sets = _cold_sets(lambda s: _scan_inputs(torch, 4, 1, f32, s), nbytes)
+        row("elevator_decode_window_cuda", scan_src,
+            "src/repro/kernels/elevator_scan/decode.py:64 (elevator_decode_window_pallas)",
+            f"B=4 K=1 D={RG_D} f32", sets, ED.elevator_decode_window_cuda,
+            ED.elevator_decode_window_plain, nbytes, 2 * 4 * RG_D, peak=PEAK_F32_FLOPS,
+            reps=200)
+
+        # The token shift of the forward (bf16, B=1, T=4096), its library
+        # call a depthwise conv1d over the (B, D, T) layout conv1d takes.
+        def conv1d(x, w):
+            return F.conv1d(x, w, padding=w.shape[-1] - 1, groups=RG_D)
+
+        for b, t in ((1, 4096), (4, 4)):
+            nbytes = 2 * b * t * RG_D * 2 + 4 * RG_D * 2
+            sets = _cold_sets(lambda s: _shift_inputs(torch, b, t, bf, s), nbytes)
+            lib_sets = [(x.transpose(1, 2).contiguous(), w.t().flip(1)[:, None].contiguous())
+                        for x, w in sets]
+            got = conv1d(*lib_sets[0])[..., :t].transpose(1, 2)
+            lib_err = float((got.float() - TS.token_shift_cuda(*sets[0]).float()).abs().max())
+            print(f"[time] conv1d library call agrees with token_shift_cuda at T={t}: "
+                  f"max_abs_err={lib_err:.3e}")
+            ms_lib = _time_ms(torch, conv1d, lib_sets, reps=50)[0]
+            row("token_shift_cuda",
+                "src/repro_torch/kernels/token_shift/csrc/token_shift.cu",
+                "src/repro/kernels/token_shift/kernel.py:55 (token_shift_pallas)",
+                f"B={b} T={t} D={RG_D} taps=4 bf16", sets, TS.token_shift_cuda,
+                TS.token_shift_ref, nbytes, 2 * 4 * b * t * RG_D, peak=PEAK_F32_FLOPS,
+                reps=100)
+            rows[-1]["library_ms"] = ms_lib
+            print(f"[time]   conv1d library call: {ms_lib * 1e3:.2f} us")
+
+        # Flash attention of one local layer in the forward.
+        from repro_torch.kernels.local_attention.ref import attention_mask
+
+        t = 4096
+        mask = attention_mask(t, t, causal=True, window=RG_WINDOW, device="cuda")
+        nbytes = 2 * (2 * RG_HQ * t * RG_DH + 2 * RG_HKV * t * RG_DH)
+        flops = 4 * RG_DH * RG_HQ * _visible_pairs(t, t, True, RG_WINDOW)
+        sets = _cold_sets(lambda s: _attn_inputs(torch, 1, t, t, bf, s), nbytes)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True)
+
+        lib_err = float((sdpa(*sets[0]).float() - FA.flash_attention_cuda(
+            *sets[0], causal=True, window=RG_WINDOW).float()).abs().max())
+        print(f"[time] SDPA library call agrees with flash_attention_cuda: "
+              f"max_abs_err={lib_err:.3e}")
+        row("flash_attention_cuda",
+            "src/repro_torch/kernels/local_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/local_attention/kernel.py:137 (flash_attention_pallas)",
+            f"B=1 Hq=10 Hkv=1 T={t} D=256 W={RG_WINDOW} bf16", sets,
+            lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=True, window=RG_WINDOW),
+            lambda q, k, v: FA.attention_ref(q, k, v, causal=True, window=RG_WINDOW),
+            nbytes, flops, library=sdpa, reps=20)
+    # One row per kernel in the result line: the main path's shape (the
+    # first row of each name); the others are printed above.
+    seen, out = set(), []
+    for r in rows:
+        if r["name"] not in seen:
+            seen.add(r["name"])
+            out.append(r)
+    return out
 
 
 def _leaves(tree):

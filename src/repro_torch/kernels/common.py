@@ -25,6 +25,8 @@ import torch
 
 __all__ = [
     "resolve_device",
+    "DTYPE_CODE",
+    "check_kernel_tensors",
     "validate_divisible",
     "largest_divisor_chunk",
     "KERNEL_SOURCES",
@@ -49,6 +51,32 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# --------------------------------------------------------------------------
+# Kernel argument checks
+# --------------------------------------------------------------------------
+
+#: dtype -> the C interfaces' dtype code.
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_kernel_tensors(name: str, **tensors) -> None:
+    """Every tensor given (``None`` skipped) lies on the first one's CUDA
+    device, is contiguous and does not require grad: the raw kernel
+    wrappers take no autograd (the WKV gradient goes through
+    ``wkv.vjp.WKVFunction``)."""
+    given = {k: x for k, x in tensors.items() if x is not None}
+    dev = next(iter(given.values())).device
+    for key, x in given.items():
+        if x.device != dev or x.device.type != "cuda":
+            raise ValueError(f"{name}: {key} must be on one CUDA device, got {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if x.requires_grad:
+            raise ValueError(
+                f"{name}: {key} requires grad; the raw kernel wrappers take no "
+                "autograd")
 
 
 # --------------------------------------------------------------------------
@@ -78,6 +106,9 @@ KERNEL_SOURCES = {
     "wkv_chunked": _PKG / "wkv" / "csrc" / "wkv_chunked.cu",
     "wkv_decode": _PKG / "wkv" / "csrc" / "wkv_decode.cu",
     "wkv_bwd": _PKG / "wkv" / "csrc" / "wkv_bwd.cu",
+    "elevator_scan": _PKG / "elevator_scan" / "csrc" / "elevator_scan.cu",
+    "token_shift": _PKG / "token_shift" / "csrc" / "token_shift.cu",
+    "flash_attention": _PKG / "local_attention" / "csrc" / "flash_attention.cu",
 }
 #: ``build/`` at the root of the checkout (listed in ``.gitignore``).
 BUILD_DIR = _PKG.parents[2] / "build"

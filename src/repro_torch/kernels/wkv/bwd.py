@@ -23,7 +23,12 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import launch_stream, load_library, validate_divisible
+from repro_torch.kernels.common import (
+    check_kernel_tensors,
+    launch_stream,
+    load_library,
+    validate_divisible,
+)
 from repro_torch.kernels.wkv.kernel import DTYPE_CODE, WKV_DH
 
 __all__ = ["BWD_MAX_CHUNK", "wkv_bwd_cuda", "wkv_bwd_plain"]
@@ -94,15 +99,7 @@ def _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk):
     b, h, t, dh = r.shape
     tensors = {"r": r, "k": k, "v": v, "w": w, "u": u, "s_hist": s_hist,
                "d_out": d_out, "d_s_out": d_s_out}
-    for key, x in tensors.items():
-        if x.device != r.device or x.device.type != "cuda":
-            raise ValueError(f"wkv_bwd_cuda: {key} must be on r's CUDA device, got {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"wkv_bwd_cuda: {key} must be contiguous")
-        if x.requires_grad:
-            raise ValueError(
-                f"wkv_bwd_cuda: {key} requires grad; the raw kernel wrappers "
-                "take no autograd (gradients go through wkv.vjp.WKVFunction)")
+    check_kernel_tensors("wkv_bwd_cuda", **tensors)
     if r.dtype not in DTYPE_CODE:
         raise ValueError(f"wkv_bwd_cuda: dtype {r.dtype} not supported (float32, bfloat16)")
     for key in ("k", "v", "w", "u", "d_out"):

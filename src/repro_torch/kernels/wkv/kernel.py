@@ -24,7 +24,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import launch_stream, load_library, validate_divisible
+from repro_torch.kernels.common import (
+    DTYPE_CODE,
+    check_kernel_tensors,
+    launch_stream,
+    load_library,
+    validate_divisible,
+)
 from repro_torch.kernels.wkv.ref import wkv_chunked_hist_ref, wkv_chunked_ref
 
 __all__ = ["WKV_DH", "MAX_CHUNK", "wkv_cuda", "wkv_plain", "wkv_train_cuda",
@@ -35,24 +41,13 @@ WKV_DH = 64
 #: Largest chunk the chunked kernel takes (its shared-memory tiles).
 MAX_CHUNK = 64
 
-#: dtype -> the C interface's dtype code.
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def check_wkv_args(name, r, k, v, w, u, h0):
     """Validate kernel inputs: one CUDA device, f32/bf16 r/k/v/w/u of one
     dtype, f32 h0, the (B,H,T,64) layout, contiguity, and no autograd."""
     b, h, t, dh = r.shape
     tensors = {"r": r, "k": k, "v": v, "w": w, "u": u, "h0": h0}
-    for key, x in tensors.items():
-        if x.device != r.device or x.device.type != "cuda":
-            raise ValueError(f"{name}: {key} must be on r's CUDA device, got {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-        if x.requires_grad:
-            raise ValueError(
-                f"{name}: {key} requires grad; the raw kernel wrappers take "
-                "no autograd (gradients go through wkv.vjp.WKVFunction)")
+    check_kernel_tensors(name, **tensors)
     if r.dtype not in DTYPE_CODE:
         raise ValueError(f"{name}: dtype {r.dtype} not supported (float32, bfloat16)")
     for key in ("k", "v", "w", "u"):

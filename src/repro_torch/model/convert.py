@@ -7,8 +7,10 @@ needs neither JAX nor the reference package:
 * :func:`params_from_jax` keeps the ``{"scanned", "remainder"}`` layout and
   every key, turning each array into a tensor;
 * :func:`state_from_jax` turns a decode-state tree of ``RecState``-like
-  nodes (anything with ``.h`` and ``.conv``) into the port's
-  :class:`~repro_torch.model.recurrent.RecState` tree;
+  nodes (anything with ``.h`` and ``.conv``) and ``KVCache``-like nodes
+  (``.k``, ``.v`` and ``.length``) into the port's
+  :class:`~repro_torch.model.recurrent.RecState` and
+  :class:`~repro_torch.model.attention.KVCache` tree;
 * :func:`state_to_jax_numpy` goes back: the same tree with numpy leaves,
   whose leaves the caller can unflatten into the reference's tree;
 * :func:`train_state_from_jax` / :func:`train_state_to_numpy` do the same
@@ -23,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.model.attention import KVCache
 from repro_torch.model.recurrent import RecState
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compression import ErrorFeedbackState
@@ -39,12 +42,15 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A copy, never a view: the port updates its decode and train states
+    in place, and an array that shares a CPU tensor's memory (JAX may wrap
+    a numpy array without copying) would change under its reader."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes
 
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-    return t.numpy()
+        return t.view(torch.int16).numpy().copy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
 
 
 def params_from_jax(tree, *, device="cpu"):
@@ -58,11 +64,20 @@ def params_from_jax(tree, *, device="cpu"):
     return _tensor(tree, device)
 
 
-def state_from_jax(tree, *, device="cpu"):
-    """Reference decode state (``RecState`` nodes with numpy leaves) ->
-    the port's decode state."""
+def _node_type(n):
+    if hasattr(n, "h") and hasattr(n, "conv"):
+        return RecState
+    if hasattr(n, "page_table"):
+        raise NotImplementedError("PagedKVCache is not ported to repro_torch yet")
+    if hasattr(n, "k") and hasattr(n, "v") and hasattr(n, "length"):
+        return KVCache
+    raise TypeError(f"unknown decode-state node {type(n).__name__}")
+
+
+def _map_state(tree, fn):
     def node(n):
-        return RecState(h=_tensor(n.h, device), conv=_tensor(n.conv, device))
+        typ = _node_type(n)
+        return typ(*(fn(getattr(n, f)) for f in typ._fields))
 
     return {
         "scanned": None if tree["scanned"] is None
@@ -71,16 +86,16 @@ def state_from_jax(tree, *, device="cpu"):
     }
 
 
-def state_to_jax_numpy(state):
-    """The port's decode state -> the same tree with numpy leaves."""
-    def node(n):
-        return RecState(h=_numpy(n.h), conv=_numpy(n.conv))
+def state_from_jax(tree, *, device="cpu"):
+    """Reference decode state (``RecState`` / ``KVCache`` nodes with numpy
+    leaves) -> the port's decode state."""
+    return _map_state(tree, lambda a: _tensor(a, device))
 
-    return {
-        "scanned": None if state["scanned"] is None
-        else [node(n) for n in state["scanned"]],
-        "remainder": [node(n) for n in state["remainder"]],
-    }
+
+def state_to_jax_numpy(state):
+    """The port's decode state -> the same tree with numpy leaves, whose
+    leaves (in JAX's order) unflatten into the reference's state."""
+    return _map_state(state, _numpy)
 
 
 def train_state_from_jax(state, *, device="cpu"):

@@ -1,5 +1,5 @@
-"""Model building blocks: norms, MLPs, embeddings and the logits
-projection (counterparts of ``repro.model.layers``)."""
+"""Model building blocks: norms, MLPs, embeddings, the logits projection
+and rotary embeddings (counterparts of ``repro.model.layers``)."""
 
 from __future__ import annotations
 
@@ -34,9 +34,9 @@ def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def _check_mlp(cfg):
-    if cfg.mlp_type != "swiglu":
+    if cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError(
-            f"mlp_type {cfg.mlp_type!r} is not ported yet (swiglu only)")
+            f"mlp_type {cfg.mlp_type!r} is not ported yet (swiglu, geglu)")
 
 
 def init_mlp(mk, cfg, name: str):
@@ -49,8 +49,12 @@ def init_mlp(mk, cfg, name: str):
 
 def apply_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
     _check_mlp(cfg)
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    gate = x @ params["w_gate"]
+    if cfg.mlp_type == "swiglu":
+        gate = F.silu(gate)
+    else:                                   # geglu: the tanh-approximate gelu
+        gate = F.gelu(gate, approximate="tanh")
+    return (gate * (x @ params["w_up"])) @ params["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -77,3 +81,30 @@ def logits_projection(params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -1e30
     return logits
+
+
+# --------------------------------------------------------------------------
+# Rotary embeddings (1-D RoPE)
+# --------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    half = head_dim // 2
+    exponent = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections=None) -> torch.Tensor:
+    """x: (B, H, T, D); positions: (B, T).  Rotates the two halves of the
+    head dim by ``position * frequency`` in f32; output in x.dtype."""
+    if mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    d = x.shape[-1]
+    half = d // 2
+    freqs = rope_frequencies(d, theta, device=x.device)
+    angle = positions.float()[:, :, None] * freqs            # (B, T, half)
+    cos = torch.cos(angle)[:, None]                           # (B, 1, T, half)
+    sin = torch.sin(angle)[:, None]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,14 +1,15 @@
 """Top-level model: init params, forward, decode state, decode step
-(counterpart of ``repro.model.model``, RWKV6 family only).
+(counterpart of ``repro.model.model``; decoder-only text archs built from
+the ported layer kinds: RWKV6 and RecurrentGemma).
 
 Parameters are a plain dict with the reference's layout::
 
     {"tok": {"embedding", "unembed"}, "final_norm": {"scale"},
      "decoder": {"scanned": [block dict with stacked leaves], "remainder": []}}
 
-and the decode state is ``{"scanned": [RecState of stacked leaves],
-"remainder": [...]}``, so :mod:`repro_torch.model.convert` maps both
-frameworks' trees one to one.
+and the decode state is ``{"scanned": [RecState or KVCache of stacked
+leaves], "remainder": [...]}``, so :mod:`repro_torch.model.convert` maps
+both frameworks' trees one to one.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.model import transformer as tf
+from repro_torch.model.attention import KVCache
 from repro_torch.model.layers import (
     dtype_of,
     embed_tokens,
@@ -38,11 +40,13 @@ def init_mk(gen: torch.Generator, dtype: torch.dtype, device: torch.device):
     """Real-tensor constructor with the reference's distributions
     (``repro.model.sharding.init_mk``): ``normal`` draws N(0, 1) times
     ``scale`` (default ``shape[0] ** -0.5`` for matrices, 0.02 for
-    vectors); ``ones`` is constant."""
+    vectors); ``ones`` and ``zeros`` are constant."""
 
     def mk(name, shape, init="normal", scale=None):
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=device)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=dtype, device=device)
         if init == "normal":
             s = scale if scale is not None else (
                 shape[0] ** -0.5 if len(shape) > 1 else 0.02)
@@ -112,46 +116,103 @@ def forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
 # Decode state
 # --------------------------------------------------------------------------
 
-def _layer_state(cfg, kind: str, batch: int, lead: tuple, device):
-    tf._check_kind(kind)
+def _layer_state(cfg, kind: str, batch: int, max_len: int, insert_window: int,
+                 lead: tuple, device):
+    tf.check_kind(kind)
+    dt = dtype_of(cfg)
+    if kind in tf.ATTN_KINDS:
+        window = cfg.attn_window if kind == "local" else None
+        # A local layer keeps a ring of window + insert_window - 1 slots, so
+        # a window inserted at once never overwrites a position its earlier
+        # queries still attend to; capped at max_len the ring never wraps.
+        s = min(max_len, window + insert_window - 1) if window else max_len
+        kv = lead + (batch, cfg.num_kv_heads, s, cfg.head_dim)
+        return KVCache(
+            k=torch.zeros(kv, dtype=dt, device=device),
+            v=torch.zeros(kv, dtype=dt, device=device),
+            length=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
+        )
+    if kind == "rec":
+        return RecState(
+            h=torch.zeros(lead + (batch, cfg.d_rnn), dtype=torch.float32, device=device),
+            conv=torch.zeros(lead + (batch, cfg.conv_width - 1, cfg.d_rnn), dtype=dt,
+                             device=device),
+        )
     h = cfg.d_model // RWKV_HEAD_DIM
     return RecState(
         h=torch.zeros(lead + (batch, h, RWKV_HEAD_DIM, RWKV_HEAD_DIM),
                       dtype=torch.float32, device=device),
-        conv=torch.zeros(lead + (batch, 1, cfg.d_model), dtype=dtype_of(cfg),
-                         device=device),
+        conv=torch.zeros(lead + (batch, 1, cfg.d_model), dtype=dt, device=device),
     )
 
 
-def init_decode_state(cfg, batch: int, max_len: int, *, device=None):
-    """Zeroed decode state on ``device`` (``None``: the card).  The WKV
-    state stays (B, H, Dh, Dh) float32 end to end; recurrent states are
-    O(1) in ``max_len``, which is kept for the reference's signature."""
+def init_decode_state(cfg, batch: int, max_len: int, insert_window: int = 1, *,
+                      device=None):
+    """Zeroed decode state on ``device`` (``None``: the card).
+    ``insert_window`` is the widest token window any single ``decode_step``
+    call will insert: it sizes the local-attention ring slack.  Recurrent
+    states are O(1) in both; their hidden states stay float32 end to end."""
     device = resolve_device(device)
     pattern, n_periods, remainder = tf.plan_groups(cfg)
     scanned = (
-        [_layer_state(cfg, k, batch, (n_periods,), device) for k in pattern]
+        [_layer_state(cfg, k, batch, max_len, insert_window, (n_periods,), device)
+         for k in pattern]
         if n_periods else None
     )
-    rem = [_layer_state(cfg, k, batch, (), device) for k in remainder]
+    rem = [_layer_state(cfg, k, batch, max_len, insert_window, (), device)
+           for k in remainder]
     return {"scanned": scanned, "remainder": rem}
 
 
 def state_nodes(state):
-    """Every ``RecState`` of a decode state: the stacked ones (leaves
-    (L, B, ...)), then the remainder's (leaves (B, ...))."""
+    """Every node (``RecState`` or ``KVCache``) of a decode state: the
+    stacked ones (leaves (L, B, ...)), then the remainder's (leaves
+    (B, ...))."""
     return list(state["scanned"] or []) + list(state["remainder"])
 
 
 def decode_state_finite(state) -> torch.Tensor:
-    """(B,) bool — per-slot finiteness of every recurrent state leaf."""
+    """(B,) bool: per-slot finiteness of every recurrent state leaf.  KV
+    caches are not scanned, as in the reference: a non-finite K/V row
+    poisons that slot's logits the step it is attended, which the caller's
+    logits check sees."""
     flags = []
     for node in state_nodes(state):
+        if isinstance(node, KVCache):
+            continue
         stacked = node.conv.ndim - 3           # 1 for (L, B, ...), else 0
         for leaf in (node.h, node.conv):
             fin = torch.isfinite(leaf).movedim(stacked, 0)
             flags.append(fin.reshape(fin.shape[0], -1).all(dim=1))
     return functools.reduce(torch.logical_and, flags)
+
+
+def _check_ring_slack(cfg, state, t: int, max_len: int | None):
+    """Raise if a ``t``-token window would wrap a local-attention ring of
+    ``state`` onto positions its earlier queries still attend to: the rule
+    of the reference's ``analysis.ringslack.ring_slack_violations``.  A ring
+    of S slots takes the window iff S >= attn_window + t - 1, or the ring
+    is capped at ``max_len`` and never wraps (``max_len=None``: the caller
+    does not vouch for the cap)."""
+    if t <= 1 or state is None or cfg.attn_window is None:
+        return
+    pattern, n_periods, remainder = tf.plan_groups(cfg)
+    layers = list(zip(pattern, state["scanned"] or [])) if n_periods else []
+    layers += list(zip(remainder, state["remainder"]))
+    window = cfg.attn_window
+    for kind, node in layers:
+        if kind != "local" or not isinstance(node, KVCache):
+            continue
+        s_ring = node.k.shape[-2]
+        if s_ring >= window + t - 1 or (max_len is not None and s_ring >= max_len):
+            continue
+        raise ValueError(
+            f"decode window of {t} tokens would wrap the local-attention ring "
+            f"(cache {tuple(node.k.shape)}, attn_window={window}): earlier "
+            f"in-window queries would attend to evicted slots.  Build the state "
+            f"with init_decode_state(insert_window >= {t}) (ring >= "
+            f"{window + t - 1} slots) or pass max_len= to vouch that the ring "
+            f"is capped at the position limit.")
 
 
 # --------------------------------------------------------------------------
@@ -172,8 +233,11 @@ def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
 
     The state is updated in place and returned — the reference donates it
     to its jit, so no caller may read the old state afterwards either.
-    ``lengths`` and ``max_len`` place tokens for attention layers; the
-    recurrent layers ported so far do not read them.
+    ``lengths`` places the window's tokens for attention layers (RoPE
+    positions, ring slots).  The state must have been built with
+    ``init_decode_state(insert_window >= K)``; a local-attention ring
+    without that slack raises (pass ``max_len``, the position cap the state
+    was built with, to allow rings capped at it).
 
     Returns (logits (B, K, V) or (B, 1, V), state).
     """
@@ -183,9 +247,12 @@ def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
         raise ValueError(f"lengths must be a scalar or ({b},), got {tuple(lengths.shape)}")
     if token_mask is not None and token_mask.shape != (b, t):
         raise ValueError(f"token_mask shape {tuple(token_mask.shape)} != {(b, t)}")
+    _check_ring_slack(cfg, state, t, max_len)
+    positions = (lengths.to(tokens.device).reshape(-1, 1)
+                 + torch.arange(t, device=tokens.device)[None]).expand(b, t)
     x = _embed(params, cfg, tokens)
-    x, state = tf.apply_stack(params["decoder"], x, cfg, states=state,
-                              token_mask=token_mask)
+    x, state = tf.apply_stack(params["decoder"], x, cfg, positions=positions,
+                              states=state, token_mask=token_mask)
     if last_only:
         if token_mask is None:
             x = x[:, -1:]

@@ -3,7 +3,8 @@ periods plus a remainder (counterpart of ``repro.model.transformer``).
 
 The reference scans a jitted period body over the stacked parameters; the
 port walks the same ``{"scanned": [...], "remainder": [...]}`` layout in a
-Python loop.  Only the ``rwkv`` kind is ported; any other kind raises.
+Python loop.  Ported kinds: ``rwkv``, ``rec`` (RG-LRU) and the attention
+kinds ``attn``/``global`` (no window) and ``local`` (``cfg.attn_window``).
 
 Under autograd, ``cfg.remat == "full"`` (the reference's default,
 ``jax.checkpoint`` with nothing saveable) wraps each period in
@@ -20,32 +21,50 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.model import attention as attn_mod
 from repro_torch.model import recurrent as rec_mod
 from repro_torch.model.layers import apply_mlp, init_mlp, init_rmsnorm, rms_norm
-from repro_torch.model.recurrent import RecState
+
+ATTN_KINDS = ("attn", "local", "global")
 
 
-def _check_kind(kind: str):
-    if kind != "rwkv":
+def check_kind(kind: str):
+    if kind not in ATTN_KINDS + ("rec", "rwkv"):
         raise NotImplementedError(
-            f"layer kind {kind!r} is not ported to repro_torch yet (rwkv only)")
+            f"layer kind {kind!r} is not ported to repro_torch yet")
 
 
 def init_block(mk, cfg, kind: str, name: str):
-    _check_kind(kind)
+    check_kind(kind)
     p: dict[str, Any] = {"ln1": init_rmsnorm(mk, cfg.d_model, f"{name}.ln1"),
                          "ln2": init_rmsnorm(mk, cfg.d_model, f"{name}.ln2")}
-    p["rwkv"] = rec_mod.init_rwkv_block(mk, cfg, f"{name}.rwkv")
+    if kind in ATTN_KINDS:
+        p["attn"] = attn_mod.init_attention(mk, cfg, f"{name}.attn")
+    elif kind == "rec":
+        p["rec"] = rec_mod.init_rglru_block(mk, cfg, f"{name}.rec")
+    else:
+        p["rwkv"] = rec_mod.init_rwkv_block(mk, cfg, f"{name}.rwkv")
     p["ffn"] = init_mlp(mk, cfg, f"{name}.mlp")
     return p
 
 
-def apply_block(params, x, cfg, kind: str, *, state=None, token_mask=None):
-    """Pre-norm block.  Returns (x, new_state_or_None)."""
-    _check_kind(kind)
+def apply_block(params, x, cfg, kind: str, *, positions=None, state=None,
+                token_mask=None):
+    """Pre-norm block.  Returns (x, new_state_or_None).  ``token_mask``
+    (B, t) bool (stateful calls): masked tokens leave every state leaf
+    untouched."""
+    check_kind(kind)
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
-    out, new_state = rec_mod.apply_rwkv_block(
-        params["rwkv"], h, cfg, state=state, token_mask=token_mask)
+    if kind in ATTN_KINDS:
+        out, new_state = attn_mod.apply_attention(
+            params["attn"], h, cfg, kind=kind, positions=positions,
+            kv_cache=state, token_mask=token_mask)
+    elif kind == "rec":
+        out, new_state = rec_mod.apply_rglru_block(
+            params["rec"], h, cfg, state=state, token_mask=token_mask)
+    else:
+        out, new_state = rec_mod.apply_rwkv_block(
+            params["rwkv"], h, cfg, state=state, token_mask=token_mask)
     x = x + out
     h = rms_norm(params["ln2"], x, cfg.norm_eps)
     return x + apply_mlp(params["ffn"], h, cfg), new_state
@@ -84,41 +103,49 @@ def _remat(cfg) -> bool:
     return True
 
 
-def apply_stack(stack_params, x, cfg, *, states=None, token_mask=None):
+def _write_back(node, new):
+    """Copy a layer's new state into its node of the decode state, leaf by
+    leaf, in place."""
+    for dst, src in zip(node, new):
+        dst.copy_(src)
+
+
+def apply_stack(stack_params, x, cfg, *, positions=None, states=None,
+                token_mask=None):
     """Apply the stacked periods, then the remainder.  Returns
-    ``(x, states)``.  With ``states`` each layer's new state is written
-    into it in place (the reference donates the state to its jit), and the
-    same tree is returned; without, ``(x, None)``."""
+    ``(x, states)``.  With ``states`` each layer's new state (a
+    ``RecState`` or a ``KVCache``) is written into it in place (the
+    reference donates the state to its jit), and the same tree is
+    returned; without, ``(x, None)``."""
     pattern, n_periods, remainder = plan_groups(cfg)
     periods = [_unstack(tree, n_periods) for tree in stack_params["scanned"] or []]
     if states is None and _remat(cfg):
         def period(x, p):
             for j, kind in enumerate(pattern):
-                x, _ = apply_block(periods[j][p], x, cfg, kind)
+                x, _ = apply_block(periods[j][p], x, cfg, kind, positions=positions)
             return x
 
         for p in range(n_periods):
             x = checkpoint(period, x, p, use_reentrant=False)
         # The reference remats the scanned periods only.
         for i, kind in enumerate(remainder):
-            x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind)
+            x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind,
+                               positions=positions)
         return x, None
     for p in range(n_periods):
         for j, kind in enumerate(pattern):
             st = None
             if states is not None:
                 node = states["scanned"][j]
-                st = RecState(h=node.h[p], conv=node.conv[p])
-            x, ns = apply_block(periods[j][p], x, cfg,
-                                kind, state=st, token_mask=token_mask)
+                st = type(node)(*(leaf[p] for leaf in node))
+            x, ns = apply_block(periods[j][p], x, cfg, kind, positions=positions,
+                                state=st, token_mask=token_mask)
             if st is not None:
-                st.h.copy_(ns.h)
-                st.conv.copy_(ns.conv)
+                _write_back(st, ns)
     for i, kind in enumerate(remainder):
         st = states["remainder"][i] if states is not None else None
         x, ns = apply_block(stack_params["remainder"][i], x, cfg, kind,
-                            state=st, token_mask=token_mask)
+                            positions=positions, state=st, token_mask=token_mask)
         if st is not None:
-            st.h.copy_(ns.h)
-            st.conv.copy_(ns.conv)
+            _write_back(st, ns)
     return x, states

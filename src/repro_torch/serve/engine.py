@@ -1,5 +1,6 @@
-"""Serving: cache prefill, a lockstep greedy ``generate`` and a
-continuous-batching ``serve`` (counterpart of ``repro.serve.engine``).
+"""Serving: prompt scoring (``make_prefill_step``), cache prefill, a
+lockstep greedy ``generate`` and a continuous-batching ``serve``
+(counterpart of ``repro.serve.engine``).
 
 The reference jits each step and donates the decode state so XLA updates
 it in place; here the state tensors are preallocated once per call and
@@ -32,6 +33,23 @@ import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.model import model as M
+from repro_torch.model.attention import KVCache
+
+
+def make_prefill_step(cfg):
+    """``(params, tokens (B, S)) -> logits (B, S, V)``: prompt scoring
+    through the cache-free :func:`~repro_torch.model.model.forward`.
+    The reference's ``cfg.prefill_chunks > 1`` (the batch scored in
+    sequential chunks) is not ported: no ported configuration sets it."""
+    if cfg.prefill_chunks > 1:
+        raise NotImplementedError(
+            f"make_prefill_step: prefill_chunks={cfg.prefill_chunks} is not "
+            "ported; only 1 (the whole batch in one forward) is")
+
+    def prefill_step(params, tokens):
+        return M.forward(params, cfg, tokens)
+
+    return prefill_step
 
 
 def make_cache_prefill_step(cfg, *, last_only: bool = False,
@@ -103,9 +121,20 @@ def _bucket32(length: int) -> int:
 
 
 def _reset_slot_rows(state, rows: torch.Tensor):
-    """Zero the recurrent state of the slots marked in ``rows`` (B,) bool,
-    in place; every other slot is untouched."""
+    """Reset the decode state of the slots marked in ``rows`` (B,) bool, in
+    place; every other slot is untouched.  Recurrent states go to zero; a
+    KV cache's length goes to 0 and its non-finite entries in those rows
+    are scrubbed to 0 (finite stale entries stay: with length 0 the
+    positional masks never reach them, but a masked NaN would still poison
+    the weighted sum)."""
     for node in M.state_nodes(state):
+        if isinstance(node, KVCache):
+            stacked = node.k.ndim - 4
+            node.length.masked_fill_(rows.reshape((1,) * stacked + (-1,)), 0)
+            mk = rows.reshape((1,) * stacked + (-1, 1, 1, 1))
+            for leaf in (node.k, node.v):
+                leaf.masked_fill_(mk & ~torch.isfinite(leaf), 0)
+            continue
         stacked = node.conv.ndim - 3
         for leaf in (node.h, node.conv):
             shape = [1] * leaf.ndim
@@ -184,8 +213,8 @@ class ServeEngine:
         self.last_decode_dispatches = 0
         self.last_serve_stats: dict[str, int] = {}
 
-    def _new_state(self, batch: int):
-        return M.init_decode_state(self.cfg, batch, self.max_len,
+    def _new_state(self, batch: int, insert_window: int):
+        return M.init_decode_state(self.cfg, batch, self.max_len, insert_window,
                                    device=self.device)
 
     # ------------------------------------------------------------------
@@ -216,7 +245,9 @@ class ServeEngine:
         prompts = torch.as_tensor(prompts, device=self.device).long()
         b, p_len = prompts.shape
         k_w = max(1, int(self.decode_window))
-        state = self._new_state(b)
+        # The widest window any call inserts (the whole prompt at prefill)
+        # sizes the local-attention ring slack, bucketed as the reference does.
+        state = self._new_state(b, max(k_w, _bucket32(p_len)))
         logits, state = self._prefill(self.params, state, prompts,
                                       prompt_lengths)
         self.last_state = state
@@ -292,7 +323,10 @@ class _ServeSession:
                 self.outcomes[i] = "shed"
                 self.stats["shed"] += 1
         dev = eng.device
-        self.state = eng._new_state(b)
+        live = [len(p) for p, oc in zip(self.prompts, self.outcomes) if oc is None]
+        # Ring slack for the widest admission window (the reference's sizing
+        # off its recovery paths).
+        self.state = eng._new_state(b, max(self.k_w, _bucket32(max(live, default=1))))
         zeros = lambda dt: torch.zeros(b, dtype=dt, device=dev)  # noqa: E731
         self.lengths = zeros(torch.int64)
         self.counts = zeros(torch.int64)

@@ -69,10 +69,23 @@ def _split_micro(batch, n_micro: int):
     return out
 
 
+#: Layer kinds whose gradients have kernels in the port: the WKV training
+#: forward and backward.  The RG-LRU scan, the token shift and flash
+#: attention have no backward kernel in the reference to port yet.
+TRAINABLE_KINDS = ("rwkv",)
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None, *,
                     compress: bool = False, accum_dtype=torch.float32):
     """The train step for ``cfg``: ``cfg.microbatch`` microbatches, their
     grads summed in ``accum_dtype`` and divided by their number."""
+    missing = sorted(set(cfg.pattern) - set(TRAINABLE_KINDS))
+    if missing:
+        raise NotImplementedError(
+            f"training {cfg.name} is not ported to repro_torch yet: its layer "
+            f"kinds {missing} have no backward here, and the reference has no "
+            "backward kernel for elevator_scan_pallas or flash_attention_pallas "
+            "to port")
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     loss_fn = make_loss_fn(cfg)
     n_micro = max(1, cfg.microbatch)

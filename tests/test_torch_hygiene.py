@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.kernels.wkv import ops
+from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.model import model as M
 from repro_torch.serve.engine import ServeEngine
@@ -29,6 +30,12 @@ PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 WRAPPERS = [PORT / "kernels" / "wkv" / n
             for n in ("kernel.py", "decode.py", "ops.py", "bwd.py", "vjp.py")]
+#: The RecurrentGemma kernels' wrappers and dispatch.
+RG_WRAPPERS = [PORT / "kernels" / pkg / n for pkg, names in (
+    ("elevator_scan", ("kernel.py", "decode.py", "ops.py")),
+    ("token_shift", ("kernel.py", "ops.py")),
+    ("local_attention", ("kernel.py", "ops.py")),
+) for n in names]
 
 
 def _imports(path):
@@ -73,12 +80,31 @@ def test_no_try_in_kernel_wrappers(path):
     assert not tries, f"{path.name} has try blocks at lines {tries}"
 
 
+@pytest.mark.parametrize("path", RG_WRAPPERS, ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_no_try_in_recurrentgemma_kernel_wrappers(path):
+    test_no_try_in_kernel_wrappers(path)
+
+
 def test_entry_points_need_the_card_by_default(no_card):
     cfg = get_config("rwkv6-1.6b").reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         M.init_decode_state(cfg, 1, 8)
+    params = M.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_recurrentgemma_entry_points_need_the_card_by_default(no_card):
+    cfg = get_config("recurrentgemma-2b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        M.init_decode_state(cfg, 1, 8, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_launch.main(["--arch", "recurrentgemma-2b", "--smoke"])
     params = M.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(cfg, params)
@@ -95,6 +121,18 @@ def test_training_entry_points_need_the_card_by_default(no_card):
         train_launch.main(["--arch", "rwkv6-1.6b", "--smoke", "--steps", "1"])
     state = init_train_state(cfg, device="cpu")
     assert state.params["tok"]["embedding"].device.type == "cpu"
+
+
+def test_recurrentgemma_training_is_refused():
+    with pytest.raises(NotImplementedError, match="backward kernel"):
+        train_launch.main(["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu"])
+
+
+def test_kernel_sources_are_listed():
+    from repro_torch.kernels.common import KERNEL_SOURCES
+
+    on_disk = sorted(p.relative_to(PORT) for p in PORT.rglob("*.cu"))
+    assert sorted(p.relative_to(PORT) for p in KERNEL_SOURCES.values()) == on_disk
 
 
 def test_use_kernel_true_on_cpu_raises():
@@ -126,3 +164,4 @@ def test_registry_refuses_unported_and_unknown_archs():
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert np.isclose(get_config("rwkv6-1.6b").param_count() / 1e9, 1.93, atol=0.01)
+    assert np.isclose(get_config("recurrentgemma-2b").param_count() / 1e9, 2.66, atol=0.01)

@@ -160,3 +160,91 @@ class TestLauncher:
     def test_unported_arch_is_refused(self):
         with pytest.raises(NotImplementedError):
             launcher.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu"])
+
+
+# ---------------------------------------------------------------------------
+# RecurrentGemma (reduced, f32): the local-attention ring and the RG-LRU
+# state through the same engine.  Greedy streams equal the reference's
+# (logits agree to about 2e-6, tests/test_torch_model.py); prompt-scoring
+# logits are held to the model tolerance, 1e-4.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rg_setup():
+    cfg_j = jax_config("recurrentgemma-2b").reduced()
+    cfg = get_config("recurrentgemma-2b").reduced()
+    pj = JM.init_params(cfg_j, jax.random.key(0))
+    pt = convert.params_from_jax(jax.tree.map(np.asarray, pj))
+    return cfg_j, cfg, pj, pt
+
+
+class TestRecurrentGemma:
+    @pytest.mark.parametrize("p,lens,k", [
+        (12, (12, 7, 3), 4),      # ragged prompts, the window kernel at prefill
+        (80, None, 8),            # an 80-token prefill: the chunked scan, a wrapped ring
+    ])
+    def test_generate_greedy_equals_reference(self, rg_setup, p, lens, k):
+        cfg_j, cfg, pj, pt = rg_setup
+        prompts = np.random.default_rng(p).integers(0, cfg.vocab_size, (3, p)).astype(np.int32)
+        lj = None if lens is None else jnp.asarray(lens)
+        want = JE.ServeEngine(cfg_j, pj, max_len=128, decode_window=k).generate(
+            jnp.asarray(prompts), 9, prompt_lengths=lj)
+        eng = E.ServeEngine(cfg, pt, max_len=128, decode_window=k, device="cpu")
+        got = eng.generate(prompts, 9, prompt_lengths=lens)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+
+    def test_lane3b_serve_greedy_equals_reference(self, rg_setup):
+        reqs = _lane3b_requests(512)
+        want, got, eng = _serve_both(rg_setup, reqs, slots=2, max_len=32, k=2)
+        for w, g, (_, n) in zip(want, got, reqs):
+            assert g.outcome == w.outcome == "ok"
+            assert np.array_equal(np.asarray(g), np.asarray(w)) and g.size == n
+        assert eng.last_serve_stats["admissions"] >= 2
+
+    @pytest.mark.parametrize("k,slots", [(2, 1), (1, 3), (4, 2)])
+    def test_sampled_streams_invariant(self, rg_setup, k, slots):
+        _, cfg, _, pt = rg_setup
+        reqs = [E.Request(tokens=t, max_new_tokens=n) for t, n in _lane3b_requests(512)]
+
+        def run(k_, slots_):
+            eng = E.ServeEngine(cfg, pt, max_len=32, decode_window=k_, device="cpu")
+            return [o.tolist() for o in eng.serve(
+                reqs, slots=slots_, temperature=0.8, top_k=16, seed=7)]
+
+        assert run(k, slots) == run(1, 1)
+
+    @pytest.mark.parametrize("seed", [1, 2])
+    def test_prefill_step_logits_match_reference(self, rg_setup, seed):
+        cfg_j, cfg, pj, pt = rg_setup
+        assert cfg.prefill_chunks == cfg_j.prefill_chunks == 1
+        toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (2, 90)).astype(np.int32)
+        want = np.asarray(JE.make_prefill_step(cfg_j)(pj, jnp.asarray(toks)))
+        got = E.make_prefill_step(cfg)(pt, torch.from_numpy(toks).long()).numpy()
+        assert got.shape == want.shape == (2, 90, cfg.padded_vocab)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+    def test_prefill_step_refuses_chunks(self, rg_setup):
+        import dataclasses
+
+        cfg = dataclasses.replace(rg_setup[1], prefill_chunks=2)
+        with pytest.raises(NotImplementedError, match="prefill_chunks"):
+            E.make_prefill_step(cfg)
+
+    def test_reset_slot_rows_resets_kv_lengths_and_scrubs_nan(self, rg_setup):
+        _, cfg, _, _ = rg_setup
+        st = M.init_decode_state(cfg, 3, 64, device="cpu")
+        kv = st["scanned"][2]
+        kv.k.fill_(1.0)
+        kv.length.fill_(9)
+        kv.k[0, 1, 0, 3, 5] = float("nan")    # reset row: scrubbed
+        kv.k[0, 2, 0, 3, 5] = float("nan")    # kept row: untouched
+        E._reset_slot_rows(st, torch.tensor([False, True, False]))
+        assert kv.length[:, 1].tolist() == [0, 0] and kv.length[:, 0].tolist() == [9, 9]
+        assert float(kv.k[0, 1, 0, 3, 5]) == 0.0 and float(kv.k[0, 1, 0, 3, 4]) == 1.0
+        assert bool(torch.isnan(kv.k[0, 2, 0, 3, 5]))
+
+    def test_launcher_smoke_on_cpu_exits_zero(self, capsys):
+        launcher.main(["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu",
+                       "--continuous", "--requests", "5", "--slots", "2", "--prompt-len", "8",
+                       "--new-tokens", "6", "--max-len", "32", "--decode-window", "2"])
+        assert "tok/s" in capsys.readouterr().out
