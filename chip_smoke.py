@@ -48,10 +48,22 @@ Phases (any failure raises and exits non-zero, with no result line):
    before each call and held just after to the count the code's structure
    gives; then the reduced f32 model on the card against the CPU, and one
    generate call and one forward under the profiler;
+3f. the paper demo: the 5-point stencil against its plain version in f32
+   (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
+   256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
+   8192) and the operand-forwarding matmul (the suite's 256^3, the
+   reference test's (512, 256) x (256, 384) with blocks (256, 128, 128),
+   and 4096^3); then the Rodinia suite at its full shapes (all nine parity
+   asserts, its CSV and geomean lines), with every launch count set to 0
+   before and held at 0 after (its cases call neither kernel), and the two
+   ops on the suite's inputs: ``matmul_fwd`` on the matrixMul operands
+   against ``matmul_direct`` and ``stencil2d`` on the hotspot and SRAD grid
+   against ``hotspot_direct`` and ``srad_direct``, counts held at 1 and 2;
 4. each kernel's median time at its main path's shapes beside its plain
    version's time, its bound and, where one PyTorch call computes the same
-   function, that call's time, printed as one ``{"kernels": [...]}`` line;
-   then the card's name and power limit, and the result line.
+   function, that call's time (the paper-demo kernels also at 8192^2 and
+   4096^3), printed as one ``{"kernels": [...]}`` line; then the card's
+   name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -324,6 +336,10 @@ def main():
     launches.update(_rg_main_path(torch, np))
     _rg_reference_check(torch, np)
 
+    # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
+    worst.update(_paper_kernel_checks(torch))
+    launches.update(_paper_main_path(torch))
+
     # ---- 4. times at the main path's shapes --------------------------------
     bf = torch.bfloat16
     rows = []
@@ -371,6 +387,7 @@ def main():
               f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us")
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
     rows += _time_rg_kernels(torch, launches, worst)
+    rows += _time_paper_kernels(torch, launches, worst)
 
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
@@ -675,9 +692,11 @@ def _counters():
     from repro_torch.kernels.wkv import kernel as KC
 
     EK, ED, TS, FA = _rg_modules()
+    MM, ST = _paper_modules()
     fns = (KC.wkv_cuda, D.wkv_decode_cuda, D.wkv_decode_window_cuda, KC.wkv_train_cuda,
            BW.wkv_bwd_cuda, EK.elevator_scan_cuda, ED.elevator_decode_window_cuda,
-           TS.token_shift_cuda, FA.flash_attention_cuda)
+           TS.token_shift_cuda, FA.flash_attention_cuda, MM.matmul_fwd_cuda,
+           ST.stencil2d_cuda)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -1071,6 +1090,214 @@ def _time_rg_kernels(torch, launches, worst):
             seen.add(r["name"])
             out.append(r)
     return out
+
+# ---------------------------------------------------------------------------
+# The paper demo: the 5-point stencil, the operand-forwarding matmul and the
+# Rodinia suite (phase 3f and the rows of phase 4).
+# ---------------------------------------------------------------------------
+
+PAPER_KERNELS = ("matmul_fwd_cuda", "stencil2d_cuda")
+def _paper_modules():
+    from repro_torch.kernels.matmul_fwd import kernel as MM
+    from repro_torch.kernels.stencil2d import kernel as ST
+    return MM, ST
+
+
+def _matmul_inputs(torch, m, k, n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device="cuda")
+    b = torch.randn((k, n), generator=g, device="cuda")
+    return a.to(dtype), b.to(dtype)
+
+
+def _stencil_inputs(torch, h, w, dtype, seed, coeffs):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((h, w), generator=g, device="cuda")
+    return x.to(dtype), torch.tensor(coeffs, device="cuda")
+
+
+def _paper_kernel_checks(torch):
+    """Phase 3f, kernels.  Returns the worst max abs error of each."""
+    from repro_torch.kernels import card_checks as CC
+
+    MM, ST = _paper_modules()
+    worst = dict.fromkeys(PAPER_KERNELS, 0.0)
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            for h, w, coeffs, bnd in CC.STENCIL_CASES:
+                x, c = _stencil_inputs(torch, h, w, dtype, seed=h + w, coeffs=coeffs)
+                got = ST.stencil2d_cuda(x, c, boundary=bnd)
+                torch.cuda.synchronize()
+                want = ST.stencil2d_ref(x, c, bnd)
+                err = (got.float() - want.float()).abs()
+                same = torch.equal(got, want)
+                # f32: bit for bit; bf16: one ulp of the plain output.
+                ok = same if dtype == torch.float32 else bool(
+                    (err <= CC.bf16_ulp(want)).all())
+                print(f"[paper-kernels] stencil2d_cuda  {h}x{w} c={coeffs} b={bnd} "
+                      f"{str(dtype):15s} max_abs_err={float(err.max()):.3e} "
+                      f"bit-identical: {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"stencil2d_cuda {h}x{w} {dtype} disagrees with its plain version")
+                worst["stencil2d_cuda"] = max(worst["stencil2d_cuda"], float(err.max()))
+            for m, k, n, bm, bn, bk in CC.MATMUL_CASES:
+                a, b = _matmul_inputs(torch, m, k, n, dtype, seed=m + n)
+                got = MM.matmul_fwd_cuda(a, b, block_m=bm, block_n=bn, block_k=bk)
+                torch.cuda.synchronize()
+                want = MM.matmul_ref(a, b)
+                e, f32_tol, ratio = CC.matmul_error(got, want)
+                scale = float(want.float().abs().max())
+                print(f"[paper-kernels] matmul_fwd_cuda ({m},{k})x({k},{n}) blocks "
+                      f"({bm},{bn},{bk}) {str(dtype):15s} max_abs_err={e:.3e} "
+                      f"rel={e / scale:.3e} (f32 tol {CC.MATMUL_F32_RTOL:g}*max|plain| = "
+                      f"{f32_tol:.3e}{'' if dtype == torch.float32 else ' + 1 bf16 ulp'}) "
+                      f"worst err/tol={ratio:.3f} {'ok' if ratio <= 1.0 else 'FAIL'}")
+                if not ratio <= 1.0 or not bool(torch.isfinite(got).all()):
+                    raise SystemExit(f"matmul_fwd_cuda ({m},{k},{n}) {dtype}: error {e}")
+                worst["matmul_fwd_cuda"] = max(worst["matmul_fwd_cuda"], e)
+    return worst
+
+
+def _paper_main_path(torch):
+    """Phase 3f, main path: the Rodinia suite at full size (launches none of
+    the port's kernels), then the ops on its inputs (one matmul, two
+    stencils).  Returns the counts of the op calls."""
+    from repro_torch.benchmarks import rodinia as RB
+    from repro_torch.kernels.card_checks import matmul_error
+    from repro_torch.kernels.matmul_fwd.ops import matmul_fwd
+    from repro_torch.kernels.stencil2d.ops import stencil2d
+
+    counters = _counters()
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+
+    zero()
+    t0 = time.perf_counter()
+    rows = RB.run(reps=20)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = {n: c.launches for n, c in counters.items()}
+    print(f"[rodinia] full shapes (N={RB.N}, MAT={RB.MAT}, GRID={RB.GRID}, bp={RB.BP}) on "
+          f"the card, eager, 20 reps each: nine parity asserts passed in {dt:.2f}s")
+    for line in RB.report(rows):
+        print(f"[rodinia] {line}")
+    print(f"[rodinia] geomean_wallclock_speedup,"
+          f"{RB.geomean([r['speedup_wallclock'] for r in rows]):.2f}")
+    print(f"[rodinia] launches during the suite: {got}; derived: all 0")
+    if any(got.values()) or [r["device"] for r in rows] != ["cuda"] * 9:
+        raise SystemExit(f"rodinia: launch counts {got} != 0 or a case left the card")
+
+    inp = RB.make_inputs()
+    with torch.inference_mode():
+        zero()
+        c = matmul_fwd(inp["a_m"], inp["b_m"])
+        hot = stencil2d(inp["grid"], torch.tensor(RB.HOTSPOT, device="cuda"))
+        srad = stencil2d(inp["grid"], torch.tensor(RB.SRAD, device="cuda"))
+        torch.cuda.synchronize()
+        got = {n: cn.launches for n, cn in counters.items()}
+        want = {**dict.fromkeys(counters, 0), "matmul_fwd_cuda": 1, "stencil2d_cuda": 2}
+        print(f"[rodinia] launches of the ops on the suite's inputs: "
+              f"{ {n: got[n] for n in PAPER_KERNELS} }; derived "
+              f"{ {n: want[n] for n in PAPER_KERNELS} }")
+        if got != want:
+            raise SystemExit(f"paper ops: launch counts {got} != derived {want}")
+        e, f32_tol, ratio = matmul_error(c, RB.matmul_direct(inp["a_m"], inp["b_m"]))
+        print(f"[rodinia] matmul_fwd on the matrixMul inputs vs matmul_direct: "
+              f"max_abs_err={e:.3e} (tol {f32_tol:.3e}) {'ok' if ratio <= 1.0 else 'FAIL'}")
+        if ratio > 1.0:
+            raise SystemExit("matmul_fwd disagrees with the suite's matmul_direct")
+        for name, out, direct in (("hotspot", hot, RB.hotspot_direct(inp["grid"])),
+                                  ("srad", srad, RB.srad_direct(inp["grid"]))):
+            err = float((out - direct).abs().max())
+            tol = 1e-6 * float(direct.abs().max())
+            print(f"[rodinia] stencil2d on the {name} grid vs {name}_direct: "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e}), bit-identical: "
+                  f"{torch.equal(out, direct)} {'ok' if err <= tol else 'FAIL'}")
+            if err > tol:
+                raise SystemExit(f"stencil2d disagrees with the suite's {name}_direct")
+    return {n: got[n] for n in PAPER_KERNELS}
+
+
+def _time_paper_kernels(torch, launches, worst):
+    """Phase 4 rows of the paper-demo kernels: the suite's shapes (the row of
+    the result line) and the large ones (under the row's ``large`` key).
+    ``library_ms``: ``torch.matmul`` on the same operands (f32 with TF32
+    off), and for the stencil ``F.conv2d`` with the 3x3 cross weights and
+    ``padding=1`` (boundary 0, cuDNN TF32 off, ``cudnn.benchmark`` on so
+    that cuDNN times its algorithms and keeps the fastest), checked against
+    the kernel before it is timed (that first call is the one that picks the
+    algorithm)."""
+    from repro_torch.benchmarks.rodinia import HOTSPOT
+
+    F = torch.nn.functional
+    MM, ST = _paper_modules()
+    f32, bf = torch.float32, torch.bfloat16
+    sources = {"matmul_fwd_cuda": "src/repro_torch/kernels/matmul_fwd/csrc/matmul_fwd.cu",
+               "stencil2d_cuda": "src/repro_torch/kernels/stencil2d/csrc/stencil2d.cu"}
+    replaces = {"matmul_fwd_cuda": "src/repro/kernels/matmul_fwd/kernel.py:50 (matmul_fwd_pallas)",
+                "stencil2d_cuda": "src/repro/kernels/stencil2d/kernel.py:55 (stencil2d_pallas)"}
+    measured = []
+
+    def measure(name, shape, sets, kern, plain, library, nbytes, flops, peak, reps):
+        ms, call_ms = _time_ms(torch, kern, sets, reps=reps)
+        plain_ms, _ = _time_ms(torch, plain, sets, reps=max(3, reps // 4))
+        lib_ms = _time_ms(torch, library, sets, reps=reps)[0]
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / peak * 1e3
+        r = {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
+             "launches": launches[name], "max_abs_err": worst[name], "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
+             "bound_by": "bytes" if b_ms >= f_ms else "operations", "library_ms": lib_ms,
+             "call_ms": call_ms, "shape": shape}
+        measured.append(r)
+        print(f"[time] {name:28s} {shape:40s} device {ms * 1e3:9.2f} us, per call "
+              f"{call_ms * 1e3:9.2f} us (plain {plain_ms * 1e3:10.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}, library "
+              f"{lib_ms * 1e3:.2f} us; {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+
+    with torch.inference_mode():
+        torch.backends.cudnn.benchmark = True
+        for h, w in ((256, 512), (8192, 8192)):
+            nbytes = 2 * h * w * 4 + 5 * 4
+            sets = _cold_sets(lambda s: _stencil_inputs(torch, h, w, f32, s, HOTSPOT), nbytes)
+            weight = torch.tensor([[0.0, HOTSPOT[1], 0.0],
+                                   [HOTSPOT[3], HOTSPOT[0], HOTSPOT[4]],
+                                   [0.0, HOTSPOT[2], 0.0]], device="cuda")[None, None]
+
+            def conv2d(x, c):
+                return F.conv2d(x[None, None], weight, padding=1)
+
+            x, c = sets[0]
+            lib_err = float((conv2d(x, c)[0, 0] - ST.stencil2d_cuda(x, c)).abs().max())
+            print(f"[time] conv2d library call agrees with stencil2d_cuda at {h}x{w}: "
+                  f"max_abs_err={lib_err:.3e}")
+            if lib_err > 1e-5 * float(x.abs().max()):
+                raise SystemExit("the conv2d library call disagrees with stencil2d_cuda")
+            measure("stencil2d_cuda", f"{h}x{w} f32 hotspot", sets,
+                    lambda x, c: ST.stencil2d_cuda(x, c),
+                    lambda x, c: ST.stencil2d_ref(x, c), conv2d, nbytes, 9 * h * w,
+                    PEAK_F32_FLOPS, reps=100 if h < 8192 else 20)
+        torch.backends.cudnn.benchmark = False
+        for dim, dtype, peak in ((256, f32, PEAK_F32_FLOPS), (4096, bf, PEAK_BF16_FLOPS),
+                                 (4096, f32, PEAK_F32_FLOPS)):
+            item = 4 if dtype == f32 else 2
+            nbytes = 3 * dim * dim * item
+            sets = _cold_sets(lambda s: _matmul_inputs(torch, dim, dim, dim, dtype, s), nbytes)
+            measure("matmul_fwd_cuda", f"{dim}^3 {'f32' if dtype == f32 else 'bf16'}", sets,
+                    lambda a, b: MM.matmul_fwd_cuda(a, b), MM.matmul_ref, torch.matmul,
+                    nbytes, 2 * dim ** 3, peak, reps=100 if dim < 4096 else 10)
+    # One row per kernel in the result line, at the suite's shape; the large
+    # shapes ride along under "large".
+    rows = []
+    for name in ("stencil2d_cuda", "matmul_fwd_cuda"):
+        mine = [r for r in measured if r["name"] == name]
+        rows.append({**mine[0], "large": [
+            {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")} for r in mine[1:]]})
+    return rows
 
 
 def _leaves(tree):

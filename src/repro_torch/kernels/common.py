@@ -109,6 +109,8 @@ KERNEL_SOURCES = {
     "elevator_scan": _PKG / "elevator_scan" / "csrc" / "elevator_scan.cu",
     "token_shift": _PKG / "token_shift" / "csrc" / "token_shift.cu",
     "flash_attention": _PKG / "local_attention" / "csrc" / "flash_attention.cu",
+    "stencil2d": _PKG / "stencil2d" / "csrc" / "stencil2d.cu",
+    "matmul_fwd": _PKG / "matmul_fwd" / "csrc" / "matmul_fwd.cu",
 }
 #: ``build/`` at the root of the checkout (listed in ``.gitignore``).
 BUILD_DIR = _PKG.parents[2] / "build"

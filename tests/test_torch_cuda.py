@@ -441,3 +441,83 @@ def test_reduced_recurrentgemma_card_matches_cpu(cuda):
     g_cpu = ServeEngine(cfg, p_cpu, max_len=128, device="cpu").generate(toks[:, :40], 12)
     g_gpu = ServeEngine(cfg, p_gpu, max_len=128).generate(toks[:, :40].to(cuda), 12)
     assert torch.equal(g_cpu, g_gpu.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The paper-demo kernels: the 5-point stencil and the operand-forwarding
+# matmul, and the Rodinia suite on the card.
+# ---------------------------------------------------------------------------
+
+from repro_torch.benchmarks import rodinia  # noqa: E402
+from repro_torch.kernels import card_checks as CC  # noqa: E402
+from repro_torch.kernels.matmul_fwd import kernel as MM  # noqa: E402
+from repro_torch.kernels.matmul_fwd import ops as MM_OPS  # noqa: E402
+from repro_torch.kernels.stencil2d import kernel as ST  # noqa: E402
+from repro_torch.kernels.stencil2d import ops as ST_OPS  # noqa: E402
+
+#: The shared card checks (``repro_torch.kernels.card_checks``, which
+#: ``chip_smoke.py`` runs too) and this file's extra shapes: a one-row grid;
+#: the reference test's other matmul cases and odd shapes inside the block
+#: contract (K or N not a multiple of 8 take the element-wise tile loads).
+STENCIL_CASES = CC.STENCIL_CASES + ((1, 33, (0.5, 0.1, 0.2, 0.3, 0.4), 2.0),)
+MATMUL_CASES = CC.MATMUL_CASES + (
+    (128, 128, 128, 128, 128, 128),
+    (256, 512, 128, 128, 128, 256),
+    (100, 36, 72, 256, 256, 256),
+    (96, 100, 60, 256, 256, 256),
+    (3, 5, 7, 256, 256, 256),
+)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", STENCIL_CASES, ids=lambda c: f"{c[0]}x{c[1]}-b{c[3]}")
+def test_stencil2d_matches_plain_bit_for_bit(cuda, dtype, case):
+    h, w, coeffs, boundary = case
+    rng = np.random.default_rng(h + w)
+    x = torch.from_numpy(rng.standard_normal((h, w)).astype(np.float32)).to(cuda, dtype)
+    c = torch.tensor(coeffs, device=cuda)
+    n = ST.stencil2d_cuda.launches
+    got = ST_OPS.stencil2d(x, c, boundary=boundary)
+    assert ST.stencil2d_cuda.launches == n + 1
+    want = ST.stencil2d_ref(x, c, boundary)
+    assert got.dtype == dtype and got.shape == (h, w)
+    # The same f32 products summed in the same order, rounded once.
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", MATMUL_CASES, ids=lambda c: "x".join(map(str, c[:3])))
+def test_matmul_fwd_matches_plain(cuda, dtype, case):
+    m, k, n, bm, bn, bk = case
+    rng = np.random.default_rng(m * n + k)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda, dtype)
+    count = MM.matmul_fwd_cuda.launches
+    got = MM_OPS.matmul_fwd(a, b, block_m=bm, block_n=bn, block_k=bk)
+    assert MM.matmul_fwd_cuda.launches == count + 1
+    want = MM.matmul_ref(a, b)
+    assert got.dtype == dtype and got.shape == (m, n)
+    # f32: MATMUL_F32_RTOL of max|plain|; bf16: one bf16 ulp of the plain
+    # output beyond that.
+    assert CC.matmul_error(got, want)[2] <= 1.0
+
+
+def test_paper_demo_wrappers_refuse_bad_args(cuda):
+    a = torch.ones(64, 64, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        MM.matmul_fwd_cuda(a, a.bfloat16())
+    with pytest.raises(ValueError, match="not divisible"):
+        MM.matmul_fwd_cuda(torch.ones(300, 64, device=cuda), a)
+    with pytest.raises(ValueError, match="grad"):
+        MM.matmul_fwd_cuda(a.clone().requires_grad_(True), a)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ST.stencil2d_cuda(a, torch.ones(5), block_h=64)
+    with pytest.raises(ValueError, match="float32"):
+        ST.stencil2d_cuda(a.double(), torch.ones(5, device=cuda), block_h=64)
+
+
+def test_rodinia_smoke_on_the_card_launches_no_kernel(cuda):
+    counts = (MM.matmul_fwd_cuda.launches, ST.stencil2d_cuda.launches)
+    rows = rodinia.run(reps=1, smoke=True)
+    assert [r["device"] for r in rows] == ["cuda"] * 9
+    assert (MM.matmul_fwd_cuda.launches, ST.stencil2d_cuda.launches) == counts

@@ -12,8 +12,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.benchmarks import rodinia
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
+from repro_torch.examples import quickstart
+from repro_torch.kernels.matmul_fwd import kernel as matmul_kernel
+from repro_torch.kernels.matmul_fwd import ops as matmul_ops
+from repro_torch.kernels.stencil2d import kernel as stencil_kernel
+from repro_torch.kernels.stencil2d import ops as stencil_ops
 from repro_torch.kernels.wkv import ops
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
@@ -36,6 +42,9 @@ RG_WRAPPERS = [PORT / "kernels" / pkg / n for pkg, names in (
     ("token_shift", ("kernel.py", "ops.py")),
     ("local_attention", ("kernel.py", "ops.py")),
 ) for n in names]
+#: The paper-demo kernels' wrappers and dispatch.
+PAPER_WRAPPERS = [PORT / "kernels" / pkg / n for pkg in ("stencil2d", "matmul_fwd")
+                  for n in ("kernel.py", "ops.py")]
 
 
 def _imports(path):
@@ -83,6 +92,56 @@ def test_no_try_in_kernel_wrappers(path):
 @pytest.mark.parametrize("path", RG_WRAPPERS, ids=lambda p: f"{p.parent.name}/{p.name}")
 def test_no_try_in_recurrentgemma_kernel_wrappers(path):
     test_no_try_in_kernel_wrappers(path)
+
+
+@pytest.mark.parametrize("path", PAPER_WRAPPERS, ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_no_try_in_paper_demo_kernel_wrappers(path):
+    test_no_try_in_kernel_wrappers(path)
+
+
+def test_paper_demo_modules_are_checked():
+    names = {str(p.relative_to(PORT)) for p in SOURCES if p.is_relative_to(PORT)}
+    for mod in ("core/cost_model.py", "core/elevator.py", "core/eldst.py",
+                "core/scratchpad.py", "core/chunk_scan.py", "core/__init__.py",
+                "kernels/stencil2d/ref.py", "kernels/stencil2d/kernel.py",
+                "kernels/stencil2d/ops.py", "kernels/matmul_fwd/ref.py",
+                "kernels/matmul_fwd/kernel.py", "kernels/matmul_fwd/ops.py",
+                "benchmarks/rodinia.py", "examples/quickstart.py"):
+        assert mod in names, f"{mod} is not among the sources the import checks read"
+
+
+def test_paper_demo_entry_points_need_the_card_by_default(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rodinia.make_inputs(smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rodinia.run(reps=1, smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        rodinia.main(["--smoke"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
+    assert rodinia.make_inputs(smoke=True, device="cpu")["x1"].device.type == "cpu"
+
+
+def test_paper_demo_ops_need_the_card_for_their_kernels(monkeypatch):
+    # CPU tensors never reach a kernel: no library is loaded, nothing is
+    # counted.  A tensor on any other device than the CPU is refused, not
+    # sent to the plain version.
+    def refuse(name):
+        raise AssertionError(f"the {name} library was loaded for CPU tensors")
+
+    monkeypatch.setattr(stencil_kernel, "load_library", refuse)
+    monkeypatch.setattr(matmul_kernel, "load_library", refuse)
+    counts = (stencil_kernel.stencil2d_cuda.launches, matmul_kernel.matmul_fwd_cuda.launches)
+    x = torch.ones(8, 8)
+    assert torch.equal(stencil_ops.stencil2d(x, [1.0, 0.0, 0.0, 0.0, 0.0]), x)
+    assert torch.equal(matmul_ops.matmul_fwd(x, x), torch.full((8, 8), 8.0))
+    assert (stencil_kernel.stencil2d_cuda.launches,
+            matmul_kernel.matmul_fwd_cuda.launches) == counts
+    x = torch.ones(8, 8, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        stencil_ops.stencil2d(x, torch.zeros(5))
+    with pytest.raises(ValueError, match="CUDA"):
+        matmul_ops.matmul_fwd(x, x)
 
 
 def test_entry_points_need_the_card_by_default(no_card):
