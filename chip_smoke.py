@@ -23,6 +23,18 @@ Phases (any failure raises and exits non-zero, with no result line):
    just after; then the reduced f32 model on the card against the same
    model on the CPU (logits and greedy tokens), and one generate call
    under the profiler;
+3g. the sequence-parallel path, on the same weights and a seq mesh of 4
+   shards of the card (``make_seq_mesh(4)``): the segment-summary kernels
+   against their plain versions in f32 and bf16 on every output (a_seg and
+   s_hist included; B=4 T=256, a shard of the main path B=1 T=1024 read in
+   place from a 4096-token prompt, an odd shard), and bit for bit against
+   the contiguous launches; the seq prefill (B=1, T=4096, 96
+   ``wkv_summary_cuda`` launches and no ``wkv_cuda``),
+   ``ServeEngine(mesh=...).generate`` (B=2, P=2048, +32, K=8) and a loss
+   gradient (B=1, T=2048, full remat) against the same calls without a
+   mesh, with exact launch counts, the prefill's and the gradient's
+   distance from the same weights in f32 held to the no-mesh path's; then
+   the reduced f32 seq path on the card against the CPU;
 3b. the training path: the serving engine freed, full-size rwkv6-1.6b in
    bf16 through ``init_train_state`` and ``make_train_step`` (microbatch 2,
    full remat), 6 steps of B=8, T=256 from ``data.make_batch``, with the
@@ -111,9 +123,11 @@ TRAIN_TOLERANCE = {
 }
 
 
-def _inputs(torch, b, t, dtype, seed):
+def _inputs(torch, b, t, dtype, seed, slow=False):
     """WKV inputs on the card with the model's value ranges: the decay
-    w = exp(-exp(logit)) with the logit spanning the model's clip."""
+    w = exp(-exp(logit)) with the logit spanning the model's clip.  With
+    ``slow`` the decays lie in (0.85, 0.999) instead, so a segment's decay
+    product stays above the f32 floor for a few hundred tokens."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def n(*shape, s=1.0):
@@ -121,6 +135,8 @@ def _inputs(torch, b, t, dtype, seed):
 
     logit = torch.rand((b, H, t, DH), generator=g, device="cuda") * 7.386 - 6.0
     w = torch.exp(-torch.exp(logit))
+    if slow:
+        w = 0.85 + 0.149 * torch.rand((b, H, t, DH), generator=g, device="cuda")
     r, k, v = n(b, H, t, DH, s=0.5), n(b, H, t, DH, s=0.5), n(b, H, t, DH)
     u = n(H, DH, s=0.3)
     h0 = n(b, H, DH, DH, s=0.5)
@@ -321,8 +337,17 @@ def main():
     _reference_check(torch, get_config, M, ServeEngine, np)
     _profile_generate(torch, engine, prompts)
 
+    # ---- 3g. the sequence-parallel path on a seq mesh of 4 shards ----------
+    del engine
+    torch.cuda.empty_cache()
+    for name, err in _seq_kernel_checks(torch, KC, BW).items():
+        worst[name] = max(worst.get(name, 0.0), err)
+    seq_launches, seq_extra = _seq_main_path(torch, np, cfg, params)
+    launches.update(seq_launches)
+    _seq_reference_check(torch, np)
+
     # ---- 3b. the training path ----------------------------------------------
-    del engine, params
+    del params
     torch.cuda.empty_cache()
     train_launches = _train_main_path(torch, cfg, KC, BW)
     _train_reference_check(torch, get_config)
@@ -386,6 +411,7 @@ def main():
         print(f"[time] wkv_decode_window_cuda   B=4 H=32 T=64 Dh=64 bf16{'':9s}"
               f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us")
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
+    rows += _time_seq_kernels(torch, KC, launches, worst, seq_extra)
     rows += _time_rg_kernels(torch, launches, worst)
     rows += _time_paper_kernels(torch, launches, worst)
 
@@ -652,6 +678,12 @@ def _profile(torch, fn, what, top=8):
           f"{100 * busy / wall_us:.1f}%, idle {100 - 100 * busy / wall_us:.1f}%")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[profile]   {us / 1e3:8.2f} ms {n:6d}x  {name[:90]}")
+    # Copies (casts, .contiguous(), concatenations) and fills, whatever
+    # their rank: what a layout change adds or removes shows here.
+    for kind in ("copy", "fill"):
+        hits = [(us, n) for name, (us, n) in by_name.items() if kind in name.lower()]
+        print(f"[profile]   kernels named *{kind}*: {sum(us for us, _ in hits) / 1e3:.2f} ms "
+              f"over {sum(n for _, n in hits)} launches")
 
 
 def _flops(b, t, chunk, windowed):
@@ -665,6 +697,410 @@ def _flops(b, t, chunk, windowed):
 
 
 # ---------------------------------------------------------------------------
+# The sequence-parallel path: the segment-summary kernels, then the seq
+# prefill, generate and gradient of full-size RWKV6-1.6B on a seq mesh of 4
+# shards of the one card (phase 3g and its rows of phase 4).
+# ---------------------------------------------------------------------------
+
+SEQ_KERNELS = ("wkv_summary_cuda", "wkv_train_summary_cuda")
+SEQ_SHARDS = 4
+#: Full-size bf16 against the same weights in f32 (no mesh), the seq path's
+#: error over the no-mesh path's: at most this factor, for the prefill's
+#: logits (max |error| / max |logit|) and for the gradient (per leaf,
+#: ||g - g32|| / ||g32||, the worst leaf's ratio).  Both bf16 paths round
+#: every layer's activations to bf16; the seq path rounds each shard's WKV
+#: output once more (its zero-state sweep's bf16 output plus the f32 entry
+#: correction, as the reference does), so it may sit a little further from
+#: f32 than the single sweep.  Measured on an H100: 1.012 (logits, 9.4e-2
+#: against 9.3e-2) and 1.010 (the worst leaf); a wrong carry or correction
+#: puts the seq path far further off.
+SEQ_BF16_ERROR_RATIO = 1.25
+
+
+def _summary_inputs(torch, b, t, dtype, seed, full_t, start, slow):
+    """r/k/v/w as the T-window start..start+t of (b, H, full_t, 64)
+    tensors (what a shard of the main path hands the kernel), u, h0."""
+    a = _inputs(torch, b, full_t, dtype, seed, slow=slow)
+    return [x[:, :, start:start + t] for x in a[:4]] + a[4:]
+
+
+def _seq_kernel_checks(torch, KC, BW):
+    """Phase 3g, kernels: both summary wrappers against their plain versions
+    on every output, in f32 (TF32 off) and bf16, at the card checks' shapes
+    (a shard of each seq call of the main path among them), with the model's
+    decays (a long segment's a_seg underflows to 0) and slow ones (a_seg in
+    the normal range); their (out, S[, s_hist]) bit for bit equal to the
+    contiguous launches'.  Then the backward kernel on the same windows and
+    the training summary's s_hist, against its plain version and bit for
+    bit against the contiguous launch.  Returns the worst errors."""
+    from repro_torch.kernels import card_checks as CC
+
+    worst = dict.fromkeys((*SEQ_KERNELS, "wkv_bwd_cuda"), 0.0)
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            kind = str(dtype).split(".")[-1]
+            for b, t, chunk, full_t, start in CC.SUMMARY_CASES:
+                for slow in (False, True):
+                    a = _summary_inputs(torch, b, t, dtype, 20 + t, full_t, start, slow)
+                    flat = [x.contiguous() for x in a]
+                    case = (f"B={b} T={t} [{start}:{start + t}] of {full_t} chunk={chunk} "
+                            f"{'slow' if slow else 'model'} decays")
+                    for kname, kern, plain, bits in (
+                            ("wkv_summary_cuda", KC.wkv_summary_cuda, KC.wkv_summary_plain,
+                             KC.wkv_cuda),
+                            ("wkv_train_summary_cuda", KC.wkv_train_summary_cuda,
+                             KC.wkv_train_summary_plain, KC.wkv_train_cuda)):
+                        got = kern(*a, chunk=chunk)
+                        torch.cuda.synchronize()
+                        want = plain(*a, chunk=chunk)
+                        atol, rtol = (TOLERANCE if kname == "wkv_summary_cuda"
+                                      else TRAIN_TOLERANCE)[kind]
+                        errs = [float((x.float() - y.float()).abs().max())
+                                for x, y in zip(got[:-1], want[:-1])]
+                        tols = [atol + rtol * float(y.float().abs().max()) for y in want[:-1]]
+                        ratio = CC.a_seg_ratio(got[-1], want[-1])
+                        same = all(torch.equal(x, y) for x, y in
+                                   zip(got[:-1], bits(*flat, chunk=chunk)))
+                        a_err = float((got[-1] - want[-1]).abs().max())
+                        ok = (all(e <= tl for e, tl in zip(errs, tols)) and ratio <= 1.0
+                              and same and all(bool(torch.isfinite(x).all()) for x in got))
+                        print(f"[seq-kernels] {kname:22s} {case:52s} {kind:8s} max_abs_err "
+                              f"{['%.2e' % e for e in errs]} tol {['%.2e' % tl for tl in tols]}; "
+                              f"a_seg max_abs_err {a_err:.2e} (max {float(want[-1].max()):.2e}), "
+                              f"err/tol {ratio:.3f}; contiguous launch bit for bit: {same} "
+                              f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise SystemExit(f"{kname} {case} {kind} disagrees with its plain "
+                                             "version or its contiguous launch")
+                        worst[kname] = max(worst[kname], *errs, a_err)
+                    # The reverse sweep on the same windows (the seq gradient's
+                    # backward), from the s_hist of the loop's last kernel, the
+                    # training summary.
+                    s_hist = got[2]
+                    d_out, d_s = _cotangents(torch, b, t, dtype, seed=start + t)
+                    bargs = (*a[:5], s_hist, d_out, d_s)
+                    gb = BW.wkv_bwd_cuda(*bargs, chunk=chunk)
+                    torch.cuda.synchronize()
+                    want = BW.wkv_bwd_plain(*bargs, chunk=chunk)
+                    atol, rtol = TRAIN_TOLERANCE[kind]
+                    errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(gb, want)]
+                    tols = [atol + rtol * float(y.float().abs().max()) for y in want]
+                    same = all(torch.equal(x, y) for x, y in zip(
+                        gb, BW.wkv_bwd_cuda(*flat[:5], s_hist, d_out, d_s, chunk=chunk)))
+                    ok = (all(e <= tl for e, tl in zip(errs, tols)) and same
+                          and all(bool(torch.isfinite(x).all()) for x in gb))
+                    print(f"[seq-kernels] {'wkv_bwd_cuda':22s} {case:52s} {kind:8s} max_abs_err "
+                          f"{['%.2e' % e for e in errs]} tol {['%.2e' % tl for tl in tols]}; "
+                          f"contiguous launch bit for bit: {same} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise SystemExit(f"wkv_bwd_cuda {case} {kind} disagrees with its plain "
+                                         "version or its contiguous launch")
+                    worst["wkv_bwd_cuda"] = max(worst["wkv_bwd_cuda"], *errs)
+    return worst
+
+
+def _seq_main_path(torch, np, cfg, params, prompt=4096, gen_b=2, gen_p=2048, new=32,
+                   k_w=8, grad_t=2048):
+    """Phase 3g, main path: full-size RWKV6-1.6B in bf16 on ``make_seq_mesh(4)``
+    (4 shards of the card) against the same calls without a mesh: the seq
+    prefill (``make_seq_prefill_step``, B=1), ``ServeEngine(mesh=...)
+    .generate`` and a loss gradient, each call's launch counts set to 0
+    just before and held just after to the counts the code's structure
+    gives.  Returns the counts of the seq calls and the timings phase 4
+    prints beside the kernel rows."""
+    import dataclasses
+    from contextlib import nullcontext
+
+    from repro_torch.launch.mesh import make_seq_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model.sharding import make_rules, sharding_context
+    from repro_torch.serve.engine import ServeEngine, make_prefill_step, make_seq_prefill_step
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_map
+
+    mesh = make_seq_mesh(SEQ_SHARDS)
+    n_l, n_s = cfg.num_layers, SEQ_SHARDS
+    counters = _counters()
+    rng = np.random.default_rng(3)
+    v = cfg.vocab_size
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
+
+    def hold(what, got, want):
+        want = {**dict.fromkeys(counters, 0), **want}
+        print(f"[seq] launches during {what}: "
+              f"{ {n: c for n, c in got.items() if c} }; derived "
+              f"{ {n: c for n, c in want.items() if c} }")
+        if got != want:
+            raise SystemExit(f"{what}: launch counts {got} != derived {want}")
+
+    total = dict.fromkeys(SEQ_KERNELS, 0)
+    extra = {}
+    # The same weights in f32: the yardstick both bf16 paths are held to.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda p: p.float(), params)
+
+    # -- the seq prefill against the prefill without a mesh, B=1, T=4096.
+    tokens = torch.from_numpy(rng.integers(0, v, (1, prompt))).cuda()
+    seq_step, plain_step = make_seq_prefill_step(cfg, mesh), make_prefill_step(cfg)
+    with torch.inference_mode():
+        seq_step(params, tokens[:, :1024])                          # warm-up
+        plain_step(params, tokens[:, :1024])
+        logits, dt_seq, got = counted(lambda: seq_step(params, tokens))
+        hold(f"seq prefill B=1 T={prompt}", got, {"wkv_summary_cuda": n_l * n_s})
+        total["wkv_summary_cuda"] += got["wkv_summary_cuda"]
+        want, dt_plain, got = counted(lambda: plain_step(params, tokens))
+        hold(f"prefill without a mesh B=1 T={prompt}", got, {"wkv_cuda": n_l})
+        l32 = make_prefill_step(cfg32)(p32, tokens)[..., :v]
+        lg, wt = logits[..., :v].float(), want[..., :v].float()
+        scale = float(l32.abs().max())
+        rel = float((lg - wt).abs().max()) / float(wt.abs().max())
+        e_seq = float((lg - l32).abs().max()) / scale
+        e_plain = float((wt - l32).abs().max()) / scale
+        argmax = float((lg.argmax(-1) == wt.argmax(-1)).float().mean())
+        fin = bool(torch.isfinite(lg).all())
+        del logits, want, lg, wt, l32
+    print(f"[seq-main] seq prefill (make_seq_prefill_step, {n_s} shards of the card) B=1 "
+          f"T={prompt}: {dt_seq:.3f}s, {prompt / dt_seq:,.0f} tok/s; without a mesh "
+          f"{dt_plain:.3f}s, {prompt / dt_plain:,.0f} tok/s; logits finite: {fin}; max |error| "
+          f"/ max |logit| against the no-mesh prefill {rel:.3e}; against the f32 weights: "
+          f"seq {e_seq:.3e}, no mesh {e_plain:.3e} (ratio {e_seq / max(e_plain, 1e-30):.3f}, bound "
+          f"{SEQ_BF16_ERROR_RATIO}); argmax equal to the no-mesh prefill's at "
+          f"{100 * argmax:.2f}% of positions")
+    if not fin or e_seq > SEQ_BF16_ERROR_RATIO * e_plain:
+        raise SystemExit("seq prefill: logits not finite or further from f32 than the bound")
+    extra["prefill"] = (dt_seq, dt_plain)
+
+    # -- generate on the seq mesh against the engine without one.
+    eng_seq = ServeEngine(cfg, params, max_len=gen_p + new + 8, decode_window=k_w, mesh=mesh)
+    eng = ServeEngine(cfg, params, max_len=gen_p + new + 8, decode_window=k_w)
+    prompts = rng.integers(0, v, (gen_b, gen_p))
+    eng_seq.generate(prompts[:, :1024], 2)                          # warm-up
+    eng.generate(prompts[:, :1024], 2)
+    steps = sum(min(k_w, new - i) for i in range(0, new, k_w)) - 1
+    out_seq, dt_seq, got = counted(lambda: eng_seq.generate(prompts, new))
+    hold(f"generate on the seq mesh B={gen_b} P={gen_p} +{new} K={k_w}", got,
+         {"wkv_summary_cuda": n_l * n_s, "wkv_decode_cuda": n_l * steps})
+    total["wkv_summary_cuda"] += got["wkv_summary_cuda"]
+    out_plain, dt_plain, got = counted(lambda: eng.generate(prompts, new))
+    hold("generate without a mesh", got, {"wkv_cuda": n_l, "wkv_decode_cuda": n_l * steps})
+    gs, gp = out_seq[:, gen_p:].cpu().numpy(), out_plain[:, gen_p:].cpu().numpy()
+    agree = float((gs == gp).mean())
+    first = [int(np.argmax(r != q)) if (r != q).any() else new for r, q in zip(gs, gp)]
+    state_ok = bool(M.decode_state_finite(eng_seq.last_state).all())
+    print(f"[seq-main] generate on the seq mesh B={gen_b} P={gen_p} +{new} K={k_w}: "
+          f"{dt_seq:.3f}s, {gen_b * new / dt_seq:.1f} tok/s incl. prefill; without a mesh "
+          f"{dt_plain:.3f}s, {gen_b * new / dt_plain:.1f} tok/s; greedy tokens equal at "
+          f"{100 * agree:.1f}% (first difference per row at token {first}); state finite: "
+          f"{state_ok}")
+    if gs.shape != (gen_b, new) or gs.min() < 0 or gs.max() >= v or not state_ok:
+        raise SystemExit("seq generate: bad tokens or state")
+    extra["generate"] = (dt_seq, dt_plain, agree)
+    del eng_seq, eng
+    torch.cuda.empty_cache()
+
+    # -- a loss gradient on the seq mesh against the gradient without one.
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss_fn = make_loss_fn(cfg)
+    toks = torch.from_numpy(rng.integers(0, v, (1, grad_t + 1))).cuda()
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    rules = make_rules(mesh, "prefill_seq")
+    remat_runs = 2 if cfg.remat == "full" else 1        # forward + recompute
+
+    def grads(seq, tree=params, wrt=leaves, fn=loss_fn):
+        with sharding_context(mesh, rules) if seq else nullcontext():
+            loss = fn(tree, batch)
+            return float(loss.detach()), torch.autograd.grad(loss, wrt)
+
+    grads(True)                                                      # warm-up
+    (l_seq, g_seq), dt_seq, got = counted(lambda: grads(True))
+    hold(f"loss gradient on the seq mesh B=1 T={grad_t} (remat {cfg.remat})", got,
+         {"wkv_train_summary_cuda": remat_runs * n_l * n_s, "wkv_bwd_cuda": n_l * n_s})
+    total["wkv_train_summary_cuda"] += got["wkv_train_summary_cuda"]
+    (l_plain, g_plain), dt_plain, got = counted(lambda: grads(False))
+    hold("loss gradient without a mesh", got,
+         {"wkv_train_cuda": remat_runs * n_l, "wkv_bwd_cuda": n_l})
+    for p in leaves:
+        p.requires_grad_(False)
+    leaves32 = [p.requires_grad_(True) for p in tree_leaves(p32)]
+    l32, g32 = grads(False, p32, leaves32, make_loss_fn(cfg32))
+    del p32, leaves32
+    e_seq, e_plain, rels = [], [], []
+    for a, b, c in zip(g_seq, g_plain, g32):
+        norm = c.norm().clamp_min(1e-30)
+        e_seq.append(float((a.float() - c).norm() / norm))
+        e_plain.append(float((b.float() - c).norm() / norm))
+        rels.append(float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)))
+    ratio = max(x / max(y, 1e-30) for x, y in zip(e_seq, e_plain))
+    fin = all(bool(torch.isfinite(g).all()) for g in g_seq)
+    print(f"[seq-main] loss gradient on the seq mesh B=1 T={grad_t}: {dt_seq:.3f}s (without "
+          f"a mesh {dt_plain:.3f}s); loss {l_seq:.6f} vs {l_plain:.6f} (f32 weights "
+          f"{l32:.6f}); per leaf, against the no-mesh gradient ||g_seq - g_plain|| / "
+          f"||g_plain|| median {sorted(rels)[len(rels) // 2]:.3e}, max {max(rels):.3e}; "
+          f"against the f32 gradient, seq median {sorted(e_seq)[len(e_seq) // 2]:.3e} max "
+          f"{max(e_seq):.3e}, no mesh median {sorted(e_plain)[len(e_plain) // 2]:.3e} max "
+          f"{max(e_plain):.3e}; worst leaf's ratio {ratio:.3f} (bound "
+          f"{SEQ_BF16_ERROR_RATIO}); finite: {fin}")
+    if not fin or ratio > SEQ_BF16_ERROR_RATIO:
+        raise SystemExit("seq gradient: not finite or further from f32 than the bound")
+    extra["grad"] = (dt_seq, dt_plain)
+    del g_seq, g_plain, g32
+    torch.cuda.empty_cache()
+    for p in leaves:
+        p.requires_grad_(True)
+    _profile(torch, lambda: grads(True), f"loss gradient on the seq mesh B=1 T={grad_t}", top=10)
+    _profile(torch, lambda: grads(False), f"loss gradient without a mesh B=1 T={grad_t}", top=6)
+    for p in leaves:
+        p.requires_grad_(False)
+    torch.cuda.empty_cache()
+    _profile(torch, lambda: _no_grad_call(torch, seq_step, params, tokens),
+             f"seq prefill B=1 T={prompt}, {n_s} shards", top=10)
+    return total, extra
+
+
+def _no_grad_call(torch, fn, *args):
+    with torch.inference_mode():
+        return fn(*args)
+
+
+def _seq_reference_check(torch, np):
+    """Phase 3g, reduced f32 RWKV6 on a seq mesh of 4 shards, the card
+    against the CPU, within the CPU tests' tolerances: the seq prefill's
+    logits (T=1024, 2e-3), the greedy tokens of ``generate`` on a 1024-token
+    prompt (equal), and the seq gradient (T=256 over 4 shards, 3e-3 of each
+    leaf's largest value)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_seq_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model.sharding import make_rules, sharding_context
+    from repro_torch.serve.engine import ServeEngine, make_seq_prefill_step
+    from repro_torch.train.step import make_loss_fn
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    cfg = get_config("rwkv6-1.6b").reduced()
+    p_cpu = M.init_params(cfg, seed=1, device="cpu")
+    p_gpu = _to(p_cpu, "cuda")
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1024)))
+    meshes = {"cpu": make_seq_mesh(SEQ_SHARDS, device="cpu"), "cuda": make_seq_mesh(SEQ_SHARDS)}
+    params = {"cpu": p_cpu, "cuda": p_gpu}
+    logits, gen, grads = {}, {}, {}
+    batch = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 257)))
+    for dev in ("cpu", "cuda"):
+        with torch.inference_mode():
+            logits[dev] = make_seq_prefill_step(cfg, meshes[dev])(
+                params[dev], toks.to(dev)).cpu()
+        gen[dev] = ServeEngine(cfg, params[dev], max_len=1100, device=dev,
+                               mesh=meshes[dev]).generate(toks.to(dev), 12).cpu()
+        leaves = [p.detach().clone().requires_grad_(True) for p in tree_leaves(params[dev])]
+        tree = tree_unflatten(params[dev], leaves)
+        b = batch.to(dev)
+        with sharding_context(meshes[dev], make_rules(meshes[dev], "prefill_seq")):
+            loss = make_loss_fn(cfg)(tree, {"tokens": b[:, :-1], "labels": b[:, 1:]})
+            grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+    err = float((logits["cpu"] - logits["cuda"]).abs().max())
+    same = torch.equal(gen["cpu"], gen["cuda"])
+    gerr = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+               for a, b in zip(grads["cuda"], grads["cpu"]))
+    print(f"[reference] reduced f32 rwkv6 on a seq mesh of {SEQ_SHARDS}, card vs CPU: seq "
+          f"prefill T=1024 max_abs_err={err:.2e} (tol 2e-3), greedy tokens equal: {same}, "
+          f"seq grads T=256 worst err / max(1, max|g|) = {gerr:.2e} (tol 3e-3)")
+    if err > 2e-3 or not same or gerr > 3e-3:
+        raise SystemExit("card and CPU disagree on the reduced seq path")
+
+
+def _time_seq_kernels(torch, KC, launches, worst, extra, t_full=4096, grad_t=2048, chunk=16):
+    """Phase 4 rows of the summary kernels at a shard of the main path: one
+    quarter (the window 2048..3072) of a 4096-token prompt at B=1 for the
+    inference sweep, one quarter of the gradient's 2048 tokens for the
+    training sweep (and a 1024-token shard beside it), read in place, zero
+    h0, bf16.  Then the n=4 shard launches of one layer back to back against
+    one ``wkv_cuda`` sweep over the whole 4096 tokens, and the prefill,
+    generate and gradient wall times of phase 3g."""
+    bf = torch.bfloat16
+    rows = []
+
+    def full(seed, n=t_full):
+        """An n-token prompt's r/k/v/w/u and a zero h0, as the shards get."""
+        a = _inputs(torch, 1, n, bf, seed)
+        return a[:5] + [torch.zeros_like(a[5])]
+
+    def row(name, kern, plain, t, n, hist, source_note):
+        """The row of a shard of t tokens of an n-token prompt: cold input
+        sets are windows of distinct prompts."""
+        nbytes = (5 * H * t * DH * 2 + H * DH * 2 + 2 * H * DH * DH * 4 + H * DH * 4
+                  + (H * (t // chunk) * DH * DH * 4 if hist else 0))
+
+        def window(seed):
+            a, s0 = full(seed, n), (seed % (n // t)) * t
+            return [x[:, :, s0:s0 + t] for x in a[:4]] + a[4:]
+
+        sets = _cold_sets(window, n * H * DH * 2 * 4)
+        ms, call_ms = _time_ms(torch, lambda *a: kern(*a, chunk=chunk), sets, reps=50)
+        plain_ms, _ = _time_ms(torch, lambda *a: plain(*a, chunk=chunk), sets, reps=3)
+        flops = _flops(1, t, chunk, windowed=False)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / PEAK_BF16_FLOPS * 1e3
+        r = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/wkv/csrc/wkv_chunked.cu",
+             "replaces": source_note, "launches": launches[name],
+             "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": max(b_ms, f_ms), "bound_by": "bytes" if b_ms >= f_ms else "operations",
+             "library_ms": None, "call_ms": call_ms,
+             "shape": f"B=1 H=32 T={t} (a window of {n}) Dh=64 bf16 chunk={chunk}"}
+        print(f"[time] {name:24s} {r['shape']:50s} device {ms * 1e3:8.2f} us, per call "
+              f"{call_ms * 1e3:8.2f} us (plain {plain_ms * 1e3:9.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)")
+        return r
+
+    with torch.inference_mode():
+        rows.append(row("wkv_summary_cuda", KC.wkv_summary_cuda, KC.wkv_summary_plain,
+                        t_full // SEQ_SHARDS, t_full, False,
+                        "src/repro/kernels/wkv/kernel.py:262 (wkv_pallas_summary)"))
+        grad_shard = row("wkv_train_summary_cuda", KC.wkv_train_summary_cuda,
+                         KC.wkv_train_summary_plain, grad_t // SEQ_SHARDS, grad_t, True,
+                         "src/repro/kernels/wkv/kernel.py:289 (wkv_pallas_train_summary)")
+        long_shard = row("wkv_train_summary_cuda", KC.wkv_train_summary_cuda,
+                         KC.wkv_train_summary_plain, t_full // SEQ_SHARDS, t_full, True,
+                         "src/repro/kernels/wkv/kernel.py:289 (wkv_pallas_train_summary)")
+        rows.append({**grad_shard, "large": [
+            {k: long_shard[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}]})
+
+        # One layer's n shard launches back to back against one sweep of the
+        # whole prompt (the same tokens, the same chunk-steps in all).
+        q = t_full // SEQ_SHARDS
+
+        def shards(*a):
+            for j in range(SEQ_SHARDS):
+                KC.wkv_summary_cuda(*[x[:, :, j * q:(j + 1) * q] for x in a[:4]], *a[4:],
+                                    chunk=chunk)
+
+        full_sets = _cold_sets(full, t_full * H * DH * 2 * 5)
+        ms_shards, _ = _time_ms(torch, shards, full_sets, reps=20)
+        ms_one, _ = _time_ms(torch, lambda *a: KC.wkv_cuda(*a, chunk=chunk), full_sets, reps=20)
+    print(f"[time] one layer of the seq prefill B=1 T={t_full}: {SEQ_SHARDS} summary launches "
+          f"(each 64 blocks on 132 SMs) back to back {ms_shards * 1e3:.2f} us against one "
+          f"wkv_cuda sweep {ms_one * 1e3:.2f} us ({ms_shards / ms_one:.2f}x)")
+    (p_seq, p_plain), (g_seq, g_plain, agree), (d_seq, d_plain) = (
+        extra["prefill"], extra["generate"], extra["grad"])
+    print(f"[time] phase 3g wall: seq prefill {p_seq * 1e3:.1f} ms vs {p_plain * 1e3:.1f} ms "
+          f"without a mesh ({p_plain / p_seq:.2f}x the tokens/s); generate {g_seq * 1e3:.1f} "
+          f"vs {g_plain * 1e3:.1f} ms; gradient {d_seq * 1e3:.1f} vs {d_plain * 1e3:.1f} ms")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # RecurrentGemma: the elevator scan and its decode window, the token shift
 # and flash attention (phases 3d, 3e and their rows of phase 4).
 # ---------------------------------------------------------------------------
@@ -674,7 +1110,8 @@ RG_HQ, RG_HKV, RG_DH, RG_WINDOW = 10, 1, 256, 2048
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
-               "wkv_train_cuda", "wkv_bwd_cuda")
+               "wkv_train_cuda", "wkv_bwd_cuda", "wkv_summary_cuda",
+               "wkv_train_summary_cuda")
 
 
 def _rg_modules():
@@ -694,7 +1131,8 @@ def _counters():
     EK, ED, TS, FA = _rg_modules()
     MM, ST = _paper_modules()
     fns = (KC.wkv_cuda, D.wkv_decode_cuda, D.wkv_decode_window_cuda, KC.wkv_train_cuda,
-           BW.wkv_bwd_cuda, EK.elevator_scan_cuda, ED.elevator_decode_window_cuda,
+           BW.wkv_bwd_cuda, KC.wkv_summary_cuda, KC.wkv_train_summary_cuda,
+           EK.elevator_scan_cuda, ED.elevator_decode_window_cuda,
            TS.token_shift_cuda, FA.flash_attention_cuda, MM.matmul_fwd_cuda,
            ST.stencil2d_cuda)
     return {fn.__name__: fn for fn in fns}

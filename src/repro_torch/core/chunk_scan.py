@@ -26,9 +26,12 @@ where ``★`` is the monoid's action of a decay on a state:
 :data:`DIAG_STATE` (a (..., Dh) decay on the rows of a (..., Dh, Dh)
 state; the WKV segment summary).
 
-``device_linear_scan_carry`` (the same composition across a mesh axis) and
-the other device-space elevators of ``repro.core.device_comm`` come with
-the port's multi-GPU slice.
+* :func:`device_linear_scan_carry`: the same composition across a mesh
+  axis.  Each shard contributes its segment summary ``(A, B)``; a
+  log-depth Hillis–Steele chain of device shifts
+  (:func:`repro_torch.core.device_comm.device_shift`, device-space
+  elevator nodes) delivers the entering carry to every shard.
+  Point-to-point, no gather.
 """
 
 from __future__ import annotations
@@ -38,12 +41,15 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import device_comm
+
 __all__ = [
     "SegmentMonoid",
     "ELEMENTWISE",
     "DIAG_STATE",
     "linear_scan",
     "chunked_linear_scan",
+    "device_linear_scan_carry",
 ]
 
 
@@ -146,3 +152,38 @@ def chunked_linear_scan(
     h = monoid.apply((acum, bcum), carries[None])
     h = h.transpose(0, 1).reshape((t,) + rest_b)
     return torch.movedim(h, 0, axis)
+
+
+def device_linear_scan_carry(a_seg, b_seg, *, monoid: SegmentMonoid = ELEMENTWISE,
+                             reverse: bool = False):
+    """Entering carry per shard for a sequence sharded over a mesh axis.
+
+    ``a_seg``/``b_seg`` are the shards' segment summaries (product of
+    decays, accumulated input), one tensor per shard in axis order.
+    Returns ``(carry_a, carry_b)`` lists such that the state entering shard
+    ``i`` is ``monoid.scale(carry_a[i], h0) + carry_b[i]``: the composition
+    of all predecessor segments.  log2(n) hops (Hillis–Steele), each a
+    device shift with the identity segment (1, 0) as the boundary
+    constant, then one more shift by one.
+
+    ``reverse=True`` runs the sweep from the last shard toward shard 0:
+    the carry entering shard ``i`` is then the composition of all
+    successor segments (applied last-to-first), the device-space reverse
+    elevator of an adjoint carry.
+    """
+    acc_a, acc_b = list(a_seg), list(b_seg)
+    n = len(acc_a)
+    sgn = -1 if reverse else 1
+    d = 1
+    while d < n:
+        shifted_a = device_comm.device_shift(acc_a, sgn * d, fill=1.0)
+        shifted_b = device_comm.device_shift(acc_b, sgn * d, fill=0.0)
+        # Predecessor block applied first, current block second.
+        pairs = [monoid.compose((sa, sb), (a, b))
+                 for sa, sb, a, b in zip(shifted_a, shifted_b, acc_a, acc_b)]
+        acc_a, acc_b = [p[0] for p in pairs], [p[1] for p in pairs]
+        d *= 2
+    # acc holds the inclusive composition; the entering carry is the
+    # predecessor's inclusive value, one more elevator shift.
+    return (device_comm.device_shift(acc_a, sgn, fill=1.0),
+            device_comm.device_shift(acc_b, sgn, fill=0.0))

@@ -3,7 +3,9 @@
 The port's own copy of the part of ``repro.core.cost_model`` that the
 Rodinia suite and ``matmul_fwd.ops.tile_traffic`` use: the per-byte energy
 table, :class:`Traffic`, :class:`KernelCost` and the traffic of the
-matmul, 1-D convolution, prefix scan, 2-D stencil and tree reduction.
+matmul, 1-D convolution, prefix scan, 2-D stencil and tree reduction,
+and of the sequence-parallel WKV's summary hops (the budget its
+collective check holds the port to).
 It is pure Python; the formulas and their order are the reference's, so
 every value equals the reference's exactly.
 
@@ -29,6 +31,7 @@ __all__ = [
     "scan_traffic",
     "stencil2d_traffic",
     "reduce_traffic",
+    "wkv_seqshard_traffic",
 ]
 
 PJ_PER_BYTE = {
@@ -185,4 +188,46 @@ def reduce_traffic(n: int, itemsize: int = 4):
         KernelCost("reduce", "naive", naive, flops),
         KernelCost("reduce", "shared", shared, flops),
         KernelCost("reduce", "direct", direct, flops),
+    )
+
+
+def wkv_seqshard_traffic(b: int, h: int, t: int, dh: int, n_dev: int,
+                         itemsize: int = 4):
+    """Sequence-parallel WKV: bytes crossing the ``seq`` mesh axis per
+    layer step (totals over all devices).
+
+    naive:  re-gather the token activations: every device receives the
+            other shards' r/k/v/w and runs the full sequence itself; the
+            O(T·D) pattern sequence sharding is supposed to remove.
+    shared: all-gather the per-shard exit states behind a barrier (every
+            device receives all n (Dh × Dh) states, then composes
+            locally): the GPGPU shared-buffer pattern across the mesh.
+    direct: the segment-summary protocol (kernels/wkv/seqpar):
+            ceil(log2 n) + 1 point-to-point hops, each moving the
+            (decay, state) summary, dh + dh² per (batch, head), plus
+            one masked psum of the final state.  O(Dh²), independent
+            of T.
+    """
+    state = dh * dh
+    summary = state + dh
+    # ceil(log2 n) doubling rounds plus the final Δ=+1 boundary shift; at
+    # n = 1 the scan degenerates to that single shift.
+    hops = int(math.ceil(math.log2(max(n_dev, 1)))) + 1
+    tokens = 4 * t * dh                               # r, k, v, w
+    naive = Traffic(
+        dram_bytes=b * h * (n_dev - 1) * tokens * itemsize
+    )
+    shared = Traffic(
+        scratchpad_bytes=b * h * n_dev * (n_dev - 1) * state * itemsize
+    )
+    direct = Traffic(
+        fabric_bytes=b * h * n_dev * (hops * summary + state) * itemsize
+    )
+    # Same math work on every variant: the local fused sweep dominates;
+    # carry composition adds n·hops (Dh²) multiply-adds.
+    flops = b * h * (2 * 2 * t * dh * dh + 2 * n_dev * hops * state)
+    return (
+        KernelCost("wkv_seqshard", "naive", naive, flops),
+        KernelCost("wkv_seqshard", "shared", shared, flops),
+        KernelCost("wkv_seqshard", "direct", direct, flops),
     )

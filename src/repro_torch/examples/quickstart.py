@@ -1,6 +1,7 @@
-"""Quickstart: the paper's primitives in PyTorch (the single-device half of
-``examples/quickstart.py``; the device-space elevator comes with the
-port's multi-GPU slice).
+"""Quickstart: the paper's primitives in PyTorch (the port of
+``examples/quickstart.py``): the elevator node, the 1-D convolution, the
+prefix sum, the eLDST shared load, a cascade, and the same elevator edge
+across a seq mesh of 4 shards (the device-space elevator).
 
     PYTHONPATH=src python -m repro_torch.examples.quickstart [--device cpu]
 
@@ -14,6 +15,7 @@ import argparse
 import torch
 
 from repro_torch.core import (
+    device_shift,
     from_thread_or_const,
     from_thread_or_mem,
     linear_scan,
@@ -21,6 +23,7 @@ from repro_torch.core import (
     tag_value,
 )
 from repro_torch.kernels.common import resolve_device
+from repro_torch.launch.mesh import make_seq_mesh
 
 
 def main(argv=None) -> dict:
@@ -56,6 +59,13 @@ def main(argv=None) -> dict:
     # Cascading (paper Fig. 10a): Δ=18 with 16-entry token buffers.
     out["plan"] = plan_cascade(18)
     print("cascade for Δ=18:", out["plan"].node_deltas, "spilled:", out["plan"].spilled)
+
+    # The same edge across a mesh (device-space elevator): shard i receives
+    # shard i-1's value, shard 0 the constant -1.  Four shards on one device.
+    mesh = make_seq_mesh(4, device=dev)
+    shards = [torch.tensor([float(i)], device=d) for i, d in enumerate(mesh.devices.flat)]
+    out["device_shift"] = torch.cat([s.to(dev) for s in device_shift(shards, 1, fill=-1.0)])
+    print("device-space elevator:", out["device_shift"].tolist())
     return out
 
 

@@ -1,6 +1,7 @@
-"""The card checks of the paper-demo kernels, shared by ``chip_smoke.py``
-and ``tests/test_torch_cuda.py``: the shapes both run and the tolerances
-both hold the kernels to against their plain versions."""
+"""The card checks of the paper-demo kernels and the WKV segment-summary
+kernels, shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``: the
+shapes both run and the tolerances both hold the kernels to against their
+plain versions."""
 
 from __future__ import annotations
 
@@ -47,3 +48,38 @@ def matmul_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float, f
     f32_tol = MATMUL_F32_RTOL * float(want.float().abs().max())
     tol = f32_tol if got.dtype == torch.float32 else bf16_ulp(want) + f32_tol
     return float(err.max()), f32_tol, float((err / tol).max())
+
+
+#: (B, T, chunk, full T, start) of the segment-summary checks: the kernels
+#: read tokens start..start+T of (B, 32, full T, 64) tensors in place.  The
+#: training path's B=4, T=256 at chunk 16 (contiguous); a shard of each call
+#: of the main path on a seq mesh of 4: the prefill's (tokens 2048..3072 of
+#: a 4096-token prompt at B=1), generate's (1536..2048 of 2048 at B=2) and
+#: the loss gradient's (512..1024 of 2048 at B=1); an odd shard (T=100 at
+#: chunk 10, tokens 100..200 of 300).  The training summary's s_hist feeds
+#: the backward kernel at each case, on the same windows.
+SUMMARY_CASES = (
+    (4, 256, 16, 256, 0),
+    (1, 1024, 16, 4096, 2048),
+    (2, 512, 16, 2048, 1536),
+    (1, 512, 16, 2048, 512),
+    (2, 100, 10, 300, 100),
+)
+
+#: a_seg against wkv_segment_decay, per element: |got - plain| <=
+#: A_SEG_ATOL + A_SEG_RTOL * |plain|.  The kernel multiplies one exp per
+#: chunk (the Pallas order), the plain version takes one exp of the whole
+#: sum.  For a result above the f32 normal range's floor the summed |log w|
+#: is at most 87, so the two sums differ by at most 87 * 26 * 2**-24 in the
+#: exponent and 64 products add 64 ulps: 1.4e-4 relative, stated as 2e-4.
+#: Below the floor (2**-126) both underflow through the denormals, where
+#: no relative precision is kept: the absolute floor.
+A_SEG_RTOL = 2e-4
+A_SEG_ATOL = 2.0 ** -126
+
+
+def a_seg_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst |got - plain| / (A_SEG_ATOL + A_SEG_RTOL |plain|) over the
+    elements of a_seg; the check passes at <= 1."""
+    err = (got.double() - want.double()).abs()
+    return float((err / (A_SEG_ATOL + A_SEG_RTOL * want.double().abs())).max())

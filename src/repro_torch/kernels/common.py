@@ -61,9 +61,10 @@ def resolve_device(device=None) -> torch.device:
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_kernel_tensors(name: str, **tensors) -> None:
+def check_kernel_tensors(name: str, strided: tuple = (), **tensors) -> None:
     """Every tensor given (``None`` skipped) lies on the first one's CUDA
-    device, is contiguous and does not require grad: the raw kernel
+    device, is contiguous (those named in ``strided`` excepted: their
+    wrapper checks their layout) and does not require grad: the raw kernel
     wrappers take no autograd (the WKV gradient goes through
     ``wkv.vjp.WKVFunction``)."""
     given = {k: x for k, x in tensors.items() if x is not None}
@@ -71,7 +72,7 @@ def check_kernel_tensors(name: str, **tensors) -> None:
     for key, x in given.items():
         if x.device != dev or x.device.type != "cuda":
             raise ValueError(f"{name}: {key} must be on one CUDA device, got {x.device}")
-        if not x.is_contiguous():
+        if key not in strided and not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if x.requires_grad:
             raise ValueError(

@@ -29,7 +29,7 @@ from repro_torch.kernels.common import (
     load_library,
     validate_divisible,
 )
-from repro_torch.kernels.wkv.kernel import DTYPE_CODE, WKV_DH
+from repro_torch.kernels.wkv.kernel import DTYPE_CODE, WKV_DH, row_stride
 
 __all__ = ["BWD_MAX_CHUNK", "wkv_bwd_cuda", "wkv_bwd_plain"]
 
@@ -96,10 +96,12 @@ def wkv_bwd_plain(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
 
 
 def _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk):
+    """Validate the inputs; returns the token count between consecutive
+    (b, h) rows of r/k/v/w (T when they are contiguous)."""
     b, h, t, dh = r.shape
     tensors = {"r": r, "k": k, "v": v, "w": w, "u": u, "s_hist": s_hist,
                "d_out": d_out, "d_s_out": d_s_out}
-    check_kernel_tensors("wkv_bwd_cuda", **tensors)
+    check_kernel_tensors("wkv_bwd_cuda", strided=("r", "k", "v", "w"), **tensors)
     if r.dtype not in DTYPE_CODE:
         raise ValueError(f"wkv_bwd_cuda: dtype {r.dtype} not supported (float32, bfloat16)")
     for key in ("k", "v", "w", "u", "d_out"):
@@ -117,10 +119,13 @@ def _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk):
     for key, shape in want.items():
         if tuple(tensors[key].shape) != shape:
             raise ValueError(f"wkv_bwd_cuda: {key} shape {tuple(tensors[key].shape)} != {shape}")
+    return row_stride("wkv_bwd_cuda", r, k, v, w)
 
 
 def wkv_bwd_cuda(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
-    """Reverse chunk sweep.  r/k/v/w/d_out: (B, H, T, 64) of one dtype;
+    """Reverse chunk sweep.  r/k/v/w/d_out: (B, H, T, 64) of one dtype,
+    r/k/v/w contiguous or T-windows of longer contiguous tensors (a shard
+    of the sequence-parallel path, read in place), d_out contiguous;
     u: (H, 64); s_hist: (B, H, T/chunk, 64, 64) f32 from the training
     forward; d_s_out: (B, H, 64, 64) f32; ``chunk`` divides T, 1..32.
     Returns ``(dr, dk, dv, dw, du_part, dh0)``.  CPU tensors take the plain
@@ -131,18 +136,19 @@ def wkv_bwd_cuda(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
         return wkv_bwd_plain(r, k, v, w, u, s_hist, d_out, d_s_out, chunk=chunk)
     if chunk > BWD_MAX_CHUNK:
         raise ValueError(f"wkv_bwd_cuda: chunk={chunk} > {BWD_MAX_CHUNK}")
-    _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk)
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    t_stride = _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk)
+    dr, dk, dv, dw = (torch.empty(r.shape, dtype=r.dtype, device=r.device)
+                      for _ in range(4))
     du_part = torch.empty((b, h, dh), dtype=torch.float32, device=r.device)
     dh0 = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
     fn = load_library("wkv_bwd").wkv_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), s_hist.data_ptr(), d_out.data_ptr(),
              d_s_out.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              dw.data_ptr(), du_part.data_ptr(), dh0.data_ptr(),
-             b, h, t, dh, chunk, DTYPE_CODE[r.dtype], launch_stream(r.device))
+             b, h, t, t_stride, dh, chunk, DTYPE_CODE[r.dtype], launch_stream(r.device))
     if err:
         raise RuntimeError(f"wkv_bwd launch failed: cudaError {err}")
     wkv_bwd_cuda.launches += 1

@@ -68,7 +68,7 @@ __global__ void __launch_bounds__(NT) wkv_bwd_kernel(
     const float* __restrict__ s_hist, const T* __restrict__ d_out,
     const float* __restrict__ d_s_out, T* __restrict__ dr, T* __restrict__ dk,
     T* __restrict__ dv, T* __restrict__ dw, float* __restrict__ du_part,
-    float* __restrict__ dh0, int H, int T_len, int L) {
+    float* __restrict__ dh0, int H, int T_len, int T_stride, int L) {
   extern __shared__ float smem[];
   float* s_r = smem;
   float* s_k = s_r + L * LD;
@@ -95,7 +95,8 @@ __global__ void __launch_bounds__(NT) wkv_bwd_kernel(
   const int tid = threadIdx.x;
   const int bh = blockIdx.x;          // b * H + h
   const int h = bh % H;
-  const size_t seq0 = (size_t)bh * T_len * DH;
+  const size_t in0 = (size_t)bh * T_stride * DH;   // row (b, h) of r/k/v/w
+  const size_t seq0 = (size_t)bh * T_len * DH;      // of d_out and the grads
   const size_t st0 = (size_t)bh * DH * DH;
   const int n_chunks = T_len / L;
 
@@ -109,14 +110,15 @@ __global__ void __launch_bounds__(NT) wkv_bwd_kernel(
 
   for (int c = n_chunks - 1; c >= 0; --c) {
     const size_t base = seq0 + (size_t)c * L * DH;
+    const size_t ibase = in0 + (size_t)c * L * DH;
     const float* S_c = s_hist + ((size_t)bh * n_chunks + c) * DH * DH;
     for (int idx = tid; idx < L * DH; idx += NT) {
       const int t = idx / DH, i = idx % DH;
-      s_r[t * LD + i] = to_f(r[base + idx]);
-      s_k[t * LD + i] = to_f(k[base + idx]);
-      s_v[t * LD + i] = to_f(v[base + idx]);
+      s_r[t * LD + i] = to_f(r[ibase + idx]);
+      s_k[t * LD + i] = to_f(k[ibase + idx]);
+      s_v[t * LD + i] = to_f(v[ibase + idx]);
       s_do[t * LD + i] = to_f(d_out[base + idx]);
-      s_inc[t * LD + i] = logf(fminf(fmaxf(to_f(w[base + idx]), 1e-8f), 1.0f));
+      s_inc[t * LD + i] = logf(fminf(fmaxf(to_f(w[ibase + idx]), 1e-8f), 1.0f));
     }
     for (int idx = tid; idx < DH * DH; idx += NT)
       s_S[(idx / DH) * LD + idx % DH] = S_c[idx];
@@ -214,7 +216,7 @@ __global__ void __launch_bounds__(NT) wkv_bwd_kernel(
         const float dlogw = suf_inc + suf_exc;   // sum_{s>=t} dinc + sum_{s>t} dexc
         suf_exc += s_dexc[t * LD + i];
         const size_t g = base + (size_t)t * DH + i;
-        const float wt = to_f(w[g]);
+        const float wt = to_f(w[ibase + (size_t)t * DH + i]);
         const bool in_range = wt >= 1e-8f && wt <= 1.0f;
         store(&dw[g], in_range ? dlogw / fminf(fmaxf(wt, 1e-8f), 1.0f) : 0.f);
         du += s_r[t * LD + i] * s_k[t * LD + i] * s_dov[t];
@@ -242,8 +244,8 @@ template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, const void* s_hist, const void* d_out,
            const void* d_s_out, void* dr, void* dk, void* dv, void* dw,
-           void* du_part, void* dh0, int B, int H, int T_len, int L,
-           cudaStream_t stream) {
+           void* du_part, void* dh0, int B, int H, int T_len, int T_stride,
+           int L, cudaStream_t stream) {
   const size_t smem = smem_floats(L) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       wkv_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -256,30 +258,34 @@ int launch(const void* r, const void* k, const void* v, const void* w,
       static_cast<const T*>(d_out), static_cast<const float*>(d_s_out),
       static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
       static_cast<T*>(dw), static_cast<float*>(du_part),
-      static_cast<float*>(dh0), H, T_len, L);
+      static_cast<float*>(dh0), H, T_len, T_stride, L);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, u, d_out and dr, dk, dv,
-// dw); s_hist, d_s_out, du_part and dh0 float32.  Returns 0 or the
-// cudaError_t of the launch.
+// dw); s_hist, d_s_out, du_part and dh0 float32.  r/k/v/w may be a T-window
+// of longer tensors (a shard of the sequence-parallel path, read in place):
+// T_stride (>= T_len) tokens lie between consecutive (b, h) rows; d_out and
+// the grads are contiguous (B, H, T_len, 64).  Returns 0 or the cudaError_t
+// of the launch.
 extern "C" int wkv_bwd(const void* r, const void* k, const void* v,
                        const void* w, const void* u, const void* s_hist,
                        const void* d_out, const void* d_s_out, void* dr,
                        void* dk, void* dv, void* dw, void* du_part, void* dh0,
-                       int B, int H, int T_len, int Dh, int chunk, int dtype,
-                       void* stream) {
+                       int B, int H, int T_len, int T_stride, int Dh,
+                       int chunk, int dtype, void* stream) {
   if (Dh != DH || chunk < 1 || chunk > MAX_CHUNK || T_len < 1 ||
-      T_len % chunk != 0 || B < 1 || H < 1)
+      T_len % chunk != 0 || T_stride < T_len || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(r, k, v, w, u, s_hist, d_out, d_s_out, dr, dk, dv, dw,
-                         du_part, dh0, B, H, T_len, chunk, s);
+                         du_part, dh0, B, H, T_len, T_stride, chunk, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(r, k, v, w, u, s_hist, d_out, d_s_out, dr, dk,
-                                 dv, dw, du_part, dh0, B, H, T_len, chunk, s);
+                                 dv, dw, du_part, dh0, B, H, T_len, T_stride,
+                                 chunk, s);
   return (int)cudaErrorInvalidValue;
 }

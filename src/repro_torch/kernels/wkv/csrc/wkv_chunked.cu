@@ -2,8 +2,11 @@
 //
 // Replaces: src/repro/kernels/wkv/kernel.py:wkv_pallas (body _wkv_fwd_body,
 // launcher _wkv_pallas_call), the prefill of prompts longer than 64 tokens,
-// and wkv_pallas_train (the same sweep that also writes s_hist, the state
-// entering each chunk, for the backward in wkv_bwd.cu).
+// wkv_pallas_train (the same sweep that also writes s_hist, the state
+// entering each chunk, for the backward in wkv_bwd.cu), and the segment-
+// summary pair wkv_pallas_summary / wkv_pallas_train_summary (the same
+// sweeps that also write a_seg, the product of the segment's decays, which
+// the sequence-parallel path composes across shards).
 //
 //   S_t = diag(w_t) S_{t-1} + k_t^T v_t,   o_t = r_t . (S_{t-1} + u k_t^T v_t)
 //
@@ -32,6 +35,20 @@
 // all (33.5 MB at B=4, H=32, T=256, L=16), which makes the training forward
 // about 2.3x the inference bytes.  With s_hist null the kernel does exactly
 // what the inference launch does.
+//
+// Segment summary (a_seg not null): a_seg[b, h, i] = prod_t clip(w_t[i],
+// 1e-8, 1), in the Pallas order: the carry starts at 1 and each chunk
+// multiplies in its w_total = exp(sum of the chunk's log w), which the key
+// row's thread already holds, so the running product is one register per
+// key row and costs nothing.  Both value-column blocks of a (b, h) compute
+// it; only blockIdx.y == 0 writes it.  A long segment underflows to 0
+// (denormals are kept: nothing here is built to flush them).  The summary
+// launches may read their inputs in place as a T-window of longer tensors:
+// T_stride is the token count between consecutive (b, h) rows of r/k/v/w
+// (T_len for contiguous inputs), while out is always a contiguous
+// (B, H, T_len, 64) tensor.  One shard of a 4096-token prompt over 4 shards
+// (B=1, H=32, T=1024, bf16) moves about 21 MB: 6.4 us at 3.35 TB/s; the
+// training summary with s_hist at chunk 16 about 55 MB: 16.4 us.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,8 +78,8 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
     const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ w, const T* __restrict__ u,
     const float* __restrict__ h0, T* __restrict__ out,
-    float* __restrict__ s_out, float* __restrict__ s_hist, int H, int T_len,
-    int L) {
+    float* __restrict__ s_out, float* __restrict__ s_hist,
+    float* __restrict__ a_seg, int H, int T_len, int T_stride, int L) {
   extern __shared__ float smem[];
   float* s_r = smem;
   float* s_k = s_r + L * LD;
@@ -81,7 +98,8 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
   const int bh = blockIdx.x;          // b * H + h
   const int h = bh % H;
   const int j0 = blockIdx.y * JT;     // first value column of this block
-  const size_t seq0 = (size_t)bh * T_len * DH;
+  const size_t seq0 = (size_t)bh * T_stride * DH;   // row (b, h) of r/k/v/w
+  const size_t out0 = (size_t)bh * T_len * DH;      // row (b, h) of out
   const size_t st0 = (size_t)bh * DH * DH;
 
   // Boundary: the sweep starts from h0 (the Pallas reset_carry at chunk 0).
@@ -90,10 +108,12 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
     s_S[idx] = h0[st0 + (size_t)i * DH + j0 + jj];
   }
   if (tid < DH) s_u[tid] = to_f(u[h * DH + tid]);
+  float a_run = 1.f;   // key row tid's running decay product (tid < DH)
 
   const int n_chunks = T_len / L;
   for (int c = 0; c < n_chunks; ++c) {
     const size_t base = seq0 + (size_t)c * L * DH;
+    const size_t obase = out0 + (size_t)c * L * DH;
     if (s_hist != nullptr) {
       // s_S is the state entering chunk c (the previous hand-off ended in a
       // barrier) and is not written again before the next barrier.
@@ -130,6 +150,7 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
       for (int t = 0; t < L; ++t)
         s_krem[t * LD + i] = s_k[t * LD + i] * expf(incl - s_cum[t * LD + i]);
       s_wtot[i] = expf(incl);
+      a_run *= s_wtot[i];
     } else if (tid < DH + L) {
       // u-bonus of token t: sum_i r_t[i] u[i] k_t[i].
       const int t = tid - DH;
@@ -161,7 +182,7 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
         intra += s_bonus[t] * s_v[t * JT + jj];
         float inter = 0.f;
         for (int i = 0; i < DH; ++i) inter += s_rdec[t * LD + i] * s_S[i * JT + jj];
-        store(&out[base + (size_t)t * DH + j0 + jj], intra + inter);
+        store(&out[obase + (size_t)t * DH + j0 + jj], intra + inter);
       }
     }
     __syncthreads();
@@ -182,12 +203,15 @@ __global__ void __launch_bounds__(NT) wkv_chunked_kernel(
     const int i = idx / JT, jj = idx % JT;
     s_out[st0 + (size_t)i * DH + j0 + jj] = s_S[idx];
   }
+  if (a_seg != nullptr && blockIdx.y == 0 && tid < DH)
+    a_seg[(size_t)bh * DH + tid] = a_run;
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const void* u, const void* h0, void* out, void* s_out,
-           void* s_hist, int B, int H, int T_len, int L, cudaStream_t stream) {
+           void* s_hist, void* a_seg, int B, int H, int T_len, int T_stride,
+           int L, cudaStream_t stream) {
   const size_t smem = smem_floats(L) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       wkv_chunked_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -199,23 +223,25 @@ int launch(const void* r, const void* k, const void* v, const void* w,
       static_cast<const T*>(v), static_cast<const T*>(w),
       static_cast<const T*>(u), static_cast<const float*>(h0),
       static_cast<T*>(out), static_cast<float*>(s_out),
-      static_cast<float*>(s_hist), H, T_len, L);
+      static_cast<float*>(s_hist), static_cast<float*>(a_seg), H, T_len,
+      T_stride, L);
   return (int)cudaGetLastError();
 }
 
 int dispatch(const void* r, const void* k, const void* v, const void* w,
              const void* u, const void* h0, void* out, void* s_out,
-             void* s_hist, int B, int H, int T_len, int Dh, int chunk,
-             int dtype, void* stream) {
+             void* s_hist, void* a_seg, int B, int H, int T_len, int T_stride,
+             int Dh, int chunk, int dtype, void* stream) {
   if (Dh != DH || chunk < 1 || chunk > MAX_CHUNK || T_len < 1 ||
-      T_len % chunk != 0 || B < 1 || H < 1)
+      T_len % chunk != 0 || T_stride < T_len || B < 1 || H < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(r, k, v, w, u, h0, out, s_out, s_hist, B, H, T_len, chunk, s);
+    return launch<float>(r, k, v, w, u, h0, out, s_out, s_hist, a_seg, B, H,
+                         T_len, T_stride, chunk, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(r, k, v, w, u, h0, out, s_out, s_hist, B, H,
-                                 T_len, chunk, s);
+    return launch<__nv_bfloat16>(r, k, v, w, u, h0, out, s_out, s_hist, a_seg,
+                                 B, H, T_len, T_stride, chunk, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -227,8 +253,8 @@ extern "C" int wkv_chunked_fwd(const void* r, const void* k, const void* v,
                                const void* w, const void* u, const void* h0,
                                void* out, void* s_out, int B, int H, int T_len,
                                int Dh, int chunk, int dtype, void* stream) {
-  return dispatch(r, k, v, w, u, h0, out, s_out, nullptr, B, H, T_len, Dh,
-                  chunk, dtype, stream);
+  return dispatch(r, k, v, w, u, h0, out, s_out, nullptr, nullptr, B, H,
+                  T_len, T_len, Dh, chunk, dtype, stream);
 }
 
 // The training forward: as wkv_chunked_fwd, and s_hist (B, H, T/chunk, 64,
@@ -239,6 +265,32 @@ extern "C" int wkv_chunked_train_fwd(const void* r, const void* k,
                                      void* s_out, void* s_hist, int B, int H,
                                      int T_len, int Dh, int chunk, int dtype,
                                      void* stream) {
-  return dispatch(r, k, v, w, u, h0, out, s_out, s_hist, B, H, T_len, Dh,
-                  chunk, dtype, stream);
+  return dispatch(r, k, v, w, u, h0, out, s_out, s_hist, nullptr, B, H,
+                  T_len, T_len, Dh, chunk, dtype, stream);
+}
+
+// The segment-summary forward: as wkv_chunked_fwd, and a_seg (B, H, 64)
+// float32 receives the product of the segment's clipped decays.  r/k/v/w
+// may be a T-window of longer tensors: T_stride (>= T_len) tokens lie
+// between consecutive (b, h) rows; out is contiguous (B, H, T_len, 64).
+extern "C" int wkv_chunked_summary_fwd(const void* r, const void* k,
+                                       const void* v, const void* w,
+                                       const void* u, const void* h0,
+                                       void* out, void* s_out, void* a_seg,
+                                       int B, int H, int T_len, int T_stride,
+                                       int Dh, int chunk, int dtype,
+                                       void* stream) {
+  return dispatch(r, k, v, w, u, h0, out, s_out, nullptr, a_seg, B, H, T_len,
+                  T_stride, Dh, chunk, dtype, stream);
+}
+
+// The training forward with the segment summary: s_hist and a_seg written
+// in one sweep (wkv_chunked_train_fwd plus a_seg, with T_stride as above).
+extern "C" int wkv_chunked_train_summary_fwd(
+    const void* r, const void* k, const void* v, const void* w, const void* u,
+    const void* h0, void* out, void* s_out, void* s_hist, void* a_seg, int B,
+    int H, int T_len, int T_stride, int Dh, int chunk, int dtype,
+    void* stream) {
+  return dispatch(r, k, v, w, u, h0, out, s_out, s_hist, a_seg, B, H, T_len,
+                  T_stride, Dh, chunk, dtype, stream);
 }

@@ -17,6 +17,14 @@ Counterpart of ``repro.kernels.wkv.ops.wkv_fused``, with the same contract:
   training forward and the reverse-sweep backward, kernels on the card and
   plain versions on the CPU.  The decode path has no backward yet and
   raises under autograd.
+
+:func:`wkv_fused_summary` (counterpart of the reference's
+``wkv_fused_summary``) is the chunked path that also returns ``a_seg``, the
+segment's decay product: the local building block of the
+sequence-parallel path (:mod:`repro_torch.kernels.wkv.seqpar`).  It has
+no ``use_kernel``: the tensor's device alone picks the kernel or the plain
+version, with :class:`~repro_torch.kernels.wkv.vjp.WKVSummaryFunction`
+under autograd.
 """
 
 from __future__ import annotations
@@ -32,8 +40,8 @@ from repro_torch.kernels.wkv.decode import (
     wkv_decode_plain,
     wkv_decode_window_cuda,
 )
-from repro_torch.kernels.wkv.kernel import wkv_cuda, wkv_plain
-from repro_torch.kernels.wkv.vjp import WKVFunction
+from repro_torch.kernels.wkv.kernel import wkv_cuda, wkv_plain, wkv_summary_cuda
+from repro_torch.kernels.wkv.vjp import WKVFunction, WKVSummaryFunction
 
 # (T, chunk) pairs already warned about, keyed by warn scope.
 _CHUNK_WARNED: dict[str | None, set[tuple[int, int]]] = {}
@@ -103,3 +111,21 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
     if not kernel:
         return wkv_plain(r, k, v, w, u, h0, chunk=c)
     return wkv_cuda(r, k, v, w, u, h0, chunk=c)
+
+
+def wkv_fused_summary(r, k, v, w, u, h0=None, *, chunk: int = 64):
+    """Like :func:`wkv_fused` (the chunked path) but also returns ``a_seg``
+    (B, H, Dh) f32, the segment decay product: the diag half of the
+    ``(A, S)`` segment summary.  Each shard of the sequence-parallel path
+    calls it with a zero entering state, and only ``(a_seg, S_out)``,
+    O(Dh²) per (batch, head), crosses the mesh axis.  The tensor's device
+    decides: the summary kernel for CUDA tensors, its plain version for CPU
+    tensors, :class:`~repro_torch.kernels.wkv.vjp.WKVSummaryFunction` under
+    autograd.  Returns ``(out, S_out, a_seg)``."""
+    if h0 is None:
+        b, h, _, dh = r.shape
+        h0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    c = resolve_chunk(r.shape[2], chunk)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, w, u, h0)):
+        return WKVSummaryFunction.apply(r, k, v, w, u, h0, c)
+    return wkv_summary_cuda(r, k, v, w, u, h0, chunk=c)

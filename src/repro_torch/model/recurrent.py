@@ -10,7 +10,9 @@ cache-free forward or a prefill window of more than 64 tokens, the decode
 window kernel for every shorter stateful window.  RWKV6: the token shift
 (``_rwkv_mix``) is the Δ=1 hand-off of the previous token, and the WKV
 state (Dh × Dh per head) is carried by the WKV kernels
-(:mod:`repro_torch.kernels.wkv`).
+(:mod:`repro_torch.kernels.wkv`).  Under sequence-parallel rules
+(``prefill_seq``, :mod:`repro_torch.model.sharding`) the RWKV block's WKV
+runs sharded over the sequence (:mod:`repro_torch.kernels.wkv.seqpar`).
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import torch.nn.functional as F
 from repro_torch.kernels.elevator_scan.ops import elevator_scan
 from repro_torch.kernels.token_shift.ops import token_shift
 from repro_torch.kernels.wkv.ops import wkv_fused
+from repro_torch.kernels.wkv.seqpar import wkv_seqshard
 from repro_torch.model.layers import init_rmsnorm, rms_norm
+from repro_torch.model.sharding import axes_size, seq_shard_info
 
 _RGLRU_C = 8.0  # Griffin's fixed recurrence-sharpness constant
 
@@ -143,6 +147,20 @@ def init_rwkv_block(mk, cfg, name: str):
     }
 
 
+def _seq_plan(b: int, t: int):
+    """(mesh, seq_axis, batch_axes) when the active rules shard the
+    sequence over one named mesh axis of more than one shard and (B, T)
+    split evenly over it; None otherwise (the reference's conditions)."""
+    info = seq_shard_info()
+    if info is None or t <= 1:
+        return None
+    mesh, seq_ax, batch_ax = info
+    n_seq, n_b = axes_size(mesh, seq_ax), axes_size(mesh, batch_ax)
+    if isinstance(seq_ax, str) and n_seq > 1 and t % n_seq == 0 and b % n_b == 0:
+        return mesh, seq_ax, batch_ax
+    return None
+
+
 def _rwkv_mix(x, x_prev, mu_row):
     """Token-shift lerp: x + (shift(x) - x) * mu  (Δ=1 hand-off)."""
     shifted = torch.cat([x_prev, x[:, :-1]], dim=1)
@@ -199,10 +217,18 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
         state.h.float() if state is not None
         else torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
     )
-    out, S = wkv_fused(
-        r_, k_, v_, w_, u, h0, chunk=WKV_CHUNK, decode=state is not None,
-        warn_scope=cfg.name,
-    )
+    seq_plan = _seq_plan(b, t)
+    if seq_plan is not None:
+        # Sequence-parallel rules: each shard sweeps its own tokens and only
+        # the O(Dh²) (decay, state) summary crosses the seq axis.
+        mesh, seq_ax, batch_ax = seq_plan
+        out, S = wkv_seqshard(r_, k_, v_, w_, u, h0, mesh=mesh, seq_axis=seq_ax,
+                              batch_axis=batch_ax, chunk=WKV_CHUNK)
+    else:
+        out, S = wkv_fused(
+            r_, k_, v_, w_, u, h0, chunk=WKV_CHUNK, decode=state is not None,
+            warn_scope=cfg.name,
+        )
 
     out = out.transpose(1, 2).reshape(b, t, d).to(x.dtype)
     out = rms_norm(params["out_norm"], out, cfg.norm_eps) * g

@@ -10,7 +10,7 @@ Under autograd, ``cfg.remat == "full"`` (the reference's default,
 ``jax.checkpoint`` with nothing saveable) wraps each period in
 ``torch.utils.checkpoint``: a period keeps only its input, and its forward
 runs again in the backward (the remainder layers, as in the reference,
-are not recomputed).  ``"none"`` keeps every activation; ``"dots"``
+are not recomputed), under the sharding rules its forward ran under.  ``"none"`` keeps every activation; ``"dots"``
 is not ported.  Without grad (serving) the stack runs plain.
 """
 
@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.model import attention as attn_mod
 from repro_torch.model import recurrent as rec_mod
 from repro_torch.model.layers import apply_mlp, init_mlp, init_rmsnorm, rms_norm
+from repro_torch.model.sharding import remat_context
 
 ATTN_KINDS = ("attn", "local", "global")
 
@@ -126,7 +127,8 @@ def apply_stack(stack_params, x, cfg, *, positions=None, states=None,
             return x
 
         for p in range(n_periods):
-            x = checkpoint(period, x, p, use_reentrant=False)
+            x = checkpoint(period, x, p, use_reentrant=False,
+                           context_fn=remat_context)
         # The reference remats the scanned periods only.
         for i, kind in enumerate(remainder):
             x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind,

@@ -13,6 +13,15 @@ progress, and EOS / budget detected inside each K-token window.  Chaos
 injection, deadlines, queue bounds, the watchdog, snapshots, checksums,
 paging and the fleet are not ported yet.
 
+Long prompts: with a ``mesh`` (:mod:`repro_torch.launch.mesh`), a prompt
+of at least :data:`SEQ_PREFILL_MIN_T` tokens is prefilled under the
+``prefill_seq`` sharding rules, so every RWKV layer's WKV runs
+sequence-parallel over the mesh (:mod:`repro_torch.kernels.wkv.seqpar`):
+:func:`make_seq_prefill_step` for prompt scoring,
+:func:`make_cache_prefill_step` for the cache fill of ``generate``, and
+the admission of ``serve``.  Shorter prompts run under the plain
+``prefill`` rules, which shard nothing.
+
 Sampling: ``temperature <= 0`` is greedy argmax, the mode that matches the
 reference token for token.  Above 0 the reference keys JAX's threefry on
 (request, token index), which torch cannot reproduce; the port draws
@@ -25,6 +34,7 @@ count.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -34,6 +44,22 @@ import torch
 from repro_torch.kernels.common import resolve_device
 from repro_torch.model import model as M
 from repro_torch.model.attention import KVCache
+from repro_torch.model.sharding import make_rules, sharding_context
+
+#: Prompts at/above this length take the sequence-parallel rules when a
+#: mesh is given; below it, the summary hops cost more than the per-shard
+#: work saves.
+SEQ_PREFILL_MIN_T = 1024
+
+
+def _prefill_rules(mesh, p: int, min_len: int = SEQ_PREFILL_MIN_T):
+    """The sharding context of a ``p``-token prefill: ``prefill_seq`` rules
+    at/above ``min_len`` tokens, plain ``prefill`` rules below, nothing
+    without a mesh."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sharding_context(mesh, make_rules(
+        mesh, "prefill_seq" if p >= min_len else "prefill"))
 
 
 def make_prefill_step(cfg):
@@ -52,15 +78,33 @@ def make_prefill_step(cfg):
     return prefill_step
 
 
-def make_cache_prefill_step(cfg, *, last_only: bool = False,
-                            max_len: int | None = None):
+def make_seq_prefill_step(cfg, mesh, *, min_len: int = SEQ_PREFILL_MIN_T):
+    """Long-context prompt scoring: :func:`make_prefill_step` under the
+    ``prefill_seq`` rules of ``mesh`` for prompts of at least ``min_len``
+    tokens, so each RWKV layer sweeps every sequence shard with the summary
+    kernel and only the O(Dh²) (decay, state) summaries cross the ``seq``
+    axis.  Shorter prompts run under the plain ``prefill`` rules."""
+    base = make_prefill_step(cfg)
+
+    def prefill_step(params, tokens):
+        with _prefill_rules(mesh, tokens.shape[1], min_len):
+            return base(params, tokens)
+
+    return prefill_step
+
+
+def make_cache_prefill_step(cfg, mesh=None, *, min_len: int = SEQ_PREFILL_MIN_T,
+                            last_only: bool = False, max_len: int | None = None):
     """``(params, state, tokens (B, P)[, prompt_lengths (B,)]) ->
     (logits, state)``: the whole prompt goes through one ``decode_step``
     window from position 0, so the WKV part takes the decode-window kernel
     (P <= 64) or the chunked kernel, not P single steps.  ``state`` is
     updated in place.  ``prompt_lengths`` masks ragged prompts: padding
     enters no state, and with ``last_only`` the logits are taken at each
-    row's last valid token."""
+    row's last valid token.  With ``mesh``, prompts of at least
+    ``min_len`` tokens run under the ``prefill_seq`` rules (the routing of
+    :func:`make_seq_prefill_step`), shorter ones under plain ``prefill``
+    rules."""
 
     def cache_prefill(params, state, tokens, prompt_lengths=None):
         mask = None
@@ -68,9 +112,10 @@ def make_cache_prefill_step(cfg, *, last_only: bool = False,
             p = tokens.shape[1]
             plen = torch.as_tensor(prompt_lengths, device=tokens.device)
             mask = torch.arange(p, device=tokens.device)[None, :] < plen[:, None]
-        return M.decode_step(params, cfg, state, tokens, 0,
-                             last_only=last_only, token_mask=mask,
-                             max_len=max_len)
+        with _prefill_rules(mesh, tokens.shape[1], min_len):
+            return M.decode_step(params, cfg, state, tokens, 0,
+                                 last_only=last_only, token_mask=mask,
+                                 max_len=max_len)
 
     return cache_prefill
 
@@ -193,6 +238,11 @@ class ServeEngine:
     is the continuous-batching scheduler.  After each call ``last_state``
     holds the final decode state and ``last_decode_dispatches`` /
     ``last_serve_stats`` count the work done.
+
+    ``mesh`` routes prefills of at least :data:`SEQ_PREFILL_MIN_T` tokens
+    (the ``generate`` prompt, a ``serve`` admission bucket) through the
+    sequence-parallel rules; its shards must lie on devices of the
+    engine's type.
     """
 
     cfg: Any
@@ -200,6 +250,7 @@ class ServeEngine:
     max_len: int = 256
     decode_window: int = 8
     device: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -207,8 +258,13 @@ class ServeEngine:
         if emb.device.type != self.device.type:
             raise ValueError(
                 f"params live on {emb.device}, engine device is {self.device}")
+        if self.mesh is not None and any(
+                d.type != self.device.type for d in self.mesh.devices.flat):
+            raise ValueError(
+                f"mesh devices {sorted({str(d) for d in self.mesh.devices.flat})} "
+                f"are not of the engine's device type {self.device.type}")
         self._prefill = make_cache_prefill_step(
-            self.cfg, last_only=True, max_len=self.max_len)
+            self.cfg, self.mesh, last_only=True, max_len=self.max_len)
         self.last_state = None
         self.last_decode_dispatches = 0
         self.last_serve_stats: dict[str, int] = {}
@@ -377,9 +433,10 @@ class _ServeSession:
         _reset_slot_rows(self.state, admit_row)
         mask = admit_row[:, None] & (
             torch.arange(p_b, device=dev)[None, :] < plen[:, None])
-        logits, self.state = M.decode_step(
-            eng.params, eng.cfg, self.state, torch.from_numpy(tok_np).to(dev),
-            0, token_mask=mask, last_only=True, max_len=eng.max_len)
+        with _prefill_rules(eng.mesh, p_b):
+            logits, self.state = M.decode_step(
+                eng.params, eng.cfg, self.state, torch.from_numpy(tok_np).to(dev),
+                0, token_mask=mask, last_only=True, max_len=eng.max_len)
         tok0 = _sample_tokens(logits[:, -1], self.seed, self.req_ids,
                               torch.zeros_like(self.req_ids),
                               self.temperature, self.top_k)

@@ -521,3 +521,126 @@ def test_rodinia_smoke_on_the_card_launches_no_kernel(cuda):
     rows = rodinia.run(reps=1, smoke=True)
     assert [r["device"] for r in rows] == ["cuda"] * 9
     assert (MM.matmul_fwd_cuda.launches, ST.stencil2d_cuda.launches) == counts
+
+
+# ---------------------------------------------------------------------------
+# The segment-summary kernels and the sequence-parallel path on a seq mesh
+# of the one card.
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import card_checks as CC  # noqa: E402
+from repro_torch.kernels.wkv.vjp import WKVSummaryFunction  # noqa: E402
+from repro_torch.launch.mesh import make_seq_mesh  # noqa: E402
+from repro_torch.model.sharding import make_rules, sharding_context  # noqa: E402
+from repro_torch.serve.engine import make_seq_prefill_step  # noqa: E402
+from repro_torch.train.step import make_loss_fn  # noqa: E402
+from repro_torch.tree import tree_unflatten  # noqa: E402
+
+
+def _window_inputs(b, t, full_t, start, seed, device, dtype):
+    """r/k/v/w as the T-window start..start+t of (b, 4, full_t, 64)
+    tensors, as a shard reads them; u and h0 whole."""
+    a = _inputs(b, 4, full_t, seed, device, dtype)
+    return [x[:, :, start:start + t] for x in a[:4]] + a[4:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CC.SUMMARY_CASES, ids=lambda c: "B{}-T{}-at{}-of{}".format(
+    c[0], c[1], c[4], c[3]))
+def test_summary_kernels_match_plain(cuda, dtype, case):
+    b, t, chunk, full_t, start = case
+    a = _window_inputs(b, t, full_t, start, t + start, cuda, dtype)
+    flat = [x.contiguous() for x in a]
+    tol = F32_TOL if dtype == torch.float32 else BF16_RTOL
+    got = K.wkv_summary_cuda(*a, chunk=chunk)
+    want = K.wkv_summary_plain(*a, chunk=chunk)
+    _close_scaled(got[:2], want[:2], tol)
+    assert CC.a_seg_ratio(got[2], want[2]) <= 1.0
+    # Reading the window in place changes nothing: the contiguous launch's bits.
+    assert all(torch.equal(x, y) for x, y in zip(got[:2], K.wkv_cuda(*flat, chunk=chunk)))
+    tgot = K.wkv_train_summary_cuda(*a, chunk=chunk)
+    _close_scaled(tgot[:3], K.wkv_train_summary_plain(*a, chunk=chunk)[:3], tol)
+    assert all(torch.equal(x, y) for x, y in zip(tgot[:3], K.wkv_train_cuda(*flat, chunk=chunk)))
+    assert torch.equal(tgot[3], got[2])
+    # The backward kernel on the same windows (the seq gradient's shard).
+    d_out, d_s = _cotangents(b, 4, t, start, cuda, dtype)
+    bargs = (*a[:5], tgot[2], d_out, d_s)
+    gb = BW.wkv_bwd_cuda(*bargs, chunk=chunk)
+    _close_scaled(gb, BW.wkv_bwd_plain(*bargs, chunk=chunk), 1e-4 if dtype == torch.float32
+                  else BF16_RTOL)
+    flat_b = BW.wkv_bwd_cuda(*flat[:5], tgot[2], d_out, d_s, chunk=chunk)
+    assert all(torch.equal(x, y) for x, y in zip(gb, flat_b))
+
+
+def test_summary_a_seg_underflows_as_the_plain_version(cuda):
+    # 1024 tokens of the model's fastest decays: a_seg is 0 or denormal on
+    # both sides (the kernel keeps denormals).
+    b, t = 1, 1024
+    a = _inputs(b, 4, t, 9, cuda)
+    a[3] = torch.full_like(a[3], float(np.exp(-0.09)))   # a_seg = e^-92.2, denormal
+    got = K.wkv_summary_cuda(*a, chunk=16)[2]
+    want = K.wkv_summary_plain(*a, chunk=16)[2]
+    assert CC.a_seg_ratio(got, want) <= 1.0
+    assert float(want.max()) < 2.0 ** -126 and float(got.max()) > 0.0
+
+
+def test_summary_wrappers_refuse_bad_layouts(cuda):
+    r, k, v, w, u, h0 = _inputs(2, 4, 64, 0, cuda)
+    with pytest.raises(ValueError, match="grad"):
+        K.wkv_summary_cuda(r.clone().requires_grad_(True), k, v, w, u, h0, chunk=16)
+    with pytest.raises(ValueError, match="T-windows"):
+        K.wkv_summary_cuda(r[:, :, :32], k[:, :, 32:], v[:, :, :32].contiguous(),
+                           w[:, :, :32], u, h0, chunk=16)
+    with pytest.raises(ValueError, match="T-windows"):
+        K.wkv_train_summary_cuda(*(x.transpose(0, 1)[:, :, :32] for x in (r, k, v, w)),
+                                 u[:2], h0.transpose(0, 1)[:, :, :, :].contiguous(), chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.wkv_cuda(r[:, :, :32], k[:, :, :32], v[:, :, :32], w[:, :, :32], u, h0, chunk=16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [False, True], ids=["whole", "window"])
+def test_summary_function_grads_card_match_cpu(cuda, dtype, window):
+    # window: r/k/v/w are tokens 64..128 of 192-token leaves, as a shard of
+    # the seq path hands them over (saved and read in place on the card).
+    base = _inputs(2, 4, 192 if window else 64, 4, "cpu", dtype)
+    d_out, d_s = _cotangents(2, 4, 64, 4, "cpu", dtype)
+    d_a = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 4, 64)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [x.to(dev).requires_grad_(True) for x in base]
+        args = [x[:, :, 64:128] if window and i < 4 else x for i, x in enumerate(leaves)]
+        out, s, a = WKVSummaryFunction.apply(*args, 16)
+        loss = ((out.float() * d_out.to(dev).float()).sum() + (s * d_s.to(dev)).sum()
+                + (a * d_a.to(dev)).sum() * 1e3)
+        grads[str(dev)] = torch.autograd.grad(loss, leaves)
+    tol = 1e-4 if dtype == torch.float32 else BF16_RTOL
+    _close_scaled(grads["cuda"], grads["cpu"], tol)
+
+
+def test_reduced_seq_path_card_matches_cpu(cuda):
+    """The reduced f32 model on a seq mesh of 4 shards: the seq prefill
+    through the summary kernels (one launch per layer and shard, none of
+    the single sweep) and the seq gradient through the training summary and
+    the backward kernels, against the same mesh of CPU shards, within the
+    CPU tests' tolerances (2e-3; 3e-3 of each leaf's largest value)."""
+    cfg = get_config("rwkv6-1.6b").reduced()
+    p_cpu = M.init_params(cfg, seed=2, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 257)))
+    out = {}
+    for dev, mesh in (("cpu", make_seq_mesh(4, device="cpu")), ("cuda", make_seq_mesh(4))):
+        params = tree_map(lambda p: p.detach().to(dev, copy=True), p_cpu)
+        K.wkv_summary_cuda.launches = K.wkv_cuda.launches = 0
+        with torch.inference_mode():
+            logits = make_seq_prefill_step(cfg, mesh, min_len=64)(params, toks[:, :256].to(dev))
+        counts = (K.wkv_summary_cuda.launches, K.wkv_cuda.launches)
+        leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+        b = toks.to(dev)
+        with sharding_context(mesh, make_rules(mesh, "prefill_seq")):
+            loss = make_loss_fn(cfg)(tree_unflatten(params, leaves),
+                                     {"tokens": b[:, :-1], "labels": b[:, 1:]})
+            grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (logits.cpu(), counts, [g.cpu() for g in grads])
+    assert out["cuda"][1] == (cfg.num_layers * 4, 0) and out["cpu"][1] == (0, 0)
+    _close([out["cuda"][0]], [out["cpu"][0]], 2e-3)
+    _close_scaled(out["cuda"][2], out["cpu"][2], 3e-3)

@@ -21,6 +21,7 @@ from repro_torch.kernels.matmul_fwd import ops as matmul_ops
 from repro_torch.kernels.stencil2d import kernel as stencil_kernel
 from repro_torch.kernels.stencil2d import ops as stencil_ops
 from repro_torch.kernels.wkv import ops
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import serve as serve_launch
 from repro_torch.launch import train as train_launch
 from repro_torch.model import model as M
@@ -35,7 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 WRAPPERS = [PORT / "kernels" / "wkv" / n
-            for n in ("kernel.py", "decode.py", "ops.py", "bwd.py", "vjp.py")]
+            for n in ("kernel.py", "decode.py", "ops.py", "bwd.py", "vjp.py", "seqpar.py")]
 #: The RecurrentGemma kernels' wrappers and dispatch.
 RG_WRAPPERS = [PORT / "kernels" / pkg / n for pkg, names in (
     ("elevator_scan", ("kernel.py", "decode.py", "ops.py")),
@@ -108,6 +109,21 @@ def test_paper_demo_modules_are_checked():
                 "kernels/matmul_fwd/kernel.py", "kernels/matmul_fwd/ops.py",
                 "benchmarks/rodinia.py", "examples/quickstart.py"):
         assert mod in names, f"{mod} is not among the sources the import checks read"
+
+
+def test_seq_parallel_modules_are_checked():
+    names = {str(p.relative_to(PORT)) for p in SOURCES if p.is_relative_to(PORT)}
+    for mod in ("launch/mesh.py", "model/sharding.py", "core/device_comm.py",
+                "core/pipeline.py", "kernels/wkv/seqpar.py"):
+        assert mod in names, f"{mod} is not among the sources the import checks read"
+
+
+def test_meshes_need_the_card_by_default(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_mod.make_seq_mesh(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh_mod.make_debug_mesh(2, 2)
+    assert mesh_mod.make_seq_mesh(4, device="cpu").devices[0].type == "cpu"
 
 
 def test_paper_demo_entry_points_need_the_card_by_default(no_card):
