@@ -6,6 +6,12 @@
 Phases (any failure raises and exits non-zero, with no result line):
 
 1. build: compile every CUDA source of the port with nvcc, in parallel;
+   for the two libraries redesigned around wgmma and TMA (matmul, flash
+   attention) count the HGMMA and UTMALDG instructions in their SASS
+   (``cuobjdump --dump-sass``) beside each wgmma kernel's registers, stack
+   frame and local memory (``cuobjdump --dump-resource-usage``), read from
+   the library file whether this run built it or found it in ``build/``,
+   and fail if a count is 0 or a wgmma kernel spills;
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
@@ -49,8 +55,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    B=1, T=4096, D=2560), its decode window (K in 1, 8, 37, 64, bit for bit
    against K chained single launches), the token shift (T in 4, 67, 259,
    4096) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
-   T=4096, causal full, a non-causal window, the decode offset T=8 against
-   S=300, T not a block multiple);
+   T=4096, causal full at T=1024 and T=4096, a non-causal window, the
+   decode offsets T=8 and T=1 against S=300, T not a block multiple) and at
+   D 128, 64, 32 (T=1000, window 256);
 3e. the RecurrentGemma path, the RWKV6 engines and train state freed:
    full-size recurrentgemma-2b in bf16 (random weights from a seed, depth
    not cut) through ``ServeEngine.generate`` (B=4, 256-token prompts, 32
@@ -65,16 +72,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
    8192) and the operand-forwarding matmul (the suite's 256^3, the
    reference test's (512, 256) x (256, 384) with blocks (256, 128, 128),
-   and 4096^3); then the Rodinia suite at its full shapes (all nine parity
-   asserts, its CSV and geomean lines), with every launch count set to 0
-   before and held at 0 after (its cases call neither kernel), and the two
-   ops on the suite's inputs: ``matmul_fwd`` on the matrixMul operands
+   4096^3, and the shapes that reach the planner's other branches:
+   (1024, 256, 1024), (2048, 512, 2048), (33, 65, 17)); then the Rodinia
+   suite at its full shapes (all nine parity asserts, its CSV and geomean
+   lines), with every launch count set to 0 before and held at 0 after
+   (its cases call neither kernel), and the two ops on the suite's inputs: ``matmul_fwd`` on the matrixMul operands
    against ``matmul_direct`` and ``stencil2d`` on the hotspot and SRAD grid
    against ``hotspot_direct`` and ``srad_direct``, counts held at 1 and 2;
 4. each kernel's median time at its main path's shapes beside its plain
    version's time, its bound and, where one PyTorch call computes the same
-   function, that call's time (the paper-demo kernels also at 8192^2 and
-   4096^3), printed as one ``{"kernels": [...]}`` line; then the card's
+   function, that call's time (the paper-demo kernels also at 8192^2, the
+   matmul at 256^3 bf16 and 4096^3; flash attention also causal with no
+   window at T=4096 against SDPA with ``is_causal=True``, whose backend is
+   printed), printed as one ``{"kernels": [...]}`` line; then the card's
    name and power limit, and the result line.
 """
 
@@ -103,15 +113,8 @@ TOLERANCE = {
     # f32 sums that differ in the last bits may round one bf16 ulp apart.
     "bfloat16": (1e-3, 8e-3),
 }
-#: Flash attention in f32 is held to TOLERANCE; in bf16, per element,
-#: scaled to the element and to the RMS of its output row (over D):
-#: |got - want| <= ULP * |want| + ROW * rms(want row).  Both versions round
-#: the output to bf16 (one ulp apart at most, 2**-7 of the value); the
-#: kernel also rounds P to bf16 before the P.V product, 2**-9 relative per
-#: term, a random walk over the row's keys that stays several times under
-#: 2**-5 of the row's RMS.  A fault that moves whole late rows by a few
-#: percent exceeds the row term; a fully masked row must be exactly 0.
-ATTN_BF16_ULP, ATTN_BF16_ROW = 2.0 ** -7, 2.0 ** -5
+#: Flash attention in f32 is held to TOLERANCE; in bf16 to
+#: ``card_checks.attn_bf16_ratio`` (per element, see there).
 #: The training kernels, per output: (max error) <= ATOL + RTOL * max|plain|
 #: of that output.  The backward's grads reach the hundreds (dw divides by
 #: w) and sum products of e^{+-64}-scaled factors, so f32 is held relative
@@ -230,6 +233,7 @@ def main():
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln or "error" in ln]
         print(f"[build] {name}: {sec:.2f}s " + " | ".join(lines))
+    _hopper_report(common)
 
     # ---- 2. kernels against their plain versions ---------------------------
     worst = {"wkv_cuda": 0.0, "wkv_decode_cuda": 0.0, "wkv_decode_window_cuda": 0.0}
@@ -423,6 +427,59 @@ def main():
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count()}}))
+
+
+def _resource_usage(text):
+    """``cuobjdump --dump-resource-usage``'s output -> {function symbol:
+    {"REG": registers, "STACK": stack frame bytes, "SHARED": static shared
+    bytes, "LOCAL": local memory bytes, ...}}."""
+    import re
+
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.match(r"\s*Function (\S+?):?$", ln)
+        if m:
+            name = m.group(1)
+            continue
+        if name is not None and "REG:" in ln:
+            out[name] = {k: int(v) for k, v in re.findall(r"([A-Z]+(?:\[\d+\])?):(\d+)", ln)}
+            name = None
+    return out
+
+
+def _hopper_report(common):
+    """The redesigned libraries as built: the count of HGMMA (wgmma) and
+    UTMALDG (TMA load) instructions from ``cuobjdump --dump-sass``, and the
+    registers, static shared memory, stack frame and local memory of each
+    wgmma kernel from ``cuobjdump --dump-resource-usage``.  Both read the
+    library file, so a library built by an earlier run reads the same.
+    Fails if either count is 0, no wgmma kernel is found, or one has a stack
+    frame or local memory (where spills go)."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+
+    def dump(flag, path):
+        return subprocess.run([tool, flag, str(path)], capture_output=True, text=True,
+                              check=True, timeout=300).stdout
+
+    for name in HOPPER_LIBRARIES:
+        path = common._lib_path(name)
+        sass = dump("--dump-sass", path)
+        counts = {op: sum(op in ln for ln in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+        kernels = {k: v for k, v in _resource_usage(dump("--dump-resource-usage", path)).items()
+                   if "wgmma" in k}
+        print(f"[build] {name}: SASS HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+        for k, use in sorted(kernels.items()):
+            short = k.split("wgmma_kernel")[-1][:12]
+            print(f"[build]   wgmma kernel {short}: {use.get('REG')} registers at launch, "
+                  f"{use.get('SHARED')} bytes static smem, stack {use.get('STACK')} B, "
+                  f"local {use.get('LOCAL')} B")
+        if min(counts.values()) < 1 or not kernels:
+            raise SystemExit(f"{name}: no wgmma or TMA in the binary: {counts}, "
+                             f"{len(kernels)} wgmma kernels")
+        if any(use.get("STACK", 0) or use.get("LOCAL", 0) for use in kernels.values()):
+            raise SystemExit(f"{name}: a wgmma kernel spills (stack frame or local memory)")
 
 
 def _cotangents(torch, b, t, dtype, seed):
@@ -1107,6 +1164,9 @@ def _time_seq_kernels(torch, KC, launches, worst, extra, t_full=4096, grad_t=204
 
 RG_D = 2560                      # d_rnn of recurrentgemma-2b
 RG_HQ, RG_HKV, RG_DH, RG_WINDOW = 10, 1, 256, 2048
+#: The libraries redesigned around wgmma and TMA (phase 1 counts their
+#: HGMMA and UTMALDG instructions).
+HOPPER_LIBRARIES = ("matmul_fwd", "flash_attention")
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
@@ -1155,26 +1215,33 @@ def _shift_inputs(torch, b, t, dtype, seed, taps=4):
     return x.to(dtype), w.to(dtype)
 
 
-def _attn_inputs(torch, b, t, s, dtype, seed):
+def _attn_inputs(torch, b, t, s, dtype, seed, d=RG_DH):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, RG_HQ, t, RG_DH), generator=g, device="cuda")
-    k = torch.randn((b, RG_HKV, s, RG_DH), generator=g, device="cuda")
-    v = torch.randn((b, RG_HKV, s, RG_DH), generator=g, device="cuda")
+    q = torch.randn((b, RG_HQ, t, d), generator=g, device="cuda")
+    k = torch.randn((b, RG_HKV, s, d), generator=g, device="cuda")
+    v = torch.randn((b, RG_HKV, s, d), generator=g, device="cuda")
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-#: (T, S, causal, window) of the flash-attention checks.
+#: (T, S, causal, window, D) of the flash-attention checks.
 ATTN_CASES = (
-    (4096, 4096, True, RG_WINDOW),     # the local layers of a 4096-token forward
-    (1024, 1024, True, None),          # causal, full
-    (640, 640, False, 200),            # non-causal window
-    (8, 300, True, None),              # decode offset
-    (1000, 1000, True, 256),           # T not a block multiple
+    (4096, 4096, True, RG_WINDOW, RG_DH),  # the local layers of a 4096-token forward
+    (1024, 1024, True, None, RG_DH),       # causal, full
+    (640, 640, False, 200, RG_DH),         # non-causal window
+    (8, 300, True, None, RG_DH),           # decode offset
+    (1000, 1000, True, 256, RG_DH),        # T not a block multiple
+    (4096, 4096, True, None, RG_DH),       # causal, no window (gemma3's global layers)
+    (1, 300, True, None, RG_DH),           # one valid row of a 128-row tile
+    (1000, 1000, True, 256, 128),          # the other head widths
+    (1000, 1000, True, 256, 64),
+    (1000, 1000, True, 256, 32),
 )
 
 
 def _rg_kernel_checks(torch):
     """Phase 3d.  Returns the worst max abs error of each kernel."""
+    from repro_torch.kernels import card_checks as CC
+
     EK, ED, TS, FA = _rg_modules()
     worst = dict.fromkeys(RG_KERNELS, 0.0)
 
@@ -1191,15 +1258,12 @@ def _rg_kernel_checks(torch):
         worst[kname] = max(worst[kname], e)
 
     def check_bf16_attention(case, got, want):
-        g, w = got.float(), want.float()
-        err = (g - w).abs()
-        tol = ATTN_BF16_ULP * w.abs() + ATTN_BF16_ROW * w.pow(2).mean(-1, keepdim=True).sqrt()
-        ratio = torch.where(tol > 0, err / tol.clamp_min(1e-30), err * float("inf"))
-        r, e = float(ratio.nan_to_num(0.0).max()), float(err.max())
+        r = CC.attn_bf16_ratio(got, want)
+        e = float((got.float() - want.float()).abs().max())
         ok = r <= 1.0 and bool(torch.isfinite(got).all())
         print(f"[rg-kernels] {'flash_attention_cuda':28s} {case:30s} torch.bfloat16  "
               f"max_abs_err={e:.3e} worst err/tol per element={r:.3f} "
-              f"(tol {ATTN_BF16_ULP:.4g}*|plain| + {ATTN_BF16_ROW:.4g}*rms(row)) "
+              f"(tol {CC.ATTN_BF16_ULP:.4g}*|plain| + {CC.ATTN_BF16_ROW:.4g}*rms(row)) "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"flash_attention_cuda {case} bfloat16: error {r} x tolerance")
@@ -1237,11 +1301,12 @@ def _rg_kernel_checks(torch):
                 check("token_shift_cuda", f"B={b} T={t} D={RG_D}", dtype, [got], [want])
                 print(f"[rg-kernels] token shift T={t} {dtype} bit-identical to the plain "
                       f"version: {torch.equal(got, want)}")
-            for t, s, causal, window in ATTN_CASES:
-                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s)
+            for t, s, causal, window, d in ATTN_CASES:
+                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s, d=d)
                 got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
-                case = f"T={t} S={s} {'causal' if causal else 'full'} W={window}"
+                case = f"T={t} S={s} {'causal' if causal else 'full'} W={window}" + (
+                    f" D={d}" if d != RG_DH else "")
                 want = FA.attention_ref(q, k, v, causal=causal, window=window)
                 if dtype == torch.bfloat16:
                     check_bf16_attention(case, got, want)
@@ -1427,6 +1492,8 @@ def _time_rg_kernels(torch, launches, worst):
     token shift and ``F.scaled_dot_product_attention`` with the same
     boolean mask and GQA for attention; no single PyTorch call computes a
     decayed linear scan, so the scan rows have none."""
+    from repro_torch.kernels import card_checks as CC
+
     F = torch.nn.functional
     EK, ED, TS, FA = _rg_modules()
     f32, bf = torch.float32, torch.bfloat16
@@ -1513,21 +1580,68 @@ def _time_rg_kernels(torch, launches, worst):
             *sets[0], causal=True, window=RG_WINDOW).float()).abs().max())
         print(f"[time] SDPA library call agrees with flash_attention_cuda: "
               f"max_abs_err={lib_err:.3e}")
-        row("flash_attention_cuda",
-            "src/repro_torch/kernels/local_attention/csrc/flash_attention.cu",
-            "src/repro/kernels/local_attention/kernel.py:137 (flash_attention_pallas)",
+        fa_src = "src/repro_torch/kernels/local_attention/csrc/flash_attention.cu"
+        fa_replaces = "src/repro/kernels/local_attention/kernel.py:137 (flash_attention_pallas)"
+        row("flash_attention_cuda", fa_src, fa_replaces,
             f"B=1 Hq=10 Hkv=1 T={t} D=256 W={RG_WINDOW} bf16", sets,
             lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=True, window=RG_WINDOW),
             lambda q, k, v: FA.attention_ref(q, k, v, causal=True, window=RG_WINDOW),
             nbytes, flops, library=sdpa, reps=20)
+
+        # Causal with no window at the same shape (gemma3's global layers):
+        # the library call is SDPA with is_causal=True, which may take
+        # PyTorch's flash backend, on K/V repeated to the Hq heads before
+        # the timed region.
+        rep_sets = [(q, k.expand(-1, RG_HQ, -1, -1).contiguous(),
+                     v.expand(-1, RG_HQ, -1, -1).contiguous()) for q, k, v in sets]
+
+        def sdpa_causal(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        got = FA.flash_attention_cuda(*sets[0], causal=True)
+        ratio = CC.attn_bf16_ratio(sdpa_causal(*rep_sets[0]), got)
+        print(f"[time] SDPA is_causal agrees with flash_attention_cuda (no window): "
+              f"worst err/tol per element {ratio:.3f}; SDPA backend: "
+              f"{_sdpa_backend(torch, sdpa_causal, rep_sets[0])}")
+        lib_ms = _time_ms(torch, sdpa_causal, rep_sets, reps=20)[0]
+        del rep_sets
+        row("flash_attention_cuda", fa_src, fa_replaces,
+            f"B=1 Hq=10 Hkv=1 T={t} D=256 causal bf16", sets,
+            lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=True),
+            lambda q, k, v: FA.attention_ref(q, k, v, causal=True),
+            nbytes, 4 * RG_DH * RG_HQ * _visible_pairs(t, t, True, None), reps=20)
+        rows[-1]["library_ms"] = lib_ms
+        print(f"[time]   SDPA is_causal library call: {lib_ms * 1e3:.2f} us")
     # One row per kernel in the result line: the main path's shape (the
-    # first row of each name); the others are printed above.
+    # first row of each name); flash attention's other shape rides along
+    # under "large", the rest are printed above.
     seen, out = set(), []
     for r in rows:
         if r["name"] not in seen:
             seen.add(r["name"])
             out.append(r)
+    extra = [r for r in rows if r["name"] == "flash_attention_cuda"][1:]
+    out[[r["name"] for r in out].index("flash_attention_cuda")]["large"] = [
+        {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")} for r in extra]
     return out
+
+
+def _sdpa_backend(torch, fn, args):
+    """Which SDPA backend one call of ``fn`` took, as the profiler sees it:
+    the ATen op it dispatched to (``_scaled_dot_product_<backend>_...``)
+    and the CUDA kernels it launched, or "not told"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    ops = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CPU
+                  and e.name.startswith("aten::_scaled_dot_product_")})
+    kernels = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+    return "; ".join(ops + [k[:100] for k in kernels]) or "not told"
 
 # ---------------------------------------------------------------------------
 # The paper demo: the 5-point stencil, the operand-forwarding matmul and the
@@ -1578,6 +1692,7 @@ def _paper_kernel_checks(torch):
                 if not ok:
                     raise SystemExit(f"stencil2d_cuda {h}x{w} {dtype} disagrees with its plain version")
                 worst["stencil2d_cuda"] = max(worst["stencil2d_cuda"], float(err.max()))
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
             for m, k, n, bm, bn, bk in CC.MATMUL_CASES:
                 a, b = _matmul_inputs(torch, m, k, n, dtype, seed=m + n)
                 got = MM.matmul_fwd_cuda(a, b, block_m=bm, block_n=bn, block_k=bk)
@@ -1586,7 +1701,8 @@ def _paper_kernel_checks(torch):
                 e, f32_tol, ratio = CC.matmul_error(got, want)
                 scale = float(want.float().abs().max())
                 print(f"[paper-kernels] matmul_fwd_cuda ({m},{k})x({k},{n}) blocks "
-                      f"({bm},{bn},{bk}) {str(dtype):15s} max_abs_err={e:.3e} "
+                      f"({bm},{bn},{bk}) {str(dtype):15s} plan {MM.plan(m, n, k, dtype, sms)} "
+                      f"max_abs_err={e:.3e} "
                       f"rel={e / scale:.3e} (f32 tol {CC.MATMUL_F32_RTOL:g}*max|plain| = "
                       f"{f32_tol:.3e}{'' if dtype == torch.float32 else ' + 1 bf16 ulp'}) "
                       f"worst err/tol={ratio:.3f} {'ok' if ratio <= 1.0 else 'FAIL'}")
@@ -1719,16 +1835,19 @@ def _time_paper_kernels(torch, launches, worst):
                     lambda x, c: ST.stencil2d_ref(x, c), conv2d, nbytes, 9 * h * w,
                     PEAK_F32_FLOPS, reps=100 if h < 8192 else 20)
         torch.backends.cudnn.benchmark = False
-        for dim, dtype, peak in ((256, f32, PEAK_F32_FLOPS), (4096, bf, PEAK_BF16_FLOPS),
-                                 (4096, f32, PEAK_F32_FLOPS)):
+        for dim, dtype, peak in ((256, f32, PEAK_F32_FLOPS), (256, bf, PEAK_BF16_FLOPS),
+                                 (4096, bf, PEAK_BF16_FLOPS), (4096, f32, PEAK_F32_FLOPS)):
             item = 4 if dtype == f32 else 2
             nbytes = 3 * dim * dim * item
             sets = _cold_sets(lambda s: _matmul_inputs(torch, dim, dim, dim, dtype, s), nbytes)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            print(f"[time] matmul_fwd_cuda {dim}^3 {dtype}: plan "
+                  f"{MM.plan(dim, dim, dim, dtype, sms)}")
             measure("matmul_fwd_cuda", f"{dim}^3 {'f32' if dtype == f32 else 'bf16'}", sets,
                     lambda a, b: MM.matmul_fwd_cuda(a, b), MM.matmul_ref, torch.matmul,
                     nbytes, 2 * dim ** 3, peak, reps=100 if dim < 4096 else 10)
-    # One row per kernel in the result line, at the suite's shape; the large
-    # shapes ride along under "large".
+    # One row per kernel in the result line, at the suite's shape; the other
+    # shapes (256^3 bf16 and the large ones) ride along under "large".
     rows = []
     for name in ("stencil2d_cuda", "matmul_fwd_cuda"):
         mine = [r for r in measured if r["name"] == name]

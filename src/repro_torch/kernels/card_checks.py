@@ -1,7 +1,7 @@
-"""The card checks of the paper-demo kernels and the WKV segment-summary
-kernels, shared by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``: the
-shapes both run and the tolerances both hold the kernels to against their
-plain versions."""
+"""The card checks of the paper-demo kernels, the WKV segment-summary
+kernels and bf16 flash attention, shared by ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``: the shapes both run and the tolerances both
+hold the kernels to against their plain versions."""
 
 from __future__ import annotations
 
@@ -24,11 +24,18 @@ STENCIL_CASES = (
 )
 
 #: (M, K, N, block_m, block_n, block_k) of the matmul checks: the suite's
-#: 256^3, one of the reference test's cases, 4096^3.
+#: 256^3, one of the reference test's cases, 4096^3 (bf16: 128 x 256 tiles
+#: walked by the persistent grid, 512 items); then shapes that reach the
+#: planner's other branches (``matmul_fwd.kernel.plan``, on 132 SMs): a
+#: deep K split 16 in both dtypes, 128 x 128 f32 tiles unsplit, and odd
+#: shapes that take the element-wise variants in both dtypes.
 MATMUL_CASES = (
     (256, 256, 256, 256, 256, 256),
     (512, 256, 384, 256, 128, 128),
     (4096, 4096, 4096, 256, 256, 256),
+    (256, 4096, 256, 256, 256, 256),
+    (2048, 512, 2048, 256, 256, 256),
+    (33, 65, 17, 256, 256, 256),
 )
 
 
@@ -83,3 +90,27 @@ def a_seg_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
     elements of a_seg; the check passes at <= 1."""
     err = (got.double() - want.double()).abs()
     return float((err / (A_SEG_ATOL + A_SEG_RTOL * want.double().abs())).max())
+
+
+#: bf16 flash attention is held per element, scaled to the element and to
+#: the RMS of its output row (over D):
+#:   |got - want| <= ATTN_BF16_ULP * |want| + ATTN_BF16_ROW * rms(want row).
+#: Both versions round the output to bf16, so the two may sit one bf16 ulp
+#: apart (at most 2**-7 of the value).  The kernel also rounds P to bf16
+#: before the P.V product: 2**-9 relative per term, summed over the row's
+#: keys as a random walk that stays several times under 2**-5 of the row's
+#: RMS.  A fault that moves whole late rows by a few percent (a skipped K
+#: tile, a missed rescale) exceeds the row term; a fully masked row must be
+#: exactly 0.
+ATTN_BF16_ULP = 2.0 ** -7
+ATTN_BF16_ROW = 2.0 ** -5
+
+
+def attn_bf16_ratio(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Worst |got - want| / tolerance over the elements of a bf16 attention
+    output; the check passes at <= 1."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    tol = ATTN_BF16_ULP * w.abs() + ATTN_BF16_ROW * w.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = torch.where(tol > 0, err / tol.clamp_min(1e-30), err * float("inf"))
+    return float(ratio.nan_to_num(0.0).max())

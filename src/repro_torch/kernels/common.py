@@ -6,8 +6,10 @@ into its own shared library with a plain C interface and loaded through
 ``ctypes``.  Nothing is compiled when a module is imported: the first call
 that needs a library builds every source at once, one ``nvcc`` process per
 source, all started together, into ``build/`` at the root of the checkout.
-Each library's file name carries a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused.
+Each library's file name carries a hash of its source, of every shared
+header (``*.cuh`` under ``kernels/``, which the sources may include through
+the ``-I`` of the shared Hopper header directory) and of the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ __all__ = [
     "largest_divisor_chunk",
     "KERNEL_SOURCES",
     "BUILD_DIR",
+    "HEADER_ROOT",
+    "HOPPER_INCLUDE",
     "BUILD_REPORT",
     "build_libraries",
     "load_library",
@@ -115,10 +119,16 @@ KERNEL_SOURCES = {
 }
 #: ``build/`` at the root of the checkout (listed in ``.gitignore``).
 BUILD_DIR = _PKG.parents[2] / "build"
+#: Where the shared headers live: every ``*.cuh`` below it enters every
+#: library's hash.
+HEADER_ROOT = _PKG
+#: The shared Hopper header (``sm90.cuh``: mbarriers, TMA, wgmma, setmaxnreg).
+HOPPER_INCLUDE = _PKG / "hopper" / "csrc"
 
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-lineinfo", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+    "-I", str(HOPPER_INCLUDE),
 )
 
 _LOCK = threading.Lock()
@@ -138,11 +148,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = KERNEL_SOURCES[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path in ``build/``, named by a hash of its source,
+    every shared header (sorted, by content) and the flags."""
+    h = hashlib.sha256(KERNEL_SOURCES[name].read_bytes())
+    for header in sorted(HEADER_ROOT.rglob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(_NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_libraries() -> dict[str, Path]:

@@ -18,35 +18,55 @@
 //
 // Design.  The Pallas kernel swept a (B*H, q-block, kv-step) grid with the
 // online-softmax state (m, l, acc) in VMEM scratch across the kv steps.
-// Here the kv steps are a loop inside one block per (q tile, batch * head):
-// the block loads its Q tile into shared memory once, then walks only the
-// K/V tiles the mask can reach (the window's band, as `_kv_block_index`
-// does), with (m, l, acc) in registers for the whole walk.  GQA: a block
-// reads the K/V of head h / group; the ten q heads of RecurrentGemma each
-// load the shared K/V tile separately (sharing it is later work).
+// Here the kv steps are a loop inside one block per (batch * head, 128
+// query rows), walking only the K/V tiles the mask can reach (the window's
+// band, as `_kv_block_index` does), with (m, l, acc) in registers for the
+// whole walk.  GQA: a block reads the K/V of head h / group.  Heads are the
+// grid's fast axis and query tiles run from the last, so the longest causal
+// bands start first and the blocks in flight share K/V tiles in L2.
 //
-// bf16 inputs take the tensor cores: four warps each own 16 query rows;
-// S = Q K^T and O += P V are mma.sync m16n8k16 products (bf16 in, f32 sums)
-// fed by ldmatrix from padded shared-memory rows (D + 8 halfs a row, so the
-// eight rows of each 8x8 fragment fall in distinct banks); P is rounded to
-// bf16 for the second product, as FlashAttention does.  At head width 256 a
-// 64-row Q tile and 32-row K and V tiles take 67.6 KB of dynamic shared
-// memory (above the 48 KB default, so the launch raises the limit first),
-// and the 16 x 256 f32 accumulator of a warp is 128 registers a thread.
-// Tiles are loaded synchronously: cp.async/TMA double buffering and wgmma
-// are later work.  float32 inputs take a CUDA-core kernel with f32 products
-// throughout (no TF32), one warp per four query rows.
+// bf16 (`flash_wgmma_kernel`), every head width of HEAD_DIMS: three
+// warpgroups.  One thread of the producer warpgroup loads the block's Q tile
+// once by TMA, then K and V tiles (BK keys x D) into a two-slot ring, K and
+// V each with a full and an empty mbarrier per slot: S = Q K^T starts before
+// V has landed, and a K slot is refilled as soon as its S is computed, while
+// its V is still in use.  The tensor maps are 3-D, (D, T,
+// B*Hq) and (D, S, B*Hkv), so rows past T or S of a head arrive as zeros
+// rather than as the next head's rows.  A row of D=256 is 512 bytes, so each
+// tile is D/64 boxes of 64 columns with the 128-byte swizzle (D=32: one box
+// of 32 columns, 64-byte swizzle).  Two consumer warpgroups own 64 query
+// rows each: S = Q K^T is wgmma SS (m64nBKk16 over D/16 steps), the online
+// softmax runs in registers in exp2 with the per-element mask only on tiles
+// the band's edge cuts, P is rounded to bf16 in registers and O += P V is
+// wgmma RS (P the register A operand, V N-major through the transpose bit).
+// A tile's P V is issued behind the next tile's Q K^T, so it runs on the
+// tensor cores while the warpgroup computes that tile's softmax; O is
+// rescaled once it has landed.  A warpgroup whose 64 rows see no key of a
+// tile skips its products but still waits for the tile and releases it.
+// setmaxnreg gives the producer 24 registers and the consumers 240.
+// Budget: BK = 64 at D = 256, else 128.  Shared memory, D = 256: Q 64 KB +
+// 2 stages x (K 32 KB + V 32 KB) = 192 KB of 227; D = 128: 160 KB.
+// Registers of a consumer thread at D = 256: O 128 f32, S 32, the pending
+// P 16.
+// float32 inputs take a CUDA-core kernel with f32 products throughout (no
+// TF32), one warp per four query rows; only the reduced f32 models use it.
+// Later work: sharing K/V across a GQA group by cluster multicast, FA3's
+// ping-pong of the two consumer warpgroups (named barriers ordering their
+// softmax against each other's products), fp8.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int NW = 4;                 // warps per block of the f32 kernel
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
@@ -76,188 +96,294 @@ struct Mask {
       hi = min(S, q1 - 1 + window);
     }
   }
+
+  // Every query of [q0, q1) below T sees every key of [k0, k1): no
+  // per-element mask is needed.
+  __device__ __forceinline__ bool all_visible(int q0, int q1, int k0, int k1) const {
+    q1 = min(q1, T);
+    if (k1 > S) return false;
+    if (causal)
+      return k1 - 1 <= q0 + offset && (window < 1 || k0 > q1 - 1 + offset - window);
+    return window < 1 || (k1 - 1 - q0 < window && q1 - 1 - k0 < window);
+  }
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel
+// bf16: wgmma fed by TMA, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int FA_THREADS = 384;       // producer warpgroup + 2 consumers
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Rows [row0, row0 + nrows) of a (rows, D) bf16 matrix into shared memory
-// rows of stride D + 8; rows at or past `limit` are zeros.
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0,
-                                          int nrows, int limit) {
-  constexpr int VEC = D / 8;          // 16-byte pieces per row
-  for (int i = threadIdx.x; i < nrows * VEC; i += blockDim.x) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = val;
+struct FlashPlan {
+  static constexpr int SW = D >= 64 ? 128 : 64;   // swizzle bytes = one row of a box
+  static constexpr int CW = SW / 2;               // box width, elements
+  static constexpr int NCH = D / CW;              // boxes per row
+  static constexpr int BQ = 128;                  // query rows per block
+  static constexpr int BK = D == 256 ? 64 : 128;  // keys per K/V tile
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;     // one K or V tile
+  static constexpr int SMEM = Q_BYTES + 2 * 2 * KV_BYTES + 1024;
+};
+
+template <int N>
+__device__ __forceinline__ void keep_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("" : "+r"(r[i][0]), "+r"(r[i][1]), "+r"(r[i][2]), "+r"(r[i][3])::"memory");
+}
+
+// Issues (does not wait for) S = Q K^T of one tile: 64 query rows of the
+// warpgroup (K-major at `q_base`) against BK keys (K-major at `sK`).
+template <int D, int BK, int SW>
+__device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_base, uint32_t sK) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    sm90::wgmma_ss<BK, 0>(s, sm90::desc_kmajor<SW>(q_base, ks, 128 * SW),
+                          sm90::desc_kmajor<SW>(sK, ks, BK * SW), ks > 0 ? 1 : 0);
+  sm90::wgmma_commit();
+}
+
+// Issues (does not wait for) O += P V of one tile: P the bf16 A fragments
+// of the BK/16 k16 steps, V N-major at `sV`.
+template <int D, int BK, int SW>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], uint32_t (&pa)[BK / 16][4],
+                                         uint32_t sV) {
+  sm90::fence_regs(o);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j)
+    sm90::wgmma_rs<D, 1>(o, pa[j], sm90::desc_mnmajor<SW>(sV, j, BK * SW), 1);
+  sm90::wgmma_commit();
+}
+
+// One tile's online-softmax step on S in registers (the wgmma accumulator
+// layout): mask (only where the band's edge cuts the tile: !whole), scale
+// into the log2 domain, take the new row maxima over the quad of threads
+// that holds each row, and turn S into P (unrounded) with its sum added to
+// this thread's share of l.  alpha: each row's rescale of O and l.
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2], const Mask& mask, bool whole,
+                                               int row0, int col0, int kb, float scale_log2,
+                                               float (&m_run)[2], float (&l_run)[2],
+                                               float (&alpha)[2]) {
+  float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float val = s[4 * i + e] * scale_log2;
+      if (!whole && !mask.visible(row0 + (e >> 1) * 8, kb + 8 * i + col0 + (e & 1)))
+        val = neg_inf();
+      s[4 * i + e] = val;
+      mx[e >> 1] = fmaxf(mx[e >> 1], val);
+    }
+  float base[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m_run[h], mx[h]);
+    base[h] = m_new == neg_inf() ? 0.f : m_new;   // no key seen yet: all p = 0
+    alpha[h] = exp2f(m_run[h] - base[h]);
+    m_run[h] = m_new;
+    l_run[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[4 * i + e] - base[e >> 1]);
+      s[4 * i + e] = p;
+      l_run[e >> 1] += p;
+    }
+}
+
+// P rounded to bf16: the accumulator pairs of S are the A fragments of the
+// k16 steps of P V.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&s)[BK / 2]) {
+#pragma unroll
+  for (int j = 0; j < BK / 16; ++j) {
+    pa[j][0] = sm90::pack_bf16(s[8 * j + 0], s[8 * j + 1]);
+    pa[j][1] = sm90::pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+    pa[j][2] = sm90::pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+    pa[j][3] = sm90::pack_bf16(s[8 * j + 6], s[8 * j + 7]);
   }
 }
 
-constexpr int BQ = 64;                // query rows per block (16 per warp)
-constexpr int NW = 4;                 // warps per block
-
-template <int D, int BK>
-__global__ void __launch_bounds__(NW * 32) flash_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ out, int Hq, int group,
+template <int D>
+__global__ void __launch_bounds__(FA_THREADS, 1) flash_wgmma_kernel(
+    const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int Hq, int group,
     Mask mask, float scale_log2) {
-  constexpr int STR = D + 8;          // shared row stride, in halfs
-  constexpr int NT = D / 8;           // 8-wide column tiles of the output
-  constexpr int NS = BK / 8;          // 8-wide key tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * STR;
-  bf16* sV = sK + BK * STR;
+  using P = FlashPlan<D>;
+  constexpr int BK = P::BK, SW = P::SW;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[2], v_full[2], k_empty[2], v_empty[2];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sQ = smem;
+  uint8_t* sKV = smem + P::Q_BYTES;     // slot s: K at 2 s KV_BYTES, V after it
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int bh = blockIdx.y;
+  // Heads run fastest and query tiles from the last: the longest causal
+  // bands start first, and the blocks in flight share K/V tiles in L2.
+  const int bh = blockIdx.x;
   const int b = bh / Hq, hq = bh - b * Hq;
-  const size_t kv_off = (size_t)(b * (Hq / group) + hq / group) * mask.S * D;
-  const bf16* kg = k + kv_off;
-  const bf16* vg = v + kv_off;
-  const int q0 = blockIdx.x * BQ;
-
-  load_rows<D>(sQ, q + (size_t)bh * mask.T * D, q0, BQ, mask.T);
+  const int bkv = b * (Hq / group) + hq / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * P::BQ;
   int lo, hi;
-  mask.key_range(q0, q0 + BQ, lo, hi);
+  mask.key_range(q0, q0 + P::BQ, lo, hi);
+  const int kb_first = (lo / BK) * BK;
+  const int wg = threadIdx.x / 128;
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_run[2] = {neg_inf(), neg_inf()};
-  float l_run[2] = {0.f, 0.f};            // this thread's share of each row sum
-  const int row0 = q0 + warp * 16 + g;    // this thread's rows: row0, row0 + 8
-  const uint32_t q_addr = smem_u32(sQ + (warp * 16 + (lane & 15)) * STR + (lane >> 4) * 8);
-
-  for (int kb = (lo / BK) * BK; kb < hi; kb += BK) {
-    __syncthreads();                      // the previous K/V tiles are consumed
-    load_rows<D>(sK, kg, kb, BK, mask.S);
-    load_rows<D>(sV, vg, kb, BK, mask.S);
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x BK keys per warp.
-    float s[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      ldsm_x4(a, q_addr + kk * 2);
-#pragma unroll
-      for (int j = 0; j < NS; j += 2) {
-        uint32_t bk[4];
-        ldsm_x4(bk, smem_u32(sK + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * STR +
-                             kk + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[j], a, bk[0], bk[1]);
-        mma_bf16(s[j + 1], a, bk[2], bk[3]);
-      }
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&k_empty[s], 8);         // lane 0 of each consumer warp
+      sm90::mbar_init(&v_empty[s], 8);
     }
-
-    // Mask, scale (log2 domain) and the online-softmax update.
-    float mx[2] = {neg_inf(), neg_inf()};
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + (e >> 1) * 8, c = kb + j * 8 + tig * 2 + (e & 1);
-        const float val = mask.visible(r, c) ? s[j][e] * scale_log2 : neg_inf();
-        s[j][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    float base[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_run[i], mx[i]);
-      base[i] = m_new == neg_inf() ? 0.f : m_new;   // no key seen yet: all p = 0
-      alpha[i] = exp2f(m_run[i] - base[i]);
-      m_run[i] = m_new;
-      l_run[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - base[e >> 1]);
-        s[j][e] = p;
-        l_run[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V: P's C fragments are the A fragments of the second product.
-#pragma unroll
-    for (int kj = 0; kj < BK / 16; ++kj) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kj][0], s[2 * kj][1]), pack_bf16(s[2 * kj][2], s[2 * kj][3]),
-          pack_bf16(s[2 * kj + 1][0], s[2 * kj + 1][1]),
-          pack_bf16(s[2 * kj + 1][2], s[2 * kj + 1][3])};
-      const bf16* v_row = sV + (kj * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * STR + (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        uint32_t bv[4];
-        ldsm_x4_trans(bv, smem_u32(v_row + n * 8));
-        mma_bf16(acc[n], pa, bv[0], bv[1]);
-        mma_bf16(acc[n + 1], pa, bv[2], bv[3]);
-      }
-    }
+    sm90::mbar_fence_init();
   }
+  __syncthreads();
 
-  bf16* og = out + (size_t)bh * mask.T * D;
+  if (wg == 0) {
+    sm90::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      sm90::tma_prefetch_map(&map_q);
+      sm90::tma_prefetch_map(&map_k);
+      sm90::tma_prefetch_map(&map_v);
+      sm90::mbar_arrive_expect_tx(&q_full, P::Q_BYTES);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int r = row0 + i * 8;
-    if (r >= mask.T) continue;
-    const float inv = l > 0.f ? 1.f / l : 0.f;
+      for (int c = 0; c < P::NCH; ++c)
+        sm90::tma_load_3d(sQ + c * P::BQ * SW, &map_q, &q_full, c * P::CW, q0, bh);
+      int stage = 0, phase = 0;
+      for (int kb = kb_first; kb < hi; kb += BK) {
+        uint8_t* sK = sKV + stage * 2 * P::KV_BYTES;
+        uint8_t* sV = sK + P::KV_BYTES;
+        sm90::mbar_wait(&k_empty[stage], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&k_full[stage], P::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r * D + n * 8 + tig * 2) =
-          __floats2bfloat162_rn(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+        for (int c = 0; c < P::NCH; ++c)
+          sm90::tma_load_3d(sK + c * BK * SW, &map_k, &k_full[stage], c * P::CW, kb, bkv);
+        sm90::mbar_wait(&v_empty[stage], phase ^ 1);
+        sm90::mbar_arrive_expect_tx(&v_full[stage], P::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < P::NCH; ++c)
+          sm90::tma_load_3d(sV + c * BK * SW, &map_v, &v_full[stage], c * P::CW, kb, bkv);
+        if (++stage == 2) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    sm90::reg_alloc<240>();
+    const int cw = wg - 1;
+    const int t = threadIdx.x - 128 * wg, warp = t / 32, lane = t % 32;
+    const int r_lo = q0 + cw * 64;                  // this warpgroup's 64 rows
+    const int row0 = r_lo + warp * 16 + lane / 4;   // this thread's rows: row0, row0 + 8
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_base = sm90::smem_u32(sQ) + cw * 64 * SW;
+    auto k_at = [&](int i) { return sm90::smem_u32(sKV + (i & 1) * 2 * P::KV_BYTES); };
+    auto v_at = [&](int i) { return k_at(i) + P::KV_BYTES; };
+
+    // The block's tiles are i = 0 .. n_tiles-1 (keys kb_first + i BK), tile
+    // i in slot i % 2 at phase (i / 2) % 2.  The rows of this warpgroup see
+    // the contiguous run [i_first, i_end) of them; the others it only waits
+    // for and hands back.  Peeling the run's first and last products keeps
+    // every wgmma of the pipelined loop out of a branch: ptxas serialises
+    // wgmma whose groups stay in flight across a divergent path.
+    const int n_tiles = hi > kb_first ? (hi - kb_first + BK - 1) / BK : 0;
+    int w_lo, w_hi;
+    mask.key_range(r_lo, r_lo + 64, w_lo, w_hi);
+    const bool any = r_lo < mask.T && w_lo < w_hi;
+    int i_first = any ? (w_lo - kb_first) / BK : 0;
+    const int i_end = any ? min(n_tiles, (w_hi - kb_first + BK - 1) / BK) : 0;
+    auto pass = [&](int i) {
+      sm90::mbar_wait(&k_full[i & 1], (i >> 1) & 1);
+      if (lane == 0) sm90::mbar_arrive(&k_empty[i & 1]);
+      sm90::mbar_wait(&v_full[i & 1], (i >> 1) & 1);
+      if (lane == 0) sm90::mbar_arrive(&v_empty[i & 1]);
+    };
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_run[2] = {neg_inf(), neg_inf()};
+    float l_run[2] = {0.f, 0.f};              // this thread's share of each row sum
+    sm90::mbar_wait(&q_full, 0);
+
+    for (int i = 0; i < i_first; ++i) pass(i);
+    if (i_first < i_end) {
+      // The first tile: S, softmax, P.  O is still 0, so no rescale.
+      uint32_t pa[BK / 16][4];
+      {
+        const int i = i_first, kb = kb_first + i * BK;
+        float s[BK / 2], alpha[2];
+        sm90::mbar_wait(&k_full[i & 1], (i >> 1) & 1);
+        issue_qk<D, BK, SW>(s, q_base, k_at(i));
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        if (lane == 0) sm90::mbar_arrive(&k_empty[i & 1]);
+        online_softmax<BK>(s, mask, mask.all_visible(r_lo, r_lo + 64, kb, kb + BK), row0,
+                           col0, kb, scale_log2, m_run, l_run, alpha);
+        pack_p<BK>(pa, s);
+      }
+      // Each next tile: its S = Q K^T, then the previous tile's O += P V
+      // behind it on the tensor cores while this tile's softmax runs.
+      for (int i = i_first + 1; i < i_end; ++i) {
+        const int kb = kb_first + i * BK;
+        float s[BK / 2], alpha[2];
+        sm90::mbar_wait(&k_full[i & 1], (i >> 1) & 1);
+        issue_qk<D, BK, SW>(s, q_base, k_at(i));
+        sm90::mbar_wait(&v_full[(i - 1) & 1], ((i - 1) >> 1) & 1);
+        issue_pv<D, BK, SW>(o, pa, v_at(i - 1));
+        sm90::wgmma_wait<1>();                 // S is ready; P V may still run
+        sm90::fence_regs(s);
+        if (lane == 0) sm90::mbar_arrive(&k_empty[i & 1]);
+        online_softmax<BK>(s, mask, mask.all_visible(r_lo, r_lo + 64, kb, kb + BK), row0,
+                           col0, kb, scale_log2, m_run, l_run, alpha);
+        sm90::wgmma_wait<0>();                 // the previous P V has landed
+        sm90::fence_regs(o);
+        keep_regs(pa);
+        if (lane == 0) sm90::mbar_arrive(&v_empty[(i - 1) & 1]);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          o[4 * n + 0] *= alpha[0];
+          o[4 * n + 1] *= alpha[0];
+          o[4 * n + 2] *= alpha[1];
+          o[4 * n + 3] *= alpha[1];
+        }
+        pack_p<BK>(pa, s);
+      }
+      // The last tile's P V.
+      const int last = i_end - 1;
+      sm90::mbar_wait(&v_full[last & 1], (last >> 1) & 1);
+      issue_pv<D, BK, SW>(o, pa, v_at(last));
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      keep_regs(pa);
+      if (lane == 0) sm90::mbar_arrive(&v_empty[last & 1]);
+    }
+    for (int i = max(i_first, i_end); i < n_tiles; ++i) pass(i);
+
+    bf16* og = out + (size_t)bh * mask.T * D;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float l = l_run[h];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int r = row0 + 8 * h;
+      if (r >= mask.T) continue;
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r * D + 8 * i + col0) =
+            __floats2bfloat162_rn(o[4 * i + 2 * h] * inv, o[4 * i + 2 * h + 1] * inv);
+    }
   }
 }
 
@@ -356,18 +482,27 @@ __global__ void __launch_bounds__(NW * 32) flash_f32_kernel(
 // Launch
 // ---------------------------------------------------------------------------
 
-template <int D, int BK>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B,
-                int Hq, int group, const Mask& mask, float scale, cudaStream_t s) {
-  const int smem = (BQ + 2 * BK) * (D + 8) * (int)sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((mask.T + BQ - 1) / BQ, B * Hq);
-  flash_bf16_kernel<D, BK><<<grid, NW * 32, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), Hq, group, mask,
-      scale * kLog2e);
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq,
+                int Hkv, const Mask& mask, float scale, cudaStream_t s) {
+  using P = FlashPlan<D>;
+  CUtensorMap map_q, map_k, map_v;
+  const uint64_t dims_q[3] = {(uint64_t)D, (uint64_t)mask.T, (uint64_t)B * Hq};
+  const uint64_t strides_q[2] = {(uint64_t)D * 2, (uint64_t)mask.T * D * 2};
+  const uint32_t box_q[3] = {(uint32_t)P::CW, (uint32_t)P::BQ, 1};
+  const uint64_t dims_kv[3] = {(uint64_t)D, (uint64_t)mask.S, (uint64_t)B * Hkv};
+  const uint64_t strides_kv[2] = {(uint64_t)D * 2, (uint64_t)mask.S * D * 2};
+  const uint32_t box_kv[3] = {(uint32_t)P::CW, (uint32_t)P::BK, 1};
+  int err = sm90::encode_bf16_map(&map_q, 3, q, dims_q, strides_q, box_q, P::SW);
+  if (!err) err = sm90::encode_bf16_map(&map_k, 3, k, dims_kv, strides_kv, box_kv, P::SW);
+  if (!err) err = sm90::encode_bf16_map(&map_v, 3, v, dims_kv, strides_kv, box_kv, P::SW);
+  if (err) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * Hq, (mask.T + P::BQ - 1) / P::BQ);
+  flash_wgmma_kernel<D><<<grid, FA_THREADS, P::SMEM, s>>>(
+      map_q, map_k, map_v, static_cast<bf16*>(out), Hq, Hq / Hkv, mask, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -388,8 +523,9 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D); all contiguous,
-// one dtype: 0 = float32, 1 = bfloat16.  D in {32, 64, 128, 256}; Hkv | Hq.
-// causal: 0 or 1; window < 1 means none.  Returns 0 or a cudaError_t.
+// one dtype: 0 = float32, 1 = bfloat16 (16-byte aligned: TMA reads it).
+// D in {32, 64, 128, 256}; Hkv | Hq.  causal: 0 or 1; window < 1 means none.
+// Returns 0, a cudaError_t, or sm90::kTensorMapError + a CUresult.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* out, int B, int Hq, int Hkv, int T,
                                    int S, int D, int causal, int window,
@@ -402,10 +538,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_bf16<32, 64>(q, k, v, out, B, Hq, group, mask, scale, s);
-      case 64: return launch_bf16<64, 64>(q, k, v, out, B, Hq, group, mask, scale, s);
-      case 128: return launch_bf16<128, 64>(q, k, v, out, B, Hq, group, mask, scale, s);
-      case 256: return launch_bf16<256, 32>(q, k, v, out, B, Hq, group, mask, scale, s);
+      case 32: return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
+      case 64: return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
+      case 128: return launch_bf16<128>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
+      case 256: return launch_bf16<256>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

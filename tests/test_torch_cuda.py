@@ -218,39 +218,18 @@ def test_reduced_train_step_card_matches_cpu(cuda):
 # token shift and flash attention.
 # ---------------------------------------------------------------------------
 
+from repro_torch.kernels import card_checks as CC  # noqa: E402
 from repro_torch.kernels.elevator_scan import decode as ED  # noqa: E402
 from repro_torch.kernels.elevator_scan import kernel as EK  # noqa: E402
 from repro_torch.kernels.local_attention import kernel as FA  # noqa: E402
 from repro_torch.kernels.token_shift import kernel as TS_K  # noqa: E402
-
-# bf16 attention is held per element, scaled to the element and to the RMS
-# of its output row (over D):
-#   |got - want| <= ATTN_BF16_ULP * |want| + ATTN_BF16_ROW * rms(want row).
-# Both versions round the output to bf16, so the two may sit one bf16 ulp
-# apart (at most 2**-7 of the value).  The kernel also rounds P to bf16
-# before the P.V product: 2**-9 relative per term, summed over the row's
-# keys as a random walk that stays several times under 2**-5 of the row's
-# RMS.  A fault that moves whole late rows by a few percent (a skipped K
-# tile, a missed rescale) exceeds the row term; a fully masked row must be 0.
-ATTN_BF16_ULP = 2.0 ** -7
-ATTN_BF16_ROW = 2.0 ** -5
-
-
-def _attn_bf16_ratio(got, want):
-    """max over elements of |got - want| / tolerance (<= 1 passes)."""
-    g, w = got.float(), want.float()
-    err = (g - w).abs()
-    tol = ATTN_BF16_ULP * w.abs() + ATTN_BF16_ROW * w.pow(2).mean(-1, keepdim=True).sqrt()
-    ratio = torch.where(tol > 0, err / tol.clamp_min(1e-30), err * float("inf"))
-    return float(ratio.nan_to_num(0.0).max())
-
 
 def _attn_close(got, want):
     assert got.shape == want.shape and got.dtype == want.dtype
     if got.dtype == torch.float32:
         _close([got], [want], F32_TOL)
     else:
-        ratio = _attn_bf16_ratio(got, want)
+        ratio = CC.attn_bf16_ratio(got, want)
         assert ratio <= 1.0, f"bf16 attention error is {ratio:.3f} x its tolerance"
 
 
@@ -328,7 +307,7 @@ ATTN_CASES = [
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [32, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
 @pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_attention_matches_plain(cuda, dtype, d, case):
     b, hq, hkv, t, s, causal, window = case
@@ -348,48 +327,55 @@ def test_flash_attention_fully_masked_rows_are_zero(cuda):
 #: Faults planted in copies of the bf16 kernel's source, each of which the
 #: bf16 check must reject at RecurrentGemma's shape: (anchor, replacement).
 #: Each touches only some rows, as a real indexing or rescale bug would.
+_FIRST = "    int i_first = any ? (w_lo - kb_first) / BK : 0;\n"
 FLASH_FAULTS = {
-    # Skip the first K tile of every block whose key range spans more than
-    # 16 tiles (the rows from about 960 on).
-    "skip_first_tile": ("    // S = Q K^T: 16 rows x BK keys per warp.\n",
-                        "    if (kb == (lo / BK) * BK && hi - lo > 16 * BK) continue;\n"
-                        "    // S = Q K^T: 16 rows x BK keys per warp.\n"),
+    # Each warpgroup skips the first K tile of its run wherever the block's
+    # key range spans more than 16 tiles (the rows from about 900 on); it
+    # still waits for the tile and hands it back.
+    "skip_first_tile": (_FIRST, _FIRST + "    if (hi - lo > 16 * BK) ++i_first;\n"),
     # The same, only where the window has slid past key 0 (rows >= 2048):
     # late rows move by a few percent, under the old whole-output bound.
-    "skip_first_tile_late": ("    // S = Q K^T: 16 rows x BK keys per warp.\n",
-                             "    if (kb == (lo / BK) * BK && lo > 0) continue;\n"
-                             "    // S = Q K^T: 16 rows x BK keys per warp.\n"),
-    # Leave the online-softmax rescale off the lower half of each warp's rows.
-    "alpha_off_row_half": ("      acc[n][2] *= alpha[1];\n      acc[n][3] *= alpha[1];\n", ""),
+    "skip_first_tile_late": (_FIRST, _FIRST + "    if (lo > 0) ++i_first;\n"),
+    # Leave the online-softmax rescale off the lower 8 rows of each warp's
+    # 16 (one half of a warpgroup's rows).
+    "alpha_off_row_half": ("          o[4 * n + 2] *= alpha[1];\n          o[4 * n + 3] *= alpha[1];\n",
+                           ""),
     # Reduce the row sum over only half the row's threads for that half.
-    "l_sum_half": ("    l += __shfl_xor_sync(0xffffffffu, l, 2);\n",
-                   "    if (i == 0) l += __shfl_xor_sync(0xffffffffu, l, 2);\n"),
+    "l_sum_half": ("      l += __shfl_xor_sync(0xffffffffu, l, 2);\n",
+                   "      if (h == 0) l += __shfl_xor_sync(0xffffffffu, l, 2);\n"),
 }
 
 
-@pytest.fixture(scope="module")
-def flash_mutants(tmp_path_factory):
-    """Each planted fault compiled into its own library (nvcc in parallel)."""
+def _compile_mutants(name, faults, out):
+    """Each planted fault compiled into its own copy of library ``name``
+    (nvcc in parallel, the build's flags); returns fault -> loaded library."""
     import ctypes
     import subprocess
 
     from repro_torch.kernels import common
 
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
-    src = common.KERNEL_SOURCES["flash_attention"].read_text()
-    out, procs = tmp_path_factory.mktemp("flash_mutants"), {}
-    for name, (anchor, repl) in FLASH_FAULTS.items():
-        assert src.count(anchor) == 1, name
-        cu = out / f"{name}.cu"
+    src = common.KERNEL_SOURCES[name].read_text()
+    procs = {}
+    for fault, (anchor, repl) in faults.items():
+        assert src.count(anchor) == 1, fault
+        cu = out / f"{fault}.cu"
         cu.write_text(src.replace(anchor, repl))
-        procs[name] = subprocess.Popen(
-            [common._nvcc(), *common._NVCC_FLAGS, "-o", str(out / f"{name}.so"), str(cu)],
+        procs[fault] = subprocess.Popen(
+            [common._nvcc(), *common._NVCC_FLAGS, "-o", str(out / f"{fault}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    for name, proc in procs.items():
+    for fault, proc in procs.items():
         report, _ = proc.communicate()
         assert proc.returncode == 0, report
-    return {name: ctypes.CDLL(str(out / f"{name}.so")) for name in FLASH_FAULTS}
+    return {fault: ctypes.CDLL(str(out / f"{fault}.so")) for fault in faults}
+
+
+@pytest.fixture(scope="module")
+def flash_mutants(tmp_path_factory):
+    """Each planted fault compiled into its own library (nvcc in parallel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
+    return _compile_mutants("flash_attention", FLASH_FAULTS,
+                            tmp_path_factory.mktemp("flash_mutants"))
 
 
 @pytest.mark.parametrize("fault", list(FLASH_FAULTS))
@@ -407,9 +393,9 @@ def test_flash_bf16_check_rejects_planted_fault(cuda, flash_mutants, monkeypatch
         err = float((got.float() - want.float()).abs().max())
         print(f"[flash-fault] {name}: max_abs_err={err:.3e} old check "
               f"{'passes' if err <= old_tol else 'fails'} (tol {old_tol:.3e}); new check "
-              f"ratio {_attn_bf16_ratio(got, want):.3f}")
-    assert _attn_bf16_ratio(good, want) <= 1.0
-    assert _attn_bf16_ratio(bad, want) > 1.0
+              f"ratio {CC.attn_bf16_ratio(got, want):.3f}")
+    assert CC.attn_bf16_ratio(good, want) <= 1.0
+    assert CC.attn_bf16_ratio(bad, want) > 1.0
 
 
 def test_new_wrappers_refuse_grad_and_bad_args(cuda):
@@ -449,7 +435,6 @@ def test_reduced_recurrentgemma_card_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 from repro_torch.benchmarks import rodinia  # noqa: E402
-from repro_torch.kernels import card_checks as CC  # noqa: E402
 from repro_torch.kernels.matmul_fwd import kernel as MM  # noqa: E402
 from repro_torch.kernels.matmul_fwd import ops as MM_OPS  # noqa: E402
 from repro_torch.kernels.stencil2d import kernel as ST  # noqa: E402
@@ -502,6 +487,78 @@ def test_matmul_fwd_matches_plain(cuda, dtype, case):
     assert CC.matmul_error(got, want)[2] <= 1.0
 
 
+def test_wgmma_smallest_product_is_exact(cuda):
+    """One 64 x 64 x 16 product through the wgmma variant (TMA with the
+    128-byte swizzle, A K-major, B N-major through the transpose bit) on
+    small integers, whose products and sums are exact in f32 and bf16: any
+    misplaced element of a descriptor shows as a wrong value."""
+    rng = np.random.default_rng(64)
+    a = torch.from_numpy(rng.integers(-3, 4, (64, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-3, 4, (16, 64)).astype(np.float32))
+    assert MM.plan(64, 64, 16, torch.bfloat16, 132)[0] == "wgmma"
+    got = MM.matmul_fwd_cuda(a.to(cuda, torch.bfloat16), b.to(cuda, torch.bfloat16))
+    assert torch.equal(got.float().cpu(), a @ b)
+    # The same operands as rows of a wider product: other tiles, one k-tile.
+    a2 = torch.cat([a, -a, 2 * a], 0)
+    b2 = torch.cat([b, b.flip(1)], 1)
+    got = MM.matmul_fwd_cuda(a2.to(cuda, torch.bfloat16), b2.to(cuda, torch.bfloat16))
+    assert torch.equal(got.float().cpu(), a2 @ b2)
+
+
+#: Faults planted in copies of the matmul source, each of which
+#: ``card_checks.matmul_error`` must reject: (anchor, replacement).
+MATMUL_FAULTS = {
+    # The split-K sum leaves out the last split's plane.
+    "split_sum_skips_last": (
+        "    for (int z = 0; z < split; ++z) s += ws[(size_t)z * mn + i];\n",
+        "    for (int z = 0; z < split - 1; ++z) s += ws[(size_t)z * mn + i];\n"),
+    # The wgmma epilogue writes nothing for the last column tile.
+    "epilogue_drops_last_column_tile": ("        if (c < N) {\n",
+                                        "        if (c < N && n0 + BN < N) {\n"),
+}
+#: (M, K, N, dtype) at which each fault is checked: the split sum where K is
+#: split (the suite's 256^3 in f32, split 8; K = 4096 in bf16, split 16); the
+#: epilogue where the wgmma variant runs without and with a split (4096^3,
+#: and K = 4096 at 256 x 256, in bf16).
+MATMUL_FAULT_CASES = {
+    "split_sum_skips_last": ((256, 256, 256, torch.float32),
+                             (256, 4096, 256, torch.bfloat16)),
+    "epilogue_drops_last_column_tile": ((4096, 4096, 4096, torch.bfloat16),
+                                        (256, 4096, 256, torch.bfloat16)),
+}
+
+
+@pytest.fixture(scope="module")
+def matmul_mutants(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
+    return _compile_mutants("matmul_fwd", MATMUL_FAULTS,
+                            tmp_path_factory.mktemp("matmul_mutants"))
+
+
+@pytest.mark.parametrize("fault", list(MATMUL_FAULTS))
+def test_matmul_check_rejects_planted_fault(cuda, matmul_mutants, monkeypatch, fault):
+    from repro_torch.kernels import common
+
+    for m, k, n, dtype in MATMUL_FAULT_CASES[fault]:
+        # Inputs no other test uses, and the faulty launch first: no stale
+        # output of the same product can sit in the memory it leaves unwritten.
+        rng = np.random.default_rng(m + k + n + 7)
+        a = torch.from_numpy(rng.uniform(-2, 2, (m, k)).astype(np.float32)).to(cuda, dtype)
+        b = torch.from_numpy(rng.uniform(-2, 2, (k, n)).astype(np.float32)).to(cuda, dtype)
+        with monkeypatch.context() as mp:
+            mp.setitem(common._LIBS, "matmul_fwd", matmul_mutants[fault])
+            bad = MM.matmul_fwd_cuda(a, b)
+            torch.cuda.synchronize()
+        good = MM.matmul_fwd_cuda(a, b)
+        want = MM.matmul_ref(a, b)
+        print(f"[matmul-fault] {fault} {m}x{k}x{n} {dtype}: kernel ratio "
+              f"{CC.matmul_error(good, want)[2]:.3f}, faulty ratio "
+              f"{CC.matmul_error(bad, want)[2]:.3e}")
+        assert CC.matmul_error(good, want)[2] <= 1.0
+        assert not CC.matmul_error(bad, want)[2] <= 1.0
+
+
 def test_paper_demo_wrappers_refuse_bad_args(cuda):
     a = torch.ones(64, 64, device=cuda)
     with pytest.raises(ValueError, match="one dtype"):
@@ -528,7 +585,6 @@ def test_rodinia_smoke_on_the_card_launches_no_kernel(cuda):
 # of the one card.
 # ---------------------------------------------------------------------------
 
-from repro_torch.kernels import card_checks as CC  # noqa: E402
 from repro_torch.kernels.wkv.vjp import WKVSummaryFunction  # noqa: E402
 from repro_torch.launch.mesh import make_seq_mesh  # noqa: E402
 from repro_torch.model.sharding import make_rules, sharding_context  # noqa: E402

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.benchmarks import rodinia
+from repro_torch.benchmarks import matmul_plans, rodinia
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.examples import quickstart
@@ -135,6 +135,8 @@ def test_paper_demo_entry_points_need_the_card_by_default(no_card):
         rodinia.main(["--smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        matmul_plans.main(["--shapes", "64x64x64"])
     assert rodinia.make_inputs(smoke=True, device="cpu")["x1"].device.type == "cpu"
 
 
@@ -240,3 +242,105 @@ def test_registry_refuses_unported_and_unknown_archs():
         get_config("no-such-arch")
     assert np.isclose(get_config("rwkv6-1.6b").param_count() / 1e9, 1.93, atol=0.01)
     assert np.isclose(get_config("recurrentgemma-2b").param_count() / 1e9, 2.66, atol=0.01)
+
+
+def test_editing_a_shared_header_changes_every_library_name(tmp_path, monkeypatch):
+    """The build cache hashes every ``*.cuh`` under ``kernels/`` into each
+    library's name: an edited header rebuilds every library, so no stale
+    library that still loads is left in ``build/``."""
+    from repro_torch.kernels import common
+
+    copies = {}
+    for name, src in common.KERNEL_SOURCES.items():
+        dst = tmp_path / src.relative_to(PORT / "kernels")
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(src.read_bytes())
+        copies[name] = dst
+    headers = sorted((PORT / "kernels").rglob("*.cuh"))
+    assert headers, "the shared Hopper header is missing"
+    for h in headers:
+        dst = tmp_path / h.relative_to(PORT / "kernels")
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.write_bytes(h.read_bytes())
+    monkeypatch.setattr(common, "KERNEL_SOURCES", copies)
+    monkeypatch.setattr(common, "HEADER_ROOT", tmp_path)
+    before = {n: common._lib_path(n) for n in copies}
+    assert before == {n: common._lib_path(n) for n in copies}    # stable
+    header = tmp_path / headers[0].relative_to(PORT / "kernels")
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: common._lib_path(n) for n in copies}
+    assert all(after[n] != before[n] for n in copies)
+    # A new header anywhere below the root counts too.
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert all(common._lib_path(n) != after[n] for n in copies)
+
+
+def test_sources_include_the_shared_header_through_the_include_flag():
+    from repro_torch.kernels import common
+
+    assert (common.HOPPER_INCLUDE / "sm90.cuh").is_file()
+    flags = list(common._NVCC_FLAGS)
+    assert flags[flags.index("-I") + 1] == str(common.HOPPER_INCLUDE)
+    for name in ("matmul_fwd", "flash_attention"):
+        assert '#include "sm90.cuh"' in common.KERNEL_SOURCES[name].read_text()
+
+
+def _load_chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+#: ``cuobjdump --dump-resource-usage`` of a library holding one wgmma kernel
+#: and one other kernel.
+_USAGE = """
+Fatbin elf code:
+================
+arch = sm_90a
+code version = [1,8]
+host = linux
+compile_size = 64bit
+
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _ZN46_GLOBAL__N__abebe481_13_matmul_fwd_cu_bc48243619matmul_wgmma_kernelILi64EEEv14CUtensorMap_stS1_P13__nv_bfloat16Pfiiiiiii:
+  REG:168 STACK:0 SHARED:16 LOCAL:0 CONSTANT[0]:680 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN46_GLOBAL__N__abebe481_13_matmul_fwd_cu_bc48243620splitk_reduce_kernelIfEEvPKfPT_mi:
+  REG:16 STACK:8 SHARED:0 LOCAL:0 CONSTANT[0]:384 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+_SASS = """        /*0a90*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0b10*/                   UTMALDG.2D [UR8], [UR14] ;
+"""
+
+
+@pytest.mark.parametrize("built_by", ["this run", "an earlier run"])
+def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
+    """chip_smoke's phase 1 reads the SASS counts and each wgmma kernel's
+    registers, stack frame and local memory from the library file, so a
+    library that an earlier run left in ``build/`` (the build report then
+    says "cached") passes as a fresh one does, and a kernel with a stack
+    frame still fails."""
+    smoke = _load_chip_smoke()
+    usage = {"text": _USAGE}
+
+    def run(cmd, **kw):
+        assert Path(cmd[-1]).parent == tmp_path
+        out = usage["text"] if cmd[1] == "--dump-resource-usage" else _SASS
+        return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
+
+    monkeypatch.setattr(smoke.subprocess, "run", run)
+    report = "cached" if built_by == "an earlier run" else "ptxas info    : Used 168 registers"
+    common = type("Common", (), {
+        "_lib_path": staticmethod(lambda name: tmp_path / f"lib{name}.so"),
+        "BUILD_REPORT": {n: (0.0, report) for n in smoke.HOPPER_LIBRARIES}})
+    smoke._hopper_report(common)
+    usage["text"] = _USAGE.replace("REG:168 STACK:0", "REG:168 STACK:24")
+    with pytest.raises(SystemExit, match="spills"):
+        smoke._hopper_report(common)
+    usage["text"] = _USAGE.replace("matmul_wgmma_kernel", "matmul_kernel")
+    with pytest.raises(SystemExit, match="no wgmma"):
+        smoke._hopper_report(common)
