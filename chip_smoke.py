@@ -9,9 +9,12 @@ Phases (any failure raises and exits non-zero, with no result line):
    for the two libraries redesigned around wgmma and TMA (matmul, flash
    attention) count the HGMMA and UTMALDG instructions in their SASS
    (``cuobjdump --dump-sass``) beside each wgmma kernel's registers, stack
-   frame and local memory (``cuobjdump --dump-resource-usage``), read from
-   the library file whether this run built it or found it in ``build/``,
-   and fail if a count is 0 or a wgmma kernel spills;
+   frame and local memory (``cuobjdump --dump-resource-usage``), and for
+   the two WKV libraries redesigned around TMA rings (the chunked forward,
+   the backward) the UTMALDG and UTMASTG instructions beside each kernel's
+   registers, shared memory, stack frame and local memory, all read from
+   the library file whether this run built it or found it in ``build/``;
+   fail if a count is 0 or a kernel spills (a stack frame or local memory);
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
@@ -84,8 +87,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    function, that call's time (the paper-demo kernels also at 8192^2, the
    matmul at 256^3 bf16 and 4096^3; flash attention also causal with no
    window at T=4096 against SDPA with ``is_causal=True``, whose backend is
-   printed), printed as one ``{"kernels": [...]}`` line; then the card's
-   name and power limit, and the result line.
+   printed; the WKV rows with their time per chunk, every column tile of
+   the chunked forward and every cluster size of the backward at the
+   training shape and at a seq shard, and a backward row at the seq
+   gradient's shard), printed as one ``{"kernels": [...]}`` line; then the
+   card's name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -394,7 +400,7 @@ def main():
             plain_ms, _ = _time_ms(torch, plain, sets, reps=5)
             flops = _flops(4, t, chunk, windowed=(counter is not KC.wkv_cuda))
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            f_ms = flops / PEAK_BF16_FLOPS * 1e3
+            f_ms = flops / PEAK_F32_FLOPS * 1e3     # f32 arithmetic on the CUDA cores
             rows.append({
                 "name": counter.__name__, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[counter.__name__],
@@ -405,17 +411,22 @@ def main():
                 "shape": f"B=4 H=32 T={t} Dh=64 bf16" + (
                     f" chunk={chunk}" if counter is KC.wkv_cuda else ""),
             })
+            if counter is KC.wkv_cuda:
+                rows[-1]["chunk_us"] = ms * 1e3 / (t // chunk)
+                rows[-1]["plans"] = _time_fwd_plans(torch, KC, sets, chunk)
             print(f"[time] {counter.__name__:24s} {rows[-1]['shape']:32s} "
                   f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us "
                   f"(plain {plain_ms * 1e3:9.1f} us, bound "
-                  f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']})")
+                  f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']})"
+                  + (f"; {rows[-1]['chunk_us']:.2f} us a chunk, every column tile "
+                     f"{rows[-1]['plans']}" if counter is KC.wkv_cuda else ""))
         # The window at the other admission bucket of the main path.
         sets = _cold_sets(lambda s: _inputs(torch, 4, 64, bf, s), 8 * 2**20)
         ms, call_ms = _time_ms(torch, D.wkv_decode_window_cuda, sets, 100)
         print(f"[time] wkv_decode_window_cuda   B=4 H=32 T=64 Dh=64 bf16{'':9s}"
               f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us")
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
-    rows += _time_seq_kernels(torch, KC, launches, worst, seq_extra)
+    rows += _time_seq_kernels(torch, KC, BW, launches, worst, seq_extra)
     rows += _time_rg_kernels(torch, launches, worst)
     rows += _time_paper_kernels(torch, launches, worst)
 
@@ -448,13 +459,15 @@ def _resource_usage(text):
 
 
 def _hopper_report(common):
-    """The redesigned libraries as built: the count of HGMMA (wgmma) and
-    UTMALDG (TMA load) instructions from ``cuobjdump --dump-sass``, and the
-    registers, static shared memory, stack frame and local memory of each
-    wgmma kernel from ``cuobjdump --dump-resource-usage``.  Both read the
-    library file, so a library built by an earlier run reads the same.
-    Fails if either count is 0, no wgmma kernel is found, or one has a stack
-    frame or local memory (where spills go)."""
+    """The redesigned libraries as built: the count of HGMMA (wgmma),
+    UTMALDG (TMA load) and UTMASTG (TMA store) instructions from
+    ``cuobjdump --dump-sass``, and the registers, static shared memory,
+    stack frame and local memory of each redesigned kernel from
+    ``cuobjdump --dump-resource-usage``.  Both read the library file, so a
+    library built by an earlier run reads the same.  Fails if a library
+    lacks its instructions (HGMMA and UTMALDG for the matmul and flash
+    attention, UTMALDG for the WKV pair), no such kernel is found, or one
+    has a stack frame or local memory (where spills go)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -463,23 +476,26 @@ def _hopper_report(common):
         return subprocess.run([tool, flag, str(path)], capture_output=True, text=True,
                               check=True, timeout=300).stdout
 
-    for name in HOPPER_LIBRARIES:
+    for name, marker, need in (*((n, "wgmma_kernel", ("HGMMA", "UTMALDG")) for n in HOPPER_LIBRARIES),
+                               *((n, k, ("UTMALDG",)) for n, k in WKV_TMA_LIBRARIES.items())):
         path = common._lib_path(name)
         sass = dump("--dump-sass", path)
-        counts = {op: sum(op in ln for ln in sass.splitlines()) for op in ("HGMMA", "UTMALDG")}
+        counts = {op: sum(op in ln for ln in sass.splitlines())
+                  for op in ("HGMMA", "UTMALDG", "UTMASTG")}
         kernels = {k: v for k, v in _resource_usage(dump("--dump-resource-usage", path)).items()
-                   if "wgmma" in k}
-        print(f"[build] {name}: SASS HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+                   if marker in k}
+        print(f"[build] {name}: SASS HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}, "
+              f"UTMASTG {counts['UTMASTG']}")
         for k, use in sorted(kernels.items()):
-            short = k.split("wgmma_kernel")[-1][:12]
-            print(f"[build]   wgmma kernel {short}: {use.get('REG')} registers at launch, "
+            short = k.split(marker)[-1][:14]
+            print(f"[build]   {marker} {short}: {use.get('REG')} registers at launch, "
                   f"{use.get('SHARED')} bytes static smem, stack {use.get('STACK')} B, "
                   f"local {use.get('LOCAL')} B")
-        if min(counts.values()) < 1 or not kernels:
-            raise SystemExit(f"{name}: no wgmma or TMA in the binary: {counts}, "
-                             f"{len(kernels)} wgmma kernels")
+        if min(counts[op] for op in need) < 1 or not kernels:
+            raise SystemExit(f"{name}: no {marker.split('_')[0]} kernel or no {need} in the "
+                             f"binary: {counts}, {len(kernels)} {marker}s")
         if any(use.get("STACK", 0) or use.get("LOCAL", 0) for use in kernels.values()):
-            raise SystemExit(f"{name}: a wgmma kernel spills (stack frame or local memory)")
+            raise SystemExit(f"{name}: a {marker} spills (stack frame or local memory)")
 
 
 def _cotangents(torch, b, t, dtype, seed):
@@ -672,7 +688,7 @@ def _time_train_kernels(torch, KC, BW, launches, worst, b=4, t=256, chunk=16):
             ms, call_ms = _time_ms(torch, kern, sets, reps=50)
             plain_ms, _ = _time_ms(torch, plain, sets, reps=3)
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            f_ms = flops / PEAK_BF16_FLOPS * 1e3
+            f_ms = flops / PEAK_F32_FLOPS * 1e3     # f32 arithmetic on the CUDA cores
             rows.append({
                 "name": counter.__name__, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[counter.__name__],
@@ -681,13 +697,38 @@ def _time_train_kernels(torch, KC, BW, launches, worst, b=4, t=256, chunk=16):
                 "bound_by": "bytes" if b_ms >= f_ms else "operations",
                 "library_ms": None, "call_ms": call_ms,
                 "shape": f"B={b} H=32 T={t} Dh=64 bf16 chunk={chunk}",
+                "chunk_us": ms * 1e3 / n,
+                "plans": (_time_fwd_plans(torch, KC, sets, chunk, hist=True)
+                          if counter is KC.wkv_train_cuda
+                          else _time_bwd_plans(torch, BW, sets, chunk)),
             })
             print(f"[time] {counter.__name__:24s} {rows[-1]['shape']:32s} "
                   f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us "
                   f"(plain {plain_ms * 1e3:9.1f} us, bound "
                   f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']}; "
-                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                  f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+                  f"{rows[-1]['chunk_us']:.2f} us a chunk; every plan {rows[-1]['plans']}")
     return rows
+
+
+def _time_fwd_plans(torch, KC, sets, chunk, hist=False, summary=False):
+    """Device µs of the chunked forward with every column tile that fits,
+    through ``launch_plan`` (counts no launch), on the row's input sets."""
+    item = sets[0][0].element_size()
+    return {f"cols={c}": round(1e3 * _time_ms(torch, lambda *a, c=c: KC.launch_plan(
+                *a, chunk=chunk, col_tile=c, hist=hist, summary=summary), sets, reps=20)[0], 2)
+            for c in KC.COL_TILES if KC.fwd_smem_bytes(chunk, c, item) <= KC.SMEM_LIMIT}
+
+
+def _time_bwd_plans(torch, BW, sets, chunk):
+    """Device µs of the backward with every cluster size that fits, through
+    ``launch_plan`` (counts no launch), on the row's input sets."""
+    from repro_torch.kernels.wkv.kernel import SMEM_LIMIT
+
+    item = sets[0][0].element_size()
+    return {f"cluster={c}": round(1e3 * _time_ms(torch, lambda *a, c=c: BW.launch_plan(
+                *a, chunk=chunk, cluster=c), sets, reps=20)[0], 2)
+            for c in BW.CLUSTERS if BW.bwd_smem_bytes(chunk, c, item) <= SMEM_LIMIT}
 
 
 def _bwd_flops(b, t, chunk):
@@ -983,6 +1024,7 @@ def _seq_main_path(torch, np, cfg, params, prompt=4096, gen_b=2, gen_p=2048, new
     hold(f"loss gradient on the seq mesh B=1 T={grad_t} (remat {cfg.remat})", got,
          {"wkv_train_summary_cuda": remat_runs * n_l * n_s, "wkv_bwd_cuda": n_l * n_s})
     total["wkv_train_summary_cuda"] += got["wkv_train_summary_cuda"]
+    extra["bwd_launches"] = got["wkv_bwd_cuda"]
     (l_plain, g_plain), dt_plain, got = counted(lambda: grads(False))
     hold("loss gradient without a mesh", got,
          {"wkv_train_cuda": remat_runs * n_l, "wkv_bwd_cuda": n_l})
@@ -1075,14 +1117,17 @@ def _seq_reference_check(torch, np):
         raise SystemExit("card and CPU disagree on the reduced seq path")
 
 
-def _time_seq_kernels(torch, KC, launches, worst, extra, t_full=4096, grad_t=2048, chunk=16):
+def _time_seq_kernels(torch, KC, BW, launches, worst, extra, t_full=4096, grad_t=2048,
+                      chunk=16):
     """Phase 4 rows of the summary kernels at a shard of the main path: one
     quarter (the window 2048..3072) of a 4096-token prompt at B=1 for the
     inference sweep, one quarter of the gradient's 2048 tokens for the
     training sweep (and a 1024-token shard beside it), read in place, zero
-    h0, bf16.  Then the n=4 shard launches of one layer back to back against
-    one ``wkv_cuda`` sweep over the whole 4096 tokens, and the prefill,
-    generate and gradient wall times of phase 3g."""
+    h0, bf16; the backward at the gradient's shard (the same windows, the
+    training summary's s_hist, random cotangents).  Then the n=4 shard
+    launches of one layer back to back against one ``wkv_cuda`` sweep over
+    the whole 4096 tokens, and the prefill, generate and gradient wall
+    times of phase 3g."""
     bf = torch.bfloat16
     rows = []
 
@@ -1091,39 +1136,76 @@ def _time_seq_kernels(torch, KC, launches, worst, extra, t_full=4096, grad_t=204
         a = _inputs(torch, 1, n, bf, seed)
         return a[:5] + [torch.zeros_like(a[5])]
 
-    def row(name, kern, plain, t, n, hist, source_note):
+    def window(seed, t, n):
+        a, s0 = full(seed, n), (seed % (n // t)) * t
+        return [x[:, :, s0:s0 + t] for x in a[:4]] + a[4:]
+
+    def row(name, kern, plain, t, n, hist, source_note, plans=False):
         """The row of a shard of t tokens of an n-token prompt: cold input
         sets are windows of distinct prompts."""
         nbytes = (5 * H * t * DH * 2 + H * DH * 2 + 2 * H * DH * DH * 4 + H * DH * 4
                   + (H * (t // chunk) * DH * DH * 4 if hist else 0))
-
-        def window(seed):
-            a, s0 = full(seed, n), (seed % (n // t)) * t
-            return [x[:, :, s0:s0 + t] for x in a[:4]] + a[4:]
-
-        sets = _cold_sets(window, n * H * DH * 2 * 4)
+        sets = _cold_sets(lambda seed: window(seed, t, n), n * H * DH * 2 * 4)
         ms, call_ms = _time_ms(torch, lambda *a: kern(*a, chunk=chunk), sets, reps=50)
         plain_ms, _ = _time_ms(torch, lambda *a: plain(*a, chunk=chunk), sets, reps=3)
         flops = _flops(1, t, chunk, windowed=False)
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        f_ms = flops / PEAK_BF16_FLOPS * 1e3
+        f_ms = flops / PEAK_F32_FLOPS * 1e3      # f32 arithmetic on the CUDA cores
         r = {"name": name, "route": "cuda",
              "source": "src/repro_torch/kernels/wkv/csrc/wkv_chunked.cu",
              "replaces": source_note, "launches": launches[name],
              "max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms,
              "bound_ms": max(b_ms, f_ms), "bound_by": "bytes" if b_ms >= f_ms else "operations",
              "library_ms": None, "call_ms": call_ms,
-             "shape": f"B=1 H=32 T={t} (a window of {n}) Dh=64 bf16 chunk={chunk}"}
+             "shape": f"B=1 H=32 T={t} (a window of {n}) Dh=64 bf16 chunk={chunk}",
+             "chunk_us": ms * 1e3 / (t // chunk)}
+        if plans:
+            r["plans"] = _time_fwd_plans(torch, KC, sets, chunk, hist=hist, summary=True)
         print(f"[time] {name:24s} {r['shape']:50s} device {ms * 1e3:8.2f} us, per call "
               f"{call_ms * 1e3:8.2f} us (plain {plain_ms * 1e3:9.1f} us, bound "
               f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}; {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP)")
+              f"{flops / 1e9:.2f} GFLOP); {r['chunk_us']:.2f} us a chunk"
+              + (f"; every column tile {r['plans']}" if plans else ""))
+        return r
+
+    def bwd_row(t, n):
+        """The backward at the seq gradient's shard: windows of distinct
+        prompts read in place, the training summary's s_hist of each."""
+        def bwd_set(seed):
+            a = window(seed, t, n)
+            hist = KC.wkv_train_summary_cuda(*a, chunk=chunk)[2]
+            return (*a[:5], hist, *_cotangents(torch, 1, t, bf, seed))
+
+        nc = t // chunk
+        nbytes = (5 * H * t * DH * 2 + H * DH * 2 + H * nc * DH * DH * 4 + H * DH * DH * 4
+                  + 4 * H * t * DH * 2 + H * DH * 4 + H * DH * DH * 4)
+        sets = _cold_sets(bwd_set, nbytes)
+        ms, call_ms = _time_ms(torch, lambda *a: BW.wkv_bwd_cuda(*a, chunk=chunk), sets, reps=30)
+        plain_ms, _ = _time_ms(torch, lambda *a: BW.wkv_bwd_plain(*a, chunk=chunk), sets, reps=2)
+        flops = _bwd_flops(1, t, chunk)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        f_ms = flops / PEAK_F32_FLOPS * 1e3
+        r = {"name": "wkv_bwd_cuda", "route": "cuda",
+             "source": "src/repro_torch/kernels/wkv/csrc/wkv_bwd.cu",
+             "replaces": "src/repro/kernels/wkv/bwd.py:164 (wkv_pallas_bwd)",
+             "launches": extra["bwd_launches"], "max_abs_err": worst["wkv_bwd_cuda"],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
+             "bound_by": "bytes" if b_ms >= f_ms else "operations", "library_ms": None,
+             "call_ms": call_ms, "chunk_us": ms * 1e3 / nc,
+             "shape": f"B=1 H=32 T={t} (a window of {n}) Dh=64 bf16 chunk={chunk}: a shard "
+                      "of the seq gradient",
+             "plans": _time_bwd_plans(torch, BW, sets, chunk)}
+        print(f"[time] {'wkv_bwd_cuda':24s} {r['shape']:50s} device {ms * 1e3:8.2f} us, per "
+              f"call {call_ms * 1e3:8.2f} us (plain {plain_ms * 1e3:9.1f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); {r['chunk_us']:.2f} us a chunk; every cluster size "
+              f"{r['plans']}")
         return r
 
     with torch.inference_mode():
         rows.append(row("wkv_summary_cuda", KC.wkv_summary_cuda, KC.wkv_summary_plain,
                         t_full // SEQ_SHARDS, t_full, False,
-                        "src/repro/kernels/wkv/kernel.py:262 (wkv_pallas_summary)"))
+                        "src/repro/kernels/wkv/kernel.py:262 (wkv_pallas_summary)", plans=True))
         grad_shard = row("wkv_train_summary_cuda", KC.wkv_train_summary_cuda,
                          KC.wkv_train_summary_plain, grad_t // SEQ_SHARDS, grad_t, True,
                          "src/repro/kernels/wkv/kernel.py:289 (wkv_pallas_train_summary)")
@@ -1132,7 +1214,8 @@ def _time_seq_kernels(torch, KC, launches, worst, extra, t_full=4096, grad_t=204
                          "src/repro/kernels/wkv/kernel.py:289 (wkv_pallas_train_summary)")
         rows.append({**grad_shard, "large": [
             {k: long_shard[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}]})
+                                        "bound_by", "library_ms", "chunk_us")}]})
+        rows.append(bwd_row(grad_t // SEQ_SHARDS, grad_t))
 
         # One layer's n shard launches back to back against one sweep of the
         # whole prompt (the same tokens, the same chunk-steps in all).
@@ -1146,9 +1229,11 @@ def _time_seq_kernels(torch, KC, launches, worst, extra, t_full=4096, grad_t=204
         full_sets = _cold_sets(full, t_full * H * DH * 2 * 5)
         ms_shards, _ = _time_ms(torch, shards, full_sets, reps=20)
         ms_one, _ = _time_ms(torch, lambda *a: KC.wkv_cuda(*a, chunk=chunk), full_sets, reps=20)
+    sms = KC.sm_count(torch.device("cuda"))
+    blocks = H * (DH // KC.plan_columns(1, H, q, chunk, bf, sms))
     print(f"[time] one layer of the seq prefill B=1 T={t_full}: {SEQ_SHARDS} summary launches "
-          f"(each 64 blocks on 132 SMs) back to back {ms_shards * 1e3:.2f} us against one "
-          f"wkv_cuda sweep {ms_one * 1e3:.2f} us ({ms_shards / ms_one:.2f}x)")
+          f"(each {blocks} blocks on {sms} SMs) back to back {ms_shards * 1e3:.2f} us against "
+          f"one wkv_cuda sweep {ms_one * 1e3:.2f} us ({ms_shards / ms_one:.2f}x)")
     (p_seq, p_plain), (g_seq, g_plain, agree), (d_seq, d_plain) = (
         extra["prefill"], extra["generate"], extra["grad"])
     print(f"[time] phase 3g wall: seq prefill {p_seq * 1e3:.1f} ms vs {p_plain * 1e3:.1f} ms "
@@ -1167,6 +1252,9 @@ RG_HQ, RG_HKV, RG_DH, RG_WINDOW = 10, 1, 256, 2048
 #: The libraries redesigned around wgmma and TMA (phase 1 counts their
 #: HGMMA and UTMALDG instructions).
 HOPPER_LIBRARIES = ("matmul_fwd", "flash_attention")
+#: The WKV libraries redesigned around TMA rings (phase 1 counts their
+#: UTMALDG and UTMASTG instructions), with their kernels' name.
+WKV_TMA_LIBRARIES = {"wkv_chunked": "wkv_fwd_kernel", "wkv_bwd": "wkv_bwd_kernel"}
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",

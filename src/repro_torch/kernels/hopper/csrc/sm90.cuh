@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's redesigned kernels:
-// inline PTX for mbarriers, TMA tensor loads, wgmma shared-memory descriptors
-// and products, and setmaxnreg; and, host side, the tensor-map encoder.
+// inline PTX for mbarriers, TMA tensor loads and stores, bulk-async groups,
+// named barriers, thread-block clusters (rank, barrier, distributed shared
+// memory), wgmma shared-memory descriptors and products, and setmaxnreg;
+// and, host side, the tensor-map encoders.
 //
-// Included by local_attention/csrc/flash_attention.cu and
-// matmul_fwd/csrc/matmul_fwd.cu (nvcc -I .../kernels/hopper/csrc).  The build
+// Included by local_attention/csrc/flash_attention.cu,
+// matmul_fwd/csrc/matmul_fwd.cu, wkv/csrc/wkv_chunked.cu and
+// wkv/csrc/wkv_bwd.cu (nvcc -I .../kernels/hopper/csrc).  The build
 // cache (kernels/common.py) hashes every *.cuh under kernels/ into each
 // library's name, so an edit here rebuilds every library.
 //
@@ -124,6 +127,100 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// TMA: tensor tiles shared -> global (a bulk-async group per thread).  The
+// threads that wrote the tile run fence_proxy_async() and then a barrier
+// before one thread issues the store; bulk_wait_read<N>() returns once all
+// but the newest N groups have finished reading shared memory (the tile may
+// then be written again), bulk_wait<N>() once their writes are done.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Named barriers: `count` threads (a multiple of 32, whole warps) meet at
+// barrier `id` (1..15; 0 is __syncthreads).  arrive does not wait: a
+// producer role arrives, its consumer role syncs.  Either orders the shared
+// memory accesses of the participating threads before it.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: the block's rank in its cluster, the cluster-wide
+// barrier (every thread of every block arrives, release, and waits,
+// acquire: the shared-memory writes before the arrive are visible to the
+// whole cluster after the wait), and distributed shared memory: mapa turns
+// a local shared address into the same offset in block `rank`'s shared
+// memory, read with ld.shared::cluster.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t mapa(uint32_t saddr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(saddr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // ---------------------------------------------------------------------------
@@ -369,6 +466,26 @@ inline int encode_bf16_map(CUtensorMap* map, int rank, const void* ptr, const ui
                   reinterpret_cast<const cuuint64_t*>(strides),
                   reinterpret_cast<const cuuint32_t*>(box), elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   sw, CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+// A tensor map of f32 or bf16 elements (`type`), `rank` dims innermost
+// first, byte strides of dims 1.. (multiples of 16), a box of `box`
+// elements, no swizzle (rows land densely, box[0] elements a row), for the
+// CUDA-core kernels that read their tiles with plain loads; rows past the
+// edge load as zeros.  Returns 0 or kTensorMapError + CUresult.
+inline int encode_plain_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                            const void* ptr, const uint64_t* dims, const uint64_t* strides,
+                            const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return kTensorMapError;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                  reinterpret_cast<const cuuint64_t*>(dims),
+                  reinterpret_cast<const cuuint64_t*>(strides),
+                  reinterpret_cast<const cuuint32_t*>(box), elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 

@@ -5,9 +5,13 @@ Counterpart of ``repro.kernels.wkv.bwd.wkv_pallas_bwd``: the reverse chunk
 sweep that carries the (Dh × Dh) adjoint state dS from chunk s+1 to chunk
 s, seeded with ``d_s_out`` at the last chunk, and recomputes the decays and
 scores of each chunk from the primals and ``s_hist`` (the entering states
-the training forward wrote).  The CUDA kernel runs the sweep inside one
-block per (batch, head) with dS in shared memory (see the note at the top
-of the source).
+the training forward wrote).  The CUDA kernel runs the sweep of one
+(batch, head) on a cluster of 1, 2 or 4 blocks, each holding its share of
+the value columns of dS in shared memory for the whole sweep and
+exchanging its partial sums over them through distributed shared memory
+(see the note at the top of the source).  The cluster's size comes from
+:func:`plan_cluster`, pure Python: it depends on the shape, the chunk, the
+dtype and the card's SM count, never on the T stride of a window.
 
 :func:`wkv_bwd_cuda` is the wrapper: on CUDA tensors it launches the kernel
 (counting the launch in ``wkv_bwd_cuda.launches``) or raises; on CPU
@@ -29,12 +33,70 @@ from repro_torch.kernels.common import (
     load_library,
     validate_divisible,
 )
-from repro_torch.kernels.wkv.kernel import DTYPE_CODE, WKV_DH, row_stride
+from repro_torch.kernels.wkv.kernel import (
+    DTYPE_CODE,
+    SMEM_LIMIT,
+    WKV_DH,
+    _up128,
+    padded_chunk,
+    row_stride,
+    sm_count,
+)
 
-__all__ = ["BWD_MAX_CHUNK", "wkv_bwd_cuda", "wkv_bwd_plain"]
+__all__ = ["BWD_MAX_CHUNK", "CLUSTERS", "bwd_smem_bytes", "plan_cluster",
+           "launch_plan", "wkv_bwd_cuda", "wkv_bwd_plain"]
 
 #: Largest chunk the backward kernel takes (its shared-memory tiles).
 BWD_MAX_CHUNK = 32
+#: The cluster sizes (blocks per (batch, head)) the backward may take.
+CLUSTERS = (1, 2, 4)
+#: The share of the SMs the backward's blocks should reach.  Every block of
+#: a cluster repeats the decay factors and the scores of its (batch, head),
+#: so a larger cluster pays only where the smaller one leaves more than
+#: half the SMs idle: on the H100, one block per (batch, head) at B=4, H=32
+#: (128 blocks) and a cluster of 2 at B=1 (64 blocks) were the fastest
+#: (``chip_smoke.py`` phase 4 times every cluster size at both shapes).
+FILL = 0.45
+
+
+def bwd_smem_bytes(chunk: int, cluster: int, itemsize: int) -> int:
+    """Shared memory of one block of ``csrc/wkv_bwd.cu`` (its ``layout``,
+    128-byte aligned regions): two ring stages (r/k/w rows, the block's v
+    and do columns, its s_hist slice), the decay tiles and their k-major
+    copies, the block's do/v/S/G tiles, the scores, two exchange buffers,
+    the cluster's sums, the r.u.k warp partials, dv's four key-quarter
+    partials and the d_rdec / d_kinv / V G^T tiles of the block's key
+    columns.  The source's ``wkv_bwd_smem`` returns the same."""
+    lp = padded_chunk(chunk)
+    ld, nj, dh = lp + 4, WKV_DH // cluster, WKV_DH
+    stage = (3 * _up128(lp * dh * itemsize) + 2 * _up128(lp * nj * itemsize)
+             + _up128(dh * nj * 4))
+    tiles = (3 * _up128(lp * dh * 4) + 3 * _up128(dh * ld * 4) + _up128(lp * nj * 4)
+             + 2 * _up128(nj * ld * 4) + 2 * _up128(nj * (dh + 4) * 4) + _up128(dh * nj * 4)
+             + _up128(lp * ld * 4))
+    xch = 2 * _up128(lp * dh * 4) + _up128(lp * ld * 4) + _up128(lp * 4) + _up128(dh * 4)
+    sums = (2 * _up128(lp * ld * 4) + 2 * _up128(lp * 4) + 3 * _up128(dh * 4)
+            + _up128(8 * lp * 4) + _up128(4 * lp * nj * 4) + 3 * _up128(lp * nj * 4))
+    return _up128(128 + 4 * dh) + 2 * stage + tiles + 2 * xch + sums
+
+
+def plan_cluster(b: int, h: int, t: int, chunk: int, dtype: torch.dtype, sms: int) -> int:
+    """The blocks of one (batch, head) in the backward (one of
+    :data:`CLUSTERS`) for (b, h, t, 64) inputs at ``chunk`` on a card of
+    ``sms`` SMs: the smallest cluster whose blocks (b·h·cluster) reach
+    ``FILL`` of the SMs, else the largest, among those whose shared memory
+    fits.  A larger cluster splits the value-column products over its
+    blocks and adds one cluster barrier and an exchange through distributed
+    shared memory a chunk.  ``t`` enters only through ``chunk``."""
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"plan_cluster: dtype {dtype} not supported (float32, bfloat16)")
+    validate_divisible("T", t, chunk)
+    item = torch.empty((), dtype=dtype).element_size()
+    fits = [c for c in CLUSTERS if bwd_smem_bytes(chunk, c, item) <= SMEM_LIMIT]
+    for c in fits:
+        if b * h * c >= FILL * sms:
+            return c
+    return fits[-1]
 
 
 def wkv_bwd_plain(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
@@ -130,28 +192,42 @@ def wkv_bwd_cuda(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
     forward; d_s_out: (B, H, 64, 64) f32; ``chunk`` divides T, 1..32.
     Returns ``(dr, dk, dv, dw, du_part, dh0)``.  CPU tensors take the plain
     version."""
-    b, h, t, dh = r.shape
-    validate_divisible("T", t, chunk)
+    validate_divisible("T", r.shape[2], chunk)
     if r.device.type == "cpu":
         return wkv_bwd_plain(r, k, v, w, u, s_hist, d_out, d_s_out, chunk=chunk)
+    out = launch_plan(r, k, v, w, u, s_hist, d_out, d_s_out, chunk=chunk)
+    wkv_bwd_cuda.launches += 1
+    return out
+
+
+def launch_plan(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int, cluster=None):
+    """Launch the backward kernel on CUDA tensors with ``cluster`` blocks
+    per (batch, head) (one of :data:`CLUSTERS` whose shared memory fits),
+    or :func:`plan_cluster`'s choice; counts no launch.  The card tests and
+    ``chip_smoke.py`` compare and time the other sizes."""
+    b, h, t, dh = r.shape
+    validate_divisible("T", t, chunk)
     if chunk > BWD_MAX_CHUNK:
         raise ValueError(f"wkv_bwd_cuda: chunk={chunk} > {BWD_MAX_CHUNK}")
     t_stride = _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk)
+    if cluster is None:
+        cluster = plan_cluster(b, h, t, chunk, r.dtype, sm_count(r.device))
     dr, dk, dv, dw = (torch.empty(r.shape, dtype=r.dtype, device=r.device)
                       for _ in range(4))
     du_part = torch.empty((b, h, dh), dtype=torch.float32, device=r.device)
     dh0 = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
     fn = load_library("wkv_bwd").wkv_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), s_hist.data_ptr(), d_out.data_ptr(),
              d_s_out.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              dw.data_ptr(), du_part.data_ptr(), dh0.data_ptr(),
-             b, h, t, t_stride, dh, chunk, DTYPE_CODE[r.dtype], launch_stream(r.device))
+             b, h, t, t_stride, dh, chunk, DTYPE_CODE[r.dtype], cluster,
+             launch_stream(r.device))
     if err:
-        raise RuntimeError(f"wkv_bwd launch failed: cudaError {err}")
-    wkv_bwd_cuda.launches += 1
+        raise RuntimeError(f"wkv_bwd launch failed: error {err} (a cudaError_t, or "
+                           "10000 + the CUresult of a tensor map)")
     return dr, dk, dv, dw, du_part, dh0
 
 

@@ -13,6 +13,7 @@ tolerance is taken relative to the largest value of each output.
 """
 
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -355,6 +356,7 @@ def _compile_mutants(name, faults, out):
     from repro_torch.kernels import common
 
     src = common.KERNEL_SOURCES[name].read_text()
+    out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for fault, (anchor, repl) in faults.items():
         assert src.count(anchor) == 1, fault
@@ -700,3 +702,251 @@ def test_reduced_seq_path_card_matches_cpu(cuda):
     assert out["cuda"][1] == (cfg.num_layers * 4, 0) and out["cpu"][1] == (0, 0)
     _close([out["cuda"][0]], [out["cpu"][0]], 2e-3)
     _close_scaled(out["cuda"][2], out["cpu"][2], 3e-3)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned WKV kernels (TMA rings, prep and carry roles, clusters):
+# the edges of the design and every plan, against the plain versions, and
+# planted faults the checks must reject.
+# ---------------------------------------------------------------------------
+
+#: (B, H, T, chunk): a sweep shorter than the two-stage ring (T = chunk), a
+#: prime T (chunk 1: 257 chunks of one token), the largest chunks (64 for
+#: the forward, 32 for the backward), and B*H = 3, not a multiple of the
+#: backward's clusters of 2 and 4.
+WKV_EDGES = ((2, 4, 16, 16), (1, 2, 257, 1), (1, 2, 64, 64), (1, 3, 64, 32), (1, 3, 48, 16))
+
+
+def _fwd_tiles(chunk, dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    return [c for c in K.COL_TILES if K.fwd_smem_bytes(chunk, c, item) <= K.SMEM_LIMIT]
+
+
+def _bwd_clusters(chunk, dtype):
+    item = torch.empty((), dtype=dtype).element_size()
+    return [c for c in BW.CLUSTERS if BW.bwd_smem_bytes(chunk, c, item) <= K.SMEM_LIMIT]
+
+
+def _scaled_ratio(got, want, tol):
+    """Worst |got - want| / (tol max(1, max|want|) + tol |want|) over the
+    outputs: ``_close_scaled``'s check, which passes at <= 1 (inf where an
+    output is not finite)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.float().cpu(), w.float().cpu()
+        if not bool(torch.isfinite(g).all()):
+            return float("inf")
+        lim = tol * max(1.0, float(w.abs().max())) + tol * w.abs()
+        worst = max(worst, float(((g - w).abs() / lim).max()))
+    return worst
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV_EDGES, ids=lambda c: "B{}-H{}-T{}-L{}".format(*c))
+def test_wkv_edges_match_plain_in_every_plan(cuda, dtype, case):
+    b, h, t, chunk = case
+    args = _inputs(b, h, t, t + 7, cuda, dtype)
+    tol = F32_TOL if dtype == torch.float32 else BF16_RTOL
+    want = K.wkv_train_plain(*args, chunk=chunk)
+    ref = None
+    for tile in _fwd_tiles(chunk, dtype):
+        got = K.launch_plan(*args, chunk=chunk, col_tile=tile, hist=True)
+        _close_scaled(got, want, tol)
+        # Column j sums in one order whatever the tile: bit-equal plans.
+        assert ref is None or all(torch.equal(x, y) for x, y in zip(got, ref)), tile
+        ref = got
+    assert ref is not None
+    assert all(torch.equal(x, y) for x, y in zip(K.wkv_train_cuda(*args, chunk=chunk), ref))
+    if chunk > BW.BWD_MAX_CHUNK:
+        return
+    d_out, d_s = _cotangents(b, h, t, t, cuda, dtype)
+    bargs = (*args[:5], ref[2], d_out, d_s)
+    want = BW.wkv_bwd_plain(*bargs, chunk=chunk)
+    btol = 1e-4 if dtype == torch.float32 else BF16_RTOL
+    for cluster in _bwd_clusters(chunk, dtype):
+        got = BW.launch_plan(*bargs, chunk=chunk, cluster=cluster)
+        _close_scaled(got, want, btol)
+        again = BW.launch_plan(*bargs, chunk=chunk, cluster=cluster)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), cluster
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_plan_agrees_at_a_window_shape(cuda, dtype):
+    """Every column tile of the four forward entries on a T-window read in
+    place (tokens 64..192 of 256), bit-equal to each other and to the
+    contiguous launch; every cluster size of the backward on the same
+    window, each within tolerance of the plain version."""
+    a = _window_inputs(2, 128, 256, 64, 5, cuda, dtype)
+    flat = [x.contiguous() for x in a]
+    tol = F32_TOL if dtype == torch.float32 else BF16_RTOL
+    want = K.wkv_train_summary_plain(*a, chunk=16)
+    ref = None
+    for tile in _fwd_tiles(16, dtype):
+        got = K.launch_plan(*a, chunk=16, col_tile=tile, hist=True, summary=True)
+        _close_scaled(got[:3], want[:3], tol)
+        assert CC.a_seg_ratio(got[3], want[3]) <= 1.0
+        flat_got = K.launch_plan(*flat, chunk=16, col_tile=tile, hist=True)
+        assert all(torch.equal(x, y) for x, y in zip(got[:3], flat_got))
+        inf = K.launch_plan(*a, chunk=16, col_tile=tile, summary=True)
+        assert torch.equal(inf[0], got[0]) and torch.equal(inf[1], got[1])
+        assert ref is None or all(torch.equal(x, y) for x, y in zip(got, ref)), tile
+        ref = got
+    d_out, d_s = _cotangents(2, 4, 128, 5, cuda, dtype)
+    bargs = (*a[:5], ref[2], d_out, d_s)
+    want = BW.wkv_bwd_plain(*bargs, chunk=16)
+    for cluster in _bwd_clusters(16, dtype):
+        got = BW.launch_plan(*bargs, chunk=16, cluster=cluster)
+        _close_scaled(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL)
+        flat_got = BW.launch_plan(*flat[:5], ref[2], d_out, d_s, chunk=16, cluster=cluster)
+        assert all(torch.equal(x, y) for x, y in zip(got, flat_got)), cluster
+
+
+def test_shared_memory_formulas_match_the_sources(cuda):
+    """The plans' shared-memory sizes (pure Python) equal the sources'
+    layouts, which return 0 past the card's limit."""
+    from repro_torch.kernels import common
+
+    fwd, bwd = common.load_library("wkv_chunked"), common.load_library("wkv_bwd")
+    for chunk in (1, 4, 10, 16, 31, 32, 64):
+        for code, item in ((0, 4), (1, 2)):
+            for tile in K.COL_TILES:
+                py = K.fwd_smem_bytes(chunk, tile, item)
+                assert fwd.wkv_chunked_smem(chunk, tile, code) == (py if py <= K.SMEM_LIMIT else 0)
+            if chunk <= BW.BWD_MAX_CHUNK:
+                for cluster in BW.CLUSTERS:
+                    py = BW.bwd_smem_bytes(chunk, cluster, item)
+                    assert bwd.wkv_bwd_smem(chunk, cluster, code) == (
+                        py if py <= K.SMEM_LIMIT else 0)
+
+
+#: Faults planted in copies of the two WKV sources: (anchor, replacement).
+_FWD_WAIT = "      sm90::mbar_wait(&full[c % NS], (c / NS) & 1);\n"
+_BWD_WAIT = "    sm90::mbar_wait(&full[m % NS], (m / NS) & 1);\n"
+WKV_FWD_FAULTS = {
+    # The prep role reads its ring stage without waiting for the TMA loads.
+    "skip_ring_wait": (_FWD_WAIT, ""),
+    # Every wait on the ring's full barriers takes the other phase.
+    "flipped_ring_phase": (_FWD_WAIT, "      sm90::mbar_wait(&full[c % NS], ((c / NS) & 1) ^ 1);\n"),
+    # s_hist[c - 1] receives the state entering chunk c: one chunk late.
+    "s_hist_one_chunk_late": (
+        "        sm90::tma_store_3d(&map_hist, Sc, j0, 0, bh * n + c);\n",
+        "        if (c > 0) sm90::tma_store_3d(&map_hist, Sc, j0, 0, bh * n + c - 1);\n"),
+}
+WKV_BWD_FAULTS = {
+    "skip_ring_wait": (_BWD_WAIT, ""),
+    "flipped_ring_phase": (_BWD_WAIT, "    sm90::mbar_wait(&full[m % NS], ((m / NS) & 1) ^ 1);\n"),
+    # The last cluster rank's partials of do S^T and V G^T left out of the
+    # sums (the check runs at a cluster of 2).
+    "cluster_rank_dropped": (
+        "            x4[a][p] = p < C ? sm90::ld_cluster_f32x4(peer[p] + o) : make_float4(0.f, 0.f, 0.f, 0.f);\n",
+        "            x4[a][p] = (p < C - 1 || C == 1) ? sm90::ld_cluster_f32x4(peer[p] + o) : make_float4(0.f, 0.f, 0.f, 0.f);\n"),
+}
+
+
+#: One faulty launch and its check, in a process of its own: a wait that
+#: passes before its stage is loaded can leave a block exiting, or re-arming
+#: the stage, with a TMA load in flight, which the card reports as a launch
+#: failure that poisons the process's CUDA context.  Either outcome rejects
+#: the fault: the wrapper raises, or the numbers miss the plain version.
+_FAULT_CHECK = r"""
+import ctypes, json, sys
+import numpy as np
+import torch
+from repro_torch.kernels import common
+from repro_torch.kernels.wkv import bwd as BW
+from repro_torch.kernels.wkv import kernel as K
+
+lib, so, dt, tol = sys.argv[1], sys.argv[2], getattr(torch, sys.argv[3]), float(sys.argv[4])
+rng = np.random.default_rng(777)
+b, h, t = 1, 4, 256
+r, k, v = (rng.standard_normal((b, h, t, 64)).astype(np.float32) for _ in range(3))
+w = rng.uniform(0.85, 0.999, (b, h, t, 64)).astype(np.float32)
+u = rng.standard_normal((h, 64)).astype(np.float32)
+h0 = rng.standard_normal((b, h, 64, 64)).astype(np.float32)
+args = [torch.from_numpy(x).cuda().to(dt) for x in (r, k, v, w, u)] + [torch.from_numpy(h0).cuda()]
+d_out = torch.from_numpy(rng.standard_normal((b, h, t, 64)).astype(np.float32)).cuda().to(dt)
+d_s = torch.from_numpy(rng.standard_normal((b, h, 64, 64)).astype(np.float32)).cuda()
+common.load_library(lib)
+
+
+def cold():
+    # Inputs cold in the 50 MB L2, as the main path finds them: a load
+    # read before its wait then finds its stage not yet written.
+    torch.empty(64 << 20, device="cuda").fill_(1.0)
+    torch.cuda.synchronize()
+
+
+if lib == "wkv_chunked":
+    want = K.wkv_train_plain(*args, chunk=16)
+    common._LIBS[lib] = ctypes.CDLL(so)
+    cold()
+    got = K.wkv_train_cuda(*args, chunk=16)
+else:
+    s_hist = K.wkv_train_cuda(*args, chunk=16)[2]
+    bargs = (*args[:5], s_hist, d_out, d_s)
+    want = BW.wkv_bwd_plain(*bargs, chunk=16)
+    common._LIBS[lib] = ctypes.CDLL(so)
+    cold()
+    got = BW.launch_plan(*bargs, chunk=16, cluster=2)
+torch.cuda.synchronize()
+worst = 0.0
+for g, x in zip(got, want):
+    g, x = g.float().cpu(), x.float().cpu()
+    if not bool(torch.isfinite(g).all()):
+        worst = float("inf")
+        break
+    lim = tol * max(1.0, float(x.abs().max())) + tol * x.abs()
+    worst = max(worst, float(((g - x).abs() / lim).max()))
+print(json.dumps({"ratio": worst}))
+"""
+
+
+def _fault_outcome(lib, so, dtype, tol):
+    """Run one faulty launch and its check in a fresh process; returns a
+    string for the record and whether the check rejected the fault."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(Path(__file__).resolve().parents[1] / "src"), os.environ.get("PYTHONPATH", "")])}
+    proc = subprocess.run([sys.executable, "-c", _FAULT_CHECK, lib, str(so),
+                           str(dtype).split(".")[-1], str(tol)],
+                          capture_output=True, text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        lines = ([ln for ln in proc.stderr.splitlines() if "CUDA error" in ln]
+                 or proc.stderr.strip().splitlines() or ["?"])
+        return f"launch failed: {lines[0].strip()[:160]}", True
+    ratio = json.loads(proc.stdout.strip().splitlines()[-1])["ratio"]
+    return f"ratio {ratio:.3e}", not ratio <= 1.0
+
+
+@pytest.fixture(scope="module")
+def wkv_mutants(tmp_path_factory):
+    """Each planted fault compiled into its own copy of its library; the
+    value is the shared object's path (loaded only by the check's own
+    process)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
+    out = tmp_path_factory.mktemp("wkv_mutants")
+    _compile_mutants("wkv_chunked", WKV_FWD_FAULTS, out / "fwd")
+    _compile_mutants("wkv_bwd", WKV_BWD_FAULTS, out / "bwd")
+    return {("wkv_chunked", f): out / "fwd" / f"{f}.so" for f in WKV_FWD_FAULTS} | {
+        ("wkv_bwd", f): out / "bwd" / f"{f}.so" for f in WKV_BWD_FAULTS}
+
+
+@pytest.mark.parametrize("lib,fault", [("wkv_chunked", f) for f in WKV_FWD_FAULTS]
+                         + [("wkv_bwd", f) for f in WKV_BWD_FAULTS])
+def test_wkv_check_rejects_planted_fault(cuda, wkv_mutants, lib, fault):
+    """The forward at B=1, H=4, T=256 (16 chunks) on the training entry;
+    the backward at a cluster of 2; both dtypes; the good kernel passes the
+    same check in this process."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = (F32_TOL if lib == "wkv_chunked" else 1e-4) if dtype == torch.float32 else BF16_RTOL
+        what, rejected = _fault_outcome(lib, wkv_mutants[(lib, fault)], dtype, tol)
+        print(f"[wkv-fault] {lib} {fault} {dtype}: {what}")
+        assert rejected, f"{lib} {fault} {dtype}: the check passed the faulty kernel ({what})"
+    args = _inputs(1, 4, 256, 777, cuda, torch.float32)
+    assert _scaled_ratio(K.wkv_train_cuda(*args, chunk=16),
+                         K.wkv_train_plain(*args, chunk=16), F32_TOL) <= 1.0

@@ -315,6 +315,12 @@ Resource usage:
 _SASS = """        /*0a90*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0b10*/                   UTMALDG.2D [UR8], [UR14] ;
 """
+#: The same for a WKV library (its kernel's name is filled in).
+_WKV_USAGE = """
+Resource usage:
+ Function _ZN47_GLOBAL__N__eb81d125_14_wkv_cu_e169317214KERNELI13__nv_bfloat16Li16EEEv14CUtensorMap_st:
+  REG:117 STACK:0 SHARED:1024 LOCAL:0 CONSTANT[0]:1000 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
 
 
 @pytest.mark.parametrize("built_by", ["this run", "an earlier run"])
@@ -325,11 +331,17 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     says "cached") passes as a fresh one does, and a kernel with a stack
     frame still fails."""
     smoke = _load_chip_smoke()
-    usage = {"text": _USAGE}
+    usage = {"text": _USAGE, "wkv": _WKV_USAGE}
 
     def run(cmd, **kw):
         assert Path(cmd[-1]).parent == tmp_path
-        out = usage["text"] if cmd[1] == "--dump-resource-usage" else _SASS
+        lib = Path(cmd[-1]).stem[3:]                    # lib<name>.so
+        if cmd[1] != "--dump-resource-usage":
+            out = _SASS
+        elif lib in smoke.WKV_TMA_LIBRARIES:
+            out = usage["wkv"].replace("KERNEL", smoke.WKV_TMA_LIBRARIES[lib])
+        else:
+            out = usage["text"]
         return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
 
     monkeypatch.setattr(smoke.subprocess, "run", run)
@@ -343,4 +355,11 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
         smoke._hopper_report(common)
     usage["text"] = _USAGE.replace("matmul_wgmma_kernel", "matmul_kernel")
     with pytest.raises(SystemExit, match="no wgmma"):
+        smoke._hopper_report(common)
+    # The WKV libraries (phase 1 reads them since their TMA redesign): a
+    # stack frame in their kernels fails too.
+    usage["text"] = _USAGE
+    smoke._hopper_report(common)
+    usage["wkv"] = _WKV_USAGE.replace("STACK:0", "STACK:16")
+    with pytest.raises(SystemExit, match="spills"):
         smoke._hopper_report(common)
