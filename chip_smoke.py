@@ -11,15 +11,18 @@ Phases (any failure raises and exits non-zero, with no result line):
    (``cuobjdump --dump-sass``) beside each wgmma kernel's registers, stack
    frame and local memory (``cuobjdump --dump-resource-usage``), and for
    the two WKV libraries redesigned around TMA rings (the chunked forward,
-   the backward) the UTMALDG and UTMASTG instructions beside each kernel's
-   registers, shared memory, stack frame and local memory, all read from
-   the library file whether this run built it or found it in ``build/``;
-   fail if a count is 0 or a kernel spills (a stack frame or local memory);
+   the backward) the UTMALDG and UTMASTG instructions and for the decode
+   window the UBLKCP (1-D bulk copy) instructions, beside each kernel's
+   registers, shared memory, stack frame and local memory (the token
+   shift's too), all read from the library file whether this run built it
+   or found it in ``build/``; fail if a count is 0 or a kernel spills (a
+   stack frame or local memory);
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
-   decode step (B=4) and the decode window (K in 1, 8, 37, 64), and the
-   window bit for bit against K chained single steps;
+   decode step (B=4) and the decode window (K in 1, 8, 37, 64 at B=4 and
+   B=1), the window bit for bit against K chained single steps and every
+   column tile of the decode plan bit for bit against the planner's;
 2b. the training kernels against their plain versions, at the same widths
    and dtypes, B=4, T=256 chunk 16 and T=100 chunk 10: the training forward
    on (out, S, s_hist), the backward on its six outputs with random
@@ -57,7 +60,7 @@ Phases (any failure raises and exits non-zero, with no result line):
    f32 with TF32 off and in bf16: the chunked elevator scan (B=4, T=256 and
    B=1, T=4096, D=2560), its decode window (K in 1, 8, 37, 64, bit for bit
    against K chained single launches), the token shift (T in 4, 67, 259,
-   4096) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
+   4096; bit for bit against its plain version) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
    T=4096, causal full at T=1024 and T=4096, a non-causal window, the
    decode offsets T=8 and T=1 against S=300, T not a block multiple) and at
    D 128, 64, 32 (T=1000, window 256);
@@ -90,8 +93,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    printed; the WKV rows with their time per chunk, every column tile of
    the chunked forward and every cluster size of the backward at the
    training shape and at a seq shard, and a backward row at the seq
-   gradient's shard), printed as one ``{"kernels": [...]}`` line; then the
-   card's name and power limit, and the result line.
+   gradient's shard; the decode rows with every column tile, the window
+   at K in 1, 8, 32, 64 and B in 1, 4 with every column tile, and an empty
+   kernel's time as the launch floor; the token shift at (B, T) = (1,
+   4096), (4, 4) and (4, 259)), printed as one ``{"kernels": [...]}`` line;
+   then the card's name and power limit, and the result line.
 """
 
 from __future__ import annotations
@@ -268,26 +274,33 @@ def main():
             got = D.wkv_decode_cuda(*a)
             torch.cuda.synchronize()
             check("wkv_decode_cuda", "B=4", dtype, got, D.wkv_decode_plain(*a))
-            for kw in (1, 8, 37, 64):
-                a = _inputs(torch, 4, kw, dtype, seed=3 + kw)
-                got = D.wkv_decode_window_cuda(*a)
-                torch.cuda.synchronize()
-                check("wkv_decode_window_cuda", f"B=4 K={kw}", dtype, got,
-                      D.wkv_decode_plain(*a))
-                r, k, v, w, u, s = a
-                outs = []
-                for i in range(kw):
-                    sl = slice(i, i + 1)
-                    o, s = D.wkv_decode_cuda(r[:, :, sl].contiguous(),
-                                             k[:, :, sl].contiguous(),
-                                             v[:, :, sl].contiguous(),
-                                             w[:, :, sl].contiguous(), u, s)
-                    outs.append(o)
-                same = torch.equal(torch.cat(outs, 2), got[0]) and torch.equal(s, got[1])
-                print(f"[kernels] window K={kw} {dtype} bit-identical to "
-                      f"{kw} chained single steps: {same}")
-                if not same:
-                    raise SystemExit("decode window differs from chained single steps")
+            for b in (4, 1):
+                for kw in (1, 8, 37, 64):
+                    a = _inputs(torch, b, kw, dtype, seed=3 + kw + b)
+                    got = D.wkv_decode_window_cuda(*a)
+                    torch.cuda.synchronize()
+                    check("wkv_decode_window_cuda", f"B={b} K={kw}", dtype, got,
+                          D.wkv_decode_plain(*a))
+                    r, k, v, w, u, s = a
+                    outs = []
+                    for i in range(kw):
+                        sl = slice(i, i + 1)
+                        o, s = D.wkv_decode_cuda(r[:, :, sl].contiguous(),
+                                                 k[:, :, sl].contiguous(),
+                                                 v[:, :, sl].contiguous(),
+                                                 w[:, :, sl].contiguous(), u, s)
+                        outs.append(o)
+                    same = torch.equal(torch.cat(outs, 2), got[0]) and torch.equal(s, got[1])
+                    plans = {c: D.launch_plan(*a, col_tile=c) for c in D.DECODE_TILES}
+                    equal = all(torch.equal(p[0], got[0]) and torch.equal(p[1], got[1])
+                                for p in plans.values())
+                    print(f"[kernels] window B={b} K={kw} {dtype} bit-identical to "
+                          f"{kw} chained single steps: {same}; every column tile "
+                          f"{list(plans)} bit-equal: {equal}")
+                    if not same:
+                        raise SystemExit("decode window differs from chained single steps")
+                    if not equal:
+                        raise SystemExit("decode plans differ")
 
     # ---- 2b. the training kernels against their plain versions -------------
     worst.update(_train_kernel_checks(torch, KC, BW))
@@ -414,17 +427,22 @@ def main():
             if counter is KC.wkv_cuda:
                 rows[-1]["chunk_us"] = ms * 1e3 / (t // chunk)
                 rows[-1]["plans"] = _time_fwd_plans(torch, KC, sets, chunk)
+            else:
+                rows[-1]["plans"] = _time_decode_plans(torch, D, sets)
             print(f"[time] {counter.__name__:24s} {rows[-1]['shape']:32s} "
                   f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us "
                   f"(plain {plain_ms * 1e3:9.1f} us, bound "
                   f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']})"
-                  + (f"; {rows[-1]['chunk_us']:.2f} us a chunk, every column tile "
-                     f"{rows[-1]['plans']}" if counter is KC.wkv_cuda else ""))
-        # The window at the other admission bucket of the main path.
-        sets = _cold_sets(lambda s: _inputs(torch, 4, 64, bf, s), 8 * 2**20)
-        ms, call_ms = _time_ms(torch, D.wkv_decode_window_cuda, sets, 100)
-        print(f"[time] wkv_decode_window_cuda   B=4 H=32 T=64 Dh=64 bf16{'':9s}"
-              f"device {ms * 1e3:8.2f} us, per call {call_ms * 1e3:8.2f} us")
+                  + (f"; {rows[-1]['chunk_us']:.2f} us a chunk" if counter is KC.wkv_cuda
+                     else "") + f"; every column tile {rows[-1]['plans']}")
+        # What one launch costs the card: an empty kernel timed the same way.
+        floor_ms, floor_call_ms = _time_ms(torch, lambda: torch.cuda._sleep(0), [()] * 4, 200)
+        print(f"[time] launch floor (torch.cuda._sleep(0)): device {floor_ms * 1e3:.2f} us, "
+              f"per call {floor_call_ms * 1e3:.2f} us")
+        # The window at the admission buckets and at one token, B=1 and B=4.
+        rows[2]["sweep"] = _time_decode_sweep(torch, D)
+        for row in rows[1:3]:
+            row["launch_floor_ms"] = floor_ms
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
     rows += _time_seq_kernels(torch, KC, BW, launches, worst, seq_extra)
     rows += _time_rg_kernels(torch, launches, worst)
@@ -460,14 +478,15 @@ def _resource_usage(text):
 
 def _hopper_report(common):
     """The redesigned libraries as built: the count of HGMMA (wgmma),
-    UTMALDG (TMA load) and UTMASTG (TMA store) instructions from
-    ``cuobjdump --dump-sass``, and the registers, static shared memory,
-    stack frame and local memory of each redesigned kernel from
-    ``cuobjdump --dump-resource-usage``.  Both read the library file, so a
-    library built by an earlier run reads the same.  Fails if a library
+    UTMALDG (TMA load), UTMASTG (TMA store) and UBLKCP (1-D bulk copy)
+    instructions from ``cuobjdump --dump-sass``, and the registers, static
+    shared memory, stack frame and local memory of each redesigned kernel
+    from ``cuobjdump --dump-resource-usage``.  Both read the library file, so
+    a library built by an earlier run reads the same.  Fails if a library
     lacks its instructions (HGMMA and UTMALDG for the matmul and flash
-    attention, UTMALDG for the WKV pair), no such kernel is found, or one
-    has a stack frame or local memory (where spills go)."""
+    attention, UTMALDG for the WKV pair, UBLKCP for the decode window), no
+    such kernel is found, or one has a stack frame or local memory (where
+    spills go)."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -477,21 +496,29 @@ def _hopper_report(common):
                               check=True, timeout=300).stdout
 
     for name, marker, need in (*((n, "wgmma_kernel", ("HGMMA", "UTMALDG")) for n in HOPPER_LIBRARIES),
-                               *((n, k, ("UTMALDG",)) for n, k in WKV_TMA_LIBRARIES.items())):
+                               *((n, k, ("UTMALDG",)) for n, k in WKV_TMA_LIBRARIES.items()),
+                               *((n, k, ops) for n, (k, ops) in DECODE_LIBRARIES.items())):
         path = common._lib_path(name)
         sass = dump("--dump-sass", path)
         counts = {op: sum(op in ln for ln in sass.splitlines())
-                  for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+                  for op in ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")}
         kernels = {k: v for k, v in _resource_usage(dump("--dump-resource-usage", path)).items()
                    if marker in k}
         print(f"[build] {name}: SASS HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}, "
-              f"UTMASTG {counts['UTMASTG']}")
-        for k, use in sorted(kernels.items()):
+              f"UTMASTG {counts['UTMASTG']}, UBLKCP {counts['UBLKCP']}")
+        if len(kernels) > 10:
+            # The token shift's 84 instantiations (tap count, rows, vector
+            # or scalar slots, dtype), summarised.
+            regs = [use.get("REG", 0) for use in kernels.values()]
+            print(f"[build]   {len(kernels)} {marker}s: {min(regs)}-{max(regs)} registers "
+                  f"at launch, stack {max(u.get('STACK', 0) for u in kernels.values())} B, "
+                  f"local {max(u.get('LOCAL', 0) for u in kernels.values())} B at most")
+        for k, use in sorted(kernels.items()) if len(kernels) <= 10 else ():
             short = k.split(marker)[-1][:14]
             print(f"[build]   {marker} {short}: {use.get('REG')} registers at launch, "
                   f"{use.get('SHARED')} bytes static smem, stack {use.get('STACK')} B, "
                   f"local {use.get('LOCAL')} B")
-        if min(counts[op] for op in need) < 1 or not kernels:
+        if min((counts[op] for op in need), default=1) < 1 or not kernels:
             raise SystemExit(f"{name}: no {marker.split('_')[0]} kernel or no {need} in the "
                              f"binary: {counts}, {len(kernels)} {marker}s")
         if any(use.get("STACK", 0) or use.get("LOCAL", 0) for use in kernels.values()):
@@ -718,6 +745,41 @@ def _time_fwd_plans(torch, KC, sets, chunk, hist=False, summary=False):
     return {f"cols={c}": round(1e3 * _time_ms(torch, lambda *a, c=c: KC.launch_plan(
                 *a, chunk=chunk, col_tile=c, hist=hist, summary=summary), sets, reps=20)[0], 2)
             for c in KC.COL_TILES if KC.fwd_smem_bytes(chunk, c, item) <= KC.SMEM_LIMIT}
+
+
+def _time_decode_plans(torch, D, sets):
+    """Device µs of the decode window with every column tile, through
+    ``launch_plan`` (counts no launch), on the row's input sets."""
+    return {f"cols={c}": round(1e3 * _time_ms(torch, lambda *a, c=c: D.launch_plan(
+                *a, col_tile=c), sets, reps=20)[0], 2) for c in D.DECODE_TILES}
+
+
+def _time_decode_sweep(torch, D):
+    """Phase 4: the decode window in bf16 at K in (1, 8, 32, 64) tokens and
+    B in (1, 4): device and per-call µs of the planner's choice, every
+    column tile, and the bound (its bytes: the inputs, out and the state
+    read and written; its operations over the f32 peak)."""
+    from repro_torch.kernels.wkv.kernel import sm_count
+
+    out = []
+    for b in (1, 4):
+        for kw in (1, 8, 32, 64):
+            one = _inputs(torch, b, kw, torch.bfloat16, seed=0)
+            nbytes = _nbytes(one) + _nbytes(one[:1]) + b * H * DH * DH * 4
+            sets = _cold_sets(lambda s: _inputs(torch, b, kw, torch.bfloat16, s), nbytes)
+            ms, call_ms = _time_ms(torch, D.wkv_decode_window_cuda, sets, reps=100)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            f_ms = _flops(b, kw, kw, windowed=True) / PEAK_F32_FLOPS * 1e3
+            plan = D.plan_decode_columns(b, H, kw, torch.bfloat16, sm_count(one[0].device))
+            row = {"shape": f"B={b} K={kw}", "ms": ms, "call_ms": call_ms,
+                   "bound_ms": max(b_ms, f_ms), "token_us": ms * 1e3 / kw,
+                   "plan": f"cols={plan}", "plans": _time_decode_plans(torch, D, sets)}
+            out.append(row)
+            print(f"[time] decode window B={b} K={kw:2d} bf16: device {ms * 1e3:7.2f} us "
+                  f"({row['token_us']:.3f} us a token), per call {call_ms * 1e3:7.2f} us, "
+                  f"bound {row['bound_ms'] * 1e3:.2f} us; plan cols={plan}, every column "
+                  f"tile {row['plans']}")
+    return out
 
 
 def _time_bwd_plans(torch, BW, sets, chunk):
@@ -1255,6 +1317,12 @@ HOPPER_LIBRARIES = ("matmul_fwd", "flash_attention")
 #: The WKV libraries redesigned around TMA rings (phase 1 counts their
 #: UTMALDG and UTMASTG instructions), with their kernels' name.
 WKV_TMA_LIBRARIES = {"wkv_chunked": "wkv_fwd_kernel", "wkv_bwd": "wkv_bwd_kernel"}
+#: The decode-step libraries redesigned after them, with their kernels' name
+#: and the instructions phase 1 must find: the decode window stages its
+#: inputs by 1-D bulk copies (UBLKCP); the token shift has no such
+#: instruction, only its registers and spills are read.
+DECODE_LIBRARIES = {"wkv_decode": ("wkv_decode_kernel", ("UBLKCP",)),
+                    "token_shift": ("token_shift_kernel", ())}
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
@@ -1387,8 +1455,11 @@ def _rg_kernel_checks(torch):
                 torch.cuda.synchronize()
                 want = TS.token_shift_ref(x, w)
                 check("token_shift_cuda", f"B={b} T={t} D={RG_D}", dtype, [got], [want])
+                same = torch.equal(got, want)
                 print(f"[rg-kernels] token shift T={t} {dtype} bit-identical to the plain "
-                      f"version: {torch.equal(got, want)}")
+                      f"version: {same}")
+                if not same:
+                    raise SystemExit("token shift differs from its plain version")
             for t, s, causal, window, d in ATTN_CASES:
                 q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s, d=d)
                 got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -1633,7 +1704,7 @@ def _time_rg_kernels(torch, launches, worst):
         def conv1d(x, w):
             return F.conv1d(x, w, padding=w.shape[-1] - 1, groups=RG_D)
 
-        for b, t in ((1, 4096), (4, 4)):
+        for b, t in ((1, 4096), (4, 4), (4, 259)):
             nbytes = 2 * b * t * RG_D * 2 + 4 * RG_D * 2
             sets = _cold_sets(lambda s: _shift_inputs(torch, b, t, bf, s), nbytes)
             lib_sets = [(x.transpose(1, 2).contiguous(), w.t().flip(1)[:, None].contiguous())
@@ -1701,17 +1772,19 @@ def _time_rg_kernels(torch, launches, worst):
         rows[-1]["library_ms"] = lib_ms
         print(f"[time]   SDPA is_causal library call: {lib_ms * 1e3:.2f} us")
     # One row per kernel in the result line: the main path's shape (the
-    # first row of each name); flash attention's other shape rides along
-    # under "large", the rest are printed above.
+    # first row of each name); the other shapes of flash attention and the
+    # token shift ride along under "large", the rest are printed above.
     seen, out = set(), []
     for r in rows:
         if r["name"] not in seen:
             seen.add(r["name"])
             out.append(r)
-    extra = [r for r in rows if r["name"] == "flash_attention_cuda"][1:]
-    out[[r["name"] for r in out].index("flash_attention_cuda")]["large"] = [
-        {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                           "library_ms")} for r in extra]
+    names = [r["name"] for r in out]
+    for name in ("flash_attention_cuda", "token_shift_cuda"):
+        extra = [r for r in rows if r["name"] == name][1:]
+        out[names.index(name)]["large"] = [
+            {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")} for r in extra]
     return out
 
 

@@ -36,7 +36,9 @@ __all__ = [
     "HEADER_ROOT",
     "HOPPER_INCLUDE",
     "BUILD_REPORT",
+    "ENTRY_POINTS",
     "build_libraries",
+    "open_library",
     "load_library",
     "launch_stream",
 ]
@@ -131,6 +133,39 @@ _NVCC_FLAGS = (
     "-I", str(HOPPER_INCLUDE),
 )
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: library -> its C entry points -> their argument types (pointers and the
+#: stream as ``c_void_p``, else ctypes would pass each as a 32-bit int).
+#: Every entry point returns an int: the launches 0, a ``cudaError_t`` or
+#: 10000 + the ``CUresult`` of a tensor map, the ``*_smem`` functions a byte
+#: count.  :func:`open_library` binds them once, when the library is loaded,
+#: so no wrapper sets them on a call.
+ENTRY_POINTS = {
+    "wkv_chunked": {
+        "wkv_chunked_fwd": [_P] * 8 + [_I] * 7 + [_P],
+        "wkv_chunked_train_fwd": [_P] * 9 + [_I] * 7 + [_P],
+        "wkv_chunked_summary_fwd": [_P] * 9 + [_I] * 8 + [_P],
+        "wkv_chunked_train_summary_fwd": [_P] * 10 + [_I] * 8 + [_P],
+        "wkv_chunked_smem": [_I] * 3,
+    },
+    "wkv_decode": {
+        "wkv_decode_window_fwd": [_P] * 8 + [_I] * 6 + [_P],
+        "wkv_decode_smem": [_I] * 2,
+    },
+    "wkv_bwd": {
+        "wkv_bwd": [_P] * 14 + [_I] * 8 + [_P],
+        "wkv_bwd_smem": [_I] * 3,
+    },
+    "elevator_scan": {
+        "elevator_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
+        "elevator_decode_window_fwd": [_P] * 5 + [_I] * 4 + [_P],
+    },
+    "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P]},
+    "flash_attention": {"flash_attention_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P]},
+    "stencil2d": {"stencil2d_fwd": [_P] * 3 + [_I] * 2 + [_F, _I, _P]},
+    "matmul_fwd": {"matmul_fwd": [_P] * 4 + [_I] * 8 + [_P]},
+}
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: name -> (seconds to build or 0.0 if cached, compiler's report).
@@ -190,16 +225,28 @@ def build_libraries() -> dict[str, Path]:
     return paths
 
 
+def open_library(name: str, path) -> ctypes.CDLL:
+    """Load the shared object at ``path`` as library ``name``, its entry
+    points bound to their :data:`ENTRY_POINTS` signatures."""
+    lib = ctypes.CDLL(str(path))
+    for entry, argtypes in ENTRY_POINTS[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library ``name``; the first call builds every source."""
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
     with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
+        if name not in _LIBS:
             for n, path in build_libraries().items():
                 if n not in _LIBS:
-                    _LIBS[n] = ctypes.CDLL(str(path))
-            lib = _LIBS[name]
-        return lib
+                    _LIBS[n] = open_library(n, path)
+        return _LIBS[name]
 
 
 def launch_stream(device: torch.device) -> int:

@@ -16,8 +16,6 @@ uses (the reference has one Pallas entry for them): every generated token
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels.common import DTYPE_CODE, launch_stream, load_library
@@ -52,8 +50,6 @@ def elevator_decode_window_cuda(a: torch.Tensor, x: torch.Tensor,
     out = torch.empty_like(x)
     h_out = torch.empty_like(h0)
     fn = load_library("elevator_scan").elevator_decode_window_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(a.data_ptr(), x.data_ptr(), h0.data_ptr(), out.data_ptr(),
              h_out.data_ptr(), b, k, d, DTYPE_CODE[x.dtype], launch_stream(x.device))
     if err:

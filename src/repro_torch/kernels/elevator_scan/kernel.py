@@ -21,8 +21,6 @@ version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels.common import (
@@ -63,8 +61,6 @@ def elevator_scan_cuda(a: torch.Tensor, x: torch.Tensor,
     b, t, d = x.shape
     out = torch.empty_like(x)
     fn = load_library("elevator_scan").elevator_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(a.data_ptr(), x.data_ptr(), None if h0 is None else h0.data_ptr(),
              out.data_ptr(), b, t, d, DTYPE_CODE[x.dtype], launch_stream(x.device))
     if err:

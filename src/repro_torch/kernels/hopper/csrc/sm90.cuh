@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's redesigned kernels:
-// inline PTX for mbarriers, TMA tensor loads and stores, bulk-async groups,
-// named barriers, thread-block clusters (rank, barrier, distributed shared
-// memory), wgmma shared-memory descriptors and products, and setmaxnreg;
-// and, host side, the tensor-map encoders.
+// inline PTX for mbarriers, TMA tensor loads and stores, 1-D bulk copies,
+// bulk-async groups, named barriers, thread-block clusters (rank, barrier,
+// distributed shared memory), wgmma shared-memory descriptors and products,
+// and setmaxnreg; and, host side, the tensor-map encoders.
 //
 // Included by local_attention/csrc/flash_attention.cu,
-// matmul_fwd/csrc/matmul_fwd.cu, wkv/csrc/wkv_chunked.cu and
-// wkv/csrc/wkv_bwd.cu (nvcc -I .../kernels/hopper/csrc).  The build
-// cache (kernels/common.py) hashes every *.cuh under kernels/ into each
-// library's name, so an edit here rebuilds every library.
+// matmul_fwd/csrc/matmul_fwd.cu, wkv/csrc/wkv_chunked.cu,
+// wkv/csrc/wkv_bwd.cu and wkv/csrc/wkv_decode.cu (nvcc -I
+// .../kernels/hopper/csrc).  The build cache (kernels/common.py) hashes
+// every *.cuh under kernels/ into each library's name, so an edit here
+// rebuilds every library.
 //
 // The tensor map is encoded with cuTensorMapEncodeTiled, a driver function,
 // reached through cudaGetDriverEntryPoint: the libraries link only the CUDA
@@ -126,6 +127,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A 1-D bulk copy global -> shared (no tensor map): `bytes` contiguous bytes,
+// a multiple of 16, from and to 16-byte aligned addresses; completion
+// counted on `bar` like a tensor tile's.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -15,8 +15,6 @@ version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels.common import (
@@ -61,9 +59,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty_like(q)
     fn = load_library("flash_attention").flash_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
-                   + [ctypes.c_int, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              b, hq, hkv, t, s, d, int(causal), 0 if window is None else int(window),
              float(scale), DTYPE_CODE[q.dtype], launch_stream(q.device))

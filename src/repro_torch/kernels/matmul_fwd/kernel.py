@@ -19,7 +19,6 @@ casts both to f32).
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -146,8 +145,6 @@ def launch_plan(a: torch.Tensor, b: torch.Tensor, variant: str, tile_m: int, til
     # source's second kernel.
     ws = torch.empty((split, m, n), dtype=torch.float32, device=a.device) if split > 1 else None
     fn = load_library("matmul_fwd").matmul_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(), m, n, k, VARIANTS[variant][0],
              tile_m, tile_n, split, _sm_count(a.device), launch_stream(a.device))

@@ -16,8 +16,6 @@ that the reference refuses is refused here too.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels.common import (
@@ -50,9 +48,6 @@ def stencil2d_cuda(x: torch.Tensor, coeffs: torch.Tensor, *, block_h: int | None
         raise ValueError(f"stencil2d_cuda: x {x.dtype} must be one of float32, bfloat16")
     out = torch.empty_like(x)
     fn = load_library("stencil2d").stencil2d_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), c32.data_ptr(), out.data_ptr(), h, w, float(boundary),
              DTYPE_CODE[x.dtype], launch_stream(x.device))
     if err:

@@ -5,8 +5,10 @@
 Counterpart of ``repro.kernels.token_shift.kernel.token_shift_pallas``.
 The Pallas kernel walks the sequence in chunks and carries the last
 ``taps - 1`` rows of each chunk in a VMEM token buffer; on the card that
-carry is only a halo: each thread reads its own rows and the ``taps - 1``
-rows above them, so no block waits on another.  Unlike the Pallas wrapper
+carry is only a halo: each thread reads its 16-byte slot of its own rows
+and of the ``taps - 1`` rows above them, all at once, so no block waits on
+another (the source's note says how many rows a thread takes, and how a D
+that is not a multiple of the slot is read).  Unlike the Pallas wrapper
 (chunk = min(256, T) must divide T) the kernel takes any T >= 1: the
 stateful calls of the model pass T = taps - 1 + window.
 
@@ -16,8 +18,6 @@ version.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -52,8 +52,6 @@ def token_shift_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"(taps, {d}) with 2 <= taps <= {MAX_TAPS}")
     out = torch.empty_like(x)
     fn = load_library("token_shift").token_shift_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), b, t, d, taps,
              DTYPE_CODE[x.dtype], launch_stream(x.device))
     if err:

@@ -23,8 +23,6 @@ f32 per-batch partials of the u cotangent (the caller sums over batch) and
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels.common import (
@@ -217,8 +215,6 @@ def launch_plan(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int, cluster=No
     du_part = torch.empty((b, h, dh), dtype=torch.float32, device=r.device)
     dh0 = torch.empty((b, h, dh, dh), dtype=torch.float32, device=r.device)
     fn = load_library("wkv_bwd").wkv_bwd
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
              u.data_ptr(), s_hist.data_ptr(), d_out.data_ptr(),
              d_s_out.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),

@@ -35,7 +35,7 @@ No wrapper takes tensors that require grad: gradients go through
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -124,8 +124,9 @@ def plan_columns(b: int, h: int, t: int, chunk: int, dtype: torch.dtype, sms: in
     return fits[-1]
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """The SMs of the card ``device`` names."""
+    """The SMs of the card ``device`` names (read once per device)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
@@ -213,9 +214,6 @@ def _launch_chunked(name, r, k, v, w, u, h0, chunk, with_hist, with_summary=Fals
         ints.insert(3, t_stride)
     entry = _ENTRIES[(with_hist, with_summary)]
     fn = getattr(load_library("wkv_chunked"), entry)
-    fn.argtypes = ([ctypes.c_void_p] * (6 + len(outs)) + [ctypes.c_int] * len(ints)
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     err = fn(*(x.data_ptr() for x in (r, k, v, w, u, h0, *outs)),
              *ints, launch_stream(dev))
     if err:

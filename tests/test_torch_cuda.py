@@ -79,9 +79,13 @@ def test_chunked_matches_plain(cuda, dtype, t, chunk):
            F32_TOL if dtype == torch.float32 else BF16_RTOL)
 
 
-@pytest.mark.parametrize("kw", [1, 8, 37, 64])
-def test_window_is_chained_single_steps(cuda, kw):
-    args = _inputs(2, 4, kw, kw, cuda)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 4])
+@pytest.mark.parametrize("kw", [1, 2, 8, 37, 64])
+def test_window_is_chained_single_steps(cuda, kw, b, dtype):
+    """At RWKV6's 32 heads, so B=1 takes a 32-column plan and B=2, 4 the
+    64-column one; K=64 in f32 runs with the opted-in shared memory."""
+    args = _inputs(b, 32, kw, kw + b, cuda, dtype)
     r, k, v, w, u, s = args
     out, s_win = D.wkv_decode_window_cuda(*args)
     outs = []
@@ -89,7 +93,79 @@ def test_window_is_chained_single_steps(cuda, kw):
         o, s = D.wkv_decode_cuda(*(x[:, :, i:i + 1].contiguous() for x in (r, k, v, w)), u, s)
         outs.append(o)
     assert torch.equal(torch.cat(outs, 2), out) and torch.equal(s, s_win)
-    _close([out, s_win], D.wkv_decode_plain(*args), F32_TOL)
+    _close([out, s_win], D.wkv_decode_plain(*args),
+           F32_TOL if dtype == torch.float32 else BF16_RTOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,kw", [(1, 1), (4, 1), (1, 8), (4, 37), (2, 64)])
+def test_decode_plans_are_bit_equal(cuda, monkeypatch, b, kw, dtype):
+    """Every column tile gives the same bits: through ``launch_plan``, and
+    through the wrapper with the SM count forced so that the planner's own
+    function picks each tile."""
+    args = _inputs(b, 32, kw, 40 + kw, cuda, dtype)
+    want = D.wkv_decode_window_cuda(*args)
+    for tile in D.DECODE_TILES:
+        got = D.launch_plan(*args, col_tile=tile)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), tile
+    forced = {}
+    for sms in (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096):
+        monkeypatch.setattr(D, "sm_count", lambda dev, sms=sms: sms)
+        tile = D.plan_decode_columns(b, 32, kw, dtype, sms)
+        if tile not in forced:
+            forced[tile] = D.wkv_decode_window_cuda(*args)
+    assert set(forced) == set(D.DECODE_TILES)
+    for tile, got in forced.items():
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), tile
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [1, 37])
+def test_decode_s_out_may_alias_h0(cuda, kw, dtype):
+    """The C entry point with s_out = h0: each block reads its state tile
+    before it writes it, so the state is updated in place."""
+    from repro_torch.kernels import common
+
+    args = _inputs(4, 32, kw, 7, cuda, dtype)
+    want = D.wkv_decode_window_cuda(*args)
+    r, k, v, w, u, h0 = args
+    out = torch.empty_like(r)
+    for tile in D.DECODE_TILES:
+        s = h0.clone()
+        err = common.load_library("wkv_decode").wkv_decode_window_fwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+            s.data_ptr(), out.data_ptr(), s.data_ptr(), 4, 32, kw, 64,
+            common.DTYPE_CODE[dtype], tile, torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0
+        assert torch.equal(out, want[0]) and torch.equal(s, want[1]), tile
+
+
+def test_decode_shared_memory_formula_matches_the_source(cuda):
+    """The plan's shared-memory size (pure Python) equals the source's
+    layout; K=64 needs more than the 48 KB default in both dtypes, and the
+    wrapper's launch there (after the source's opt-in) matches the plain
+    version."""
+    from repro_torch.kernels import common
+
+    lib = common.load_library("wkv_decode")
+    for kw in range(1, 65):
+        for code, item in ((0, 4), (1, 2)):
+            assert lib.wkv_decode_smem(kw, code) == D.decode_smem_bytes(kw, item)
+    assert lib.wkv_decode_smem(64, 0) > 48 * 1024
+    args = _inputs(2, 32, 64, 64, cuda, torch.float32)
+    _close(D.wkv_decode_window_cuda(*args), D.wkv_decode_plain(*args), F32_TOL)
+
+
+def test_decode_refuses_misaligned_tensors(cuda):
+    """The bulk copies need 16-byte aligned slabs: a view that starts one
+    element in is refused by the C entry point, and the wrapper raises."""
+    args = _inputs(1, 2, 1, 0, cuda)
+    base = torch.zeros(args[0].numel() + 1, device=cuda)
+    shifted = base[1:].view(args[0].shape)
+    shifted.copy_(args[0])
+    with pytest.raises(RuntimeError, match="launch failed"):
+        D.wkv_decode_cuda(shifted, *args[1:])
 
 
 def test_wrappers_refuse_grad_and_bad_layouts(cuda):
@@ -284,6 +360,24 @@ def test_token_shift_matches_plain(cuda, dtype, b, t, d, taps):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("d", [2560, 2562])
+@pytest.mark.parametrize("t", [1, 3, 4, 7, 259, 4096])
+def test_token_shift_f32_bit_for_bit(cuda, t, d):
+    """f32 at every tap count, at a D that is a multiple of the 4-channel
+    slot and one that is not (its last slot is a tail of 2), and on rows
+    that are not 16-byte aligned (a view one element in): equal to the plain
+    version bit for bit."""
+    rng = np.random.default_rng(t * 7 + d)
+    for taps in range(2, TS_K.MAX_TAPS + 1):
+        x = torch.from_numpy(rng.standard_normal((2, t, d)).astype(np.float32)).to(cuda)
+        w = torch.from_numpy(rng.standard_normal((taps, d)).astype(np.float32)).to(cuda)
+        assert torch.equal(TS_K.token_shift_cuda(x, w), TS_K.token_shift_ref(x, w)), taps
+    base = torch.zeros(x.numel() + 1, device=cuda)
+    xm = base[1:].view(x.shape)
+    xm.copy_(x)
+    assert torch.equal(TS_K.token_shift_cuda(xm, w), TS_K.token_shift_ref(xm, w))
+
+
 def _qkv(b, hq, hkv, t, s, d, seed, device, dtype):
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(device, dtype)
@@ -349,8 +443,8 @@ FLASH_FAULTS = {
 
 def _compile_mutants(name, faults, out):
     """Each planted fault compiled into its own copy of library ``name``
-    (nvcc in parallel, the build's flags); returns fault -> loaded library."""
-    import ctypes
+    (nvcc in parallel, the build's flags); returns fault -> loaded library,
+    its entry points bound as the build binds them."""
     import subprocess
 
     from repro_torch.kernels import common
@@ -368,7 +462,7 @@ def _compile_mutants(name, faults, out):
     for fault, proc in procs.items():
         report, _ = proc.communicate()
         assert proc.returncode == 0, report
-    return {fault: ctypes.CDLL(str(out / f"{fault}.so")) for fault in faults}
+    return {fault: common.open_library(name, out / f"{fault}.so") for fault in faults}
 
 
 @pytest.fixture(scope="module")
@@ -849,24 +943,28 @@ WKV_BWD_FAULTS = {
 #: failure that poisons the process's CUDA context.  Either outcome rejects
 #: the fault: the wrapper raises, or the numbers miss the plain version.
 _FAULT_CHECK = r"""
-import ctypes, json, sys
+import json, sys
 import numpy as np
 import torch
 from repro_torch.kernels import common
+from repro_torch.kernels.token_shift import kernel as TS
 from repro_torch.kernels.wkv import bwd as BW
+from repro_torch.kernels.wkv import decode as D
 from repro_torch.kernels.wkv import kernel as K
 
 lib, so, dt, tol = sys.argv[1], sys.argv[2], getattr(torch, sys.argv[3]), float(sys.argv[4])
 rng = np.random.default_rng(777)
-b, h, t = 1, 4, 256
-r, k, v = (rng.standard_normal((b, h, t, 64)).astype(np.float32) for _ in range(3))
-w = rng.uniform(0.85, 0.999, (b, h, t, 64)).astype(np.float32)
-u = rng.standard_normal((h, 64)).astype(np.float32)
-h0 = rng.standard_normal((b, h, 64, 64)).astype(np.float32)
-args = [torch.from_numpy(x).cuda().to(dt) for x in (r, k, v, w, u)] + [torch.from_numpy(h0).cuda()]
-d_out = torch.from_numpy(rng.standard_normal((b, h, t, 64)).astype(np.float32)).cuda().to(dt)
-d_s = torch.from_numpy(rng.standard_normal((b, h, 64, 64)).astype(np.float32)).cuda()
-common.load_library(lib)
+
+
+def rand(*shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def wkv_inputs(b, h, t):
+    w = rng.uniform(0.85, 0.999, (b, h, t, 64)).astype(np.float32)
+    io = [rand(b, h, t, 64), rand(b, h, t, 64), rand(b, h, t, 64), w, rand(h, 64)]
+    return ([torch.from_numpy(x).cuda().to(dt) for x in io]
+            + [torch.from_numpy(rand(b, h, 64, 64)).cuda()])
 
 
 def cold():
@@ -876,18 +974,40 @@ def cold():
     torch.cuda.synchronize()
 
 
+common.load_library(lib)
 if lib == "wkv_chunked":
+    args = wkv_inputs(1, 4, 256)
     want = K.wkv_train_plain(*args, chunk=16)
-    common._LIBS[lib] = ctypes.CDLL(so)
+    common._LIBS[lib] = common.open_library(lib, so)
     cold()
     got = K.wkv_train_cuda(*args, chunk=16)
-else:
+elif lib == "wkv_bwd":
+    args = wkv_inputs(1, 4, 256)
+    d_out = torch.from_numpy(rand(1, 4, 256, 64)).cuda().to(dt)
+    d_s = torch.from_numpy(rand(1, 4, 64, 64)).cuda()
     s_hist = K.wkv_train_cuda(*args, chunk=16)[2]
     bargs = (*args[:5], s_hist, d_out, d_s)
     want = BW.wkv_bwd_plain(*bargs, chunk=16)
-    common._LIBS[lib] = ctypes.CDLL(so)
+    common._LIBS[lib] = common.open_library(lib, so)
     cold()
     got = BW.launch_plan(*bargs, chunk=16, cluster=2)
+elif lib == "wkv_decode":
+    # The window at the main path's B=4, 32 heads, K=32.
+    args = wkv_inputs(4, 32, 32)
+    want = D.wkv_decode_plain(*args)
+    common._LIBS[lib] = common.open_library(lib, so)
+    cold()
+    got = D.wkv_decode_window_cuda(*args)
+else:
+    # The token shift at B=2, T=259, a D with a tail slot in either dtype;
+    # the memory the output will take is filled with NaN first, so a channel
+    # left unwritten cannot hold a right value from an earlier launch.
+    x = torch.from_numpy(rand(2, 259, 2562)).cuda().to(dt)
+    w = torch.from_numpy(rand(4, 2562)).cuda().to(dt)
+    want = [TS.token_shift_ref(x, w)]
+    common._LIBS[lib] = common.open_library(lib, so)
+    torch.full_like(x, float("nan"))
+    got = [TS.token_shift_cuda(x, w)]
 torch.cuda.synchronize()
 worst = 0.0
 for g, x in zip(got, want):
@@ -895,6 +1015,9 @@ for g, x in zip(got, want):
     if not bool(torch.isfinite(g).all()):
         worst = float("inf")
         break
+    if tol == 0.0:
+        worst = max(worst, 0.0 if torch.equal(g, x) else float("inf"))
+        continue
     lim = tol * max(1.0, float(x.abs().max())) + tol * x.abs()
     worst = max(worst, float(((g - x).abs() / lim).max()))
 print(json.dumps({"ratio": worst}))
@@ -950,3 +1073,48 @@ def test_wkv_check_rejects_planted_fault(cuda, wkv_mutants, lib, fault):
     args = _inputs(1, 4, 256, 777, cuda, torch.float32)
     assert _scaled_ratio(K.wkv_train_cuda(*args, chunk=16),
                          K.wkv_train_plain(*args, chunk=16), F32_TOL) <= 1.0
+
+
+#: Faults planted in copies of the two decode-step sources: (anchor,
+#: replacement).  The decode window's threads read the staged slabs
+#: without waiting for the bulk copies; the token shift leaves the last
+#: channel of a row's tail slot unwritten.
+DECODE_FAULTS = {
+    ("wkv_decode", "skip_staging_wait"): ("  sm90::mbar_wait(bar, 0);\n", ""),
+    ("token_shift", "dropped_tail_channel"): (
+        "    if (c < left) Slot<T>::put(p + c, acc[c]);\n",
+        "    if (c < left - 1) Slot<T>::put(p + c, acc[c]);\n"),
+}
+
+
+@pytest.fixture(scope="module")
+def decode_mutants(tmp_path_factory):
+    """Each planted fault compiled into its own copy of its library; the
+    value is the shared object's path (loaded only by the check's own
+    process)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
+    out = tmp_path_factory.mktemp("decode_mutants")
+    for (lib, fault), edit in DECODE_FAULTS.items():
+        _compile_mutants(lib, {fault: edit}, out / lib)
+    return {(lib, fault): out / lib / f"{fault}.so" for lib, fault in DECODE_FAULTS}
+
+
+@pytest.mark.parametrize("lib,fault", list(DECODE_FAULTS))
+def test_decode_step_check_rejects_planted_fault(cuda, decode_mutants, lib, fault):
+    """The decode window at B=4, K=32 held to the tolerance of the chained
+    test; the token shift (B=2, T=259, D=2562) held bit for bit; both dtypes,
+    each faulty launch in a process of its own.  The good kernels pass the
+    same checks in this process."""
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = 0.0 if lib == "token_shift" else (
+            F32_TOL if dtype == torch.float32 else BF16_RTOL)
+        what, rejected = _fault_outcome(lib, decode_mutants[(lib, fault)], dtype, tol)
+        print(f"[decode-fault] {lib} {fault} {dtype}: {what}")
+        assert rejected, f"{lib} {fault} {dtype}: the check passed the faulty kernel ({what})"
+    args = _inputs(4, 32, 32, 777, cuda, torch.float32)
+    assert _scaled_ratio(D.wkv_decode_window_cuda(*args), D.wkv_decode_plain(*args),
+                         F32_TOL) <= 1.0
+    x = torch.randn((2, 259, 2562), device=cuda)
+    w = torch.randn((4, 2562), device=cuda)
+    assert torch.equal(TS_K.token_shift_cuda(x, w), TS_K.token_shift_ref(x, w))

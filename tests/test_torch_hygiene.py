@@ -314,6 +314,7 @@ Resource usage:
 """
 _SASS = """        /*0a90*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
         /*0b10*/                   UTMALDG.2D [UR8], [UR14] ;
+        /*0b20*/                   UBLKCP.S.G [UR12], [UR4], UR14 ;
 """
 #: The same for a WKV library (its kernel's name is filled in).
 _WKV_USAGE = """
@@ -331,15 +332,17 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     says "cached") passes as a fresh one does, and a kernel with a stack
     frame still fails."""
     smoke = _load_chip_smoke()
-    usage = {"text": _USAGE, "wkv": _WKV_USAGE}
+    usage = {"text": _USAGE, "wkv": _WKV_USAGE, "decode": _WKV_USAGE, "sass": _SASS}
 
     def run(cmd, **kw):
         assert Path(cmd[-1]).parent == tmp_path
         lib = Path(cmd[-1]).stem[3:]                    # lib<name>.so
         if cmd[1] != "--dump-resource-usage":
-            out = _SASS
+            out = usage["sass"] if lib == "wkv_decode" else _SASS
         elif lib in smoke.WKV_TMA_LIBRARIES:
             out = usage["wkv"].replace("KERNEL", smoke.WKV_TMA_LIBRARIES[lib])
+        elif lib in smoke.DECODE_LIBRARIES:
+            out = usage["decode"].replace("KERNEL", smoke.DECODE_LIBRARIES[lib][0])
         else:
             out = usage["text"]
         return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
@@ -362,4 +365,15 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     smoke._hopper_report(common)
     usage["wkv"] = _WKV_USAGE.replace("STACK:0", "STACK:16")
     with pytest.raises(SystemExit, match="spills"):
+        smoke._hopper_report(common)
+    # The decode-step libraries (since their redesign): a spill fails, and
+    # the decode window must hold its bulk copies.
+    usage["wkv"] = _WKV_USAGE
+    smoke._hopper_report(common)
+    usage["decode"] = _WKV_USAGE.replace("LOCAL:0", "LOCAL:32")
+    with pytest.raises(SystemExit, match="spills"):
+        smoke._hopper_report(common)
+    usage["decode"] = _WKV_USAGE
+    usage["sass"] = _SASS.replace("UBLKCP", "LDG")
+    with pytest.raises(SystemExit, match="UBLKCP"):
         smoke._hopper_report(common)
