@@ -11,10 +11,12 @@ Phases (any failure raises and exits non-zero, with no result line):
    (``cuobjdump --dump-sass``) beside each wgmma kernel's registers, stack
    frame and local memory (``cuobjdump --dump-resource-usage``), and for
    the two WKV libraries redesigned around TMA rings (the chunked forward,
-   the backward) the UTMALDG and UTMASTG instructions and for the decode
-   window the UBLKCP (1-D bulk copy) instructions, beside each kernel's
-   registers, shared memory, stack frame and local memory (the token
-   shift's too), all read from the library file whether this run built it
+   the backward) the UTMALDG and UTMASTG instructions, for the decode
+   window the UBLKCP (1-D bulk copy) instructions and for the elevator
+   scan library (the RG-LRU scan's TMA ring, the staged window) the
+   UTMALDG instructions, beside each kernel's registers, shared memory,
+   stack frame and local memory (the token shift's too, and every kernel
+   of the scan library), all read from the library file whether this run built it
    or found it in ``build/``; fail if a count is 0 or a kernel spills (a
    stack frame or local memory);
 2. kernels against their plain PyTorch versions on the card, at full
@@ -58,8 +60,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    loss, grad norm and updated parameters;
 3d. RecurrentGemma's kernels against their plain versions on the card, in
    f32 with TF32 off and in bf16: the chunked elevator scan (B=4, T=256 and
-   B=1, T=4096, D=2560), its decode window (K in 1, 8, 37, 64, bit for bit
-   against K chained single launches), the token shift (T in 4, 67, 259,
+   B=1, T=4096, D=2560; bit for bit against its plain version in every
+   plan, and against four chained 64-token windows), its decode window (K
+   in 1, 8, 37, 64 at B=4 and B=1, bit for bit against K chained single
+   launches and across every plan), the token shift (T in 4, 67, 259,
    4096; bit for bit against its plain version) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
    T=4096, causal full at T=1024 and T=4096, a non-causal window, the
    decode offsets T=8 and T=1 against S=300, T not a block multiple) and at
@@ -96,7 +100,10 @@ Phases (any failure raises and exits non-zero, with no result line):
    gradient's shard; the decode rows with every column tile, the window
    at K in 1, 8, 32, 64 and B in 1, 4 with every column tile, and an empty
    kernel's time as the launch floor; the token shift at (B, T) = (1,
-   4096), (4, 4) and (4, 259)), printed as one ``{"kernels": [...]}`` line;
+   4096), (4, 4) and (4, 259); the elevator scan at (B, T) = (1, 4096)
+   and (4, 256) in every plan; the elevator window at K in 1, 8, 32, 64
+   and B in 1, 4 in every plan, beside the launch floor plus its bytes
+   bound), printed as one ``{"kernels": [...]}`` line;
    then the card's name and power limit, and the result line.
 """
 
@@ -445,7 +452,7 @@ def main():
             row["launch_floor_ms"] = floor_ms
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
     rows += _time_seq_kernels(torch, KC, BW, launches, worst, seq_extra)
-    rows += _time_rg_kernels(torch, launches, worst)
+    rows += _time_rg_kernels(torch, launches, worst, floor_ms)
     rows += _time_paper_kernels(torch, launches, worst)
 
     print(json.dumps({"kernels": rows}))
@@ -484,7 +491,8 @@ def _hopper_report(common):
     from ``cuobjdump --dump-resource-usage``.  Both read the library file, so
     a library built by an earlier run reads the same.  Fails if a library
     lacks its instructions (HGMMA and UTMALDG for the matmul and flash
-    attention, UTMALDG for the WKV pair, UBLKCP for the decode window), no
+    attention, UTMALDG for the WKV pair and the elevator scan, UBLKCP for
+    the decode window), no
     such kernel is found, or one has a stack frame or local memory (where
     spills go)."""
     import shutil
@@ -497,7 +505,8 @@ def _hopper_report(common):
 
     for name, marker, need in (*((n, "wgmma_kernel", ("HGMMA", "UTMALDG")) for n in HOPPER_LIBRARIES),
                                *((n, k, ("UTMALDG",)) for n, k in WKV_TMA_LIBRARIES.items()),
-                               *((n, k, ops) for n, (k, ops) in DECODE_LIBRARIES.items())):
+                               *((n, k, ops) for n, (k, ops) in DECODE_LIBRARIES.items()),
+                               *((n, k, ops) for n, (k, ops) in SCAN_LIBRARIES.items())):
         path = common._lib_path(name)
         sass = dump("--dump-sass", path)
         counts = {op: sum(op in ln for ln in sass.splitlines())
@@ -508,7 +517,7 @@ def _hopper_report(common):
               f"UTMASTG {counts['UTMASTG']}, UBLKCP {counts['UBLKCP']}")
         if len(kernels) > 10:
             # The token shift's 84 instantiations (tap count, rows, vector
-            # or scalar slots, dtype), summarised.
+            # or scalar slots, dtype) and the scan library's, summarised.
             regs = [use.get("REG", 0) for use in kernels.values()]
             print(f"[build]   {len(kernels)} {marker}s: {min(regs)}-{max(regs)} registers "
                   f"at launch, stack {max(u.get('STACK', 0) for u in kernels.values())} B, "
@@ -521,8 +530,10 @@ def _hopper_report(common):
         if min((counts[op] for op in need), default=1) < 1 or not kernels:
             raise SystemExit(f"{name}: no {marker.split('_')[0]} kernel or no {need} in the "
                              f"binary: {counts}, {len(kernels)} {marker}s")
-        if any(use.get("STACK", 0) or use.get("LOCAL", 0) for use in kernels.values()):
-            raise SystemExit(f"{name}: a {marker} spills (stack frame or local memory)")
+        spills = [k for k, use in kernels.items() if use.get("STACK", 0) or use.get("LOCAL", 0)]
+        if spills:
+            raise SystemExit(f"{name}: a {marker} spills (stack frame or local memory): "
+                             f"{spills}")
 
 
 def _cotangents(torch, b, t, dtype, seed):
@@ -759,7 +770,7 @@ def _time_decode_sweep(torch, D):
     B in (1, 4): device and per-call µs of the planner's choice, every
     column tile, and the bound (its bytes: the inputs, out and the state
     read and written; its operations over the f32 peak)."""
-    from repro_torch.kernels.wkv.kernel import sm_count
+    from repro_torch.kernels.common import sm_count
 
     out = []
     for b in (1, 4):
@@ -1190,6 +1201,8 @@ def _time_seq_kernels(torch, KC, BW, launches, worst, extra, t_full=4096, grad_t
     launches of one layer back to back against one ``wkv_cuda`` sweep over
     the whole 4096 tokens, and the prefill, generate and gradient wall
     times of phase 3g."""
+    from repro_torch.kernels.common import sm_count
+
     bf = torch.bfloat16
     rows = []
 
@@ -1291,7 +1304,7 @@ def _time_seq_kernels(torch, KC, BW, launches, worst, extra, t_full=4096, grad_t
         full_sets = _cold_sets(full, t_full * H * DH * 2 * 5)
         ms_shards, _ = _time_ms(torch, shards, full_sets, reps=20)
         ms_one, _ = _time_ms(torch, lambda *a: KC.wkv_cuda(*a, chunk=chunk), full_sets, reps=20)
-    sms = KC.sm_count(torch.device("cuda"))
+    sms = sm_count(torch.device("cuda"))
     blocks = H * (DH // KC.plan_columns(1, H, q, chunk, bf, sms))
     print(f"[time] one layer of the seq prefill B=1 T={t_full}: {SEQ_SHARDS} summary launches "
           f"(each {blocks} blocks on {sms} SMs) back to back {ms_shards * 1e3:.2f} us against "
@@ -1323,6 +1336,10 @@ WKV_TMA_LIBRARIES = {"wkv_chunked": "wkv_fwd_kernel", "wkv_bwd": "wkv_bwd_kernel
 #: instruction, only its registers and spills are read.
 DECODE_LIBRARIES = {"wkv_decode": ("wkv_decode_kernel", ("UBLKCP",)),
                     "token_shift": ("token_shift_kernel", ())}
+#: The RG-LRU scan library redesigned after them: every kernel of it (the
+#: marker matches the scan's and the window's), and the TMA loads (UTMALDG)
+#: of the scan's ring and the staged window phase 1 must find.
+SCAN_LIBRARIES = {"elevator_scan": ("elevator_", ("UTMALDG",))}
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
@@ -1431,24 +1448,53 @@ def _rg_kernel_checks(torch):
                 a, x, h0 = _scan_inputs(torch, b, t, dtype, seed=t)
                 got = EK.elevator_scan_cuda(a, x, h0)
                 torch.cuda.synchronize()
-                check("elevator_scan_cuda", f"B={b} T={t} D={RG_D}", dtype, [got],
-                      [EK.elevator_scan_ref(a, x, h0)])
-            for kw in (1, 8, 37, 64):
-                a, x, h0 = _scan_inputs(torch, 4, kw, dtype, seed=100 + kw)
-                got = ED.elevator_decode_window_cuda(a, x, h0)
-                torch.cuda.synchronize()
-                check("elevator_decode_window_cuda", f"B=4 K={kw} D={RG_D}", dtype, got,
-                      ED.elevator_decode_window_plain(a, x, h0))
-                h, outs = h0, []
-                for i in range(kw):
-                    o, h = ED.elevator_decode_window_cuda(a[:, i:i + 1].contiguous(),
-                                                          x[:, i:i + 1].contiguous(), h)
-                    outs.append(o)
-                same = torch.equal(torch.cat(outs, 1), got[0]) and torch.equal(h, got[1])
-                print(f"[rg-kernels] elevator window K={kw} {dtype} bit-identical to "
-                      f"{kw} chained single launches: {same}")
+                want = EK.elevator_scan_ref(a, x, h0)
+                check("elevator_scan_cuda", f"B={b} T={t} D={RG_D}", dtype, [got], [want])
+                # The serial chain runs the plain version's steps in its
+                # order: bit for bit, in every plan.
+                plans = EK.scan_plans(b, t, RG_D, dtype)
+                bad = [p for p in plans
+                       if not torch.equal(EK.launch_plan(a, x, h0, plan=p), want)]
+                same = torch.equal(got, want) and not bad
+                print(f"[rg-kernels] elevator scan B={b} T={t} {dtype} bit-identical to the "
+                      f"plain version, the planner's plan and all {len(plans)} plans: {same}")
                 if not same:
-                    raise SystemExit("elevator window differs from chained single launches")
+                    raise SystemExit(f"elevator scan differs from its plain version: {bad}")
+            # The scan equals 64-token windows chained through their exit
+            # states: one step function, one order.
+            a, x, h0 = _scan_inputs(torch, 4, 256, dtype, seed=256)
+            h, outs = h0, []
+            for lo in range(0, 256, 64):
+                o, h = ED.elevator_decode_window_cuda(a[:, lo:lo + 64].contiguous(),
+                                                      x[:, lo:lo + 64].contiguous(), h)
+                outs.append(o)
+            same = torch.equal(torch.cat(outs, 1), EK.elevator_scan_cuda(a, x, h0))
+            print(f"[rg-kernels] elevator scan B=4 T=256 {dtype} bit-identical to 4 chained "
+                  f"64-token windows: {same}")
+            if not same:
+                raise SystemExit("elevator scan differs from chained windows")
+            for b in (4, 1):
+                for kw in (1, 8, 37, 64):
+                    a, x, h0 = _scan_inputs(torch, b, kw, dtype, seed=100 + kw + b)
+                    got = ED.elevator_decode_window_cuda(a, x, h0)
+                    torch.cuda.synchronize()
+                    check("elevator_decode_window_cuda", f"B={b} K={kw} D={RG_D}", dtype, got,
+                          ED.elevator_decode_window_plain(a, x, h0))
+                    h, outs = h0, []
+                    for i in range(kw):
+                        o, h = ED.elevator_decode_window_cuda(a[:, i:i + 1].contiguous(),
+                                                              x[:, i:i + 1].contiguous(), h)
+                        outs.append(o)
+                    same = torch.equal(torch.cat(outs, 1), got[0]) and torch.equal(h, got[1])
+                    plans = ED.window_plans(b, kw, RG_D, dtype)
+                    bad = [p for p in plans if not all(
+                        torch.equal(g, w) for g, w in zip(ED.launch_plan(a, x, h0, plan=p), got))]
+                    print(f"[rg-kernels] elevator window B={b} K={kw} {dtype} bit-identical to "
+                          f"{kw} chained single launches: {same}; all {len(plans)} plans "
+                          f"bit-equal: {not bad}")
+                    if not same or bad:
+                        raise SystemExit(f"elevator window differs from chained single "
+                                         f"launches or across plans: {bad}")
             for b, t in ((4, 4), (4, 67), (4, 259), (1, 4096)):
                 x, w = _shift_inputs(torch, b, t, dtype, seed=t)
                 got = TS.token_shift_cuda(x, w)
@@ -1643,14 +1689,56 @@ def _visible_pairs(t, s, causal, window):
     return total
 
 
-def _time_rg_kernels(torch, launches, worst):
+def _scan_plan_times(torch, EK, sets, reps):
+    """Device µs of the chunked scan in every plan of ``scan_plans``
+    through ``launch_plan`` (counts no launch), on the row's input sets."""
+    b, t, d = sets[0][1].shape
+    return {f"{p.mode} cols={p.cols} stages={p.stages}":
+            round(1e3 * _time_ms(torch, lambda *a, p=p: EK.launch_plan(*a, plan=p), sets,
+                                 reps=reps)[0], 2)
+            for p in EK.scan_plans(b, t, d, sets[0][1].dtype)}
+
+
+def _time_window_sweep(torch, ED, floor_ms):
+    """Phase 4: the elevator window in f32 (as the model passes a and x) at
+    K in (1, 8, 32, 64) tokens and B in (1, 4): device and per-call µs of
+    the planner's choice and of every plan, beside its bytes bound and the
+    launch floor plus that bound."""
+    out = []
+    for b in (1, 4):
+        for kw in (1, 8, 32, 64):
+            nbytes = 3 * b * kw * RG_D * 4 + 2 * b * RG_D * 4
+            sets = _cold_sets(lambda s: _scan_inputs(torch, b, kw, torch.float32, s), nbytes)
+            ms, call_ms = _time_ms(torch, ED.elevator_decode_window_cuda, sets, reps=100)
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            plan = ED.plan_window(b, kw, RG_D, torch.float32, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            plans = {f"{p.mode} vec={p.vec} threads={p.threads}": round(1e3 * _time_ms(
+                torch, lambda *a, p=p: ED.launch_plan(*a, plan=p), sets, reps=100)[0], 2)
+                for p in ED.window_plans(b, kw, RG_D, torch.float32)}
+            row = {"shape": f"B={b} K={kw}", "ms": ms, "call_ms": call_ms, "bound_ms": b_ms,
+                   "floor_plus_bound_ms": floor_ms + b_ms,
+                   "plan": f"{plan.mode} vec={plan.vec} threads={plan.threads}",
+                   "plans": plans}
+            out.append(row)
+            print(f"[time] elevator window B={b} K={kw:2d} f32: device {ms * 1e3:6.2f} us, "
+                  f"per call {call_ms * 1e3:6.2f} us, bound {b_ms * 1e3:.2f} us, floor + "
+                  f"bound {(floor_ms + b_ms) * 1e3:.2f} us; plan {row['plan']}; every plan "
+                  f"{plans}")
+    return out
+
+
+def _time_rg_kernels(torch, launches, worst, floor_ms):
     """Phase 4 rows of RecurrentGemma's kernels at the main path's shapes:
     the scan and the token shift of a 4096-token forward (B=1), the window
     at a generated token (K=1, B=4) and flash attention of a local layer
-    of the forward.  ``library_ms``: a depthwise ``F.conv1d`` for the
-    token shift and ``F.scaled_dot_product_attention`` with the same
-    boolean mask and GQA for attention; no single PyTorch call computes a
-    decayed linear scan, so the scan rows have none."""
+    of the forward.  The scan also at the generate prefill (B=4, T=256),
+    both scan rows with every plan, and the window with a sweep over K and
+    B beside the launch floor (``floor_ms``, an empty kernel timed the same
+    way).  ``library_ms``: a depthwise ``F.conv1d`` for the token shift
+    and ``F.scaled_dot_product_attention`` with the same boolean mask and
+    GQA for attention; no single PyTorch call computes a decayed linear
+    scan, so the scan rows have none."""
     from repro_torch.kernels import card_checks as CC
 
     F = torch.nn.functional
@@ -1690,6 +1778,10 @@ def _time_rg_kernels(torch, launches, worst):
                 f"B={b} T={t} D={RG_D} f32", sets, EK.elevator_scan_cuda,
                 EK.elevator_scan_ref, nbytes, 2 * b * t * RG_D, peak=PEAK_F32_FLOPS,
                 reps=50 if t < 4096 else 20)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            rows[-1]["plan"] = str(EK.plan_scan(b, t, RG_D, torch.float32, sms))
+            rows[-1]["plans"] = _scan_plan_times(torch, EK, sets, reps=50 if t < 4096 else 20)
+            print(f"[time]   plan {rows[-1]['plan']}; every plan {rows[-1]['plans']}")
         # The window at one generated token: K=1, B=4.
         nbytes = 3 * 4 * RG_D * 4 + 2 * 4 * RG_D * 4
         sets = _cold_sets(lambda s: _scan_inputs(torch, 4, 1, f32, s), nbytes)
@@ -1698,6 +1790,8 @@ def _time_rg_kernels(torch, launches, worst):
             f"B=4 K=1 D={RG_D} f32", sets, ED.elevator_decode_window_cuda,
             ED.elevator_decode_window_plain, nbytes, 2 * 4 * RG_D, peak=PEAK_F32_FLOPS,
             reps=200)
+        rows[-1]["launch_floor_ms"] = floor_ms
+        rows[-1]["sweep"] = _time_window_sweep(torch, ED, floor_ms)
 
         # The token shift of the forward (bf16, B=1, T=4096), its library
         # call a depthwise conv1d over the (B, D, T) layout conv1d takes.
@@ -1772,19 +1866,20 @@ def _time_rg_kernels(torch, launches, worst):
         rows[-1]["library_ms"] = lib_ms
         print(f"[time]   SDPA is_causal library call: {lib_ms * 1e3:.2f} us")
     # One row per kernel in the result line: the main path's shape (the
-    # first row of each name); the other shapes of flash attention and the
-    # token shift ride along under "large", the rest are printed above.
+    # first row of each name); the other shapes of flash attention, the
+    # token shift and the scan ride along under "large", the rest are
+    # printed above.
     seen, out = set(), []
     for r in rows:
         if r["name"] not in seen:
             seen.add(r["name"])
             out.append(r)
     names = [r["name"] for r in out]
-    for name in ("flash_attention_cuda", "token_shift_cuda"):
+    for name in ("flash_attention_cuda", "token_shift_cuda", "elevator_scan_cuda"):
         extra = [r for r in rows if r["name"] == name][1:]
         out[names.index(name)]["large"] = [
             {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")} for r in extra]
+                               "library_ms", "plan", "plans") if k in r} for r in extra]
     return out
 
 

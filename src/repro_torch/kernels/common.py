@@ -15,6 +15,7 @@ edited source or header is rebuilt and an unchanged one is reused.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,6 +42,7 @@ __all__ = [
     "open_library",
     "load_library",
     "launch_stream",
+    "sm_count",
 ]
 
 
@@ -157,8 +159,8 @@ ENTRY_POINTS = {
         "wkv_bwd_smem": [_I] * 3,
     },
     "elevator_scan": {
-        "elevator_scan_fwd": [_P] * 4 + [_I] * 4 + [_P],
-        "elevator_decode_window_fwd": [_P] * 5 + [_I] * 4 + [_P],
+        "elevator_scan_fwd": [_P] * 4 + [_I] * 7 + [_P],
+        "elevator_decode_window_fwd": [_P] * 5 + [_I] * 7 + [_P],
     },
     "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P]},
     "flash_attention": {"flash_attention_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P]},
@@ -252,3 +254,9 @@ def load_library(name: str) -> ctypes.CDLL:
 def launch_stream(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card ``device`` names (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

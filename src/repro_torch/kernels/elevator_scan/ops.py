@@ -9,7 +9,8 @@ of ``repro.kernels.elevator_scan.ops.elevator_scan``).
 * ``h0=None`` means zeros; h comes back in x.dtype.
 
 The reference's ``chunk`` argument sizes its Pallas tiles; the CUDA
-kernel's segments are fixed by its block shape, so the port has none.
+kernels' tiles come from their plans (``kernel.py:plan_scan``,
+``decode.py:plan_window``), so the port has none.
 """
 
 from __future__ import annotations

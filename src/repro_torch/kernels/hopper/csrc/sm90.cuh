@@ -6,7 +6,8 @@
 //
 // Included by local_attention/csrc/flash_attention.cu,
 // matmul_fwd/csrc/matmul_fwd.cu, wkv/csrc/wkv_chunked.cu,
-// wkv/csrc/wkv_bwd.cu and wkv/csrc/wkv_decode.cu (nvcc -I
+// wkv/csrc/wkv_bwd.cu, wkv/csrc/wkv_decode.cu and
+// elevator_scan/csrc/elevator_scan.cu (nvcc -I
 // .../kernels/hopper/csrc).  The build cache (kernels/common.py) hashes
 // every *.cuh under kernels/ into each library's name, so an edit here
 // rebuilds every library.

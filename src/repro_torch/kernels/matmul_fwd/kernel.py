@@ -28,6 +28,7 @@ from repro_torch.kernels.common import (
     check_kernel_tensors,
     launch_stream,
     load_library,
+    sm_count,
 )
 from repro_torch.kernels.matmul_fwd.ref import matmul_ref
 
@@ -91,10 +92,6 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype, sms: int, *,
     return variant, *tiles[-1], splits[-1]
 
 
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def matmul_fwd_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
                     block_n: int = 256, block_k: int = 256) -> torch.Tensor:
     """C = A @ B.  A: (M, K), B: (K, N), one dtype (f32 or bf16) on the
@@ -114,7 +111,7 @@ def matmul_fwd_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
     if a.device.type == "cpu":
         return matmul_ref(a, b)
     _check_operands(a, b)
-    out = launch_plan(a, b, *plan(m, n, k, a.dtype, _sm_count(a.device),
+    out = launch_plan(a, b, *plan(m, n, k, a.dtype, sm_count(a.device),
                                   aligned=_aligned(a, b)))
     matmul_fwd_cuda.launches += 1
     return out
@@ -147,7 +144,7 @@ def launch_plan(a: torch.Tensor, b: torch.Tensor, variant: str, tile_m: int, til
     fn = load_library("matmul_fwd").matmul_fwd
     err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(),
              None if ws is None else ws.data_ptr(), m, n, k, VARIANTS[variant][0],
-             tile_m, tile_n, split, _sm_count(a.device), launch_stream(a.device))
+             tile_m, tile_n, split, sm_count(a.device), launch_stream(a.device))
     if err:
         raise RuntimeError(f"matmul_fwd launch failed: error {err} (a cudaError_t, or "
                            "10000 + the CUresult of a tensor map)")

@@ -29,6 +29,7 @@ from repro_torch.kernels.common import (
     check_kernel_tensors,
     launch_stream,
     load_library,
+    sm_count,
     validate_divisible,
 )
 from repro_torch.kernels.wkv.kernel import (
@@ -38,7 +39,6 @@ from repro_torch.kernels.wkv.kernel import (
     _up128,
     padded_chunk,
     row_stride,
-    sm_count,
 )
 
 __all__ = ["BWD_MAX_CHUNK", "CLUSTERS", "bwd_smem_bytes", "plan_cluster",

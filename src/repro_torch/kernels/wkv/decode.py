@@ -21,8 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import DTYPE_CODE, launch_stream, load_library
-from repro_torch.kernels.wkv.kernel import WKV_DH, check_wkv_args, sm_count
+from repro_torch.kernels.common import DTYPE_CODE, launch_stream, load_library, sm_count
+from repro_torch.kernels.wkv.kernel import WKV_DH, check_wkv_args
 from repro_torch.kernels.wkv.ref import wkv_sequential_ref
 
 # Stateful (decode) dispatches at or below this many tokens take the window

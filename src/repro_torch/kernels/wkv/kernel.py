@@ -35,8 +35,6 @@ No wrapper takes tensors that require grad: gradients go through
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.kernels.common import (
@@ -44,6 +42,7 @@ from repro_torch.kernels.common import (
     check_kernel_tensors,
     launch_stream,
     load_library,
+    sm_count,
     validate_divisible,
 )
 from repro_torch.kernels.wkv.ref import (
@@ -53,7 +52,7 @@ from repro_torch.kernels.wkv.ref import (
 )
 
 __all__ = ["WKV_DH", "MAX_CHUNK", "COL_TILES", "SMEM_LIMIT", "padded_chunk",
-           "fwd_smem_bytes", "plan_columns", "launch_plan", "sm_count", "wkv_cuda",
+           "fwd_smem_bytes", "plan_columns", "launch_plan", "wkv_cuda",
            "wkv_plain", "wkv_train_cuda", "wkv_train_plain", "wkv_summary_cuda",
            "wkv_summary_plain", "wkv_train_summary_cuda", "wkv_train_summary_plain",
            "check_wkv_args", "row_stride"]
@@ -122,12 +121,6 @@ def plan_columns(b: int, h: int, t: int, chunk: int, dtype: torch.dtype, sms: in
         if b * h * (WKV_DH // tile) >= FILL * BLOCKS_PER_SM * sms:
             return tile
     return fits[-1]
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    """The SMs of the card ``device`` names (read once per device)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_wkv_args(name, r, k, v, w, u, h0, *, t_window=False):

@@ -323,11 +323,61 @@ def _scan_inputs(b, t, d, seed, device, dtype=torch.float32, h0=True):
 @pytest.mark.parametrize("b,t,d,h0", [(4, 256, 2560, True), (1, 1000, 200, False),
                                       (2, 1, 64, True), (3, 129, 384, True)])
 def test_elevator_scan_matches_plain(cuda, dtype, b, t, d, h0):
+    """Bit for bit since the serial-chain redesign: the kernel runs each
+    channel's steps in the plain version's order and rounding."""
     a, x, h = _scan_inputs(b, t, d, t + d, cuda, dtype, h0)
     got = EK.elevator_scan_cuda(a, x, h)
     assert got.dtype == dtype and got.shape == (b, t, d)
-    _close([got], [EK.elevator_scan_ref(a, x, h)],
-           F32_TOL if dtype == torch.float32 else BF16_RTOL)
+    assert torch.equal(got, EK.elevator_scan_ref(a, x, h))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (no tensor map takes it)."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    off = 4 // t.element_size()
+    out = flat[off:off + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,h0", [(4, 256, 2560, True), (1, 1000, 200, False),
+                                      (2, 1, 64, True), (3, 129, 384, True),
+                                      (2, 77, 250, True), (1, 65, 2563, False),
+                                      (1, 4096, 2560, True)])
+def test_elevator_scan_every_plan_is_bit_equal(cuda, dtype, b, t, d, h0):
+    """Every plan of ``scan_plans`` (the TMA ring's channel tiles, the
+    loader-warp variant) equals the plain version bit for bit, h0 absent
+    too; inputs 4 bytes off the 16-byte grid take the loader warps and
+    agree as well."""
+    a, x, h = _scan_inputs(b, t, d, 7 * t + d, cuda, dtype, h0)
+    want = EK.elevator_scan_ref(a, x, h)
+    plans = EK.scan_plans(b, t, d, dtype)
+    assert EK.plan_scan(b, t, d, dtype, torch.cuda.get_device_properties(0).multi_processor_count) \
+        in plans
+    for plan in plans:
+        got = EK.launch_plan(a, x, h, plan=plan)
+        assert torch.equal(got, want), plan
+    am, xm = _misaligned(a), _misaligned(x)
+    assert EK.plan_scan(b, t, d, dtype, 132, EK.pointer_alignment(am, xm)).mode == "loaders"
+    assert torch.equal(EK.elevator_scan_cuda(am, xm, h), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elevator_scan_equals_chained_windows(cuda, dtype):
+    """The scan over 200 tokens equals windows of 64, 64, 64 and 8 tokens
+    chained through their f32 exit states, bit for bit: one step function,
+    one order."""
+    a, x, h = _scan_inputs(2, 200, 2560, 31, cuda, dtype)
+    whole = EK.elevator_scan_cuda(a, x, h)
+    outs = []
+    for lo in range(0, 200, 64):
+        o, h = ED.elevator_decode_window_cuda(a[:, lo:lo + 64].contiguous(),
+                                              x[:, lo:lo + 64].contiguous(), h)
+        outs.append(o)
+    assert torch.equal(torch.cat(outs, 1), whole)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -344,6 +394,47 @@ def test_elevator_window_is_chained_single_steps(cuda, dtype, kw):
     a, x, h = _scan_inputs(4, kw, 2560, kw, cuda, dtype)
     want = ED.elevator_decode_window_plain(a, x, h)
     assert torch.equal(out, want[0]) and torch.equal(h_win, want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("kw", [1, 8, 37, 64])
+def test_elevator_window_every_plan_is_chained_single_steps(cuda, dtype, b, kw):
+    """Every plan of ``window_plans`` (staged by TMA, or register loads at
+    each access width and block size) equals K chained single launches and
+    the plain version bit for bit, at B=1 and B=4."""
+    a, x, h = _scan_inputs(b, kw, 2560, 3 * kw + b, cuda, dtype)
+    want = ED.elevator_decode_window_plain(a, x, h)
+    hh, outs = h, []
+    for i in range(kw):
+        o, hh = ED.elevator_decode_window_cuda(a[:, i:i + 1].contiguous(),
+                                               x[:, i:i + 1].contiguous(), hh)
+        outs.append(o)
+    assert torch.equal(torch.cat(outs, 1), want[0]) and torch.equal(hh, want[1])
+    for plan in ED.window_plans(b, kw, 2560, dtype):
+        out, h_out = ED.launch_plan(a, x, h, plan=plan)
+        assert torch.equal(out, want[0]) and torch.equal(h_out, want[1]), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [1, 8, 64])
+def test_elevator_window_h_out_may_alias_h0(cuda, dtype, kw):
+    """The C entry point with h_out = h0, in every plan: each thread reads
+    its h0 entries before it writes its exit state."""
+    from repro_torch.kernels import common
+
+    lib = common.load_library("elevator_scan")
+    a, x, h = _scan_inputs(4, kw, 2560, 5 + kw, cuda, dtype)
+    want = ED.elevator_decode_window_plain(a, x, h)
+    for plan in ED.window_plans(4, kw, 2560, dtype):
+        h_io, out = h.clone(), torch.empty_like(x)
+        err = lib.elevator_decode_window_fwd(
+            a.data_ptr(), x.data_ptr(), h_io.data_ptr(), out.data_ptr(), h_io.data_ptr(),
+            4, kw, 2560, common.DTYPE_CODE[dtype], plan.vec, plan.threads,
+            ED.WINDOW_MODES[plan.mode], torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert err == 0, plan
+        assert torch.equal(out, want[0]) and torch.equal(h_io, want[1]), plan
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -947,12 +1038,15 @@ import json, sys
 import numpy as np
 import torch
 from repro_torch.kernels import common
+from repro_torch.kernels.elevator_scan import decode as ED
+from repro_torch.kernels.elevator_scan import kernel as EK
 from repro_torch.kernels.token_shift import kernel as TS
 from repro_torch.kernels.wkv import bwd as BW
 from repro_torch.kernels.wkv import decode as D
 from repro_torch.kernels.wkv import kernel as K
 
 lib, so, dt, tol = sys.argv[1], sys.argv[2], getattr(torch, sys.argv[3]), float(sys.argv[4])
+case = sys.argv[5] if len(sys.argv) > 5 else lib
 rng = np.random.default_rng(777)
 
 
@@ -998,6 +1092,26 @@ elif lib == "wkv_decode":
     common._LIBS[lib] = common.open_library(lib, so)
     cold()
     got = D.wkv_decode_window_cuda(*args)
+elif case == "elevator_scan":
+    # The scan at B=1, T=1024, D=2560 (16 chunks through the ring).
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (1, 1024, 2560)).astype(np.float32)).cuda().to(dt)
+    x = torch.from_numpy(rand(1, 1024, 2560)).cuda().to(dt)
+    h = torch.from_numpy(rand(1, 2560)).cuda()
+    want = [EK.elevator_scan_ref(a, x, h)]
+    common._LIBS[lib] = common.open_library(lib, so)
+    cold()
+    got = [EK.elevator_scan_cuda(a, x, h)]
+elif case == "elevator_window":
+    # The staged window at B=4, K=8, D=2560; the memory the outputs will
+    # take is filled with NaN first.
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (4, 8, 2560)).astype(np.float32)).cuda().to(dt)
+    x = torch.from_numpy(rand(4, 8, 2560)).cuda().to(dt)
+    h = torch.from_numpy(rand(4, 2560)).cuda()
+    want = list(ED.elevator_decode_window_plain(a, x, h))
+    common._LIBS[lib] = common.open_library(lib, so)
+    torch.full_like(x, float("nan"))
+    torch.full_like(h, float("nan"))
+    got = list(ED.elevator_decode_window_cuda(a, x, h))
 else:
     # The token shift at B=2, T=259, a D with a tail slot in either dtype;
     # the memory the output will take is filled with NaN first, so a channel
@@ -1024,9 +1138,10 @@ print(json.dumps({"ratio": worst}))
 """
 
 
-def _fault_outcome(lib, so, dtype, tol):
-    """Run one faulty launch and its check in a fresh process; returns a
-    string for the record and whether the check rejected the fault."""
+def _fault_outcome(lib, so, dtype, tol, case=None):
+    """Run one faulty launch and its check in a fresh process (``case``
+    names the launch where a library has more than one); returns a string
+    for the record and whether the check rejected the fault."""
     import json
     import os
     import subprocess
@@ -1035,7 +1150,7 @@ def _fault_outcome(lib, so, dtype, tol):
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(Path(__file__).resolve().parents[1] / "src"), os.environ.get("PYTHONPATH", "")])}
     proc = subprocess.run([sys.executable, "-c", _FAULT_CHECK, lib, str(so),
-                           str(dtype).split(".")[-1], str(tol)],
+                           str(dtype).split(".")[-1], str(tol), case or lib],
                           capture_output=True, text=True, timeout=600, env=env)
     if proc.returncode != 0:
         lines = ([ln for ln in proc.stderr.splitlines() if "CUDA error" in ln]
@@ -1118,3 +1233,45 @@ def test_decode_step_check_rejects_planted_fault(cuda, decode_mutants, lib, faul
     x = torch.randn((2, 259, 2562), device=cuda)
     w = torch.randn((4, 2562), device=cuda)
     assert torch.equal(TS_K.token_shift_cuda(x, w), TS_K.token_shift_ref(x, w))
+
+
+#: Faults planted in copies of ``elevator_scan.cu``: (check case, anchor,
+#: replacement).  The scan's chain warp reads its ring stage without waiting
+#: for the TMA tiles; the staged window leaves the last channel of the row
+#: unwritten.
+ELEVATOR_FAULTS = {
+    "skip_ring_wait": ("elevator_scan", "    sm90::mbar_wait(&full[s], (c / ns) & 1);\n", ""),
+    "dropped_tail_channel": ("elevator_window", "  const bool live = d < D;\n",
+                             "  const bool live = d < D - 1;\n"),
+}
+
+
+@pytest.fixture(scope="module")
+def elevator_mutants(tmp_path_factory):
+    """Each planted fault compiled into its own copy of the library; the
+    value is the shared object's path (loaded only by the check's own
+    process)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
+    out = tmp_path_factory.mktemp("elevator_mutants")
+    _compile_mutants("elevator_scan", {f: e[1:] for f, e in ELEVATOR_FAULTS.items()}, out)
+    return {f: out / f"{f}.so" for f in ELEVATOR_FAULTS}
+
+
+@pytest.mark.parametrize("fault", list(ELEVATOR_FAULTS))
+def test_elevator_check_rejects_planted_fault(cuda, elevator_mutants, fault):
+    """The scan at B=1, T=1024 on inputs cold in L2, and the staged window
+    at B=4, K=8 with its output memory poisoned with NaN, both held bit for
+    bit to their plain versions in both dtypes, each faulty launch in a
+    process of its own.  The good kernels pass the same checks here."""
+    case = ELEVATOR_FAULTS[fault][0]
+    for dtype in (torch.float32, torch.bfloat16):
+        what, rejected = _fault_outcome("elevator_scan", elevator_mutants[fault], dtype, 0.0,
+                                        case)
+        print(f"[elevator-fault] {fault} {dtype}: {what}")
+        assert rejected, f"{fault} {dtype}: the check passed the faulty kernel ({what})"
+    a, x, h = _scan_inputs(1, 1024, 2560, 777, cuda)
+    assert torch.equal(EK.elevator_scan_cuda(a, x, h), EK.elevator_scan_ref(a, x, h))
+    a, x, h = _scan_inputs(4, 8, 2560, 778, cuda)
+    got, want = ED.elevator_decode_window_cuda(a, x, h), ED.elevator_decode_window_plain(a, x, h)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

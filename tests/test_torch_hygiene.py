@@ -332,17 +332,21 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     says "cached") passes as a fresh one does, and a kernel with a stack
     frame still fails."""
     smoke = _load_chip_smoke()
-    usage = {"text": _USAGE, "wkv": _WKV_USAGE, "decode": _WKV_USAGE, "sass": _SASS}
+    usage = {"text": _USAGE, "wkv": _WKV_USAGE, "decode": _WKV_USAGE, "scan": _WKV_USAGE,
+             "sass": _SASS, "scan_sass": _SASS}
 
     def run(cmd, **kw):
         assert Path(cmd[-1]).parent == tmp_path
         lib = Path(cmd[-1]).stem[3:]                    # lib<name>.so
         if cmd[1] != "--dump-resource-usage":
-            out = usage["sass"] if lib == "wkv_decode" else _SASS
+            out = (usage["sass"] if lib == "wkv_decode" else
+                   usage["scan_sass"] if lib in smoke.SCAN_LIBRARIES else _SASS)
         elif lib in smoke.WKV_TMA_LIBRARIES:
             out = usage["wkv"].replace("KERNEL", smoke.WKV_TMA_LIBRARIES[lib])
         elif lib in smoke.DECODE_LIBRARIES:
             out = usage["decode"].replace("KERNEL", smoke.DECODE_LIBRARIES[lib][0])
+        elif lib in smoke.SCAN_LIBRARIES:
+            out = usage["scan"].replace("KERNEL", smoke.SCAN_LIBRARIES[lib][0] + "scan_kernel")
         else:
             out = usage["text"]
         return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
@@ -376,4 +380,15 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     usage["decode"] = _WKV_USAGE
     usage["sass"] = _SASS.replace("UBLKCP", "LDG")
     with pytest.raises(SystemExit, match="UBLKCP"):
+        smoke._hopper_report(common)
+    # The elevator scan library (since its redesign): a spill in any of its
+    # kernels fails, and its SASS must hold the TMA loads of the scan's ring.
+    usage["sass"] = _SASS
+    smoke._hopper_report(common)
+    usage["scan"] = _WKV_USAGE.replace("STACK:0", "STACK:8")
+    with pytest.raises(SystemExit, match="spills"):
+        smoke._hopper_report(common)
+    usage["scan"] = _WKV_USAGE
+    usage["scan_sass"] = _SASS.replace("UTMALDG", "LDG")
+    with pytest.raises(SystemExit, match="UTMALDG"):
         smoke._hopper_report(common)
