@@ -66,8 +66,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    launches and across every plan), the token shift (T in 4, 67, 259,
    4096; bit for bit against its plain version) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
    T=4096, causal full at T=1024 and T=4096, a non-causal window, the
-   decode offsets T=8 and T=1 against S=300, T not a block multiple) and at
-   D 128, 64, 32 (T=1000, window 256);
+   decode offsets T=8 and T=1 against S=300, T not a block multiple), at
+   D 128, 64, 32 (T=1000, window 256), and at Gemma3's Hq 4 (T=4096, causal
+   window 1024 and causal with no window);
 3e. the RecurrentGemma path, the RWKV6 engines and train state freed:
    full-size recurrentgemma-2b in bf16 (random weights from a seed, depth
    not cut) through ``ServeEngine.generate`` (B=4, 256-token prompts, 32
@@ -77,6 +78,24 @@ Phases (any failure raises and exits non-zero, with no result line):
    before each call and held just after to the count the code's structure
    gives; then the reduced f32 model on the card against the CPU, and one
    generate call and one forward under the profiler;
+3h. the Gemma3 path: full-size gemma3-1b in bf16 (random weights from a
+   seed, depth not cut: 22 local layers of window 1024, 4 global) through
+   ``ServeEngine.generate`` (B=4, 256-token prompts, 32 new tokens, K=8),
+   ``ServeEngine.serve`` (6 ragged requests, 4 slots, K=8) and prompt
+   scoring at B=1, T=4096, every launch count set to 0 just before each
+   call and held just after: 0 for generate and serve (serving attends in
+   plain PyTorch), 26 ``flash_attention_cuda`` for the forward, 22 of them
+   windowed and 4 causal with no window; then the reduced f32 model on the
+   card against the CPU, and one generate call and one forward under the
+   profiler;
+3i. fault isolation on the card: full-size rwkv6-1.6b serves phase 3's
+   requests fault-free, then under a pinned NaN, a dropped dispatch, a hang
+   fenced off by the watchdog and a preemption resumed from its snapshot:
+   every request but the victim bit-identical to the fault-free run, the
+   fault counts exact, the victim's shared prefix printed; full-size
+   gemma3-1b under one NaN K row, neighbours bit-identical; the reduced f32
+   rwkv6, gemma3 and recurrentgemma under one NaN, every stream (the
+   victim's too) bit-identical to the fault-free run;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -94,16 +113,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    function, that call's time (the paper-demo kernels also at 8192^2, the
    matmul at 256^3 bf16 and 4096^3; flash attention also causal with no
    window at T=4096 against SDPA with ``is_causal=True``, whose backend is
-   printed; the WKV rows with their time per chunk, every column tile of
-   the chunked forward and every cluster size of the backward at the
-   training shape and at a seq shard, and a backward row at the seq
-   gradient's shard; the decode rows with every column tile, the window
-   at K in 1, 8, 32, 64 and B in 1, 4 with every column tile, and an empty
-   kernel's time as the launch floor; the token shift at (B, T) = (1,
-   4096), (4, 4) and (4, 259); the elevator scan at (B, T) = (1, 4096)
-   and (4, 256) in every plan; the elevator window at K in 1, 8, 32, 64
-   and B in 1, 4 in every plan, beside the launch floor plus its bytes
-   bound), printed as one ``{"kernels": [...]}`` line;
+   printed, and at Gemma3's two shapes (Hq 4, T=4096: window 1024 beside
+   SDPA with the same mask and GQA, causal beside SDPA ``is_causal`` on K/V
+   repeated to 4 heads) with their launches a forward; the WKV rows with
+   their time per chunk, every column tile of the chunked forward and every
+   cluster size of the backward at the training shape and at a seq shard,
+   and a backward row at the seq gradient's shard; the decode rows with
+   every column tile, the window at K in 1, 8, 32, 64 and B in 1, 4 with
+   every column tile, and an empty kernel's time as the launch floor; the
+   token shift at (B, T) = (1, 4096), (4, 4) and (4, 259); the elevator
+   scan at (B, T) = (1, 4096) and (4, 256) in every plan; the elevator
+   window at K in 1, 8, 32, 64 and B in 1, 4 in every plan, beside the
+   launch floor plus its bytes bound), printed as one ``{"kernels":
+   [...]}`` line;
    then the card's name and power limit, and the result line.
 """
 
@@ -391,6 +413,17 @@ def main():
     launches.update(_rg_main_path(torch, np))
     _rg_reference_check(torch, np)
 
+    # ---- 3h. the Gemma3 path ------------------------------------------------
+    g3_launches, g3_split, g3_params = _g3_main_path(torch, np)
+    launches["flash_attention_cuda"] += g3_launches["flash_attention_cuda"]
+    _g3_reference_check(torch, np)
+
+    # ---- 3i. fault isolation on the card ------------------------------------
+    for name, n in _fault_isolation(torch, np, g3_params).items():
+        launches[name] = launches.get(name, 0) + n
+    del g3_params
+    torch.cuda.empty_cache()
+
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
     launches.update(_paper_main_path(torch))
@@ -452,7 +485,7 @@ def main():
             row["launch_floor_ms"] = floor_ms
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
     rows += _time_seq_kernels(torch, KC, BW, launches, worst, seq_extra)
-    rows += _time_rg_kernels(torch, launches, worst, floor_ms)
+    rows += _time_rg_kernels(torch, launches, worst, floor_ms, g3_split)
     rows += _time_paper_kernels(torch, launches, worst)
 
     print(json.dumps({"kernels": rows}))
@@ -995,15 +1028,6 @@ def _seq_main_path(torch, np, cfg, params, prompt=4096, gen_b=2, gen_p=2048, new
     rng = np.random.default_rng(3)
     v = cfg.vocab_size
 
-    def counted(fn):
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
-
     def hold(what, got, want):
         want = {**dict.fromkeys(counters, 0), **want}
         print(f"[seq] launches during {what}: "
@@ -1024,10 +1048,10 @@ def _seq_main_path(torch, np, cfg, params, prompt=4096, gen_b=2, gen_p=2048, new
     with torch.inference_mode():
         seq_step(params, tokens[:, :1024])                          # warm-up
         plain_step(params, tokens[:, :1024])
-        logits, dt_seq, got = counted(lambda: seq_step(params, tokens))
+        logits, dt_seq, got = _counted(torch, counters, lambda: seq_step(params, tokens))
         hold(f"seq prefill B=1 T={prompt}", got, {"wkv_summary_cuda": n_l * n_s})
         total["wkv_summary_cuda"] += got["wkv_summary_cuda"]
-        want, dt_plain, got = counted(lambda: plain_step(params, tokens))
+        want, dt_plain, got = _counted(torch, counters, lambda: plain_step(params, tokens))
         hold(f"prefill without a mesh B=1 T={prompt}", got, {"wkv_cuda": n_l})
         l32 = make_prefill_step(cfg32)(p32, tokens)[..., :v]
         lg, wt = logits[..., :v].float(), want[..., :v].float()
@@ -1056,11 +1080,11 @@ def _seq_main_path(torch, np, cfg, params, prompt=4096, gen_b=2, gen_p=2048, new
     eng_seq.generate(prompts[:, :1024], 2)                          # warm-up
     eng.generate(prompts[:, :1024], 2)
     steps = sum(min(k_w, new - i) for i in range(0, new, k_w)) - 1
-    out_seq, dt_seq, got = counted(lambda: eng_seq.generate(prompts, new))
+    out_seq, dt_seq, got = _counted(torch, counters, lambda: eng_seq.generate(prompts, new))
     hold(f"generate on the seq mesh B={gen_b} P={gen_p} +{new} K={k_w}", got,
          {"wkv_summary_cuda": n_l * n_s, "wkv_decode_cuda": n_l * steps})
     total["wkv_summary_cuda"] += got["wkv_summary_cuda"]
-    out_plain, dt_plain, got = counted(lambda: eng.generate(prompts, new))
+    out_plain, dt_plain, got = _counted(torch, counters, lambda: eng.generate(prompts, new))
     hold("generate without a mesh", got, {"wkv_cuda": n_l, "wkv_decode_cuda": n_l * steps})
     gs, gp = out_seq[:, gen_p:].cpu().numpy(), out_plain[:, gen_p:].cpu().numpy()
     agree = float((gs == gp).mean())
@@ -1093,12 +1117,12 @@ def _seq_main_path(torch, np, cfg, params, prompt=4096, gen_b=2, gen_p=2048, new
             return float(loss.detach()), torch.autograd.grad(loss, wrt)
 
     grads(True)                                                      # warm-up
-    (l_seq, g_seq), dt_seq, got = counted(lambda: grads(True))
+    (l_seq, g_seq), dt_seq, got = _counted(torch, counters, lambda: grads(True))
     hold(f"loss gradient on the seq mesh B=1 T={grad_t} (remat {cfg.remat})", got,
          {"wkv_train_summary_cuda": remat_runs * n_l * n_s, "wkv_bwd_cuda": n_l * n_s})
     total["wkv_train_summary_cuda"] += got["wkv_train_summary_cuda"]
     extra["bwd_launches"] = got["wkv_bwd_cuda"]
-    (l_plain, g_plain), dt_plain, got = counted(lambda: grads(False))
+    (l_plain, g_plain), dt_plain, got = _counted(torch, counters, lambda: grads(False))
     hold("loss gradient without a mesh", got,
          {"wkv_train_cuda": remat_runs * n_l, "wkv_bwd_cuda": n_l})
     for p in leaves:
@@ -1324,6 +1348,7 @@ def _time_seq_kernels(torch, KC, BW, launches, worst, extra, t_full=4096, grad_t
 
 RG_D = 2560                      # d_rnn of recurrentgemma-2b
 RG_HQ, RG_HKV, RG_DH, RG_WINDOW = 10, 1, 256, 2048
+G3_HQ, G3_WINDOW = 4, 1024       # gemma3-1b: 4 query heads over 1 KV head of 256
 #: The libraries redesigned around wgmma and TMA (phase 1 counts their
 #: HGMMA and UTMALDG instructions).
 HOPPER_LIBRARIES = ("matmul_fwd", "flash_attention")
@@ -1388,9 +1413,9 @@ def _shift_inputs(torch, b, t, dtype, seed, taps=4):
     return x.to(dtype), w.to(dtype)
 
 
-def _attn_inputs(torch, b, t, s, dtype, seed, d=RG_DH):
+def _attn_inputs(torch, b, t, s, dtype, seed, d=RG_DH, hq=RG_HQ):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn((b, RG_HQ, t, d), generator=g, device="cuda")
+    q = torch.randn((b, hq, t, d), generator=g, device="cuda")
     k = torch.randn((b, RG_HKV, s, d), generator=g, device="cuda")
     v = torch.randn((b, RG_HKV, s, d), generator=g, device="cuda")
     return q.to(dtype), k.to(dtype), v.to(dtype)
@@ -1408,6 +1433,12 @@ ATTN_CASES = (
     (1000, 1000, True, 256, 128),          # the other head widths
     (1000, 1000, True, 256, 64),
     (1000, 1000, True, 256, 32),
+)
+#: Gemma3's two flash shapes (Hq 4): its local layers' window and its
+#: global layers' causal attention with no window, at a 4096-token forward.
+G3_ATTN_CASES = (
+    (4096, 4096, True, G3_WINDOW, RG_DH),
+    (4096, 4096, True, None, RG_DH),
 )
 
 
@@ -1506,12 +1537,13 @@ def _rg_kernel_checks(torch):
                       f"version: {same}")
                 if not same:
                     raise SystemExit("token shift differs from its plain version")
-            for t, s, causal, window, d in ATTN_CASES:
-                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s, d=d)
+            cases = [(RG_HQ,) + c for c in ATTN_CASES] + [(G3_HQ,) + c for c in G3_ATTN_CASES]
+            for hq, t, s, causal, window, d in cases:
+                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s, d=d, hq=hq)
                 got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
                 case = f"T={t} S={s} {'causal' if causal else 'full'} W={window}" + (
-                    f" D={d}" if d != RG_DH else "")
+                    f" D={d}" if d != RG_DH else "") + (f" Hq={hq}" if hq != RG_HQ else "")
                 want = FA.attention_ref(q, k, v, causal=causal, window=window)
                 if dtype == torch.bfloat16:
                     check_bf16_attention(case, got, want)
@@ -1559,15 +1591,6 @@ def _rg_main_path(torch, np, batch=4, prompt=256, new=32, k_w=8, score_t=4096):
         scoring(params, tokens[:, :256])
     torch.cuda.synchronize()
 
-    def counted(fn):
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
-
     def hold(what, got, want):
         want = {**dict.fromkeys(counters, 0), **want}
         print(f"[rg] launches during {what}: "
@@ -1579,7 +1602,7 @@ def _rg_main_path(torch, np, batch=4, prompt=256, new=32, k_w=8, score_t=4096):
 
     total = dict.fromkeys(RG_KERNELS, 0)
     # generate: one prefill window of P tokens, then new - 1 single-token steps.
-    out, dt, got = counted(lambda: engine.generate(prompts, new))
+    out, dt, got = _counted(torch, counters, lambda: engine.generate(prompts, new))
     steps = 1 + (new - 1)
     long_prefill = prompt > ELEVATOR_DECODE_WINDOW_MAX
     hold("generate", got, {
@@ -1598,7 +1621,7 @@ def _rg_main_path(torch, np, batch=4, prompt=256, new=32, k_w=8, score_t=4096):
 
     # serve: one masked admission window per round and K single-token steps
     # per decode window; every admission bucket here is at most 64 tokens.
-    results, dt, got = counted(lambda: engine.serve(reqs, slots=4))
+    results, dt, got = _counted(torch, counters, lambda: engine.serve(reqs, slots=4))
     st = engine.last_serve_stats
     if _bucket32(max(len(r.tokens) for r in reqs)) > ELEVATOR_DECODE_WINDOW_MAX:
         raise SystemExit("rg serve: an admission bucket exceeds the window kernel")
@@ -1622,7 +1645,7 @@ def _rg_main_path(torch, np, batch=4, prompt=256, new=32, k_w=8, score_t=4096):
 
     # prompt scoring: one cache-free forward (prefill_chunks 1).
     with torch.inference_mode():
-        logits, dt, got = counted(lambda: scoring(params, tokens))
+        logits, dt, got = _counted(torch, counters, lambda: scoring(params, tokens))
     hold(f"forward B=1 T={score_t}", got, {
         "token_shift_cuda": n_rec, "elevator_scan_cuda": n_rec,
         "flash_attention_cuda": n_local})
@@ -1672,6 +1695,311 @@ def _rg_reference_check(torch, np):
           f"max_abs_err={err:.2e} (tol 1e-4), greedy tokens equal: {same}")
     if err > 1e-4 or not same:
         raise SystemExit("card and CPU disagree on the reduced recurrentgemma")
+
+
+# ---------------------------------------------------------------------------
+# Gemma3-1B (phase 3h) and fault-isolated serving (phase 3i).
+# ---------------------------------------------------------------------------
+
+def _counted(torch, counters, fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: (result, wall seconds, {kernel: launches})."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, {n: c.launches for n, c in counters.items()}
+
+
+def _g3_requests(rng, vocab, n=6):
+    """Phase 3's serve workload: after the (4, 256) generate prompts, n
+    ragged requests of 8-48 prompt tokens and 2-16 new."""
+    from repro_torch.serve.engine import Request
+
+    rng.integers(0, vocab, (4, 256))
+    return [Request(tokens=rng.integers(0, vocab, int(rng.integers(8, 49))),
+                    max_new_tokens=int(rng.integers(2, 17))) for _ in range(n)]
+
+
+def _g3_main_path(torch, np, batch=4, prompt=256, new=32, k_w=8, score_t=4096):
+    """Phase 3h: full-size gemma3-1b (bf16, random weights from a seed,
+    depth not cut) through generate, serve and prompt scoring, each call's
+    launch counts held to the counts its structure gives: serving attends
+    in plain PyTorch (no port kernel), the cache-free forward runs
+    ``flash_attention_cuda`` once a layer, windowed in the local layers
+    and causal with no window in the global ones.  The split is read at
+    the call site (a pass-through recorder in ``ops``; the counts
+    themselves are the wrapper's).  Returns (launches, the split per
+    forward, params)."""
+    from collections import Counter
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.local_attention import ops as FOPS
+    from repro_torch.model import model as M
+    from repro_torch.serve.engine import ServeEngine, make_prefill_step
+
+    cfg = get_config("gemma3-1b")
+    n_local, n_global = cfg.layer_kinds.count("local"), cfg.layer_kinds.count("global")
+    counters = _counters()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"[g3] {cfg.name}: {n_params / 1e9:.3f}B params in {cfg.dtype} ({cfg.num_layers} "
+          f"layers: {n_local} local W={cfg.attn_window}, {n_global} global), initialized in "
+          f"{time.perf_counter() - t0:.1f}s")
+    engine = ServeEngine(cfg, params, max_len=512, decode_window=k_w)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt))
+    reqs = _g3_requests(np.random.default_rng(0), cfg.vocab_size)
+    scoring = make_prefill_step(cfg)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, score_t))).cuda()
+    with torch.inference_mode():                              # warm-up
+        engine.generate(prompts[:, :80], 2)
+        engine.serve(reqs[:1], slots=4)
+        scoring(params, tokens[:, :256])
+
+    def hold(what, got, want):
+        want = {**dict.fromkeys(counters, 0), **want}
+        print(f"[g3] launches during {what}: {got['flash_attention_cuda']} flash, "
+              f"{sum(got.values())} in all; derived {sum(want.values())}")
+        if got != want:
+            raise SystemExit(f"{what}: launch counts {got} != derived {want}")
+
+    out, dt, got = _counted(torch, counters, lambda: engine.generate(prompts, new))
+    hold("generate", got, {})
+    gen = out[:, prompt:].cpu().numpy()
+    gen_ok = bool(M.decode_state_finite(engine.last_state).all())
+    print(f"[g3-main] generate B={batch} P={prompt} +{new} K={k_w}: {dt:.3f}s, "
+          f"{batch * new / dt:.1f} tok/s incl. prefill; state finite: {gen_ok}")
+    if gen.shape != (batch, new) or gen.min() < 0 or gen.max() >= cfg.vocab_size or not gen_ok:
+        raise SystemExit(f"g3 generate: bad tokens or state, shape {gen.shape}")
+
+    results, dt, got = _counted(torch, counters, lambda: engine.serve(reqs, slots=4))
+    hold("serve", got, {})
+    emitted = sum(r.size for r in results)
+    serve_ok = bool(M.decode_state_finite(engine.last_state).all())
+    print(f"[g3-main] serve 6 requests, 4 slots, K={k_w}: {emitted} tokens in {dt:.3f}s, "
+          f"{emitted / dt:.1f} tok/s; outcomes {[r.outcome for r in results]}; "
+          f"state finite: {serve_ok}")
+    for req, res in zip(reqs, results):
+        if res.outcome != "ok" or res.size != req.max_new_tokens:
+            raise SystemExit(f"g3 serve: {res.outcome} with {res.size} tokens")
+        if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+            raise SystemExit("g3 serve: token outside the vocabulary")
+
+    calls = Counter()
+    real = FOPS.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        calls[(kw.get("causal", True), kw.get("window"))] += 1
+        return real(q, k, v, **kw)
+
+    FOPS.flash_attention_cuda = recording
+    try:
+        with torch.inference_mode():
+            logits, dt, got = _counted(torch, counters, lambda: scoring(params, tokens))
+    finally:
+        FOPS.flash_attention_cuda = real
+    hold(f"forward B=1 T={score_t}", got, {"flash_attention_cuda": n_local + n_global})
+    split = {"window": calls[(True, cfg.attn_window)], "causal": calls[(True, None)]}
+    print(f"[g3] flash calls of the forward by (causal, window): {dict(calls)}")
+    if split != {"window": n_local, "causal": n_global} or sum(calls.values()) != sum(
+            split.values()):
+        raise SystemExit(f"g3 forward: flash calls {dict(calls)}, want {n_local} windowed "
+                         f"and {n_global} causal")
+    fin = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    nll = float(torch.nn.functional.cross_entropy(
+        logits[0, :-1, :cfg.vocab_size].float(), tokens[0, 1:]))
+    print(f"[g3-main] forward (make_prefill_step) B=1 T={score_t}: {dt:.3f}s, "
+          f"{score_t / dt:,.0f} tok/s; logits {tuple(logits.shape)} finite: {fin}; "
+          f"mean NLL {nll:.3f} (random weights; ln V = {math.log(cfg.vocab_size):.3f})")
+    if logits.shape != (1, score_t, cfg.padded_vocab) or not fin:
+        raise SystemExit("g3 forward: bad logits")
+    del logits
+    _profile(torch, lambda: engine.generate(prompts, 16),
+             f"g3 generate B={batch} P={prompt} +16 K={k_w}")
+    with torch.inference_mode():
+        _profile(torch, lambda: scoring(params, tokens), f"g3 forward B=1 T={score_t}", top=10)
+    del engine
+    torch.cuda.empty_cache()
+    return {"flash_attention_cuda": got["flash_attention_cuda"]}, split, params
+
+
+def _g3_reference_check(torch, np):
+    """The reduced f32 Gemma3 with flash on the card against the same
+    weights with the plain versions on the CPU: forward logits at T=200
+    (past its window of 64, through its global layers) within 1e-4, and
+    greedy tokens (a 40-token prefill, then single steps) equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("gemma3-1b").reduced()
+    p_cpu = M.init_params(cfg, seed=1, device="cpu")
+    p_gpu = _to(p_cpu, "cuda")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 200)))
+    with torch.inference_mode():
+        l_cpu = M.forward(p_cpu, cfg, toks)
+        l_gpu = M.forward(p_gpu, cfg, toks.cuda()).cpu()
+    err = float((l_cpu - l_gpu).abs().max())
+    g_cpu = ServeEngine(cfg, p_cpu, max_len=128, device="cpu").generate(toks[:, :40], 12)
+    g_gpu = ServeEngine(cfg, p_gpu, max_len=128).generate(toks[:, :40].cuda(), 12).cpu()
+    same = torch.equal(g_cpu, g_gpu)
+    print(f"[reference] reduced f32 gemma3, card vs CPU: forward T=200 "
+          f"max_abs_err={err:.2e} (tol 1e-4), greedy tokens equal: {same}")
+    if err > 1e-4 or not same:
+        raise SystemExit("card and CPU disagree on the reduced gemma3")
+
+
+def _shared_prefix(np, a, b):
+    """How many leading tokens the streams ``a`` and ``b`` share."""
+    a, b = np.asarray(a), np.asarray(b)
+    n = min(a.size, b.size)
+    neq = np.nonzero(a[:n] != b[:n])[0]
+    return int(neq[0]) if neq.size else n
+
+
+def _victims(np, base, outs):
+    """[(index, length of the prefix it shares with the fault-free run)]
+    of every request that differs from that run."""
+    return [(i, _shared_prefix(np, b, o)) for i, (b, o) in enumerate(zip(base, outs))
+            if not np.array_equal(np.asarray(b), np.asarray(o))]
+
+
+def _victim_prefixes(np, base, outs):
+    """For each request that recovered: (index, shared prefix with the
+    fault-free run, tokens in that run)."""
+    return [(i, _shared_prefix(np, base[i], o), base[i].size)
+            for i, o in enumerate(outs) if o.recoveries]
+
+
+def _fault_isolation(torch, np, g3_params, k_w=8, timeout_s=3.0):
+    """Phase 3i: fault isolation on the card.
+
+    Full-size rwkv6-1.6b (bf16) serves phase 3's 6 requests on 4 slots,
+    first fault-free, then under a fixed ``ChaosInjector``: at window 1 a
+    NaN in one slot's state, a dropped dispatch and, on its retry, a hang
+    that the watchdog fences off; a preemption after window 2, from whose
+    snapshot (the victim still queued for recovery) a second serve
+    resumes.  Every request but the
+    victim must equal the fault-free run bit for bit and the counts must
+    be exact; the victim re-prefills its prompt plus accepted tokens in
+    one admission window (bf16 GEMMs of another shape) where the first run
+    decoded them a step at a time, so its tokens may part at a near-tie:
+    its shared prefix is printed, not held.  Full-size gemma3-1b: one NaN K row, caught by the
+    logits check, neighbours bit-identical.  The reduced f32 models of all
+    three archs: every stream, the victim's too, bit-identical to the
+    fault-free run.  Returns the launch counts of the chaos serves."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.serve.chaos import ChaosInjector, EnginePreempted
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    counters = _counters()
+    total = dict.fromkeys(counters, 0)
+
+    def add(got):
+        for n, c in got.items():
+            total[n] += c
+
+    cfg = get_config("rwkv6-1.6b")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    engine = ServeEngine(cfg, params, max_len=512, decode_window=k_w)
+    reqs = _g3_requests(np.random.default_rng(0), cfg.vocab_size)
+    with torch.inference_mode():
+        engine.serve(reqs[:1], slots=4)                       # warm-up
+    base, dt, _ = _counted(torch, counters, lambda: engine.serve(reqs, slots=4, recoverable=True))
+    windows = engine.last_serve_stats["decode_dispatches"]
+    print(f"[chaos] rwkv6 fault-free serve: {windows} windows in {dt:.3f}s")
+    if windows < 3:
+        raise SystemExit(f"chaos: the fault-free serve ran {windows} windows; the drill needs 3")
+    chaos = ChaosInjector(seed=0, nan_at=(1,), drop_at=(1,), hang_at=(1,), preempt_after=2,
+                          max_hang_s=10 * timeout_s)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as snap:
+        def preempted():
+            try:
+                engine.serve(reqs, slots=4, chaos=chaos, watchdog_timeout_s=timeout_s,
+                             snapshot_every=1, snapshot_dir=snap)
+            except EnginePreempted as e:
+                return str(e)
+            raise SystemExit("chaos: the pinned preemption never fired")
+
+        msg, dt1, got = _counted(torch, counters, preempted)
+        add(got)
+        first = dict(engine.last_serve_stats)
+        outs, dt2, got = _counted(torch, counters,
+                                  lambda: engine.serve(reqs, slots=4, restore_from=snap))
+        add(got)
+    st = engine.last_serve_stats
+    diff = _victims(np, base, outs)
+    victims = [i for i, r in enumerate(outs) if r.recoveries]
+    print(f"[chaos] rwkv6 chaos serve: {msg} after {dt1:.3f}s ({first['snapshots']} snapshots); "
+          f"resumed in {dt2:.3f}s; events {chaos.events}; stats {st}")
+    print(f"[chaos] rwkv6 victim (index, equal prefix, fault-free tokens): "
+          f"{_victim_prefixes(np, base, outs)}; outcomes {[r.outcome for r in outs]}; "
+          f"requests differing from the fault-free run (index, equal prefix): {diff}")
+    want = {"quarantines": 1, "recoveries": 1, "dispatch_drops": 1, "watchdog_timeouts": 1,
+            "dispatch_retries": 2}
+    if {k: st[k] for k in want} != want or len(victims) != 1:
+        raise SystemExit(f"chaos: rwkv6 counts {st}, want {want} and one victim")
+    if any(i not in victims for i, _ in diff):
+        raise SystemExit(f"chaos: a neighbour of the victim diverged: {diff}")
+    if st["decode_dispatches"] <= first["decode_dispatches"]:
+        raise SystemExit("chaos: the restored serve did not continue the counters")
+    if sum(got.values()) < 1:
+        raise SystemExit("chaos: the rwkv6 chaos serve launched no kernel")
+    print(f"[chaos] launches during the rwkv6 chaos serves: "
+          f"{ {n: c for n, c in total.items() if c} }")
+    del engine, params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("gemma3-1b")
+    engine = ServeEngine(cfg, g3_params, max_len=512, decode_window=k_w)
+    reqs = _g3_requests(np.random.default_rng(0), cfg.vocab_size)
+    base = engine.serve(reqs, slots=4, recoverable=True)
+    chaos = ChaosInjector(seed=0, nan_at=(1,))
+    outs, dt, got = _counted(torch, counters, lambda: engine.serve(reqs, slots=4, chaos=chaos))
+    add(got)
+    st = engine.last_serve_stats
+    diff = _victims(np, base, outs)
+    victims = [i for i, r in enumerate(outs) if r.recoveries]
+    print(f"[chaos] gemma3 NaN K row at window 1: events {chaos.events}; quarantines "
+          f"{st['quarantines']}, recoveries {st['recoveries']}; victim (index, equal prefix, "
+          f"fault-free tokens) {_victim_prefixes(np, base, outs)}; differing (index, equal "
+          f"prefix): {diff}; {sum(got.values())} port kernel launches")
+    if (st["quarantines"], st["recoveries"], len(victims)) != (1, 1, 1) or any(
+            i not in victims for i, _ in diff) or sum(got.values()):
+        raise SystemExit("chaos: gemma3 quarantine failed or a neighbour diverged")
+    del engine
+    torch.cuda.empty_cache()
+
+    spec = [(5, 9), (12, 3), (7, 14), (3, 6), (9, 11)]
+    for arch in ("rwkv6-1.6b", "gemma3-1b", "recurrentgemma-2b"):
+        cfg = get_config(arch).reduced()
+        p_cpu = M.init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(0)
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, (pl,)), max_new_tokens=nn)
+                for pl, nn in spec]
+        eng = ServeEngine(cfg, _to(p_cpu, "cuda"), max_len=96, decode_window=4)
+        base = eng.serve(reqs, slots=3)
+        outs = eng.serve(reqs, slots=3, chaos=ChaosInjector(seed=1, nan_at=(2,)))
+        st = eng.last_serve_stats
+        cpu = ServeEngine(cfg, p_cpu, max_len=96, decode_window=4, device="cpu").serve(
+            reqs, slots=3)
+        same = not _victims(np, base, outs)
+        print(f"[chaos] reduced f32 {arch} on the card: quarantines {st['quarantines']}, "
+              f"every stream (victim's too) bit-identical to the fault-free run: {same}; "
+              f"fault-free streams equal the CPU's: {not _victims(np, base, cpu)}")
+        if not same or st["quarantines"] != 1:
+            raise SystemExit(f"chaos: reduced {arch} diverged under a NaN fault")
+    return total
 
 
 def _visible_pairs(t, s, causal, window):
@@ -1728,7 +2056,7 @@ def _time_window_sweep(torch, ED, floor_ms):
     return out
 
 
-def _time_rg_kernels(torch, launches, worst, floor_ms):
+def _time_rg_kernels(torch, launches, worst, floor_ms, g3_split):
     """Phase 4 rows of RecurrentGemma's kernels at the main path's shapes:
     the scan and the token shift of a 4096-token forward (B=1), the window
     at a generated token (K=1, B=4) and flash attention of a local layer
@@ -1865,6 +2193,42 @@ def _time_rg_kernels(torch, launches, worst, floor_ms):
             nbytes, 4 * RG_DH * RG_HQ * _visible_pairs(t, t, True, None), reps=20)
         rows[-1]["library_ms"] = lib_ms
         print(f"[time]   SDPA is_causal library call: {lib_ms * 1e3:.2f} us")
+        del sets
+
+        # Gemma3's two shapes at a 4096-token forward (Hq 4 over 1 KV head):
+        # its local layers (window 1024) beside SDPA with the same boolean
+        # mask and GQA, its global layers (causal, no window) beside SDPA
+        # is_causal on K/V repeated to the 4 heads; launches per forward
+        # from phase 3h.
+        g_nbytes = 2 * (2 * G3_HQ * t * RG_DH + 2 * RG_HKV * t * RG_DH)
+        g_sets = _cold_sets(lambda s: _attn_inputs(torch, 1, t, t, bf, s, hq=G3_HQ), g_nbytes)
+        for window, n in ((G3_WINDOW, g3_split["window"]), (None, g3_split["causal"])):
+            if window:
+                g_mask = attention_mask(t, t, causal=True, window=window, device="cuda")
+                lib_sets = g_sets
+
+                def lib(q, k, v, g_mask=g_mask):
+                    return F.scaled_dot_product_attention(q, k, v, attn_mask=g_mask,
+                                                          enable_gqa=True)
+            else:
+                lib_sets = [(q, k.expand(-1, G3_HQ, -1, -1).contiguous(),
+                             v.expand(-1, G3_HQ, -1, -1).contiguous()) for q, k, v in g_sets]
+                lib = sdpa_causal
+            got = FA.flash_attention_cuda(*g_sets[0], causal=True, window=window)
+            ratio = CC.attn_bf16_ratio(lib(*lib_sets[0]), got)
+            backend = _sdpa_backend(torch, lib, lib_sets[0])
+            print(f"[time] gemma3 W={window}: SDPA agrees with flash_attention_cuda: worst "
+                  f"err/tol per element {ratio:.3f}; SDPA backend: {backend}")
+            lib_ms = _time_ms(torch, lib, lib_sets, reps=20)[0]
+            del lib_sets
+            row("flash_attention_cuda", fa_src, fa_replaces,
+                f"B=1 Hq={G3_HQ} Hkv=1 T={t} D=256 " + (f"W={window}" if window else "causal")
+                + " bf16 (gemma3)", g_sets,
+                lambda q, k, v, w=window: FA.flash_attention_cuda(q, k, v, causal=True, window=w),
+                lambda q, k, v, w=window: FA.attention_ref(q, k, v, causal=True, window=w),
+                g_nbytes, 4 * RG_DH * G3_HQ * _visible_pairs(t, t, True, window), reps=20)
+            rows[-1].update(library_ms=lib_ms, launches=n, backend=backend)
+            print(f"[time]   SDPA library call: {lib_ms * 1e3:.2f} us; {n} launches a forward")
     # One row per kernel in the result line: the main path's shape (the
     # first row of each name); the other shapes of flash attention, the
     # token shift and the scan ride along under "large", the rest are
@@ -1879,7 +2243,11 @@ def _time_rg_kernels(torch, launches, worst, floor_ms):
         extra = [r for r in rows if r["name"] == name][1:]
         out[names.index(name)]["large"] = [
             {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "plan", "plans") if k in r} for r in extra]
+                               "library_ms", "plan", "plans", "backend") if k in r}
+            for r in extra]
+        for big, r in zip(out[names.index(name)]["large"], extra):
+            if r["launches"] != out[names.index(name)]["launches"]:
+                big["launches"] = r["launches"]
     return out
 
 

@@ -1,20 +1,23 @@
-"""RecurrentGemma-2B's decode paths, repeated, on the card: tok/s of
+"""A serving arch's decode paths, repeated, on the card: tok/s of
 ``ServeEngine.generate`` and ``serve`` over several runs in one process,
-and the host's µs per call of the elevator window's wrapper.
+and for RecurrentGemma the host's µs per call of the elevator window's
+wrapper.
 
-The workload is ``chip_smoke.py``'s phase 3e: full-size recurrentgemma-2b
-with random bf16 weights from seed 0, ``generate`` at B=4 with 256-token
-prompts, 32 new tokens, K=8, and ``serve`` of 6 ragged requests (8-48
-prompt tokens, 2-16 new) on 4 slots.  After one warm-up of each, every rep
-runs both and prints one JSON line.  Then ``elevator_decode_window_cuda``
-at B=4, K=1, D=2560 in f32 (one generated token's call) runs ``--calls``
-times with no synchronisation between calls: its host µs per call
-(checks, plan and launch), and, where the checkout has ``plan_window``,
-the µs of that plan alone, in one more line.  The script imports
-``repro_torch`` from ``sys.path``, so one copy of it measures any checkout
-of the port:
+The workload is ``chip_smoke.py``'s phase 3e (``--arch``
+recurrentgemma-2b, the default) or phase 3 (``--arch rwkv6-1.6b``): the
+full-size arch with random bf16 weights from seed 0, ``generate`` at B=4
+with 256-token prompts, 32 new tokens, K=8, and ``serve`` of 6 ragged
+requests (8-48 prompt tokens, 2-16 new) on 4 slots, no fault injected.
+After one warm-up of each, every rep runs both and prints one JSON line.
+Then, for RecurrentGemma, ``elevator_decode_window_cuda`` at B=4, K=1,
+D=2560 in f32 (one generated token's call) runs ``--calls`` times with no
+synchronisation between calls: its host µs per call (checks, plan and
+launch), and, where the checkout has ``plan_window``, the µs of that plan
+alone, in one more line.  The script imports ``repro_torch`` from
+``sys.path``, so one copy of it measures any checkout of the port:
 
-    PYTHONPATH=<checkout>/src python src/repro_torch/benchmarks/rg_decode.py [--reps N]
+    PYTHONPATH=<checkout>/src python src/repro_torch/benchmarks/rg_decode.py \
+        [--arch recurrentgemma-2b|rwkv6-1.6b] [--reps N]
 
 runs on the card only, and raises without one.
 """
@@ -69,11 +72,12 @@ def _window_host_us(device, calls):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="recurrentgemma-2b")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--calls", type=int, default=2000)
     args = ap.parse_args(argv)
     device = resolve_device(None)
-    cfg = get_config("recurrentgemma-2b")
+    cfg = get_config(args.arch)
     params = M.init_params(cfg, seed=0, device=device)
     engine = ServeEngine(cfg, params, max_len=512, decode_window=8)
     rng = np.random.default_rng(0)
@@ -86,10 +90,11 @@ def main(argv=None):
         _, gen_s = _timed(lambda: engine.generate(prompts, 32))
         results, serve_s = _timed(lambda: engine.serve(reqs, slots=4))
         emitted = sum(r.size for r in results)
-        print(json.dumps({"rep": rep, "generate_tok_s": 4 * 32 / gen_s, "generate_s": gen_s,
-                          "serve_tok_s": emitted / serve_s, "serve_s": serve_s,
-                          "serve_tokens": emitted}), flush=True)
-    print(json.dumps(_window_host_us(device, args.calls)))
+        print(json.dumps({"arch": cfg.name, "rep": rep, "generate_tok_s": 4 * 32 / gen_s,
+                          "generate_s": gen_s, "serve_tok_s": emitted / serve_s,
+                          "serve_s": serve_s, "serve_tokens": emitted}), flush=True)
+    if cfg.rglru:
+        print(json.dumps(_window_host_us(device, args.calls)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())

@@ -23,7 +23,7 @@ _ARCHS = (
     "seamless_m4t_large_v2",
 )
 
-_PORTED = ("rwkv6_1_6b", "recurrentgemma_2b")
+_PORTED = ("rwkv6_1_6b", "recurrentgemma_2b", "gemma3_1b")
 
 
 def canonical(name: str) -> str:

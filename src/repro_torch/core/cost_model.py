@@ -5,7 +5,9 @@ Rodinia suite and ``matmul_fwd.ops.tile_traffic`` use: the per-byte energy
 table, :class:`Traffic`, :class:`KernelCost` and the traffic of the
 matmul, 1-D convolution, prefix scan, 2-D stencil and tree reduction,
 and of the sequence-parallel WKV's summary hops (the budget its
-collective check holds the port to).
+collective check holds the port to); and the serve scheduler's slot-step
+accounting (:func:`serve_batch_steps`, :func:`serve_recovery_steps`, the
+cost a session reports as its recovery debt).
 It is pure Python; the formulas and their order are the reference's, so
 every value equals the reference's exactly.
 
@@ -32,6 +34,8 @@ __all__ = [
     "stencil2d_traffic",
     "reduce_traffic",
     "wkv_seqshard_traffic",
+    "serve_batch_steps",
+    "serve_recovery_steps",
 ]
 
 PJ_PER_BYTE = {
@@ -231,3 +235,94 @@ def wkv_seqshard_traffic(b: int, h: int, t: int, dh: int, n_dev: int,
         KernelCost("wkv_seqshard", "shared", shared, flops),
         KernelCost("wkv_seqshard", "direct", direct, flops),
     )
+
+
+def serve_batch_steps(new_tokens, slots: int, window: int = 1):
+    """Slot-step accounting for a ragged decode workload: lockstep vs
+    continuous batching (the scheduler-level rendering of the paper's
+    barrier argument — model-independent, so it composes with any
+    per-step cost).
+
+    ``new_tokens``: per-request generation budgets, arrival order.
+    ``slots``: batch slots.  ``window``: tokens per decode dispatch (K).
+
+    lockstep:   requests run in arrival-order batches of ``slots``; every
+                batch is padded to its longest member — a workgroup-global
+                barrier: a finished request keeps burning a slot-step per
+                step until the slowest one ends, and the next batch waits.
+    continuous: finished slots are refilled from the queue at window
+                boundaries (each admission emits the request's first
+                token from its prefill, the engine contract) — the
+                point-to-point hand-off: a slot's next request starts the
+                moment the previous one ends.
+
+    Returns ``(useful_tokens, lockstep_steps, continuous_steps)`` where
+    the step counts are total slot-steps scanned (useful / steps is the
+    utilization; lockstep / continuous is the modeled speedup at equal
+    per-step cost).
+    """
+    new_tokens = [int(n) for n in new_tokens]
+    if not new_tokens or slots < 1 or window < 1:
+        raise ValueError("need >= 1 request, slots >= 1, window >= 1")
+    useful = sum(new_tokens)
+
+    lockstep = 0
+    for i in range(0, len(new_tokens), slots):
+        batch = new_tokens[i : i + slots]
+        # Prefill emits token 1; the remaining max-1 decode in windows of
+        # ``window`` steps, every slot of the batch marching together.
+        win_steps = -(-(max(batch) - 1) // window) * window if max(batch) > 1 else 0
+        lockstep += len(batch) * win_steps
+
+    continuous = 0
+    queue = list(new_tokens)[::-1]          # pop() = arrival order
+    remaining = [0] * slots
+    while queue or any(remaining):
+        for s in range(slots):
+            if remaining[s] == 0 and queue:
+                remaining[s] = queue.pop() - 1   # admission emits token 1
+        if not any(remaining):
+            # Every live slot finished at admission (budget-1 requests):
+            # no window to run — admit again / fall out via the loop test.
+            continue
+        continuous += slots * window             # one masked window dispatch
+        for s in range(slots):
+            remaining[s] = max(0, remaining[s] - window)
+    return useful, lockstep, continuous
+
+
+def serve_recovery_steps(prompt_lens, accepted, victim: int,
+                         window: int = 1):
+    """Positions re-processed to recover ONE faulted slot: isolated
+    quarantine+re-prefill vs a batch-global restart (the robustness dual
+    of the barrier argument — a fault's blast radius is one slot's
+    hand-off, not a workgroup-global rollback).
+
+    ``prompt_lens`` / ``accepted``: per-slot prompt lengths and tokens
+    accepted so far; ``victim``: the faulted slot; ``window``: tokens per
+    decode dispatch (K).
+
+    isolated: one masked admission prefill replays the victim's prompt +
+              accepted prefix — ``prompt_lens[victim] +
+              accepted[victim]`` positions, one dispatch, neighbors
+              untouched (their cost is zero by the bit-identity
+              invariant).
+    global:   every slot re-prefills its prompt and the whole batch
+              re-decodes to the furthest accepted token in lockstep
+              windows — ``sum(prompts) + slots * ceil(max(accepted)/K)*K``
+              slot-steps.
+
+    Returns ``(isolated_steps, global_steps)``; global / isolated is the
+    modeled recovery-cost ratio of restart-the-world over per-slot
+    recovery.
+    """
+    prompt_lens = [int(p) for p in prompt_lens]
+    accepted = [int(a) for a in accepted]
+    if len(prompt_lens) != len(accepted) or not prompt_lens:
+        raise ValueError("need matching, non-empty prompt/accepted lists")
+    if not 0 <= victim < len(prompt_lens) or window < 1:
+        raise ValueError("victim out of range or window < 1")
+    isolated = prompt_lens[victim] + accepted[victim]
+    redecode = -(-max(accepted) // window) * window if max(accepted) else 0
+    global_ = sum(prompt_lens) + len(prompt_lens) * redecode
+    return isolated, global_

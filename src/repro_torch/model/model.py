@@ -1,6 +1,6 @@
 """Top-level model: init params, forward, decode state, decode step
 (counterpart of ``repro.model.model``; decoder-only text archs built from
-the ported layer kinds: RWKV6 and RecurrentGemma).
+the ported layer kinds: RWKV6, RecurrentGemma and Gemma3).
 
 Parameters are a plain dict with the reference's layout::
 
@@ -175,16 +175,60 @@ def decode_state_finite(state) -> torch.Tensor:
     """(B,) bool: per-slot finiteness of every recurrent state leaf.  KV
     caches are not scanned, as in the reference: a non-finite K/V row
     poisons that slot's logits the step it is attended, which the caller's
-    logits check sees."""
-    flags = []
+    logits check sees.  An attention-only state returns all True (B from
+    its first cache's ``length``): slot health then rests on the logits
+    check alone."""
+    flags, first_kv = [], None
     for node in state_nodes(state):
         if isinstance(node, KVCache):
+            first_kv = node.length if first_kv is None else first_kv
             continue
         stacked = node.conv.ndim - 3           # 1 for (L, B, ...), else 0
         for leaf in (node.h, node.conv):
-            fin = torch.isfinite(leaf).movedim(stacked, 0)
-            flags.append(fin.reshape(fin.shape[0], -1).all(dim=1))
+            fin = torch.isfinite(leaf).flatten(stacked + 1).all(-1)
+            flags.append(fin.all(0) if stacked else fin)
+    if not flags:
+        return torch.ones(first_kv.shape[-1], dtype=torch.bool,
+                          device=first_kv.device)
     return functools.reduce(torch.logical_and, flags)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _checksum_words(leaf: torch.Tensor, batch_axis: int) -> torch.Tensor:
+    """Per-slot sum (mod 2**32) of ``leaf``'s raw bit patterns as unsigned
+    words: (B,) int64 below 2**32.  The bits are reinterpreted, never
+    converted, so the sum is an exact, order-free function of the stored
+    bits (the reference's uint32 wraparound sum); int64 holds the unsigned
+    words and their partial sums without overflow."""
+    size = leaf.element_size()
+    if size >= 4:        # 8-byte leaves become pairs of 32-bit words, as in JAX
+        words = leaf.contiguous().view(torch.int32).long() & _MASK32
+    elif size == 2:
+        words = leaf.view(torch.int16).long() & 0xFFFF
+    else:
+        words = leaf.view(torch.uint8).long()
+    dims = [d for d in range(words.ndim) if d != batch_axis]
+    return (words.sum(dim=dims) if dims else words) & _MASK32
+
+
+def decode_state_checksum(state) -> torch.Tensor:
+    """(B,) int64 holding each slot's uint32 wraparound checksum of the
+    decode state, bit for bit the reference's ``decode_state_checksum``:
+    the sum of the raw words of every per-slot leaf, recurrent states (h,
+    conv) and dense KV caches (contents and lengths).  A flipped bit
+    leaves a value finite but always moves its slot's sum."""
+    sums = []
+    for node in state_nodes(state):
+        if isinstance(node, KVCache):
+            ax = node.k.ndim - 4
+            leaves = ((node.k, ax), (node.v, ax), (node.length, node.length.ndim - 1))
+        else:
+            ax = node.conv.ndim - 3
+            leaves = ((node.h, ax), (node.conv, ax))
+        sums += [_checksum_words(leaf, a) for leaf, a in leaves]
+    return functools.reduce(torch.add, sums) & _MASK32
 
 
 def _check_ring_slack(cfg, state, t: int, max_len: int | None):

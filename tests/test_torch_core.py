@@ -429,6 +429,39 @@ class TestCostModel:
             j.dram_bytes, j.scratchpad_bytes, j.fabric_bytes, j.energy_pj())
 
 
+    @pytest.mark.parametrize("new_tokens,slots,window", [
+        ([1, 50], 1, 4),                                  # budget-1 finishes at admission
+        ([1, 1, 5], 2, 1),
+        ([56, 8, 48, 12, 60, 10, 40, 16], 2, 4),          # ragged: continuous wins
+        ([16, 16, 16, 16], 2, 4),                         # uniform: a wash
+        ([9, 3, 14, 6, 11], 3, 4),                        # the chaos spec's budgets
+    ])
+    def test_serve_batch_steps_equal_reference(self, new_tokens, slots, window):
+        assert (TC.serve_batch_steps(new_tokens, slots, window)
+                == JC.serve_batch_steps(new_tokens, slots, window))
+
+    @pytest.mark.parametrize("prompts,accepted,victim,window", [
+        ([5, 12, 7], [3, 0, 9], 2, 4),
+        ([5, 12, 7, 3], [9, 3, 14, 6], 0, 1),
+        ([8], [0], 0, 2),
+    ])
+    def test_serve_recovery_steps_equal_reference(self, prompts, accepted, victim, window):
+        assert (TC.serve_recovery_steps(prompts, accepted, victim, window)
+                == JC.serve_recovery_steps(prompts, accepted, victim, window))
+
+    @pytest.mark.parametrize("fn,args", [
+        ("serve_batch_steps", ([], 1, 1)),
+        ("serve_batch_steps", ([4], 0, 1)),
+        ("serve_recovery_steps", ([1, 2], [1], 0)),
+        ("serve_recovery_steps", ([1], [1], 1)),
+    ])
+    def test_serve_models_refuse_what_the_reference_refuses(self, fn, args):
+        with pytest.raises(ValueError):
+            getattr(JC, fn)(*args)
+        with pytest.raises(ValueError):
+            getattr(TC, fn)(*args)
+
+
 def test_quickstart_matches_reference_script(capsys):
     # The reference quickstart is a script: run it and read its globals
     # (one device here, so it skips its mesh half, which the port leaves to

@@ -237,11 +237,12 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_registry_refuses_unported_and_unknown_archs():
     with pytest.raises(NotImplementedError):
-        get_config("gemma3-1b")
+        get_config("qwen2-0.5b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert np.isclose(get_config("rwkv6-1.6b").param_count() / 1e9, 1.93, atol=0.01)
     assert np.isclose(get_config("recurrentgemma-2b").param_count() / 1e9, 2.66, atol=0.01)
+    assert np.isclose(get_config("gemma3-1b").param_count() / 1e9, 1.00, atol=0.01)
 
 
 def test_editing_a_shared_header_changes_every_library_name(tmp_path, monkeypatch):

@@ -323,3 +323,72 @@ class TestRecurrentGemma:
         assert M.decode_state_finite(st).tolist() == [True, True, True]
         st["scanned"][0].h[1, 2, 5] = float("nan")
         assert M.decode_state_finite(st).tolist() == [True, True, False]
+
+
+# ---------------------------------------------------------------------------
+# Slot health: decode_state_finite and decode_state_checksum against the
+# reference on reduced states of every ported arch (Gemma3's holds only KV
+# caches), with random leaves from a numpy seed.  Both are exact: flags and
+# integer sums of raw bits.
+# ---------------------------------------------------------------------------
+
+HEALTH_ARCHS = ["rwkv6-1.6b", "recurrentgemma-2b", "gemma3-1b"]
+
+
+def _random_state(arch, dtype, batch=3, seed=0):
+    """A port state and the same state as the reference's tree, every leaf
+    random: floats N(0, 1) in the config's dtype, lengths in [0, 64)."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+    cfg_j = dataclasses.replace(jax_config(arch).reduced(), dtype=dtype)
+    rng = np.random.default_rng(seed)
+    st = M.init_decode_state(cfg, batch, 64, device="cpu")
+    for node in M.state_nodes(st):
+        for leaf in node:
+            if leaf.dtype.is_floating_point:
+                leaf.copy_(torch.from_numpy(rng.standard_normal(tuple(leaf.shape))))
+            else:
+                leaf.copy_(torch.from_numpy(rng.integers(0, 64, tuple(leaf.shape))))
+    return st, cfg_j
+
+
+def _to_ref(st, cfg_j, batch=3):
+    treedef = jax.tree.structure(JM.init_decode_state(cfg_j, batch, 64))
+    return jax.tree.unflatten(treedef, [jnp.asarray(a) for a in _state_np(st)])
+
+
+class TestStateHealth:
+    @pytest.mark.parametrize("arch", HEALTH_ARCHS)
+    def test_decode_state_finite_equals_reference(self, arch):
+        st, cfg_j = _random_state(arch, "float32")
+        want = np.asarray(JM.decode_state_finite(_to_ref(st, cfg_j)))
+        assert M.decode_state_finite(st).tolist() == want.tolist() == [True] * 3
+        # Slot 1 of the first (stacked) node's h, or of its K where the
+        # state is attention-only.
+        M.state_nodes(st)[0][0][0, 1] = float("nan")
+        want = np.asarray(JM.decode_state_finite(_to_ref(st, cfg_j)))
+        got = M.decode_state_finite(st)
+        assert got.dtype == torch.bool and got.tolist() == want.tolist()
+        # A KV cache is never scanned: Gemma3's flags stay all True.
+        assert got.tolist() == ([True] * 3 if arch == "gemma3-1b" else [True, False, True])
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("arch", HEALTH_ARCHS)
+    def test_decode_state_checksum_bit_equal_to_reference(self, arch, dtype):
+        from repro.serve import chaos as JCH
+        from repro_torch.serve import chaos as CH
+
+        st, cfg_j = _random_state(arch, dtype, seed=len(arch))
+        st_j = _to_ref(st, cfg_j)
+        want = np.asarray(JM.decode_state_checksum(st_j))
+        got = M.decode_state_checksum(st)
+        assert want.dtype == np.uint32 and got.dtype == torch.int64
+        assert int(got.min()) >= 0 and int(got.max()) < 2**32
+        assert np.array_equal(got.numpy().astype(np.uint32), want)
+        # One flipped bit in slot 1 moves slot 1's sum only, as in the reference.
+        CH.bitflip_slot_state(st, 1)
+        flipped = M.decode_state_checksum(st).numpy()
+        want_flipped = np.asarray(JM.decode_state_checksum(JCH.bitflip_slot_state(st_j, 1)))
+        assert np.array_equal(flipped.astype(np.uint32), want_flipped)
+        assert (flipped != got.numpy()).tolist() == [False, True, False]

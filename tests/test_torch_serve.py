@@ -159,7 +159,7 @@ class TestLauncher:
 
     def test_unported_arch_is_refused(self):
         with pytest.raises(NotImplementedError):
-            launcher.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu"])
+            launcher.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
