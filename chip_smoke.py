@@ -96,6 +96,21 @@ Phases (any failure raises and exits non-zero, with no result line):
    gemma3-1b under one NaN K row, neighbours bit-identical; the reduced f32
    rwkv6, gemma3 and recurrentgemma under one NaN, every stream (the
    victim's too) bit-identical to the fault-free run;
+3j. paged KV serving (``ServeEngine(paged=True)``) and recurrent-state
+   prefix sharing: full-size gemma3-1b (bf16, max_len 1024, 4 slots, K=8)
+   serves phase 3h's requests on a dense engine, a paged one and a paged
+   one whose tight pool makes admissions wait, every stream equal to the
+   dense one, no port kernel launched, a clean page-table audit and the
+   tight pool below the dense footprint; a 512-token shared prefix (16
+   pages) with 8 requests of 8-56 more tokens and 32 new, warm through the
+   prefix against cold on the dense engine, on gemma3-1b (every request a
+   prefix admission, 16 shared pages, admission time, tok/s and each
+   request's equal prefix printed) and on full-size rwkv6-1.6b (launch
+   counts held: 24 ``wkv_cuda`` for the prefix's one prefill, the decode
+   window kernel a layer an admission, the decode step kernel a layer a
+   step); the reduced f32 rwkv6, gemma3 and recurrentgemma paged against
+   dense, warm against cold and under a NaN on the paged engine, every
+   stream equal to the others and to the same run on the CPU;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -131,6 +146,7 @@ Phases (any failure raises and exits non-zero, with no result line):
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -420,6 +436,10 @@ def main():
 
     # ---- 3i. fault isolation on the card ------------------------------------
     for name, n in _fault_isolation(torch, np, g3_params).items():
+        launches[name] = launches.get(name, 0) + n
+
+    # ---- 3j. paged KV serving and prefix sharing ----------------------------
+    for name, n in _paged_serving(torch, np, g3_params).items():
         launches[name] = launches.get(name, 0) + n
     del g3_params
     torch.cuda.empty_cache()
@@ -1999,6 +2019,277 @@ def _fault_isolation(torch, np, g3_params, k_w=8, timeout_s=3.0):
               f"fault-free streams equal the CPU's: {not _victims(np, base, cpu)}")
         if not same or st["quarantines"] != 1:
             raise SystemExit(f"chaos: reduced {arch} diverged under a NaN fault")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Paged KV serving and recurrent-state prefix sharing (phase 3j).
+# ---------------------------------------------------------------------------
+
+#: Phase 3j's shared-prefix workload: a 512-token prefix (16 pages of 32),
+#: 8 requests extending it by 8-56 tokens, 32 new tokens each.
+PREFIX_LEN, PREFIX_REQS, PREFIX_NEW = 512, 8, 32
+
+
+def _prefix_requests(np, vocab, pid=None, new=PREFIX_NEW):
+    """(prefix, requests): the shared-prefix workload, each request carrying
+    ``pid`` (None: the same prompts admitted cold) and ``new`` tokens."""
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(0, vocab, PREFIX_LEN)
+    sfx = [rng.integers(0, vocab, int(n)) for n in rng.integers(8, 57, PREFIX_REQS)]
+    return prefix, [Request(tokens=np.concatenate([prefix, s]), max_new_tokens=new,
+                            prefix_id=pid) for s in sfx]
+
+
+def _timed_serve(torch, counters, engine, reqs, **kw):
+    """``engine.serve`` with launch counts (as :func:`_counted`) and the
+    wall time of its admission and window dispatches, read by the engine's
+    dispatch hook: each dispatch ends in its host copy, so pre to post
+    covers its device work.  Returns (results, seconds, launches,
+    {"admit": s, "window": s})."""
+    from repro_torch.serve import engine as E
+
+    spent = {"admit": 0.0, "window": 0.0}
+    began = {}
+
+    def hook(phase, kind):
+        if phase == "pre":
+            began[kind] = time.perf_counter()
+        else:
+            spent[kind] += time.perf_counter() - began.pop(kind)
+
+    E.dispatch_hook = hook
+    try:
+        with torch.inference_mode():
+            outs, dt, got = _counted(torch, counters, lambda: engine.serve(reqs, **kw))
+    finally:
+        E.dispatch_hook = None
+    return outs, dt, got, spent
+
+
+def _hold_streams(np, what, want, got):
+    diff = _victims(np, want, got)
+    if diff or [r.outcome for r in want] != [r.outcome for r in got]:
+        raise SystemExit(f"paged: {what} differs (index, equal prefix): {diff}")
+
+
+def _paged_serving(torch, np, g3_params, k_w=8, slots=4, max_len=1024):
+    """Phase 3j: paged KV serving and recurrent-state prefix sharing.
+
+    (a) Full-size gemma3-1b (bf16) serves phase 3h's 6 ragged requests on
+    a dense engine, a paged one with the dense-equivalent pool and a paged
+    one with 4 private pages a pool (admissions wait): every stream equal
+    to the dense one, no port kernel launched (serving attends in plain
+    PyTorch), a clean page-table audit, the tight pool below the dense
+    footprint.  (b) The shared-prefix workload on gemma3-1b, warm through
+    a registered prefix on the paged engine and cold on the dense one:
+    every request a prefix admission, 16 shared pages, a clean audit; the
+    admission time and tok/s of both beside the positions
+    ``serve_prefix_admission`` models, and each request's equal prefix
+    warm against cold (bf16 GEMMs of other shapes: reported, not held).
+    (c) The same workload on full-size rwkv6-1.6b, launch counts held to
+    the code's structure: warm, 24 ``wkv_cuda`` for the prefix's one
+    prefill, the decode window kernel a layer an admission, the decode
+    step kernel a layer a step; cold, ``wkv_cuda`` a layer an admission;
+    then the same weights' f32 copy warm against cold, its equal prefixes
+    printed (the bf16 streams part where the chunked kernel and the window
+    kernel sum in other orders).  For both archs the admissions alone (the
+    workload with one new token, so no decode window) run under the
+    profiler, warm and cold.  (d) The reduced f32 models on the card: paged against dense, warm
+    against cold and a NaN quarantine on the paged engine, every stream
+    equal to the others and to the same run on the CPU.  Returns the
+    launch counts of the counted rwkv6 serves."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import cost_model
+    from repro_torch.model import model as M
+    from repro_torch.serve.chaos import ChaosInjector
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    counters = _counters()
+    none = dict.fromkeys(counters, 0)
+
+    def check_paged(what, eng):
+        pg, st = eng.last_paged_stats, eng.last_serve_stats
+        print(f"[paged] {what}: {pg}; admissions {st['admissions']}, windows "
+              f"{st['decode_dispatches']}, page_waits {st['page_waits']}, "
+              f"prefix_admissions {st['prefix_admissions']}")
+        if pg["page_table_violations"]:
+            raise SystemExit(f"paged: {what}: {pg['page_table_violations']} page-table "
+                             "violations")
+
+    # (a) gemma3-1b: dense, paged, tight paged.
+    cfg = get_config("gemma3-1b")
+    reqs = _g3_requests(np.random.default_rng(0), cfg.vocab_size)
+    engines = {
+        "dense": ServeEngine(cfg, g3_params, max_len=max_len, decode_window=k_w),
+        "paged": ServeEngine(cfg, g3_params, max_len=max_len, decode_window=k_w, paged=True),
+        "tight": ServeEngine(cfg, g3_params, max_len=max_len, decode_window=k_w, paged=True,
+                             pool_pages=4),
+    }
+    runs = {}
+    for name, eng in engines.items():
+        with torch.inference_mode():
+            eng.serve(reqs[:1], slots=slots)                  # warm-up
+        outs, dt, got, spent = _timed_serve(torch, counters, eng, reqs, slots=slots)
+        runs[name] = outs
+        emitted = sum(r.size for r in outs)
+        print(f"[paged] gemma3 {name} serve 6 requests, {slots} slots, K={k_w}, max_len "
+              f"{max_len}: {emitted} tokens in {dt:.3f}s, {emitted / dt:.1f} tok/s "
+              f"(admissions {spent['admit']:.3f}s, windows {spent['window']:.3f}s); "
+              f"{sum(got.values())} port launches")
+        if got != none:
+            raise SystemExit(f"paged: gemma3 {name} serve launched {got}")
+        if name != "dense":
+            check_paged(f"gemma3 {name}", eng)
+            _hold_streams(np, f"gemma3 {name} against dense", runs["dense"], outs)
+    tight = engines["tight"]
+    if tight.last_serve_stats["page_waits"] < 1:
+        raise SystemExit("paged: the tight pool never made an admission wait")
+    pg = tight.last_paged_stats
+    if pg["pool_bytes"] >= pg["dense_bytes"]:
+        raise SystemExit(f"paged: tight pool {pg['pool_bytes']} B >= dense {pg['dense_bytes']} B")
+    print(f"[paged] gemma3 every stream of paged and tight equals dense; tight pool "
+          f"{pg['pool_bytes']} B against {pg['dense_bytes']} B dense "
+          f"({pg['pool_bytes'] / pg['dense_bytes']:.4f}), peak mapped "
+          f"{pg['peak_mapped_bytes']} B")
+    del engines["tight"]
+
+    def prefix_runs(arch, warm_eng, cold_eng, derive):
+        """Warm and cold serves of the prefix workload: held counts and
+        equal prefixes; returns the warm and cold launch counts."""
+        vocab = warm_eng.cfg.vocab_size
+        prefix, cold = _prefix_requests(np, vocab)
+        pid = warm_eng.register_prefix(prefix)
+        _, warm = _prefix_requests(np, vocab, pid)
+        sfx = [r.tokens.size - PREFIX_LEN for r in warm]
+        shared_pos, cold_pos = cost_model.serve_prefix_admission(
+            PREFIX_LEN, round(sum(sfx) / len(sfx)), PREFIX_REQS, 32)
+        res = {}
+        for name, eng, rs in (("warm", warm_eng, warm), ("cold", cold_eng, cold)):
+            outs, dt, got, spent = _timed_serve(torch, counters, eng, rs, slots=slots)
+            st = eng.last_serve_stats
+            want = {**none, **derive(name, st)}
+            emitted = sum(r.size for r in outs)
+            print(f"[paged] {arch} {name} prefix serve ({PREFIX_REQS} requests, prefix "
+                  f"{PREFIX_LEN}, suffixes {sfx}, +{PREFIX_NEW}): {emitted} tokens in "
+                  f"{dt:.3f}s, {emitted / dt:.1f} tok/s; admissions {st['admissions']} in "
+                  f"{spent['admit']:.3f}s, windows {st['decode_dispatches']} in "
+                  f"{spent['window']:.3f}s, the rest (the prefix's prefill, set-up) "
+                  f"{dt - spent['admit'] - spent['window']:.3f}s; launches "
+                  f"{ {n: c for n, c in got.items() if c} }, derived "
+                  f"{ {n: c for n, c in want.items() if c} }")
+            if got != want:
+                raise SystemExit(f"paged: {arch} {name} launches {got} != derived {want}")
+            if any(r.outcome != "ok" or r.size != PREFIX_NEW for r in outs):
+                raise SystemExit(f"paged: {arch} {name}: {[r.outcome for r in outs]}")
+            res[name] = (outs, got, spent["admit"], dt)
+        check_paged(f"{arch} warm", warm_eng)
+        st, pg = warm_eng.last_serve_stats, warm_eng.last_paged_stats
+        if st["prefix_admissions"] != PREFIX_REQS or pg["shared_pages"] < PREFIX_LEN // 32:
+            raise SystemExit(f"paged: {arch} warm: {st['prefix_admissions']} prefix "
+                             f"admissions, {pg['shared_pages']} shared pages")
+        eq = [_shared_prefix(np, a, b) for a, b in zip(res["warm"][0], res["cold"][0])]
+        print(f"[paged] {arch} admission time warm {res['warm'][2]:.3f}s against cold "
+              f"{res['cold'][2]:.3f}s (x{res['cold'][2] / res['warm'][2]:.2f}); modeled "
+              f"prefilled positions (serve_prefix_admission, mean suffix) shared "
+              f"{shared_pos} against cold {cold_pos} (x{cold_pos / shared_pos:.2f}); equal "
+              f"prefix warm against cold, per request (of {PREFIX_NEW}): {eq}")
+        # The admissions alone: one new token each, so no decode window (the
+        # prefix's entry is cached from the warm run above).
+        for name, eng, p in (("warm", warm_eng, pid), ("cold", cold_eng, None)):
+            rs = _prefix_requests(np, vocab, p, new=1)[1]
+            with torch.inference_mode():
+                _profile(torch, lambda: eng.serve(rs, slots=slots),
+                         f"{arch} {name} admissions only ({PREFIX_REQS} requests, +1)", top=5)
+        return res["warm"][1], res["cold"][1]
+
+    # (b) gemma3-1b shared prefix: no port kernel either way.
+    prefix_runs("gemma3", engines["paged"], engines["dense"], lambda name, st: {})
+    del engines
+    torch.cuda.empty_cache()
+
+    # (c) rwkv6-1.6b shared prefix.
+    cfg = get_config("rwkv6-1.6b")
+    layers = cfg.num_layers
+    params = M.init_params(cfg, seed=0, device="cuda")
+    warm_eng = ServeEngine(cfg, params, max_len=max_len, decode_window=k_w, paged=True)
+    cold_eng = ServeEngine(cfg, params, max_len=max_len, decode_window=k_w)
+    with torch.inference_mode():
+        for eng in (warm_eng, cold_eng):
+            eng.serve(_g3_requests(np.random.default_rng(0), cfg.vocab_size)[:1], slots=slots)
+
+    def rwkv_derived(name, st):
+        steps = layers * k_w * st["decode_dispatches"]
+        if name == "warm":        # one 512-token prefill; suffix windows <= 64 tokens
+            return {"wkv_cuda": layers, "wkv_decode_window_cuda": layers * st["admissions"],
+                    "wkv_decode_cuda": steps}
+        return {"wkv_cuda": layers * st["admissions"], "wkv_decode_cuda": steps}
+
+    warm_got, cold_got = prefix_runs("rwkv6", warm_eng, cold_eng, rwkv_derived)
+    total = {n: warm_got[n] + cold_got[n] for n in counters}
+    del warm_eng, cold_eng, params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = M.init_params(cfg32, seed=0, device="cuda")
+    warm_eng = ServeEngine(cfg32, params, max_len=max_len, decode_window=k_w, paged=True)
+    prefix, cold = _prefix_requests(np, cfg32.vocab_size)
+    _, warm = _prefix_requests(np, cfg32.vocab_size, warm_eng.register_prefix(prefix))
+    with torch.inference_mode():
+        outs = warm_eng.serve(warm, slots=slots)
+        ref = ServeEngine(cfg32, params, max_len=max_len, decode_window=k_w).serve(
+            cold, slots=slots)
+    print(f"[paged] rwkv6 f32 (the same weights, TF32 off): equal prefix warm against "
+          f"cold, per request (of {PREFIX_NEW}): "
+          f"{[_shared_prefix(np, a, b) for a, b in zip(outs, ref)]}")
+    del warm_eng, params
+    torch.cuda.empty_cache()
+
+    # (d) the reduced f32 models: card against CPU.
+    spec = [(5, 9), (12, 3), (7, 14), (3, 6), (9, 11)]
+    for arch in ("rwkv6-1.6b", "gemma3-1b", "recurrentgemma-2b"):
+        cfg = get_config(arch).reduced()
+        p_cpu = M.init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(0)
+        reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, (pl,)), max_new_tokens=nn)
+                for pl, nn in spec]
+        rng = np.random.default_rng(1)
+        prefix = rng.integers(0, cfg.vocab_size, 40)
+        prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, k)])
+                   for k in (5, 9, 3, 7)]
+        streams = {}
+        for dev, params in (("cuda", _to(p_cpu, "cuda")), ("cpu", p_cpu)):
+            dense = ServeEngine(cfg, params, max_len=96, decode_window=4, device=dev)
+            paged = ServeEngine(cfg, params, max_len=96, decode_window=4, device=dev,
+                                paged=True)
+            pid = paged.register_prefix(prefix)
+            out = {"dense": dense.serve(reqs, slots=2), "paged": paged.serve(reqs, slots=2),
+                   "cold": dense.serve([Request(tokens=p, max_new_tokens=8)
+                                        for p in prompts], slots=2),
+                   "warm": paged.serve([Request(tokens=p, max_new_tokens=8, prefix_id=pid)
+                                        for p in prompts], slots=2)}
+            if paged.last_serve_stats["prefix_admissions"] != len(prompts):
+                raise SystemExit(f"paged: reduced {arch} on {dev}: prefix admissions "
+                                 f"{paged.last_serve_stats['prefix_admissions']}")
+            out["chaos"] = paged.serve(reqs, slots=2,
+                                       chaos=ChaosInjector(seed=1, nan_at=(1,)))
+            if paged.last_serve_stats["quarantines"] < 1:
+                raise SystemExit(f"paged: reduced {arch} on {dev}: no quarantine")
+            check_paged(f"reduced {arch} on {dev} (NaN drill)", paged)
+            streams[dev] = out
+        card = streams["cuda"]
+        _hold_streams(np, f"reduced {arch} paged against dense", card["dense"], card["paged"])
+        _hold_streams(np, f"reduced {arch} warm against cold", card["cold"], card["warm"])
+        for a, b in zip(card["paged"], card["chaos"]):
+            if not np.array_equal(np.asarray(a), np.asarray(b)):
+                raise SystemExit(f"paged: reduced {arch} NaN drill diverged")
+        for name in card:
+            if any(not np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(card[name], streams["cpu"][name])):
+                raise SystemExit(f"paged: reduced {arch} {name}: card and CPU differ")
+        print(f"[paged] reduced f32 {arch} on the card: paged = dense, warm = cold, the "
+              f"NaN drill's streams = fault-free, each equal to the CPU's run: True")
     return total
 
 

@@ -13,11 +13,16 @@ Then, for RecurrentGemma, ``elevator_decode_window_cuda`` at B=4, K=1,
 D=2560 in f32 (one generated token's call) runs ``--calls`` times with no
 synchronisation between calls: its host µs per call (checks, plan and
 launch), and, where the checkout has ``plan_window``, the µs of that plan
-alone, in one more line.  The script imports ``repro_torch`` from
-``sys.path``, so one copy of it measures any checkout of the port:
+alone, in one more line.  ``--paged`` (``--arch gemma3-1b``, whose
+serving is attention only) also serves the same requests on a paged
+engine (``ServeEngine(paged=True)``, the dense-equivalent pool) in every
+rep, dense and paged in turns (the first of the two alternating by rep),
+and fails unless the paged streams equal the dense ones.  The script
+imports ``repro_torch`` from ``sys.path``, so one copy of it measures any
+checkout of the port:
 
     PYTHONPATH=<checkout>/src python src/repro_torch/benchmarks/rg_decode.py \
-        [--arch recurrentgemma-2b|rwkv6-1.6b] [--reps N]
+        [--arch recurrentgemma-2b|rwkv6-1.6b|gemma3-1b] [--reps N] [--paged]
 
 runs on the card only, and raises without one.
 """
@@ -75,24 +80,36 @@ def main(argv=None):
     ap.add_argument("--arch", default="recurrentgemma-2b")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--calls", type=int, default=2000)
+    ap.add_argument("--paged", action="store_true",
+                    help="also serve on a paged engine each rep, in turns with dense")
     args = ap.parse_args(argv)
     device = resolve_device(None)
     cfg = get_config(args.arch)
     params = M.init_params(cfg, seed=0, device=device)
     engine = ServeEngine(cfg, params, max_len=512, decode_window=8)
+    paged = (ServeEngine(cfg, params, max_len=512, decode_window=8, paged=True)
+             if args.paged else None)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (4, 256))
     reqs = _requests(rng, cfg.vocab_size)
     with torch.inference_mode():                              # warm-up
         engine.generate(prompts[:, :80], 2)
-        engine.serve(reqs[:1], slots=4)
+        for eng in (engine, paged) if paged else (engine,):
+            eng.serve(reqs[:1], slots=4)
     for rep in range(args.reps):
         _, gen_s = _timed(lambda: engine.generate(prompts, 32))
-        results, serve_s = _timed(lambda: engine.serve(reqs, slots=4))
-        emitted = sum(r.size for r in results)
-        print(json.dumps({"arch": cfg.name, "rep": rep, "generate_tok_s": 4 * 32 / gen_s,
-                          "generate_s": gen_s, "serve_tok_s": emitted / serve_s,
-                          "serve_s": serve_s, "serve_tokens": emitted}), flush=True)
+        order = [("serve", engine), ("paged_serve", paged)] if paged else [("serve", engine)]
+        row, outs = {"arch": cfg.name, "rep": rep, "generate_tok_s": 4 * 32 / gen_s,
+                     "generate_s": gen_s}, {}
+        for name, eng in order[::-1] if rep % 2 else order:
+            outs[name], sec = _timed(lambda: eng.serve(reqs, slots=4))
+            emitted = sum(r.size for r in outs[name])
+            row.update({f"{name}_tok_s": emitted / sec, f"{name}_s": sec,
+                        f"{name}_tokens": emitted})
+        if paged and any(not np.array_equal(a.tokens, b.tokens)
+                         for a, b in zip(outs["serve"], outs["paged_serve"])):
+            raise SystemExit("paged serve streams differ from the dense ones")
+        print(json.dumps(row), flush=True)
     if cfg.rglru:
         print(json.dumps(_window_host_us(device, args.calls)))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

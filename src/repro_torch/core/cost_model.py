@@ -7,7 +7,8 @@ matmul, 1-D convolution, prefix scan, 2-D stencil and tree reduction,
 and of the sequence-parallel WKV's summary hops (the budget its
 collective check holds the port to); and the serve scheduler's slot-step
 accounting (:func:`serve_batch_steps`, :func:`serve_recovery_steps`, the
-cost a session reports as its recovery debt).
+cost a session reports as its recovery debt) and the paged serve's
+(:func:`serve_paged_pool`, :func:`serve_prefix_admission`).
 It is pure Python; the formulas and their order are the reference's, so
 every value equals the reference's exactly.
 
@@ -36,6 +37,8 @@ __all__ = [
     "wkv_seqshard_traffic",
     "serve_batch_steps",
     "serve_recovery_steps",
+    "serve_paged_pool",
+    "serve_prefix_admission",
 ]
 
 PJ_PER_BYTE = {
@@ -326,3 +329,86 @@ def serve_recovery_steps(prompt_lens, accepted, victim: int,
     redecode = -(-max(accepted) // window) * window if max(accepted) else 0
     global_ = sum(prompt_lens) + len(prompt_lens) * redecode
     return isolated, global_
+
+
+def serve_paged_pool(prompt_lens, new_tokens, slots: int, page_size: int,
+                     window: int = 1):
+    """Pages-in-flight accounting for a ragged serve workload: the paged
+    pool's high-water mark vs the dense engine's static footprint (the
+    statically-partitioned-scratchpad argument applied to KV storage).
+
+    Replays the same admission schedule as :func:`serve_batch_steps`'s
+    continuous branch, with the engine's allocate-all-at-admission rule:
+    a request entering a slot reserves ``ceil((prompt + budget) /
+    page_size)`` pages for its whole lifetime and frees them the step it
+    completes.  The dense engine instead provisions every slot for the
+    worst request up front — ``slots × ceil(max(prompt + budget) /
+    page_size)`` pages live for the whole serve, whatever the actual
+    tokens in flight.
+
+    Returns ``(peak_pages, dense_pages)``: the pool high-water mark and
+    the dense-equivalent static page count.  ``dense_pages / peak_pages``
+    is the modeled capacity win — the pool size at which paged serving
+    first matches dense throughput with zero admission waits.
+    """
+    prompt_lens = [int(p) for p in prompt_lens]
+    new_tokens = [int(t) for t in new_tokens]
+    if (len(prompt_lens) != len(new_tokens) or not prompt_lens
+            or slots < 1 or page_size < 1 or window < 1):
+        raise ValueError(
+            "need matching non-empty prompts/budgets, slots >= 1, "
+            "page_size >= 1, window >= 1")
+    need = [-(-(p + t) // page_size) for p, t in zip(prompt_lens, new_tokens)]
+    dense_pages = slots * max(need)
+
+    queue = list(range(len(new_tokens)))[::-1]   # pop() = arrival order
+    remaining = [0] * slots
+    pages = [0] * slots
+    peak = 0
+    while queue or any(remaining):
+        for s in range(slots):
+            if remaining[s] == 0:
+                pages[s] = 0
+                if queue:
+                    ri = queue.pop()
+                    remaining[s] = max(new_tokens[ri] - 1, 0)
+                    pages[s] = need[ri]
+                    if remaining[s] == 0:        # done at admission
+                        pages[s] = 0
+        peak = max(peak, sum(pages))
+        if not any(remaining):
+            continue
+        for s in range(slots):
+            if remaining[s] > 0:
+                remaining[s] = max(0, remaining[s] - window)
+                if remaining[s] == 0:
+                    pages[s] = 0
+    return peak, dense_pages
+
+
+def serve_prefix_admission(prefix_len: int, suffix_len: int,
+                           n_requests: int, page_size: int):
+    """Positions prefilled to admit ``n_requests`` sharing one prefix:
+    recurrent-state prefix sharing vs cold re-prefill.
+
+    shared: the prefix's page-aligned head (``floor(prefix_len /
+            page_size) × page_size`` positions) is prefilled ONCE — its
+            KV pages are shared read-only and its WKV S / RG-LRU h copied
+            into each admitted slot — and each admission prefills only
+            the leftover prefix tail plus its own suffix.
+    cold:   every admission re-prefills prefix + suffix from position 0
+            (what the dense engine does for each request).
+
+    Returns ``(shared_positions, cold_positions)``; cold / shared is the
+    modeled admission-cost ratio the ``serve_paged`` bench row checks
+    against its measured admission times.
+    """
+    if (prefix_len < 0 or suffix_len < 1 or n_requests < 1
+            or page_size < 1):
+        raise ValueError(
+            "need prefix_len >= 0, suffix_len >= 1, n_requests >= 1, "
+            "page_size >= 1")
+    aligned = (prefix_len // page_size) * page_size
+    shared = aligned + n_requests * (prefix_len - aligned + suffix_len)
+    cold = n_requests * (prefix_len + suffix_len)
+    return shared, cold

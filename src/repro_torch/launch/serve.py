@@ -30,6 +30,19 @@ fault-free run (tier-1 lane 3c's drill):
       --continuous --device cpu --requests 6 --slots 2 --prompt-len 8 \
       --new-tokens 6 --max-len 64 --decode-window 2 --chaos-seed 7 \
       --chaos-nan-at 2 --chaos-drop-at 4 --watchdog-timeout 30
+
+``--paged`` keeps the KV caches in page pools (``--page-size``,
+``--pool-pages``) and runs the paged drill: the same requests are first
+served by a dense engine on the same weights, and the launcher exits
+nonzero unless every stream equals it bit for bit, the page-table audit is
+clean, and an explicitly sized pool beats the dense footprint.
+``--prefix-len N`` also registers one N-token shared prefix and admits
+every request through it (tier-1 lane 3d's drill):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b --smoke \
+      --continuous --paged --requests 5 --slots 2 --prompt-len 6 \
+      --new-tokens 6 --max-len 128 --decode-window 2 --prefix-len 40 \
+      --pool-pages 4 --temperature 0.8 --top-k 16 --device cpu
 """
 
 from __future__ import annotations
@@ -94,6 +107,18 @@ def main(argv=None):
                     help="pin NaN faults to decode-window indices")
     ap.add_argument("--chaos-drop-at", type=int, nargs="*", default=())
     ap.add_argument("--chaos-hang-at", type=int, nargs="*", default=())
+    ap.add_argument("--paged", action="store_true",
+                    help="[--continuous] pooled KV pages and per-slot page tables "
+                         "(drill mode: exits nonzero unless every stream equals "
+                         "the dense engine's)")
+    ap.add_argument("--page-size", type=int, default=32,
+                    help="[--paged] tokens per KV page (a multiple of 32)")
+    ap.add_argument("--pool-pages", type=int, default=None,
+                    help="[--paged] private pages per node pool (default: the "
+                         "dense-equivalent count)")
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="[--paged] register one shared prefix of this many "
+                         "tokens and admit every request through it")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -101,10 +126,14 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if args.paged and not args.continuous:
+        raise SystemExit("--paged requires --continuous")
     print(f"initializing {cfg.name} ({cfg.param_count()/1e6:.1f}M params)...")
     params = M.init_params(cfg, args.seed, device=args.device)
     engine = ServeEngine(cfg, params, max_len=args.max_len,
-                         decode_window=args.decode_window, device=args.device)
+                         decode_window=args.decode_window, device=args.device,
+                         paged=args.paged, page_size=args.page_size,
+                         pool_pages=args.pool_pages)
     rng = np.random.default_rng(args.seed)
 
     if args.continuous:
@@ -119,8 +148,24 @@ def main(argv=None):
             toks = rng.integers(0, cfg.vocab_size, (p,)).astype(np.int32)
             reqs.append(Request(tokens=toks, max_new_tokens=int(
                 rng.integers(n_lo, args.new_tokens + 1))))
+        if args.paged and args.prefix_len:
+            if args.prefix_len < args.page_size:
+                raise SystemExit("--prefix-len must cover at least one page")
+            prefix = rng.integers(0, cfg.vocab_size, (args.prefix_len,)).astype(np.int32)
+            pid = engine.register_prefix(prefix)
+            reqs = [Request(tokens=np.concatenate([prefix, r.tokens]),
+                            max_new_tokens=r.max_new_tokens, prefix_id=pid) for r in reqs]
         sampling = dict(slots=args.slots, temperature=args.temperature,
                         top_k=args.top_k, eos_id=args.eos_id, seed=args.seed)
+        dense_ref = None
+        if args.paged:
+            # The paged drill's oracle: a dense engine on the same weights and
+            # requests (it prefills the prefix again for every request).
+            dense_ref = ServeEngine(cfg, params, max_len=args.max_len,
+                                    decode_window=args.decode_window,
+                                    device=args.device).serve(
+                [Request(tokens=r.tokens, max_new_tokens=r.max_new_tokens)
+                 for r in reqs], **sampling)
         chaos = baseline = None
         if args.chaos_seed is not None:
             chaos = ChaosInjector(
@@ -169,6 +214,8 @@ def main(argv=None):
                 raise SystemExit(f"request {i}: token outside the vocabulary")
         if chaos is not None:
             _check_drill(chaos, st, baseline, outs)
+        if args.paged:
+            _check_paged(engine, st, dense_ref, outs, explicit_pool=args.pool_pages is not None)
     else:
         prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
         t0 = time.perf_counter()
@@ -207,6 +254,30 @@ def _check_drill(chaos, st, baseline, outs):
                              "fault-free run: isolation broken")
     print("chaos drill: all faults recovered; every stream bit-identical to "
           "the fault-free run")
+
+
+def _check_paged(engine, st, dense_ref, outs, *, explicit_pool: bool):
+    """The paged drill's verdict: a clean page-table audit, an explicitly
+    sized pool below the dense footprint, and every stream (outcome and
+    tokens) equal to the dense engine's."""
+    pg = engine.last_paged_stats
+    print(f"paged: page_size={pg['page_size']} shared_pages={pg['shared_pages']} "
+          f"pool_bytes={pg['pool_bytes']} dense_bytes={pg['dense_bytes']} "
+          f"peak_mapped_bytes={pg['peak_mapped_bytes']} "
+          f"prefix_admissions={st['prefix_admissions']} page_waits={st['page_waits']}")
+    if pg["page_table_violations"]:
+        raise SystemExit(f"paged drill: {pg['page_table_violations']} page-table "
+                         "violations (double-map / freed-page reach)")
+    if explicit_pool and pg["pool_bytes"] >= pg["dense_bytes"]:
+        raise SystemExit("paged drill: explicitly sized pool does not beat the dense "
+                         f"footprint ({pg['pool_bytes']} >= {pg['dense_bytes']} bytes)")
+    for i, (want, got) in enumerate(zip(dense_ref, outs)):
+        if want.outcome != got.outcome or not np.array_equal(np.asarray(want),
+                                                             np.asarray(got)):
+            raise SystemExit(f"paged drill: request {i} diverged from the dense engine "
+                             f"({want.outcome} vs {got.outcome}): paging must be an "
+                             "exact storage-layout change")
+    print("paged drill: every stream bit-identical to the dense engine")
 
 
 if __name__ == "__main__":

@@ -6,14 +6,21 @@ kernel (:mod:`repro_torch.kernels.local_attention`).  A call with a
 :class:`KVCache` (serving) inserts the window's K/V into the cache, a ring
 of slots for local layers (slot = position mod S, per request), and
 attends to it in plain PyTorch (f32 einsums over the ring), as the
-reference does outside any Pallas kernel.  Cross-attention and the paged
-cache are not ported yet.
+reference does outside any Pallas kernel.
+
+A :class:`PagedKVCache` (paged serving, :mod:`repro_torch.serve.paging`)
+holds the same K/V in pooled fixed-size pages behind a per-slot page
+table: the window's K/V are written into the pool in place, the dense view
+is gathered back through the table, and the same positional-mask attention
+runs on it, so streams equal the dense cache's bit for bit.
+Cross-attention is not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import torch
 
@@ -27,6 +34,47 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, Hkv, S, Dh)
     v: torch.Tensor          # (B, Hkv, S, Dh)
     length: torch.Tensor     # (B,) int32: tokens filled per request
+
+
+#: Physical page 0 of every pool is the null page: never allocated, so it
+#: stays exactly zero for the life of the pool.  A gather clips unmapped
+#: table entries (-1) onto it, so a masked read of an unmapped slot sees
+#: the zeros a dense cache's never-written slot holds.
+NULL_PAGE = 0
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PagedKVCache:
+    """A KV cache stored as pooled fixed-size pages and a per-slot page
+    table (the reference's ``PagedKVCache``).
+
+    Logical ring slot ``i`` (position mod ``s_view``) of request ``b``
+    lives at offset ``i % page_size`` of physical page
+    ``page_table[b, i // page_size]``; ``s_view`` is exactly the sequence
+    extent the dense cache would have had, so the gathered view has the
+    dense cache's shape and content.  Stacked layers carry a leading L
+    axis on every tensor (the same table in every layer).
+
+    ``_fields`` names the tensor children (what :mod:`repro_torch.tree`
+    walks and a snapshot stores); ``s_view`` and ``page_size`` are static.
+    """
+
+    k: torch.Tensor           # (P, page_size, Hkv, Dh) pooled pages
+    v: torch.Tensor           # (P, page_size, Hkv, Dh)
+    page_table: torch.Tensor  # (B, NL) int32 physical page ids; -1 = unmapped
+    length: torch.Tensor      # (B,) int32: tokens filled per request
+    s_view: int               # dense-equivalent sequence extent
+    page_size: int            # tokens per page
+
+    _fields: ClassVar[tuple[str, ...]] = ("k", "v", "page_table", "length")
+
+    def _replace(self, **kw) -> "PagedKVCache":
+        return dataclasses.replace(self, **kw)
+
+    def layer(self, i: int) -> "PagedKVCache":
+        """Layer ``i`` of a stacked node, as views of its tensors."""
+        return self._replace(k=self.k[i], v=self.v[i], page_table=self.page_table[i],
+                             length=self.length[i])
 
 
 def init_attention(mk, cfg, name: str, *, cross: bool = False):
@@ -96,14 +144,20 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
 
     new_cache = None
     if kv_cache is not None:
-        if not isinstance(kv_cache, KVCache):
-            raise NotImplementedError(
-                f"{type(kv_cache).__name__} is not ported to repro_torch yet")
         advance = (torch.full((), t, dtype=torch.int32, device=x.device)
                    if token_mask is None else token_mask.sum(dim=1, dtype=torch.int32))
-        k_cache = _masked_insert(kv_cache.k, k, kv_cache.length, token_mask)
-        v_cache = _masked_insert(kv_cache.v, v, kv_cache.length, token_mask)
-        new_cache = KVCache(k_cache, v_cache, kv_cache.length + advance)
+        if isinstance(kv_cache, PagedKVCache):
+            # Write the window into the slots' mapped pages in place, gather
+            # the dense-shaped view back and run the same positional-mask
+            # attention: every valid slot holds the dense cache's value.
+            _paged_insert(kv_cache, k, v, token_mask)
+            new_cache = kv_cache._replace(length=kv_cache.length + advance)
+            k_cache = _paged_gather(kv_cache, kv_cache.k)
+            v_cache = _paged_gather(kv_cache, kv_cache.v)
+        else:
+            k_cache = _masked_insert(kv_cache.k, k, kv_cache.length, token_mask)
+            v_cache = _masked_insert(kv_cache.v, v, kv_cache.length, token_mask)
+            new_cache = KVCache(k_cache, v_cache, kv_cache.length + advance)
         out = _decode_attention(q, k_cache, v_cache, kv_cache.length, cfg,
                                 window=window)
     else:
@@ -140,6 +194,77 @@ def _masked_insert(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
         new.to(cache.dtype), 2,
         src[:, None, :, None].expand(b, cache.shape[1], s, cache.shape[3]))
     return torch.where(sel[:, None, :, None], gathered, cache)
+
+
+def _paged_gather(cache: PagedKVCache, pool: torch.Tensor) -> torch.Tensor:
+    """The dense view ``(B, Hkv, s_view, Dh)`` of ``pool`` through
+    ``cache``'s page table.  Unmapped entries (-1) clip to the all-zero
+    :data:`NULL_PAGE`; the positional masks reject every such slot, so the
+    zeros only keep it finite, as a dense cache's never-written slots."""
+    s, ps = cache.s_view, cache.page_size
+    b = cache.page_table.shape[0]
+    p, _, hkv, dh = pool.shape
+    i = torch.arange(s, device=pool.device)
+    pages = cache.page_table[:, i // ps].long().clamp_min(0)            # (B, S)
+    flat = pages * ps + (i % ps)[None, :]
+    out = pool.reshape(p * ps, hkv, dh).index_select(0, flat.reshape(-1))
+    return out.reshape(b, s, hkv, dh).transpose(1, 2)
+
+
+def _paged_targets(cache: PagedKVCache, t: int, token_mask=None):
+    """Flat pool rows ``(B * t,)`` that a ``t``-token window written at
+    positions ``length..length+t-1`` lands on (ring slot = position mod
+    ``s_view``, then the page table), and ``(B * t,)`` bool: which of them
+    are real writes (mapped and not masked)."""
+    b = cache.page_table.shape[0]
+    s, ps = cache.s_view, cache.page_size
+    dev = cache.page_table.device
+    pos = _lengths_2d(cache.length, b).long() + torch.arange(t, device=dev)[None]
+    slot = torch.remainder(pos, s)                                      # (B, t)
+    pages = torch.gather(cache.page_table.long(), 1, slot // ps)
+    ok = pages >= 0
+    if token_mask is not None:
+        ok &= token_mask
+    return (pages.clamp_min(0) * ps + slot % ps).reshape(-1), ok.reshape(-1)
+
+
+def _null_rows(flat: torch.Tensor, ok: torch.Tensor, ps: int) -> torch.Tensor:
+    """``flat`` where ``ok``, else the :data:`NULL_PAGE` row of the same
+    offset: a write that must not land goes there, with the value 0 the
+    null page already holds, so every index stays in range and no filter
+    has to sync the host."""
+    return torch.where(ok, flat, flat % ps)
+
+
+def _paged_insert(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                  token_mask: torch.Tensor | None = None):
+    """Write ``k_new`` / ``v_new`` (B, Hkv, t, Dh) into ``cache``'s pools in
+    place, at positions ``length..length+t-1`` of each request.
+
+    Only mapped, unmasked targets are written.  The reference scatters the
+    others with index -1 and ``mode="drop"``, which JAX normalises to the
+    pool's last row before it drops anything, so its masked writes land
+    on the last page; here they never reach a live row.  A boolean filter
+    would sync the host on every layer, so a dropped write is instead
+    routed to the :data:`NULL_PAGE` row of its offset with the value 0,
+    which that row already holds: every index stays in range, the null
+    page stays zero, and no live row is touched.  The real targets are
+    unique (t <= s_view, slots own disjoint pages, and shared pages lie
+    below every start length), so the write order does not matter."""
+    b, hkv, t, dh = k_new.shape
+    s, ps = cache.s_view, cache.page_size
+    if t > s:
+        raise ValueError(
+            f"decode window of {t} tokens exceeds paged view size {s}; "
+            f"build the state with init_decode_state(insert_window >= {t})")
+    flat, ok = _paged_targets(cache, t, token_mask)
+    rows = _null_rows(flat, ok, ps)
+    keep = ok[:, None, None]
+    for pool, new in ((cache.k, k_new), (cache.v, v_new)):
+        src = new.transpose(1, 2).reshape(b * t, hkv, dh).to(pool.dtype)
+        pool.view(-1, hkv, dh).index_put_(
+            (rows,), torch.where(keep, src, torch.zeros((), dtype=pool.dtype,
+                                                        device=pool.device)))
 
 
 def _decode_attention(q, k_cache, v_cache, cur_pos, cfg, *, window=None):

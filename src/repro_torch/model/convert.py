@@ -7,9 +7,11 @@ needs neither JAX nor the reference package:
 * :func:`params_from_jax` keeps the ``{"scanned", "remainder"}`` layout and
   every key, turning each array into a tensor;
 * :func:`state_from_jax` turns a decode-state tree of ``RecState``-like
-  nodes (anything with ``.h`` and ``.conv``) and ``KVCache``-like nodes
-  (``.k``, ``.v`` and ``.length``) into the port's
-  :class:`~repro_torch.model.recurrent.RecState` and
+  nodes (anything with ``.h`` and ``.conv``), ``PagedKVCache``-like nodes
+  (``.page_table``, with static ``.s_view`` and ``.page_size``) and
+  ``KVCache``-like nodes (``.k``, ``.v`` and ``.length``) into the port's
+  :class:`~repro_torch.model.recurrent.RecState`,
+  :class:`~repro_torch.model.attention.PagedKVCache` and
   :class:`~repro_torch.model.attention.KVCache` tree;
 * :func:`state_to_jax_numpy` goes back: the same tree with numpy leaves,
   whose leaves the caller can unflatten into the reference's tree;
@@ -25,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.model.attention import KVCache
+from repro_torch.model.attention import KVCache, PagedKVCache
 from repro_torch.model.recurrent import RecState
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.optim.compression import ErrorFeedbackState
@@ -68,7 +70,7 @@ def _node_type(n):
     if hasattr(n, "h") and hasattr(n, "conv"):
         return RecState
     if hasattr(n, "page_table"):
-        raise NotImplementedError("PagedKVCache is not ported to repro_torch yet")
+        return PagedKVCache
     if hasattr(n, "k") and hasattr(n, "v") and hasattr(n, "length"):
         return KVCache
     raise TypeError(f"unknown decode-state node {type(n).__name__}")
@@ -77,7 +79,10 @@ def _node_type(n):
 def _map_state(tree, fn):
     def node(n):
         typ = _node_type(n)
-        return typ(*(fn(getattr(n, f)) for f in typ._fields))
+        kids = {f: fn(getattr(n, f)) for f in typ._fields}
+        if typ is PagedKVCache:
+            return typ(**kids, s_view=int(n.s_view), page_size=int(n.page_size))
+        return typ(**kids)
 
     return {
         "scanned": None if tree["scanned"] is None

@@ -7,20 +7,21 @@ Parameters are a plain dict with the reference's layout::
     {"tok": {"embedding", "unembed"}, "final_norm": {"scale"},
      "decoder": {"scanned": [block dict with stacked leaves], "remainder": []}}
 
-and the decode state is ``{"scanned": [RecState or KVCache of stacked
-leaves], "remainder": [...]}``, so :mod:`repro_torch.model.convert` maps
+and the decode state is ``{"scanned": [RecState, KVCache or PagedKVCache
+of stacked leaves], "remainder": [...]}``, so :mod:`repro_torch.model.convert` maps
 both frameworks' trees one to one.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels.common import resolve_device
 from repro_torch.model import transformer as tf
-from repro_torch.model.attention import KVCache
+from repro_torch.model.attention import KVCache, PagedKVCache
 from repro_torch.model.layers import (
     dtype_of,
     embed_tokens,
@@ -116,8 +117,24 @@ def forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
 # Decode state
 # --------------------------------------------------------------------------
 
+class PageSpec(NamedTuple):
+    """Geometry of a paged decode state (see
+    :class:`repro_torch.model.attention.PagedKVCache`).
+
+    ``page_size``: tokens per physical page, a multiple of the 32-token
+    admission bucket.  ``private_pages``: allocatable pages per KV node
+    pool; ``None`` is the dense-equivalent capacity (``batch`` times the
+    logical pages of a slot), which can never starve, and every pool is
+    capped at that.  ``shared_pages``: read-only pages reserved, in every
+    node whose view spans ``max_len``, for prefilled shared prefixes."""
+
+    page_size: int = 32
+    private_pages: int | None = None
+    shared_pages: int = 0
+
+
 def _layer_state(cfg, kind: str, batch: int, max_len: int, insert_window: int,
-                 lead: tuple, device):
+                 lead: tuple, device, paged: PageSpec | None = None):
     tf.check_kind(kind)
     dt = dtype_of(cfg)
     if kind in tf.ATTN_KINDS:
@@ -126,6 +143,23 @@ def _layer_state(cfg, kind: str, batch: int, max_len: int, insert_window: int,
         # a window inserted at once never overwrites a position its earlier
         # queries still attend to; capped at max_len the ring never wraps.
         s = min(max_len, window + insert_window - 1) if window else max_len
+        if paged is not None:
+            ps = int(paged.page_size)
+            nl = -(-s // ps)                       # logical pages per slot
+            cap = batch * nl
+            private = cap if paged.private_pages is None else min(int(paged.private_pages), cap)
+            # Shared pages exist only where they are immutable: a view that
+            # spans every position never wraps, so pages below a slot's
+            # start length are never written.
+            shared = int(paged.shared_pages) if s == max_len else 0
+            pool = lead + (1 + shared + private, ps, cfg.num_kv_heads, cfg.head_dim)
+            return PagedKVCache(
+                k=torch.zeros(pool, dtype=dt, device=device),
+                v=torch.zeros(pool, dtype=dt, device=device),
+                page_table=torch.full(lead + (batch, nl), -1, dtype=torch.int32,
+                                      device=device),
+                length=torch.zeros(lead + (batch,), dtype=torch.int32, device=device),
+                s_view=s, page_size=ps)
         kv = lead + (batch, cfg.num_kv_heads, s, cfg.head_dim)
         return KVCache(
             k=torch.zeros(kv, dtype=dt, device=device),
@@ -146,28 +180,31 @@ def _layer_state(cfg, kind: str, batch: int, max_len: int, insert_window: int,
     )
 
 
-def init_decode_state(cfg, batch: int, max_len: int, insert_window: int = 1, *,
-                      device=None):
+def init_decode_state(cfg, batch: int, max_len: int, insert_window: int = 1,
+                      paged: PageSpec | None = None, *, device=None):
     """Zeroed decode state on ``device`` (``None``: the card).
     ``insert_window`` is the widest token window any single ``decode_step``
     call will insert: it sizes the local-attention ring slack.  Recurrent
-    states are O(1) in both; their hidden states stay float32 end to end."""
+    states are O(1) in both; their hidden states stay float32 end to end.
+
+    ``paged`` swaps every KV node for a :class:`PagedKVCache` pool of that
+    geometry; page tables start at -1 (nothing mapped)."""
     device = resolve_device(device)
     pattern, n_periods, remainder = tf.plan_groups(cfg)
     scanned = (
-        [_layer_state(cfg, k, batch, max_len, insert_window, (n_periods,), device)
+        [_layer_state(cfg, k, batch, max_len, insert_window, (n_periods,), device, paged)
          for k in pattern]
         if n_periods else None
     )
-    rem = [_layer_state(cfg, k, batch, max_len, insert_window, (), device)
+    rem = [_layer_state(cfg, k, batch, max_len, insert_window, (), device, paged)
            for k in remainder]
     return {"scanned": scanned, "remainder": rem}
 
 
 def state_nodes(state):
-    """Every node (``RecState`` or ``KVCache``) of a decode state: the
-    stacked ones (leaves (L, B, ...)), then the remainder's (leaves
-    (B, ...))."""
+    """Every node (``RecState``, ``KVCache`` or ``PagedKVCache``) of a
+    decode state: the stacked ones (leaves (L, B, ...)), then the
+    remainder's (leaves (B, ...))."""
     return list(state["scanned"] or []) + list(state["remainder"])
 
 
@@ -180,7 +217,7 @@ def decode_state_finite(state) -> torch.Tensor:
     check alone."""
     flags, first_kv = [], None
     for node in state_nodes(state):
-        if isinstance(node, KVCache):
+        if isinstance(node, (KVCache, PagedKVCache)):
             first_kv = node.length if first_kv is None else first_kv
             continue
         stacked = node.conv.ndim - 3           # 1 for (L, B, ...), else 0
@@ -213,14 +250,37 @@ def _checksum_words(leaf: torch.Tensor, batch_axis: int) -> torch.Tensor:
     return (words.sum(dim=dims) if dims else words) & _MASK32
 
 
+def _paged_words(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(B,) sums (mod 2**32) of the words of each slot's mapped pages:
+    ``pool`` (P, ps, Hkv, Dh) gathered through ``table`` (B, NL); an
+    unmapped entry (-1) adds nothing."""
+    per_page = _checksum_words(pool, 0)                                  # (P,)
+    got = per_page[table.long().clamp_min(0)]                            # (B, NL)
+    return torch.where(table >= 0, got, 0).sum(dim=1) & _MASK32
+
+
 def decode_state_checksum(state) -> torch.Tensor:
     """(B,) int64 holding each slot's uint32 wraparound checksum of the
     decode state, bit for bit the reference's ``decode_state_checksum``:
     the sum of the raw words of every per-slot leaf, recurrent states (h,
-    conv) and dense KV caches (contents and lengths).  A flipped bit
+    conv), dense KV caches (contents and lengths) and paged nodes (each
+    slot's mapped pages gathered through its table, a shared page in every
+    slot that maps it, plus the table and length words).  A flipped bit
     leaves a value finite but always moves its slot's sum."""
     sums = []
     for node in state_nodes(state):
+        if isinstance(node, PagedKVCache):
+            stacked = node.k.ndim - 4
+            for pool in (node.k, node.v):
+                if stacked:
+                    sums.append(functools.reduce(torch.add, (
+                        _paged_words(pool[i], node.page_table[i])
+                        for i in range(pool.shape[0]))) & _MASK32)
+                else:
+                    sums.append(_paged_words(pool, node.page_table))
+            sums.append(_checksum_words(node.page_table, node.page_table.ndim - 2))
+            sums.append(_checksum_words(node.length, node.length.ndim - 1))
+            continue
         if isinstance(node, KVCache):
             ax = node.k.ndim - 4
             leaves = ((node.k, ax), (node.v, ax), (node.length, node.length.ndim - 1))
@@ -245,9 +305,9 @@ def _check_ring_slack(cfg, state, t: int, max_len: int | None):
     layers += list(zip(remainder, state["remainder"]))
     window = cfg.attn_window
     for kind, node in layers:
-        if kind != "local" or not isinstance(node, KVCache):
+        if kind != "local" or not isinstance(node, (KVCache, PagedKVCache)):
             continue
-        s_ring = node.k.shape[-2]
+        s_ring = node.s_view if isinstance(node, PagedKVCache) else node.k.shape[-2]
         if s_ring >= window + t - 1 or (max_len is not None and s_ring >= max_len):
             continue
         raise ValueError(

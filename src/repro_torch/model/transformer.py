@@ -104,9 +104,20 @@ def _remat(cfg) -> bool:
     return True
 
 
+def _layer_view(node, p: int):
+    """Period ``p`` of a stacked state node, as views of its tensors."""
+    if isinstance(node, attn_mod.PagedKVCache):
+        return node.layer(p)
+    return type(node)(*(leaf[p] for leaf in node))
+
+
 def _write_back(node, new):
     """Copy a layer's new state into its node of the decode state, leaf by
-    leaf, in place."""
+    leaf, in place.  A paged node's pools were written in place and its
+    table is unchanged: only its lengths are copied."""
+    if isinstance(node, attn_mod.PagedKVCache):
+        node.length.copy_(new.length)
+        return
     for dst, src in zip(node, new):
         dst.copy_(src)
 
@@ -115,9 +126,9 @@ def apply_stack(stack_params, x, cfg, *, positions=None, states=None,
                 token_mask=None):
     """Apply the stacked periods, then the remainder.  Returns
     ``(x, states)``.  With ``states`` each layer's new state (a
-    ``RecState`` or a ``KVCache``) is written into it in place (the
-    reference donates the state to its jit), and the same tree is
-    returned; without, ``(x, None)``."""
+    ``RecState``, ``KVCache`` or ``PagedKVCache``) is written into it in
+    place (the reference donates the state to its jit), and the same tree
+    is returned; without, ``(x, None)``."""
     pattern, n_periods, remainder = plan_groups(cfg)
     periods = [_unstack(tree, n_periods) for tree in stack_params["scanned"] or []]
     if states is None and _remat(cfg):
@@ -138,8 +149,7 @@ def apply_stack(stack_params, x, cfg, *, positions=None, states=None,
         for j, kind in enumerate(pattern):
             st = None
             if states is not None:
-                node = states["scanned"][j]
-                st = type(node)(*(leaf[p] for leaf in node))
+                st = _layer_view(states["scanned"][j], p)
             x, ns = apply_block(periods[j][p], x, cfg, kind, positions=positions,
                                 state=st, token_mask=token_mask)
             if st is not None:

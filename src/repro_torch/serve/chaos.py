@@ -41,7 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.model.attention import KVCache
+from repro_torch.model.attention import KVCache, PagedKVCache
 from repro_torch.model.model import state_nodes
 from repro_torch.model.recurrent import RecState
 
@@ -67,15 +67,32 @@ def _has_rec(state) -> bool:
     return any(isinstance(n, RecState) for n in state_nodes(state))
 
 
+def _last_written(node: PagedKVCache, slot: int):
+    """(flat pool row, mapped) of ``slot``'s most recently written
+    position, as 0-d tensors on the node's device: a page the slot owns
+    (shared prefix pages lie below its start length).  An unmapped
+    position's row is the null page's, and the caller writes nothing
+    there."""
+    stacked = node.page_table.ndim - 2
+    tbl = node.page_table[(0,) * stacked + (slot,)].long()
+    ln = node.length[(0,) * stacked + (slot,)].long()
+    pos = (ln - 1).clamp_min(0) % node.s_view
+    page = tbl[pos // node.page_size]
+    off = pos % node.page_size
+    return page.clamp_min(0) * node.page_size + off, page >= 0
+
+
 def poison_slot_state(state, slot: int):
     """Make ``slot``'s row of ``state`` non-finite, in place; returns
     ``state``.
 
     Recurrent leaves are preferred (every ``RecState``'s ``h`` row).  An
-    attention-only state gets a NaN K row at position 0 of every KV node
-    instead: a global layer attends to it at every later step, so the
-    slot's logits go NaN through the masked softmax.  Neighbours' rows are
-    untouched."""
+    attention-only state gets a NaN K row at position 0 of every dense KV
+    node instead (a global layer attends to it at every later step, so the
+    slot's logits go NaN through the masked softmax), and a paged node a
+    NaN K row at the slot's most recently written position, on a page the
+    slot owns.  Neighbours' rows are untouched.  The paged site is read on
+    the device: no host copy."""
     has_rec = _has_rec(state)
     for node in state_nodes(state):
         if isinstance(node, RecState):
@@ -84,6 +101,11 @@ def poison_slot_state(state, slot: int):
         elif isinstance(node, KVCache) and not has_rec:
             stacked = node.k.ndim - 4
             node.k[(slice(None),) * stacked + (slot, slice(None), 0)] = float("nan")
+        elif isinstance(node, PagedKVCache) and not has_rec:
+            row, mapped = _last_written(node, slot)
+            flat = node.k.view(node.k.shape[:-4] + (-1,) + node.k.shape[-2:])
+            cur = flat[..., row, :, 0]
+            flat[..., row, :, 0] = torch.where(mapped, torch.full_like(cur, float("nan")), cur)
     return state
 
 
@@ -92,9 +114,19 @@ def bitflip_slot_state(state, slot: int):
     returns ``state``.  The value stays finite but wrong, so only the state
     checksum (:func:`repro_torch.model.model.decode_state_checksum`) can
     see it.  The site is the first ``RecState``'s ``h`` when the arch has
-    one, else the first KV node's K; neighbours are untouched."""
+    one, else the first KV node's K: a dense node's element at position 0,
+    a paged node's at the slot's most recently written position (always
+    mapped for an active slot; an unmapped one is left as it is).
+    Neighbours are untouched."""
     has_rec = _has_rec(state)
     for node in state_nodes(state):
+        if isinstance(node, PagedKVCache) and not has_rec:
+            row, mapped = _last_written(node, slot)
+            words = node.k.view(_SAME_SIZE_INT[node.k.element_size()])
+            flat = words.view(words.shape[:-4] + (-1,) + words.shape[-2:])
+            idx = (0,) * (node.k.ndim - 4)
+            flat[idx + (row, 0, 0)] ^= mapped.to(flat.dtype)
+            return state
         if isinstance(node, RecState):
             stacked = node.conv.ndim - 3
             leaf = node.h

@@ -15,8 +15,12 @@ inside the window and re-admitted from its accepted prefix; request
 deadlines, a bounded queue, a dispatch watchdog with retries, and atomic
 snapshots that a later call resumes from.  :class:`ServeSession` is one
 such serve, stepped by the caller; ``serve`` drives it to completion.
-Chaos injection (:mod:`repro_torch.serve.chaos`) drills all of it.  The
-checksum chain, paging and the fleet are not ported yet.
+Chaos injection (:mod:`repro_torch.serve.chaos`) drills all of it.  A
+``paged`` engine stores the KV caches in page pools behind per-slot page
+tables (:mod:`repro_torch.serve.paging`), and admits a request that
+extends a registered prefix (:meth:`ServeEngine.register_prefix`) by
+sharing or copying the prefix's state instead of prefilling it again.
+The checksum chain and the fleet are not ported yet.
 
 Long prompts: with a ``mesh`` (:mod:`repro_torch.launch.mesh`), a prompt
 of at least :data:`SEQ_PREFILL_MIN_T` tokens is prefilled under the
@@ -54,8 +58,9 @@ from repro_torch.core import cost_model
 from repro_torch.ft.watchdog import StepTimeout, StepWatchdog, StragglerDetector, make_lock
 from repro_torch.kernels.common import resolve_device
 from repro_torch.model import model as M
-from repro_torch.model.attention import KVCache
+from repro_torch.model.attention import KVCache, PagedKVCache
 from repro_torch.model.sharding import make_rules, sharding_context
+from repro_torch.serve import paging
 from repro_torch.serve.chaos import DispatchDropped
 
 #: Prompts at/above this length take the sequence-parallel rules when a
@@ -141,6 +146,10 @@ class Request:
     tokens: Any                    # (P,) int prompt token ids
     max_new_tokens: int = 16
     deadline_ms: float | None = None
+    #: Paged engines only: an id from :meth:`ServeEngine.register_prefix`.
+    #: The prompt must extend that prefix; its page-aligned head is
+    #: admitted by sharing or copying the prefix's state, not prefilled.
+    prefix_id: int | None = None
 
 
 #: Terminal per-request outcomes (see :class:`RequestResult`):
@@ -220,8 +229,16 @@ def _reset_slot_rows(state, rows: torch.Tensor):
     KV cache's length goes to 0 and its non-finite entries in those rows
     are scrubbed to 0 (finite stale entries stay: with length 0 the
     positional masks never reach them, but a masked NaN would still poison
-    the weighted sum)."""
+    the weighted sum).  A paged node's rows are unmapped and their lengths
+    zeroed; the pool keeps its contents (pages are shared storage, and a
+    page is scrubbed when it is next mapped)."""
     for node in M.state_nodes(state):
+        if isinstance(node, PagedKVCache):
+            stacked = node.page_table.ndim - 2
+            m = rows.reshape((1,) * stacked + (-1,))
+            node.page_table.masked_fill_(m[..., None], -1)
+            node.length.masked_fill_(m, 0)
+            continue
         if isinstance(node, KVCache):
             stacked = node.k.ndim - 4
             node.length.masked_fill_(rows.reshape((1,) * stacked + (-1,)), 0)
@@ -292,6 +309,13 @@ class ServeEngine:
     (the ``generate`` prompt, a ``serve`` admission bucket) through the
     sequence-parallel rules; its shards must lie on devices of the
     engine's type.
+
+    ``paged`` makes ``serve`` keep its KV caches in page pools with
+    per-slot page tables (:mod:`repro_torch.serve.paging`): ``page_size``
+    tokens a page (a multiple of the 32-token admission bucket),
+    ``pool_pages`` allocatable private pages per pool (``None``: the
+    dense-equivalent count, which never starves).  After a paged serve
+    ``last_paged_stats`` holds its byte accounting and audit result.
     """
 
     cfg: Any
@@ -300,8 +324,18 @@ class ServeEngine:
     decode_window: int = 8
     device: Any = None
     mesh: Any = None
+    paged: bool = False
+    page_size: int = 32
+    pool_pages: int | None = None
 
     def __post_init__(self):
+        if self.paged:
+            if self.page_size < 32 or self.page_size % 32:
+                raise ValueError(
+                    f"page_size must be a positive multiple of the 32-token "
+                    f"admit bucket, got {self.page_size}")
+            if self.mesh is not None:
+                raise NotImplementedError("paged serving does not compose with a mesh yet")
         self.device = resolve_device(self.device)
         emb = self.params["tok"]["embedding"]
         if emb.device.type != self.device.type:
@@ -317,10 +351,69 @@ class ServeEngine:
         self.last_state = None
         self.last_decode_dispatches = 0
         self.last_serve_stats: dict[str, int] = {}
+        self.last_paged_stats: dict[str, int] = {}
+        # Prefix registry: id -> tokens; entries cache the one batch-1
+        # prefill of a prefix's page-aligned head per insert window.
+        self._prefixes: dict[int, np.ndarray] = {}
+        self._prefix_entries: dict = {}
+        self._null_entries: dict = {}
+        self._next_prefix_id = 0
 
-    def _new_state(self, batch: int, insert_window: int):
-        return M.init_decode_state(self.cfg, batch, self.max_len, insert_window,
+    def _new_state(self, batch: int, insert_window: int, paged=None):
+        return M.init_decode_state(self.cfg, batch, self.max_len, insert_window, paged,
                                    device=self.device)
+
+    # ------------------------------------------------------------------
+    # Prefix sharing (paged engines)
+    # ------------------------------------------------------------------
+
+    def register_prefix(self, tokens) -> int:
+        """Register a shared prompt prefix; returns an id for
+        :attr:`Request.prefix_id`.  Its page-aligned head
+        (``floor(len / page_size) * page_size`` tokens) is prefilled once
+        per serve, and every request carrying the id is admitted by
+        sharing its KV pages (nodes that never wrap) or copying its ring
+        content and recurrent states (wrapping local rings, WKV S, RG-LRU
+        h) instead of prefilling those tokens.  Prompts must extend it."""
+        if not self.paged:
+            raise ValueError("prefix sharing requires a paged engine")
+        toks = np.asarray(tokens, np.int64).reshape(-1)
+        if toks.size < self.page_size:
+            raise ValueError(f"prefix of {toks.size} tokens is shorter than one "
+                             f"{self.page_size}-token page: nothing to share")
+        if toks.size >= self.max_len:
+            raise ValueError(f"prefix of {toks.size} tokens leaves no room to decode "
+                             f"within max_len={self.max_len}")
+        pid = self._next_prefix_id
+        self._next_prefix_id += 1
+        self._prefixes[pid] = toks
+        return pid
+
+    def _prefix_entry(self, pid: int, insert_window: int):
+        """(start_len, recurrent nodes, per-KV-node dense (k, v) views) of
+        a registered prefix: one batch-1 dense prefill of its page-aligned
+        head, cached per (prefix, insert window), which every admission of
+        the prefix copies from."""
+        key = (pid, insert_window)
+        ent = self._prefix_entries.get(key)
+        if ent is None:
+            toks = self._prefixes[pid]
+            start = (toks.size // self.page_size) * self.page_size
+            st = self._new_state(1, insert_window)
+            head = torch.from_numpy(toks[:start]).to(self.device)[None]
+            self._prefill(self.params, st, head)
+            rec, kv = paging.split_entry(st)
+            ent = self._prefix_entries[key] = (start, rec, kv)
+        return ent
+
+    def _null_entry(self, insert_window: int):
+        """Zero prefix-entry operands for an admission that carries no
+        prefix (every use is gated on its prefix rows)."""
+        ent = self._null_entries.get(insert_window)
+        if ent is None:
+            ent = self._null_entries[insert_window] = paging.split_entry(
+                self._new_state(1, insert_window))
+        return ent
 
     # ------------------------------------------------------------------
     # Lockstep generation
@@ -516,11 +609,14 @@ class ServeEngine:
 
     # -- snapshot / restore ----------------------------------------------
 
-    @staticmethod
-    def _serve_meta(b, k_w, insert_window, n, seed):
+    def _serve_meta(self, b, k_w, insert_window, n, seed, ctl):
         """A snapshot's compatibility vector: a restore must re-run the same
-        serve, so everything that shapes its state and streams is pinned."""
-        return np.asarray([b, k_w, insert_window, n, seed], np.int64)
+        serve, so everything that shapes its state and streams is pinned,
+        paging included."""
+        return np.asarray(
+            [b, k_w, insert_window, n, seed, int(ctl is not None), self.page_size,
+             -1 if self.pool_pages is None else int(self.pool_pages),
+             0 if ctl is None else ctl.shared_total], np.int64)
 
     def _snapshot_serve(self, sess: "ServeSession"):
         """Save ``sess`` as ONE atomic tree: device state, slot table,
@@ -534,6 +630,10 @@ class ServeEngine:
         out_off = np.zeros(sess.n + 1, np.int64)
         for i, o in enumerate(sess.outputs):
             out_off[i + 1] = out_off[i] + len(o)
+        # The controller's owner arrays and high-water mark ride the same
+        # atomic tree; the device page tables are in ``state``.
+        pg = {} if sess.ctl is None else {
+            "pg_" + k: v for k, v in sess.ctl.snapshot_tree().items()}
         tree = {
             "device": {
                 "state": sess.state, "cur": sess.cur, "lengths": sess.lengths,
@@ -552,9 +652,10 @@ class ServeEngine:
                 "recoveries": np.asarray(sess.recoveries, np.int64),
                 "corruptions": np.asarray(sess.corruptions, np.int64),
                 "stats": np.asarray([sess.stats[k] for k in SERVE_STAT_KEYS], np.int64),
+                **pg,
             },
             "meta": self._serve_meta(sess.b, sess.k_w, sess.insert_window, sess.n,
-                                     sess.seed),
+                                     sess.seed, sess.ctl),
         }
         step = sess.stats["decode_dispatches"]
         if sess.saver is not None:
@@ -575,12 +676,15 @@ class ServeEngine:
             meta = data["meta"]
             host = {k.split("/", 1)[1]: data[k] for k in data.files
                     if k.startswith("host/")}
-        want = self._serve_meta(sess.b, sess.k_w, sess.insert_window, sess.n, sess.seed)
+        want = self._serve_meta(sess.b, sess.k_w, sess.insert_window, sess.n, sess.seed,
+                                sess.ctl)
         if not np.array_equal(meta, want):
             raise ValueError(
                 f"snapshot meta {meta.tolist()} does not match this serve call "
                 f"{want.tolist()}: a restore needs the same requests, slots, "
-                "decode_window and seed")
+                "decode_window, seed and paging config")
+        if sess.ctl is not None:
+            sess.ctl.restore({k[3:]: v for k, v in host.items() if k.startswith("pg_")})
         template = {"device": {
             "state": sess.state, "cur": sess.cur, "lengths": sess.lengths,
             "counts": sess.counts, "budgets": sess.budgets,
@@ -614,9 +718,14 @@ class ServeSession:
     table that it alone writes.  Deadlines count on ``clock`` from the
     session's creation; ``saver`` (an
     :class:`~repro_torch.checkpoint.checkpoint.AsyncSaver`) moves snapshot
-    writes off the dispatch path.  The reference's ``external`` mode,
-    shared clock origin, ``enqueue_handoff`` and checksum chain belong to
-    the fleet, which is not ported yet.
+    writes off the dispatch path.  On a paged engine the session owns a
+    :class:`~repro_torch.serve.paging.PagedController`: an admission waits
+    at the head of the queue while the pool is short of pages
+    (``page_waits``), a request no empty pool could hold is shed, and
+    :meth:`close` audits the page tables into the engine's
+    ``last_paged_stats``.  The reference's ``external`` mode, shared clock
+    origin, ``enqueue_handoff`` and checksum chain belong to the fleet,
+    which is not ported yet.
     """
 
     @torch.inference_mode()
@@ -657,11 +766,31 @@ class ServeSession:
         self.stats = dict.fromkeys(SERVE_STAT_KEYS, 0)
         #: Requests that reached a terminal outcome, in completion order.
         self.newly_done: collections.deque[int] = collections.deque()
+        ps = int(eng.page_size)
+        #: Per request: its prefix id and the start length its admission
+        #: prefills from (None and 0 without a prefix).
+        self.pid_of: list[int | None] = [None] * n
+        self.start_of = [0] * n
         for i, (r, p) in enumerate(zip(self.reqs, self.prompts)):
             if p.size < 1:
                 raise ValueError("request prompt must be non-empty")
             if int(r.max_new_tokens) < 1:
                 raise ValueError("max_new_tokens must be >= 1")
+            pid = getattr(r, "prefix_id", None)
+            if pid is not None:
+                if not eng.paged:
+                    raise ValueError("Request.prefix_id requires a paged engine")
+                pre = eng._prefixes.get(pid)
+                if pre is None:
+                    raise ValueError(f"unknown prefix id {pid}")
+                if p.size < pre.size or not np.array_equal(p[:pre.size], pre):
+                    raise ValueError(f"request {i}: prompt does not extend registered "
+                                     f"prefix {pid}")
+                start = (pre.size // ps) * ps
+                if p.size > start:
+                    self.pid_of[i], self.start_of[i] = pid, start
+                # Else the prompt is the page-aligned prefix itself, with no
+                # suffix token to prefill from: it is admitted cold.
             if p.size + int(r.max_new_tokens) > eng.max_len:
                 self._end(i, "shed", "shed")
         live = [i for i in range(n) if self.outcomes[i] is None]
@@ -676,7 +805,11 @@ class ServeSession:
                                               if recoverable else 0) for i in live),
                     default=1)
         self.insert_window = max(self.k_w, _bucket32(worst))
-        self.state = eng._new_state(b, self.insert_window)
+        self.ctl = None
+        if eng.paged:
+            self._paged_setup(live)
+        else:
+            self.state = eng._new_state(b, self.insert_window)
         dev = eng.device
         zeros = lambda dt: torch.zeros(b, dtype=dt, device=dev)  # noqa: E731
         self.lengths = zeros(torch.int64)
@@ -685,7 +818,7 @@ class ServeSession:
         self.req_ids = zeros(torch.int64)
         self.active = zeros(torch.bool)
         self.cur = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-        self.pending = collections.deque(live)
+        self.pending = collections.deque(i for i in live if self.outcomes[i] is None)
         self.recover_q: collections.deque[int] = collections.deque()
         self.slot_req = [-1] * b
         self.active_np = np.zeros(b, bool)
@@ -709,6 +842,31 @@ class ServeSession:
         # Host mirrors (copies: on the CPU ``.numpy()`` would alias the tensors).
         self._budgets_np = self.budgets.cpu().numpy().copy()
         self._req_ids_np = self.req_ids.cpu().numpy().copy()
+
+    def _paged_setup(self, live):
+        """The paged state and its controller: one shared-page region per
+        registered prefix in use (each prefix's aligned head prefilled once,
+        cached on the engine, and written into every "share" pool before
+        any admission); a request no empty pool could hold is shed."""
+        eng, ps = self.eng, int(self.eng.page_size)
+        shared_map, entries, nxt = {}, {}, 1
+        for pid in sorted({self.pid_of[i] for i in live if self.pid_of[i] is not None}):
+            start, rec, kv = eng._prefix_entry(pid, self.insert_window)
+            shared_map[pid] = (nxt, start // ps)
+            nxt += start // ps
+            entries[pid] = (rec, kv)
+        spec = M.PageSpec(page_size=ps, private_pages=eng.pool_pages, shared_pages=nxt - 1)
+        self.state = eng._new_state(self.b, self.insert_window, spec)
+        self.ctl = paging.PagedController(eng.cfg, self.state, batch=self.b,
+                                          max_len=eng.max_len, shared_map=shared_map)
+        if entries:
+            paging.upload_shared(self.state, self.ctl, entries)
+        for i in live:
+            if not self.ctl.fits_capacity(
+                    self.prompts[i].size + int(self.reqs[i].max_new_tokens), self.start_of[i]):
+                # More private pages than the pool ever has: waiting cannot
+                # help, so shed it rather than deadlock.
+                self._end(i, "shed", "shed")
 
     # -- queue interface ---------------------------------------------------
 
@@ -763,6 +921,8 @@ class ServeSession:
 
     def _free_slot(self, slot):
         self.slot_req[slot] = -1
+        if self.ctl is not None:
+            self.ctl.free_slot(slot)
 
     def _set_active(self):
         self.active = torch.from_numpy(self.active_np.copy()).to(self.eng.device)
@@ -809,48 +969,119 @@ class ServeSession:
             max_retries=self.max_retries, backoff_s=self.backoff_s,
             index=self.stats["decode_dispatches"])
 
+    def _take(self, free):
+        """Pop the requests to admit into ``free`` slots, head of the
+        queues first (recoveries before new requests).  On a paged engine
+        each reserves its pages first: the head waits while the pool is
+        short (``page_waits``; it is never skipped), and one admission
+        carries at most one prefix.  Returns (requests, their table and
+        scrub rows by slot, the admission's prefix id or None)."""
+        ctl = self.ctl
+        take: list[int] = []
+        alloc: dict[int, tuple] = {}
+        group_pid = None
+        while len(take) < len(free) and (self.recover_q or self.pending):
+            q = self.recover_q if self.recover_q else self.pending
+            ri = q[0]
+            if ctl is not None:
+                pid = self.pid_of[ri]
+                if pid is not None:
+                    if group_pid is None:
+                        group_pid = pid
+                    elif pid != group_pid:
+                        break                     # a second prefix waits a round
+                got = ctl.try_admit(free[len(take)],
+                                    self.prompts[ri].size + int(self.reqs[ri].max_new_tokens),
+                                    pid, self.start_of[ri])
+                if got is None:
+                    self.stats["page_waits"] += 1
+                    break
+                alloc[free[len(take)]] = got
+            q.popleft()
+            take.append(ri)
+        return take, alloc, group_pid
+
+    def _paging_operands(self, used, alloc, group_pid, start_np):
+        """The paged admission's device operands.  Every node's table and
+        scrub rows, the start lengths and the prefix rows go to the device
+        in one copy; the prefix entry (or the zero entry) is already
+        there."""
+        ctl, b = self.ctl, self.b
+        blocks = [start_np.astype(np.int32), (start_np > 0).astype(np.int32)]
+        for i, g in enumerate(ctl.geoms):
+            rows = np.full((2, b, g.nl), -1, np.int32)
+            for slot in used:
+                rows[0, slot], rows[1, slot] = alloc[slot][0][i], alloc[slot][1][i]
+            blocks.append(rows.reshape(-1))
+        packed = torch.from_numpy(np.concatenate(blocks)).to(self.eng.device)
+        start, prefix_rows = packed[:b], packed[b:2 * b].bool()
+        tables, scrubs, off = [], [], 2 * b
+        for g in ctl.geoms:
+            n = b * g.nl
+            tables.append(packed[off:off + n].view(b, g.nl))
+            scrubs.append(packed[off + n:off + 2 * n].view(b, g.nl))
+            off += 2 * n
+        if group_pid is not None:
+            _, rec, kv = self.eng._prefix_entry(group_pid, self.insert_window)
+        else:
+            rec, kv = self.eng._null_entry(self.insert_window)
+        ring = [kv[i] for i, role in enumerate(ctl.roles) if role == "copy"]
+        return start, prefix_rows, tables, scrubs, rec, ring
+
     def _admit(self):
         """Prefill the head of the queues (recoveries first) into the free
         slots with one masked window.  A recovery's prompt is its original
         prompt plus its accepted tokens, and it samples on at token index
-        n, the number accepted."""
+        n, the number accepted.  On a paged engine only the suffix past a
+        request's prefix start is prefilled, from that start: the prefix
+        rides in as shared pages and copied state."""
         eng, b, dev = self.eng, self.b, self.eng.device
         free = [i for i in range(b) if not self.active_np[i]]
-        take = []
-        while len(take) < len(free) and (self.recover_q or self.pending):
-            take.append((self.recover_q or self.pending).popleft())
+        take, alloc, group_pid = self._take(free)
         if not take:
             return
         used = free[: len(take)]
         full = {ri: np.concatenate([self.prompts[ri], np.asarray(self.outputs[ri], np.int64)])
                 for ri in take}
-        p_b = _bucket32(max(full[ri].size for ri in take))
+        p_b = _bucket32(max(full[ri].size - self.start_of[ri] for ri in take))
         tok_np = np.zeros((b, p_b), np.int64)
         admit_np = np.zeros(b, bool)
         plen_np = np.zeros(b, np.int64)
         tokidx_np = np.zeros(b, np.int64)
+        start_np = np.zeros(b, np.int64)
         for slot, ri in zip(used, take):
-            tok_np[slot, : full[ri].size] = full[ri]
+            sfx = full[ri][self.start_of[ri]:]
+            tok_np[slot, : sfx.size] = sfx
             admit_np[slot] = True
-            plen_np[slot] = full[ri].size
+            plen_np[slot] = sfx.size
+            start_np[slot] = self.start_of[ri]
             tokidx_np[slot] = len(self.outputs[ri])
             self._budgets_np[slot] = int(self.reqs[ri].max_new_tokens)
             self._req_ids_np[slot] = ri
             self.slot_req[slot] = ri
+            if self.start_of[ri] > 0:
+                self.stats["prefix_admissions"] += 1
         up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         self.budgets, self.req_ids = up(self._budgets_np.copy()), up(self._req_ids_np.copy())
         tokens, admit_row, plen, tok_idx = up(tok_np), up(admit_np), up(plen_np), up(tokidx_np)
+        pg = None if self.ctl is None else self._paging_operands(used, alloc, group_pid,
+                                                                 start_np)
 
         def admit():
             _reset_slot_rows(self.state, admit_row)
+            start = 0
+            if pg is not None:
+                start, prefix_rows, tables, scrubs, rec, ring = pg
+                paging.apply_admission(self.state, self.ctl.roles, admit_row, prefix_rows,
+                                       start, tables, scrubs, rec, ring)
             mask = admit_row[:, None] & (torch.arange(p_b, device=dev)[None, :] < plen[:, None])
             with _prefill_rules(eng.mesh, p_b):
-                logits, _ = M.decode_step(eng.params, eng.cfg, self.state, tokens, 0,
+                logits, _ = M.decode_step(eng.params, eng.cfg, self.state, tokens, start,
                                           token_mask=mask, last_only=True,
                                           max_len=eng.max_len)
             tok0 = _sample_tokens(logits[:, -1], self.seed, self.req_ids, tok_idx,
                                   self.temperature, self.top_k)
-            lengths = torch.where(admit_row, plen, self.lengths)
+            lengths = torch.where(admit_row, plen + start, self.lengths)
             counts = torch.where(admit_row, tok_idx + 1, self.counts)
             done = counts >= self.budgets
             if self.eos_id is not None:
@@ -990,6 +1221,16 @@ class ServeSession:
             self.saver.wait()
         self.eng.last_serve_stats = self.stats
         self.eng.last_state = self.state
+        if self.ctl is not None:
+            self.ctl.audit(self.state, self.active_np, self.slot_req)
+            self.eng.last_paged_stats = {
+                "page_size": int(self.eng.page_size),
+                "shared_pages": self.ctl.shared_total,
+                "pool_bytes": self.ctl.pool_bytes(),
+                "dense_bytes": self.ctl.dense_bytes(),
+                "peak_mapped_bytes": self.ctl.peak_mapped_bytes,
+                "page_table_violations": len(self.ctl.violations),
+            }
 
     def results(self) -> list[RequestResult]:
         for i in range(self.n):
