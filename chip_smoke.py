@@ -111,6 +111,26 @@ Phases (any failure raises and exits non-zero, with no result line):
    step); the reduced f32 rwkv6, gemma3 and recurrentgemma paged against
    dense, warm against cold and under a NaN on the paged engine, every
    stream equal to the others and to the same run on the CPU;
+3k. the replica fleet (``serve/fleet.py``), replica health and the checksum
+   chain: full-size rwkv6-1.6b (bf16, phase 3's weights and requests) on
+   three engines sharing one params tree, 2 slots each, K=8, a snapshot
+   every window and the chain every 2, each run's WKV launch counts derived
+   beforehand from the same schedule run on the CPU at reduced size and
+   held exactly; (a) fault-free against one recoverable engine on 2 slots:
+   0 deaths, 0 handoffs, 6 assignments, every stream admitted at the single
+   engine's window length bit-identical to it (the others' equal prefixes
+   printed: bf16 GEMMs of another shape), tok/s of both over alternating
+   pairs, and the same weights in f32 with every stream equal; (b) the drill on replica 1, a
+   bit flip before window 1 and a kill after window 2: the flip detected,
+   one death, a handoff, replica 1 dead with its state dropped, clean
+   outcomes, every untouched request bit-identical to (a)'s fleet, the time
+   from the kill to the last handed-off request's completion; (c) the
+   chain's cost: one engine's serve with the chain every 2 windows against
+   off in alternating repetitions (quartiles), and a checksum's device and
+   host time; then the reduced f32 rwkv6 (fault-free, kill and bit-flip
+   fleets) and paged gemma3 (kill) against their single engines and the
+   CPU, every stream exact, and ``run_drill`` of the reduced rwkv6 on the
+   card under 2 forced schedules;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -443,6 +463,10 @@ def main():
         launches[name] = launches.get(name, 0) + n
     del g3_params
     torch.cuda.empty_cache()
+
+    # ---- 3k. the replica fleet, the checksum chain, the interleaving drill --
+    for name, n in _fleet_serving(torch, np).items():
+        launches[name] = launches.get(name, 0) + n
 
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
@@ -2291,6 +2315,415 @@ def _paged_serving(torch, np, g3_params, k_w=8, slots=4, max_len=1024):
         print(f"[paged] reduced f32 {arch} on the card: paged = dense, warm = cold, the "
               f"NaN drill's streams = fault-free, each equal to the CPU's run: True")
     return total
+
+
+# ---------------------------------------------------------------------------
+# The replica fleet, the checksum chain and the interleaving drill (phase 3k).
+# ---------------------------------------------------------------------------
+
+#: Phase 3k's drill on replica 1: a bit flip before window 1, a kill after
+#: window 2 (at K=8 replica 1 has finished its two requests by window 3).
+FLEET_FLIP_AT, FLEET_KILL_AT = 1, 2
+
+
+def _fleet_drill_chaos(replicas):
+    from repro_torch.serve.chaos import ChaosInjector
+
+    chaos = [None] * replicas
+    chaos[1] = ChaosInjector(seed=0, bitflip_at=(FLEET_FLIP_AT,),
+                             replica_kill_at=(FLEET_KILL_AT,))
+    return chaos
+
+
+def _fleet_run(torch, engines, reqs, root, *, chaos=None, slots=2, **kw):
+    """A ``FleetRouter`` over ``engines`` driven round by round (its
+    ``run``, with each request's completion time recorded), snapshots every
+    window under ``root``, the chain every 2 windows.  Returns (router,
+    results, seconds, {request: completion time}, [(kill time, handed-off
+    requests)])."""
+    from repro_torch.serve.fleet import FleetRouter
+
+    fl = FleetRouter(engines, reqs, slots=slots, snapshot_every=1, snapshot_root=root,
+                     checksum_every=2, chaos=chaos, **kw)
+    deaths, done_at = [], {}
+    real = fl._handoff
+
+    def handoff(victim, reason):
+        t = time.perf_counter()
+        mine = [ri for ri in range(fl.n) if fl.assigned[ri] == victim]
+        real(victim, reason)
+        deaths.append((t, [ri for ri in mine if fl.assigned[ri] == -1]))
+
+    fl._handoff = handoff
+    t0 = time.perf_counter()
+    try:
+        while not fl.done:
+            fl.step_round()
+            now = time.perf_counter()
+            for ri, r in enumerate(fl.record):
+                if r is not None and ri not in done_at:
+                    done_at[ri] = now
+            if fl.stats["rounds"] > 64:
+                raise SystemExit("fleet: no end after 64 rounds")
+    finally:
+        fl.close()
+    torch.cuda.synchronize()
+    return fl, fl.results(), time.perf_counter() - t0, done_at, deaths
+
+
+def _admission_windows(fn):
+    """``fn()`` with the padded length of every admission window recorded
+    per request: (result, {request: [window length, ...]}).  In bf16 on the
+    card a request's tokens depend on that length (the prefill's GEMMs run
+    at M = slots x length, and cuBLAS picks its kernel, and with it the
+    summation order, by shape), so streams compare bit for bit only between
+    runs that admitted the request at the same shape."""
+    from collections import defaultdict
+
+    from repro_torch.serve import engine as E
+
+    seen = defaultdict(list)
+    real = E.ServeSession._take
+
+    def take(self, free):
+        out = real(self, free)
+        if out[0]:
+            p_b = E._bucket32(max(self.prompts[ri].size + len(self.outputs[ri])
+                                  - self.start_of[ri] for ri in out[0]))
+            for ri in out[0]:
+                seen[ri].append(p_b)
+        return out
+
+    E.ServeSession._take = take
+    try:
+        return fn(), dict(seen)
+    finally:
+        E.ServeSession._take = real
+
+
+def _gemm_rows(torch, params, pairs=((24, 32), (32, 64), (1, 8))):
+    """Which of the model's GEMMs give a row bits that depend on the other
+    rows: for each distinct weight shape (one layer's and the unembedding),
+    x[:, :a] @ w against the first a rows of x @ w for x of (2, b, K), per
+    (a, b) in ``pairs`` (the admission windows 32 and 64, a decode step).
+    Returns {(K, N): (weight name, [(a, b) pairs whose rows differ])}."""
+    def walk(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from walk(v, f"{path}/{k}")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from walk(v, f"{path}/{i}")
+        elif tree is not None:
+            yield path, tree
+
+    found = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.inference_mode():
+        for path, w in walk(params):
+            name = path.rsplit("/", 1)[-1]
+            w = w[0] if w.dim() == 3 else w
+            matrix = name == "unembed" or (name.startswith("w_") and not name.endswith("_base"))
+            if not matrix or tuple(w.shape) in found:
+                continue
+            bad = []
+            for a, b in pairs:
+                x = torch.randn(2, b, w.shape[0], device="cuda", generator=gen).to(w.dtype)
+                if not torch.equal(x[:, :a].contiguous() @ w, (x @ w)[:, :a]):
+                    bad.append((a, b))
+            found[tuple(w.shape)] = (name, bad)
+    return found
+
+
+def _fleet_schedule(np, reqs, chaos, k_w, slots=2, replicas=3):
+    """The schedule of a fleet run, taken from the same run on the CPU at
+    reduced size: requests of the same lengths and budgets (no EOS) give
+    the same admissions, windows, corruptions and handoffs whatever the
+    weights.  Returns the per-replica (admissions, windows)."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.fleet import FleetRouter
+
+    cfg = get_config("rwkv6-1.6b").reduced()
+    params = M.init_params(cfg, seed=0, device="cpu")
+    small = [Request(tokens=np.asarray(r.tokens) % cfg.vocab_size,
+                     max_new_tokens=r.max_new_tokens) for r in reqs]
+    engines = [ServeEngine(cfg, params, max_len=512, decode_window=k_w, device="cpu")
+               for _ in range(replicas)]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as root:
+        fl = FleetRouter(engines, small, slots=slots, snapshot_every=1, snapshot_root=root,
+                         checksum_every=2, chaos=chaos)
+        fl.run()
+    return [(s["admissions"], s["decode_dispatches"]) for s in fl.stats_by_replica()]
+
+
+def _fleet_serving(torch, np, k_w=8, slots=2, replicas=3, chain_reps=8, fleet_reps=6):
+    """Phase 3k: the replica fleet, the checksum chain and the interleaving
+    drill on the card.
+
+    Full-size rwkv6-1.6b (bf16, phase 3's weights and 6 ragged requests):
+    three engines sharing one params tree, 2 slots each, K=8, a snapshot
+    every window (``snapshot_every`` 1), the chain every 2 windows.  The
+    WKV launch counts of each fleet run are derived before it from the same
+    schedule run on the CPU at reduced size (24 window launches an
+    admission, 24 x 8 decode-step launches a window, no chunked launch) and
+    held exactly.  (a) Fault-free, against one recoverable engine on 2
+    slots: 0 deaths, 0 handoffs, 6 assignments; every stream admitted at
+    the single engine's window length bit-identical to it (in bf16 a
+    request's tokens depend on that length, see
+    :func:`_admission_windows`; the others' equal prefixes printed), and
+    the same weights in f32 with every stream equal; tok/s of both over
+    alternating pairs.  (b) The drill on replica 1 (a bit flip before window 1, a
+    kill after window 2): the chain detects the flip, one death, a
+    handoff, replica 1 dead, clean outcomes, every request neither handed
+    off nor recovered bit-identical to (a)'s fleet (admitted as there),
+    the others' equal prefixes printed; the time from the kill to the last handed-off
+    request's completion.  (c) The chain's cost: the single engine's serve
+    with ``checksum_every`` 2 against 0, alternating, medians and
+    quartiles.  Then the reduced f32 rwkv6 (fault-free fleet, kill drill,
+    bit-flip drill) and paged gemma3 (kill drill) on the card against the
+    CPU, every stream exact; and ``run_drill`` of the reduced rwkv6 on the
+    card, 2 forced schedules bit-identical to its baseline.  Returns the
+    launch counts of the two full-size fleet runs."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.serve import health as H
+    from repro_torch.serve import interleave as I
+    from repro_torch.serve.chaos import ChaosInjector
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    counters = _counters()
+    none = dict.fromkeys(counters, 0)
+    total = dict(none)
+    cfg = get_config("rwkv6-1.6b")
+    layers = cfg.num_layers
+    params = M.init_params(cfg, seed=0, device="cuda")
+    reqs = _g3_requests(np.random.default_rng(0), cfg.vocab_size)
+    single = ServeEngine(cfg, params, max_len=512, decode_window=k_w)
+    engines = [ServeEngine(cfg, params, max_len=512, decode_window=k_w)
+               for _ in range(replicas)]
+    with torch.inference_mode():
+        single.serve(reqs[:1], slots=slots)                   # warm-up
+
+    def derived(schedule):
+        adm = sum(a for a, _ in schedule)
+        win = sum(w for _, w in schedule)
+        return {**none, "wkv_decode_window_cuda": layers * adm,
+                "wkv_decode_cuda": layers * k_w * win}
+
+    def held(what, got, want):
+        print(f"[fleet] {what} launches {_nonzero(got)}, derived {_nonzero(want)}")
+        if got != want:
+            raise SystemExit(f"fleet: {what} launches {got} != derived {want}")
+        for n, c in got.items():
+            total[n] += c
+
+    # (a) fault-free fleet against one recoverable engine.
+    want_a = derived(_fleet_schedule(np, reqs, None, k_w, slots, replicas))
+    (base, dt_single, _), win_single = _admission_windows(lambda: _counted(
+        torch, counters, lambda: single.serve(reqs, slots=slots, recoverable=True)))
+    st_single = dict(single.last_serve_stats)
+    build = ROOT / "build"
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        for c in counters.values():
+            c.launches = 0
+        (fl, outs, dt_fleet, _, _), win_fleet = _admission_windows(
+            lambda: _fleet_run(torch, engines, reqs, root, slots=slots))
+        got = {n: c.launches for n, c in counters.items()}
+    fleet_a = outs
+    emitted = sum(r.size for r in outs)
+    per = fl.stats_by_replica()
+    print(f"[fleet] rwkv6 fault-free fleet ({replicas} replicas x {slots} slots, K={k_w}, "
+          f"snapshot every window, chain every 2): {emitted} tokens in {dt_fleet:.3f}s, "
+          f"{emitted / dt_fleet:.1f} tok/s; {fl.stats}; per replica (admissions, windows, "
+          f"snapshots, spot checks) {[(s['admissions'], s['decode_dispatches'], s['snapshots'], s['checksum_spot_checks']) for s in per]}")
+    print(f"[fleet] rwkv6 single recoverable engine ({slots} slots): "
+          f"{sum(r.size for r in base)} tokens in {dt_single:.3f}s, "
+          f"{sum(r.size for r in base) / dt_single:.1f} tok/s; admissions "
+          f"{st_single['admissions']}, windows {st_single['decode_dispatches']}")
+    held("fault-free fleet", got, want_a)
+    diff = _victims(np, base, outs)
+    same_shape = [i for i in range(len(reqs)) if win_single[i] == win_fleet[i]]
+    print(f"[fleet] rwkv6 admission windows per request, single engine {win_single}, fleet "
+          f"{win_fleet}; requests differing from the single engine (index, equal prefix): "
+          f"{diff}")
+    if any(i in same_shape for i, _ in diff) or any(r.outcome != "ok" for r in outs):
+        raise SystemExit(f"fleet: a fault-free stream admitted at the single engine's shape "
+                         f"differs (index, equal prefix): {diff}; {[r.outcome for r in outs]}")
+    if (fl.stats["replica_deaths"], fl.stats["handoffs"], fl.stats["assignments"]) != (0, 0, 6):
+        raise SystemExit(f"fleet: fault-free stats {fl.stats}")
+    print(f"[fleet] rwkv6 fault-free fleet: every stream admitted at the single engine's "
+          f"shape ({same_shape}) equal to it")
+    print(f"[fleet] bf16 GEMMs whose rows depend on M ((K, N): name, (a, b) pairs where a "
+          f"(2, a) batch's rows differ from those of (2, b)): {_gemm_rows(torch, params)}")
+    # tok/s of the fleet against the single engine, in alternating turns.
+    rates = {"single": [], "fleet": []}
+    for rep in range(fleet_reps):
+        for side in (("single", "fleet") if rep % 2 == 0 else ("fleet", "single")):
+            if side == "single":
+                res, dt, _ = _counted(torch, counters, lambda: single.serve(
+                    reqs, slots=slots, recoverable=True))
+            else:
+                with tempfile.TemporaryDirectory(dir=build) as root:
+                    _, res, dt, _, _ = _fleet_run(torch, engines, reqs, root, slots=slots)
+            rates[side].append(sum(r.size for r in res) / dt)
+    qs = {k: np.percentile(v, [25, 50, 75]).round(2).tolist() for k, v in rates.items()}
+    print(f"[fleet] rwkv6 tok/s over {fleet_reps} alternating pairs: fleet quartiles "
+          f"{qs['fleet']}, single engine {qs['single']}; median ratio "
+          f"{qs['fleet'][1] / qs['single'][1]:.3f}; fleet faster in "
+          f"{sum(f > g for f, g in zip(rates['fleet'], rates['single']))} of {fleet_reps}")
+
+    # (a') the same weights in f32 (TF32 off): every stream equal.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = M.init_params(cfg32, seed=0, device="cuda")
+    e32 = [ServeEngine(cfg32, p32, max_len=512, decode_window=k_w) for _ in range(replicas + 1)]
+    with torch.inference_mode():
+        base32 = e32[0].serve(reqs, slots=slots, recoverable=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        _, outs32, dt32, _, _ = _fleet_run(torch, e32[1:], reqs, root, slots=slots)
+    diff32 = _victims(np, base32, outs32)
+    print(f"[fleet] rwkv6 f32 (the same weights, TF32 off) fault-free fleet in {dt32:.3f}s: "
+          f"requests differing from the f32 single engine (index, equal prefix): {diff32}; "
+          f"bf16 against f32 equal prefixes, single engine "
+          f"{[_shared_prefix(np, a, b) for a, b in zip(base, base32)]}")
+    if diff32:
+        raise SystemExit("fleet: f32 fleet streams differ from the f32 single engine")
+    del e32, p32
+    torch.cuda.empty_cache()
+
+    # (b) the drill: a bit flip and a kill on replica 1.
+    want_b = derived(_fleet_schedule(np, reqs, _fleet_drill_chaos(replicas), k_w, slots,
+                                     replicas))
+    chaos = _fleet_drill_chaos(replicas)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        for c in counters.values():
+            c.launches = 0
+        fl, outs, dt, done_at, deaths = _fleet_run(torch, engines, reqs, root, chaos=chaos,
+                                                   slots=slots)
+        got = {n: c.launches for n, c in counters.items()}
+    per = fl.stats_by_replica()
+    handed = sorted({ri for _, h in deaths for ri in h})
+    touched = [i for i, r in enumerate(outs) if i in handed or r.recoveries]
+    print(f"[fleet] rwkv6 drill (flip before window {FLEET_FLIP_AT}, kill after window "
+          f"{FLEET_KILL_AT}, replica 1): {dt:.3f}s; events {chaos[1].events}; {fl.stats}; "
+          f"corruptions per replica {[s['corruptions'] for s in per]}; monitors "
+          f"{[m.state for m in fl.monitors]}; outcomes {[r.outcome for r in outs]}; handed "
+          f"off {handed}")
+    held("drill fleet", got, want_b)
+    if per[1]["corruptions"] < 1 or fl.stats["replica_deaths"] != 1 or (
+            fl.stats["handoffs"] + fl.stats["handoff_requeued_fresh"]) < 1:
+        raise SystemExit(f"fleet: drill counts {fl.stats}, corruptions "
+                         f"{[s['corruptions'] for s in per]}")
+    if fl.monitors[1].state != H.DEAD or fl.sessions[1].state is not None:
+        raise SystemExit("fleet: replica 1 not dead or its state not dropped")
+    if any(r.outcome not in ("ok", "eos", "recovered") for r in outs):
+        raise SystemExit(f"fleet: unclean outcomes {[r.outcome for r in outs]}")
+    # The untouched requests were admitted as in (a)'s fleet: held to it.
+    diff = _victims(np, fleet_a, outs)
+    if any(i not in touched for i, _ in diff):
+        raise SystemExit(f"fleet: an untouched request diverged (index, equal prefix): {diff}")
+    t_kill = deaths[0][0]
+    print(f"[fleet] rwkv6 drill: untouched requests bit-identical to the fault-free fleet; "
+          f"handed-off or recovered (index, equal prefix with the fault-free fleet, with the "
+          f"single engine, tokens): "
+          f"{[(i, _shared_prefix(np, fleet_a[i], outs[i]), _shared_prefix(np, base[i], outs[i]), base[i].size) for i in touched]}"
+          f"; against the single engine (index, equal prefix): {_victims(np, base, outs)}; "
+          f"kill to the last handed-off request's completion "
+          f"{max(done_at[i] for i in handed) - t_kill:.3f}s")
+
+    # (c) the chain's cost: one engine, checksum_every 2 against 0.
+    times = {0: [], 2: []}
+    windows = {0: [], 2: []}
+    streams, st = {}, {}
+    for rep in range(chain_reps):
+        for every in ((0, 2) if rep % 2 == 0 else (2, 0)):
+            res, dt, _, spent = _timed_serve(torch, counters, single, reqs, slots=slots,
+                                             recoverable=True, checksum_every=every)
+            times[every].append(dt)
+            windows[every].append(spent["window"])
+            streams.setdefault(every, res)
+            st[every] = dict(single.last_serve_stats)
+    st = st[2]
+    q = lambda xs: np.percentile(xs, [25, 50, 75])              # noqa: E731
+    n_win = st["decode_dispatches"]
+    print(f"[fleet] chain cost, single engine serve ({chain_reps} alternating pairs, "
+          f"{n_win} windows, {st['checksum_spot_checks']} spot checks a serve): serve "
+          f"quartiles off {q(times[0]).round(4).tolist()} s, on {q(times[2]).round(4).tolist()} s; "
+          f"window dispatches off {q(windows[0]).round(4).tolist()} s, on "
+          f"{q(windows[2]).round(4).tolist()} s; median difference a window "
+          f"{(np.median(windows[2]) - np.median(windows[0])) / n_win * 1e3:.3f} ms "
+          f"(serve {(np.median(times[2]) - np.median(times[0])) / n_win * 1e3:.3f} ms)")
+    if _victims(np, streams[0], streams[2]) or _victims(np, base, streams[0]):
+        raise SystemExit("fleet: the chain changed a stream")
+    # The chain's own work at this state (B=2, full size): a checksum on the
+    # card, and the spot check's checksum with its host copy.
+    with torch.inference_mode():
+        state = single.last_state
+        ck_dev, ck_call = _time_ms(torch, lambda: M.decode_state_checksum(state), [()], 50)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            M.decode_state_checksum(state).cpu()
+        spot_ms = (time.perf_counter() - t0) / 50 * 1e3
+    print(f"[fleet] chain work at B={slots}: a checksum {ck_dev * 1e3:.1f} us of device time, "
+          f"{ck_call * 1e3:.1f} us a call (host incl.); a spot check with its copy "
+          f"{spot_ms * 1e3:.1f} us; two checksums a window and a spot check every two: "
+          f"{(2 * ck_call + spot_ms / 2) * 1e3:.1f} us a window against a window's "
+          f"{np.median(windows[2]) / n_win * 1e3:.1f} ms")
+    del single, engines, params, fl
+    torch.cuda.empty_cache()
+
+    # The reduced f32 models on the card against the CPU.
+    spec = [(5, 9), (12, 3), (7, 14), (3, 6), (9, 11)]
+    drills = (
+        ("rwkv6-1.6b", False, "fault-free", lambda: None),
+        ("rwkv6-1.6b", False, "kill", lambda: [None, ChaosInjector(seed=7, replica_kill_at=(1,)),
+                                               None]),
+        ("rwkv6-1.6b", False, "bit flip", lambda: [ChaosInjector(seed=7, bitflip_at=(1,)),
+                                                   None, None]),
+        ("gemma3-1b", True, "kill", lambda: [None, ChaosInjector(seed=7, replica_kill_at=(1,)),
+                                             None]),
+    )
+    for arch, paged, what, make_chaos in drills:
+        cfg = get_config(arch).reduced()
+        p_cpu = M.init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(0)
+        small = [Request(tokens=rng.integers(0, cfg.vocab_size, (pl,)), max_new_tokens=nn)
+                 for pl, nn in spec]
+        runs = {}
+        for dev, prm in (("cuda", _to(p_cpu, "cuda")), ("cpu", p_cpu)):
+            engs = [ServeEngine(cfg, prm, max_len=96, decode_window=4, device=dev, paged=paged)
+                    for _ in range(replicas)]
+            single_outs = engs[0].serve(small, slots=2, recoverable=True)
+            with tempfile.TemporaryDirectory(dir=build) as root:
+                fl, outs, _, _, _ = _fleet_run(torch, engs, small, root, chaos=make_chaos())
+            runs[dev] = (single_outs, outs, {
+                **fl.stats, "corruptions": [s["corruptions"] for s in fl.stats_by_replica()]})
+        (s_gpu, f_gpu, st_gpu), (s_cpu, f_cpu, st_cpu) = runs["cuda"], runs["cpu"]
+        same = not (_victims(np, s_gpu, f_gpu) or _victims(np, f_gpu, f_cpu)
+                    or _victims(np, s_gpu, s_cpu))
+        print(f"[fleet] reduced f32 {arch}{' paged' if paged else ''} {what} fleet on the "
+              f"card: {st_gpu}; every stream equal to the single engine's and to the CPU's "
+              f"(whose stats are the same: {st_gpu == st_cpu}): {same}")
+        if not same or st_gpu != st_cpu or (what == "kill" and st_gpu["replica_deaths"] != 1) or (
+                what == "bit flip" and sum(st_gpu["corruptions"]) < 1):
+            raise SystemExit(f"fleet: reduced {arch} {what} drill")
+
+    stats = I.run_drill("rwkv6-1.6b", seeds=range(2), device="cuda")
+    print(f"[fleet] interleave drill, reduced rwkv6 on the card, 2 forced schedules: "
+          f"bit-identical; {stats}")
+    if stats["schedules"] != 2 or stats["preemptions"] < 1:
+        raise SystemExit(f"fleet: interleave drill {stats}")
+    return total
+
+
+def _nonzero(counts):
+    return {n: c for n, c in counts.items() if c}
 
 
 def _visible_pairs(t, s, causal, window):

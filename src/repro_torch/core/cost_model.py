@@ -1,13 +1,15 @@
 """Memory-traffic and energy cost model (paper Fig. 11/12 analogs).
 
-The port's own copy of the part of ``repro.core.cost_model`` that the
-Rodinia suite and ``matmul_fwd.ops.tile_traffic`` use: the per-byte energy
-table, :class:`Traffic`, :class:`KernelCost` and the traffic of the
-matmul, 1-D convolution, prefix scan, 2-D stencil and tree reduction,
-and of the sequence-parallel WKV's summary hops (the budget its
+The port's own copy of ``repro.core.cost_model``, whole: the per-byte
+energy table, :class:`Traffic`, :class:`KernelCost` and the traffic of the
+matmul, 1-D convolution, prefix scan, 2-D stencil and tree reduction; of
+the WKV forward, backward and decode step or window (the variants the
+reference's docstrings name: its Pallas kernels' VMEM is the fabric tier
+here too) and of the sequence-parallel WKV's summary hops (the budget its
 collective check holds the port to); and the serve scheduler's slot-step
 accounting (:func:`serve_batch_steps`, :func:`serve_recovery_steps`, the
-cost a session reports as its recovery debt) and the paged serve's
+cost a session reports as its recovery debt, :func:`serve_fleet_drain`,
+the router's placement model) and the paged serve's
 (:func:`serve_paged_pool`, :func:`serve_prefix_admission`).
 It is pure Python; the formulas and their order are the reference's, so
 every value equals the reference's exactly.
@@ -34,9 +36,14 @@ __all__ = [
     "scan_traffic",
     "stencil2d_traffic",
     "reduce_traffic",
+    "wkv_traffic",
+    "wkv_bwd_traffic",
+    "wkv_decode_token_io",
+    "wkv_decode_traffic",
     "wkv_seqshard_traffic",
     "serve_batch_steps",
     "serve_recovery_steps",
+    "serve_fleet_drain",
     "serve_paged_pool",
     "serve_prefix_admission",
 ]
@@ -198,6 +205,145 @@ def reduce_traffic(n: int, itemsize: int = 4):
     )
 
 
+def wkv_traffic(b: int, h: int, t: int, dh: int, chunk: int = 64,
+                itemsize: int = 4):
+    """RWKV6 WKV recurrence (decay-ratio chunked form), per forward pass.
+
+    naive:  sequential scan — the (dh, dh) state round-trips through memory
+            every token (the decode pattern applied to a full sequence).
+    shared: the chunked jnp path — inputs load once, but the per-chunk decay
+            tensors (logw, cum_incl, cum_excl, r_dec, k_inv, k_rem), the
+            masked score matrix, the intra/inter partial outputs and the
+            ``lax.scan`` state carry all stage through HBM (Fig. 1b).
+    direct: the fused Pallas kernel — the state lives in a VMEM scratch and
+            the decay tensors never leave the fabric (kernels/wkv).
+    """
+    n = max(1, t // chunk)
+    state = dh * dh
+    # Unavoidable I/O: r/k/v/w in, out + final state + h0.
+    io = b * h * (4 * t * dh + t * dh + 2 * state) * itemsize
+    naive = Traffic(dram_bytes=io + b * h * t * 2 * state * itemsize)
+    staged = b * h * (
+        6 * t * dh            # logw, cum_incl, cum_excl, r_dec, k_inv, k_rem
+        + n * chunk * chunk   # masked intra-chunk scores
+        + 2 * t * dh          # intra, inter partial outputs
+        + 2 * n * state       # scan carry: S written + read per chunk
+    ) * itemsize
+    shared = Traffic(dram_bytes=io, scratchpad_bytes=2 * staged)
+    direct = Traffic(dram_bytes=io, fabric_bytes=staged)
+    # Scores + intra matmul + inter read + state update, 2 flops per MAC.
+    flops = b * h * (
+        2 * 2 * n * chunk * chunk * dh   # scores + scores @ v
+        + 2 * 2 * t * dh * dh            # inter read + k^T v update
+    )
+    return (
+        KernelCost("wkv", "naive", naive, flops),
+        KernelCost("wkv", "shared", shared, flops),
+        KernelCost("wkv", "direct", direct, flops),
+    )
+
+
+def wkv_bwd_traffic(b: int, h: int, t: int, dh: int, chunk: int = 64,
+                    itemsize: int = 4):
+    """RWKV6 WKV backward pass (reverse chunk sweep), per step.
+
+    naive:  autodiff of the sequential scan — the (dh, dh) state is staged
+            per token by the forward and read back, and the adjoint state
+            round-trips per token.
+    shared: ``jax.grad`` of the chunked jnp path — the forward's residuals
+            (six decay tensors, masked scores, per-chunk scan states) are
+            staged to HBM and read back, and the backward's own
+            intermediates (decay/score adjoints, partial grads, the dS
+            scan carry) stage the same way (Fig. 1b, twice).
+    direct: the reverse Pallas kernel — decays and scores are *recomputed*
+            in-fabric from the primals; the only staged residual is the
+            per-chunk entry state ``s_hist`` (written by the training
+            forward, read by the reverse sweep), and the adjoint state dS
+            rides the VMEM carry.
+    """
+    n = max(1, t // chunk)
+    state = dh * dh
+    # Unavoidable grad I/O: primals + do + dS_out in, dr/dk/dv/dw/du/dh0 out.
+    io = b * h * (9 * t * dh + dh + 2 * state) * itemsize
+    naive = Traffic(dram_bytes=io + b * h * t * 4 * state * itemsize)
+    resid = b * h * (
+        6 * t * dh            # logw, cum_incl, cum_excl, r_dec, k_inv, k_rem
+        + n * chunk * chunk   # masked scores
+        + n * state           # per-chunk scan states (saved by lax.scan)
+    ) * itemsize
+    bwd_stage = b * h * (
+        6 * t * dh            # dscores operands + decay adjoints (dcum_*)
+        + n * chunk * chunk   # dscores
+        + 2 * t * dh          # intra/inter partial grads
+        + 2 * n * state       # dS carry: written + read per chunk
+    ) * itemsize
+    shared = Traffic(dram_bytes=io, scratchpad_bytes=2 * (resid + bwd_stage))
+    # s_hist is direct's one staged intermediate (written fwd, read bwd) —
+    # same tier as shared's residuals; everything else is recomputed
+    # in-fabric.
+    s_hist = b * h * 2 * n * state * itemsize
+    direct = Traffic(dram_bytes=io, scratchpad_bytes=s_hist,
+                     fabric_bytes=resid + bwd_stage)
+    # Recomputed scores/decays + 5 chunk-local (L,L) matmuls + 5 (dh, dh)
+    # state-sized matmuls per token block — ~2.5x the forward's MXU work.
+    flops = b * h * (
+        2 * 5 * n * chunk * chunk * dh
+        + 2 * 5 * t * dh * dh
+    )
+    return (
+        KernelCost("wkv_bwd", "naive", naive, flops),
+        KernelCost("wkv_bwd", "shared", shared, flops),
+        KernelCost("wkv_bwd", "direct", direct, flops),
+    )
+
+
+def wkv_decode_token_io(b: int, h: int, dh: int, k: int = 1,
+                        itemsize: int = 4) -> int:
+    """Unavoidable decode token I/O: r/k/v/w in, o out, + u once per head.
+    Shared by every :func:`wkv_decode_traffic` variant — callers subtract
+    it to isolate the state bytes the decode window amortizes."""
+    return b * h * k * 5 * dh * itemsize + h * dh * itemsize
+
+
+def wkv_decode_traffic(b: int, h: int, dh: int, k: int = 1,
+                       itemsize: int = 4):
+    """WKV decode: K generated tokens through one (Dh × Dh)-state layer.
+
+    naive:  per-token dispatch — the state round-trips HBM every token
+            (2·Dh² bytes/token), which dominates decode traffic since the
+            token I/O is only O(Dh).  This is what the pre-decode-kernel
+            serve loop paid: ``wkv_traffic``'s "naive" row restricted to
+            one token, K times.
+    shared: the state staged through scratchpad within a window — HBM
+            sees one round-trip per window, but every intermediate state
+            still crosses a memory tier per token (the GPGPU
+            shared-memory rendering).
+    direct: the decode window kernel (kernels/wkv/decode): one HBM read
+            of S at window entry + one write at exit; the K-1
+            intermediate states ride the VMEM carry (fabric tier).
+            Per-token state bytes drop by ~K×.
+    """
+    state = dh * dh
+    tok_io = wkv_decode_token_io(b, h, dh, k, itemsize)
+    naive = Traffic(dram_bytes=tok_io + b * h * k * 2 * state * itemsize)
+    shared = Traffic(
+        dram_bytes=tok_io + b * h * 2 * state * itemsize,
+        scratchpad_bytes=b * h * 2 * k * state * itemsize,
+    )
+    direct = Traffic(
+        dram_bytes=tok_io + b * h * 2 * state * itemsize,
+        fabric_bytes=b * h * 2 * max(k - 1, 0) * state * itemsize,
+    )
+    # Per token: state matvec read (r·S) + rank-1 update (kᵀv, decay), 2
+    # flops per MAC.
+    flops = b * h * k * 2 * 2 * dh * dh
+    return (
+        KernelCost("wkv_decode", "naive", naive, flops),
+        KernelCost("wkv_decode", "shared", shared, flops),
+        KernelCost("wkv_decode", "direct", direct, flops),
+    )
+
+
 def wkv_seqshard_traffic(b: int, h: int, t: int, dh: int, n_dev: int,
                          itemsize: int = 4):
     """Sequence-parallel WKV: bytes crossing the ``seq`` mesh axis per
@@ -329,6 +475,42 @@ def serve_recovery_steps(prompt_lens, accepted, victim: int,
     redecode = -(-max(accepted) // window) * window if max(accepted) else 0
     global_ = sum(prompt_lens) + len(prompt_lens) * redecode
     return isolated, global_
+
+
+def serve_fleet_drain(work, depths, window: int = 1):
+    """Makespan model for routing a burst of requests across a replica
+    fleet: recovery-aware least-loaded placement vs depth-blind
+    round-robin (the scheduling dual of
+    :func:`serve_recovery_steps` — a replica digesting handoff
+    re-prefills is *behind*, and a router that ignores that debt piles
+    new work onto the busiest replica).
+
+    ``work``: per-request modeled slot-steps (prompt + budget, the same
+    unit :func:`serve_batch_steps` counts); ``depths``: per-replica
+    pre-existing debt in slot-steps (queued work plus the
+    :func:`serve_recovery_steps`-isolated cost of any pending handoff
+    re-prefills); ``window``: tokens per decode dispatch — each
+    placement is rounded up to whole dispatches.
+
+    Returns ``(aware_steps, blind_steps)``: the drain makespan (max
+    per-replica total) under greedy least-loaded placement seeded with
+    ``depths``, and under round-robin placement that ignores them.
+    ``blind / aware >= 1`` is the modeled win of recovery-aware routing.
+    """
+    work = [int(w) for w in work]
+    depths = [int(d) for d in depths]
+    if not depths:
+        raise ValueError("need at least one replica depth")
+    if window < 1 or any(w < 1 for w in work) or any(d < 0 for d in depths):
+        raise ValueError("window < 1, empty work item, or negative depth")
+    quant = [-(-w // window) * window for w in work]
+    aware = list(depths)
+    for w in quant:
+        aware[aware.index(min(aware))] += w
+    blind = list(depths)
+    for i, w in enumerate(quant):
+        blind[i % len(blind)] += w
+    return max(aware), max(blind)
 
 
 def serve_paged_pool(prompt_lens, new_tokens, slots: int, page_size: int,

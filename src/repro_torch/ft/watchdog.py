@@ -40,10 +40,10 @@ _lock_factory: Callable[[], Any] = threading.Lock
 def make_lock():
     """Construct a mutex for host-tier shared state.
 
-    Every lock in the ft/checkpoint stack comes from here so a
-    deterministic interleaving drill (the reference's
-    ``repro.serve.interleave``; not ported yet) can swap in instrumented
-    locks that force a preemption window at every acquire/release.
+    Every lock in the ft/checkpoint/serve stack comes from here so the
+    deterministic interleaving drill (:mod:`repro_torch.serve.interleave`)
+    can swap in instrumented locks that force a preemption window at every
+    acquire/release.
     """
     return _lock_factory()
 

@@ -43,11 +43,29 @@ every request through it (tier-1 lane 3d's drill):
       --continuous --paged --requests 5 --slots 2 --prompt-len 6 \
       --new-tokens 6 --max-len 128 --decode-window 2 --prefix-len 40 \
       --pool-pages 4 --temperature 0.8 --top-k 16 --device cpu
+
+``--checksum-every N`` arms the silent-corruption checksum chain (a shadow
+recompute every N windows), and ``--chaos-bitflip-at`` pins finite bit
+flips that only the chain can see.  ``--replicas N`` serves the same queue
+through a health-checked replica fleet (:mod:`repro_torch.serve.fleet`)
+and runs the fleet drill: ``--chaos-replica-kill-at K`` kills replica 1 at
+its K-th decode window (its requests resume on the survivors from its last
+snapshot), the bit flips land on the same replica, and the launcher exits
+nonzero unless the kill fired and was handed off, every flip was detected,
+every outcome is ok, eos or recovered, and every stream equals a
+fault-free single engine's (tier-1 lane 3e's drill):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke \
+      --continuous --replicas 3 --requests 6 --slots 2 --prompt-len 10 \
+      --new-tokens 16 --max-len 96 --decode-window 4 --snapshot-every 1 \
+      --checksum-every 2 --chaos-bitflip-at 1 --chaos-replica-kill-at 3 \
+      --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import tempfile
 import time
 
 import numpy as np
@@ -119,6 +137,20 @@ def main(argv=None):
     ap.add_argument("--prefix-len", type=int, default=0,
                     help="[--paged] register one shared prefix of this many "
                          "tokens and admit every request through it")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="[--continuous] serve through a replica fleet (drill "
+                         "mode: exits nonzero unless every request completes "
+                         "bit-identically on the survivors)")
+    ap.add_argument("--checksum-every", type=int, default=0,
+                    help="[--continuous] arm the silent-corruption checksum "
+                         "chain; shadow spot check every N windows")
+    ap.add_argument("--chaos-bitflip-at", type=int, nargs="*", default=(),
+                    help="pin silent state bit flips to decode-window indices "
+                         "(needs --checksum-every to detect)")
+    ap.add_argument("--chaos-replica-kill-at", type=int, nargs="*", default=(),
+                    help="[--replicas] kill one replica at these decode-window "
+                         "counts (fires once; needs --snapshot-every for the "
+                         "handoff)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
@@ -128,6 +160,12 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous")
+    if args.replicas < 1:
+        raise SystemExit("--replicas must be >= 1")
+    if args.replicas > 1 and not args.continuous:
+        raise SystemExit("--replicas requires --continuous")
+    if args.chaos_bitflip_at and not args.checksum_every:
+        raise SystemExit("--chaos-bitflip-at needs --checksum-every to be detectable")
     print(f"initializing {cfg.name} ({cfg.param_count()/1e6:.1f}M params)...")
     params = M.init_params(cfg, args.seed, device=args.device)
     engine = ServeEngine(cfg, params, max_len=args.max_len,
@@ -157,6 +195,8 @@ def main(argv=None):
                             max_new_tokens=r.max_new_tokens, prefix_id=pid) for r in reqs]
         sampling = dict(slots=args.slots, temperature=args.temperature,
                         top_k=args.top_k, eos_id=args.eos_id, seed=args.seed)
+        if args.replicas > 1:
+            return _fleet_drill(args, cfg, params, reqs, sampling)
         dense_ref = None
         if args.paged:
             # The paged drill's oracle: a dense engine on the same weights and
@@ -172,7 +212,8 @@ def main(argv=None):
                 seed=args.chaos_seed, nan_rate=args.chaos_nan_rate,
                 drop_rate=args.chaos_drop_rate, hang_rate=args.chaos_hang_rate,
                 nan_at=tuple(args.chaos_nan_at), drop_at=tuple(args.chaos_drop_at),
-                hang_at=tuple(args.chaos_hang_at))
+                hang_at=tuple(args.chaos_hang_at),
+                bitflip_at=tuple(args.chaos_bitflip_at))
             # The drill's oracle: every stream under chaos must equal this
             # fault-free run of the same requests, bit for bit (rings sized
             # for recovery as under chaos, so the shapes agree too).
@@ -183,7 +224,8 @@ def main(argv=None):
                             watchdog_timeout_s=args.watchdog_timeout,
                             snapshot_every=args.snapshot_every,
                             snapshot_dir=args.snapshot_dir,
-                            restore_from=args.restore_from, chaos=chaos)
+                            restore_from=args.restore_from, chaos=chaos,
+                            checksum_every=args.checksum_every)
         dt = time.perf_counter() - t0
         st = engine.last_serve_stats
         emitted = sum(o.size for o in outs)
@@ -248,12 +290,92 @@ def _check_drill(chaos, st, baseline, outs):
                          "--chaos-nan-at etc.")
     if chaos.counters["nan"] and st["recoveries"] < chaos.counters["nan"]:
         raise SystemExit("chaos drill: NaN faults injected but not all recovered")
+    if chaos.counters["bitflip"] and not st["corruptions"]:
+        raise SystemExit("chaos drill: bit flips injected but the checksum chain "
+                         "detected none")
     for i, (want, got) in enumerate(zip(baseline, outs)):
         if not np.array_equal(np.asarray(want), np.asarray(got)):
             raise SystemExit(f"chaos drill: request {i} diverged from the "
                              "fault-free run: isolation broken")
     print("chaos drill: all faults recovered; every stream bit-identical to "
           "the fault-free run")
+
+
+def _fleet_drill(args, cfg, params, reqs, sampling):
+    """Serve ``reqs`` through a fleet of ``--replicas`` engines sharing one
+    params tree, with the pinned kill and bit flips on replica 1, and hold
+    it to the single-engine bar: the kill fired and was handed off, every
+    flip was detected, every outcome is ok, eos or recovered, and every
+    stream equals a fault-free single engine's."""
+    from repro_torch.serve.fleet import FleetRouter
+
+    kill_at = tuple(args.chaos_replica_kill_at)
+    bitflip_at = tuple(args.chaos_bitflip_at)
+    if kill_at and not args.snapshot_every:
+        raise SystemExit("--chaos-replica-kill-at needs --snapshot-every (the "
+                         "handoff resumes from the victim's snapshot)")
+
+    def build():
+        return ServeEngine(cfg, params, max_len=args.max_len,
+                           decode_window=args.decode_window, device=args.device,
+                           paged=args.paged, page_size=args.page_size,
+                           pool_pages=args.pool_pages)
+
+    # The oracle: a fault-free single engine, its rings sized for recovery
+    # as the fleet's sessions size theirs, so every shape agrees.
+    baseline = build().serve(reqs, **sampling, recoverable=True)
+    engines = [build() for _ in range(args.replicas)]
+    chaos = None
+    if kill_at or bitflip_at or args.chaos_seed is not None:
+        chaos = [None] * args.replicas
+        chaos[1] = ChaosInjector(
+            seed=args.chaos_seed or 0, nan_rate=args.chaos_nan_rate,
+            nan_at=tuple(args.chaos_nan_at), bitflip_at=bitflip_at,
+            replica_kill_at=kill_at)
+    with tempfile.TemporaryDirectory(prefix="fleet_snap_") as tmp:
+        t0 = time.perf_counter()
+        fleet = FleetRouter(
+            engines, reqs, **sampling, deadline_ms=args.deadline_ms,
+            max_queue=args.max_queue, watchdog_timeout_s=args.watchdog_timeout,
+            snapshot_every=args.snapshot_every,
+            snapshot_root=args.snapshot_dir or (tmp if args.snapshot_every else None),
+            checksum_every=args.checksum_every, chaos=chaos)
+        outs = fleet.run()
+        dt = time.perf_counter() - t0
+    emitted = sum(o.size for o in outs)
+    st = fleet.stats
+    per = fleet.stats_by_replica()
+    print(f"fleet served {len(reqs)} requests over {args.replicas} replicas "
+          f"({emitted} tokens) in {dt:.2f}s ({emitted / dt:.1f} tok/s; "
+          f"{st['rounds']} rounds, {st['assignments']} assignments, "
+          f"{st['replica_deaths']} deaths, {st['handoffs']} handoffs, "
+          f"{st['handoff_requeued_fresh']} requeued fresh)")
+    print("per-replica windows:", [s["decode_dispatches"] for s in per],
+          "corruptions:", [s["corruptions"] for s in per],
+          "spot checks:", [s["checksum_spot_checks"] for s in per],
+          "states:", [m.state for m in fleet.monitors])
+    counts: dict[str, int] = {}
+    for o in outs:
+        counts[o.outcome] = counts.get(o.outcome, 0) + 1
+    print("outcomes:", " ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+    if kill_at:
+        if not st["replica_deaths"]:
+            raise SystemExit("fleet drill: the pinned replica kill never fired")
+        if not (st["handoffs"] or st["handoff_requeued_fresh"]):
+            raise SystemExit("fleet drill: a replica died but nothing was handed "
+                             "off or requeued")
+    if bitflip_at and not sum(s["corruptions"] for s in per):
+        raise SystemExit("fleet drill: bit flips injected but the checksum chain "
+                         "detected none")
+    bad = [o.outcome for o in outs if o.outcome not in ("ok", "eos", "recovered")]
+    if bad:
+        raise SystemExit(f"fleet drill: unclean outcomes {bad}")
+    for i, (want, got) in enumerate(zip(baseline, outs)):
+        if not np.array_equal(np.asarray(want), np.asarray(got)):
+            raise SystemExit(f"fleet drill: request {i} diverged from the fault-free "
+                             "single-engine run: the handoff broke bit-identity")
+    print("fleet drill: every request completed on the survivors, every stream "
+          "bit-identical to the fault-free single-engine run")
 
 
 def _check_paged(engine, st, dense_ref, outs, *, explicit_pool: bool):

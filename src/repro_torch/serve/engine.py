@@ -20,7 +20,9 @@ Chaos injection (:mod:`repro_torch.serve.chaos`) drills all of it.  A
 tables (:mod:`repro_torch.serve.paging`), and admits a request that
 extends a registered prefix (:meth:`ServeEngine.register_prefix`) by
 sharing or copying the prefix's state instead of prefilling it again.
-The checksum chain and the fleet are not ported yet.
+``checksum_every`` arms the silent-corruption checksum chain, and
+:class:`ServeSession` is the engine-side half of a fleet replica
+(:mod:`repro_torch.serve.fleet`).
 
 Long prompts: with a ``mesh`` (:mod:`repro_torch.launch.mesh`), a prompt
 of at least :data:`SEQ_PREFILL_MIN_T` tokens is prefilled under the
@@ -483,7 +485,8 @@ class ServeEngine:
               snapshot_dir: str | None = None,
               restore_from: str | None = None,
               chaos: Any = None,
-              recoverable: bool | None = None):
+              recoverable: bool | None = None,
+              checksum_every: int = 0):
         """Decode ``requests`` (:class:`Request`, or bare prompt arrays)
         through a pool of ``slots`` batch slots, first come first served:
         a :class:`ServeSession` stepped until it has no work left.
@@ -510,7 +513,18 @@ class ServeEngine:
           ``retry_backoff_s``;
         * ``snapshot_every`` > 0 saves the whole serve to ``snapshot_dir``
           every N decode windows; ``restore_from`` resumes it (same
-          requests, slots, window and seed) bit-identically.
+          requests, slots, window and seed) bit-identically;
+        * ``checksum_every`` > 0 arms silent-corruption detection: every
+          dispatch checksums each slot's state on entry and on exit
+          (:func:`repro_torch.model.model.decode_state_checksum`), the host
+          chains exit(n) == entry(n + 1), so a finite but wrong bit flip
+          breaks the chain at the next window, and a shadow recompute
+          checks the state every N windows; a mismatched slot is
+          quarantined, its unverified window tokens are rolled back and it
+          re-admits from its last verified prefix (``recovered``, or
+          ``corrupt`` past :data:`MAX_CORRUPTION_RECOVERIES`).  At 0 no
+          checksum is computed: a window issues the ops it issues without
+          the chain.
 
         ``chaos`` takes a :class:`repro_torch.serve.chaos.ChaosInjector`.
         ``recoverable`` sizes the local-attention rings for a worst-case
@@ -528,7 +542,7 @@ class ServeEngine:
             max_dispatch_retries=max_dispatch_retries,
             retry_backoff_s=retry_backoff_s, snapshot_every=snapshot_every,
             snapshot_dir=snapshot_dir, restore_from=restore_from,
-            chaos=chaos, recoverable=recoverable)
+            chaos=chaos, recoverable=recoverable, checksum_every=checksum_every)
         try:
             while session.busy:
                 session.step()
@@ -723,9 +737,24 @@ class ServeSession:
     at the head of the queue while the pool is short of pages
     (``page_waits``), a request no empty pool could hold is shed, and
     :meth:`close` audits the page tables into the engine's
-    ``last_paged_stats``.  The reference's ``external`` mode, shared clock
-    origin, ``enqueue_handoff`` and checksum chain belong to the fleet,
-    which is not ported yet.
+    ``last_paged_stats``.
+
+    A :class:`~repro_torch.serve.fleet.FleetRouter` builds one session per
+    replica engine and interleaves their steps.  ``external=True`` starts
+    the local queue empty: the session still sees the whole request list
+    (slot shapes, request ids, the insert window and the snapshot meta are
+    then the same on every replica, which is what makes a stream
+    independent of its replica and a snapshot a handoff source), but a
+    request enters only through :meth:`enqueue` (the router's assignment)
+    or :meth:`enqueue_handoff` (a resume from a dead replica's snapshot),
+    and the requests shed at creation are still reported through
+    ``newly_done``.  ``clock_origin`` anchors the deadlines: a router
+    passes one origin to every session, so a deadline counts the time a
+    request waited in the shared queue.  ``checksum_every`` > 0 arms the
+    checksum chain (see :meth:`ServeEngine.serve`): the entry and exit
+    checksums ride the dispatch's one host copy as two more rows, and the
+    shadow recompute every ``checksum_every`` windows runs outside any
+    dispatch (``checksum_spot_checks``).
     """
 
     @torch.inference_mode()
@@ -742,7 +771,10 @@ class ServeSession:
                  restore_from: str | None = None,
                  chaos: Any = None,
                  recoverable: bool | None = None,
+                 checksum_every: int = 0,
                  clock=time.monotonic,
+                 clock_origin: float | None = None,
+                 external: bool = False,
                  saver: Any = None):
         eng = self.eng = engine
         self.temperature, self.top_k = float(temperature), int(top_k)
@@ -751,6 +783,7 @@ class ServeSession:
         self.max_retries, self.backoff_s = max_dispatch_retries, retry_backoff_s
         self.snapshot_every, self.snapshot_dir = snapshot_every, snapshot_dir
         self.chaos, self.saver = chaos, saver
+        self.checksum_every = int(checksum_every)
         self._clock = clock
         self.closed = False
 
@@ -796,7 +829,7 @@ class ServeSession:
         live = [i for i in range(n) if self.outcomes[i] is None]
         if recoverable is None:
             recoverable = (chaos is not None or restore_from is not None
-                           or snapshot_every > 0)
+                           or snapshot_every > 0 or external)
         # A recovery re-prefills prompt plus accepted tokens in one window:
         # with recovery in play, the rings take the worst case (a request
         # quarantined on its last token).  Off it, the plain sizing, so
@@ -818,7 +851,8 @@ class ServeSession:
         self.req_ids = zeros(torch.int64)
         self.active = zeros(torch.bool)
         self.cur = torch.zeros((b, 1), dtype=torch.int64, device=dev)
-        self.pending = collections.deque(i for i in live if self.outcomes[i] is None)
+        self.pending = collections.deque(
+            () if external else (i for i in live if self.outcomes[i] is None))
         self.recover_q: collections.deque[int] = collections.deque()
         self.slot_req = [-1] * b
         self.active_np = np.zeros(b, bool)
@@ -826,14 +860,19 @@ class ServeSession:
         self.watchdog = (StepWatchdog(watchdog_timeout_s)
                          if watchdog_timeout_s is not None else None)
         self.straggler = StragglerDetector(warmup=1)
-        self.t_origin = clock()
+        self.t_origin = clock_origin if clock_origin is not None else clock()
         self.any_deadline = deadline_ms is not None or any(
             getattr(r, "deadline_ms", None) is not None for r in self.reqs)
+        # The checksum chain: after a dispatch, each slot's exit checksum,
+        # which the next dispatch's entry checksum must equal.
+        self._csum_base = np.zeros(b, np.int64)
+        self._csum_have = False
+        self._since_spot = 0
 
         if restore_from is not None:
             eng._restore_serve(self, restore_from)
             self.active_np = self.active.cpu().numpy().copy()
-        elif max_queue is not None:
+        elif max_queue is not None and not external:
             # b requests admit at once, at most max_queue wait; the later
             # arrivals are shed, never queued without bound.
             cap = b + max(0, int(max_queue))
@@ -880,6 +919,18 @@ class ServeSession:
         if self.outcomes[ri] is not None:
             raise ValueError(f"request {ri} already terminal ({self.outcomes[ri]})")
         self.pending.append(ri)
+
+    def enqueue_handoff(self, ri: int, accepted):
+        """Resume request ``ri`` from another replica's snapshot: seed its
+        output with the ``accepted`` tokens and queue it for recovery (a
+        re-prefill of prompt plus accepted tokens).  The sampling noise is
+        keyed on (request, token index), so the continuation is the stream
+        the dead replica was producing."""
+        self.outputs[ri] = [int(t) for t in accepted]
+        self.outcomes[ri] = None
+        self.recoveries[ri] += 1
+        self.stats["recoveries"] += 1
+        self.recover_q.append(ri)
 
     def queue_depth(self) -> int:
         """Queued plus in-flight requests (a router's load signal)."""
@@ -1067,7 +1118,12 @@ class ServeSession:
         pg = None if self.ctl is None else self._paging_operands(used, alloc, group_pid,
                                                                  start_np)
 
+        chain = self.checksum_every > 0
+
         def admit():
+            if chain:
+                # The state as handed to this dispatch, before any write.
+                csum_in = M.decode_state_checksum(self.state)
             _reset_slot_rows(self.state, admit_row)
             start = 0
             if pg is not None:
@@ -1088,11 +1144,20 @@ class ServeSession:
                 done |= tok0 == self.eos_id
             active = torch.where(admit_row, ~done, self.active)
             cur = torch.where(admit_row[:, None], tok0[:, None], self.cur)
-            host = torch.stack([tok0, active.long()]).cpu().numpy()
+            rows = [tok0, active.long()]
+            if chain:
+                rows += [csum_in, M.decode_state_checksum(self.state)]
+            host = torch.stack(rows).cpu().numpy()
             return lengths, counts, active, cur, host
 
         self.lengths, self.counts, self.active, self.cur, host = self._dispatch("admit", admit)
         tok0_np, self.active_np = host[0], host[1].astype(bool)
+        if chain:
+            # The rows this admission did not touch kept their state through
+            # it: a mismatch means their bits changed between dispatches.
+            self._chain_check(host[2], skip=admit_np, emits_np=None)
+            self._csum_base = host[3].copy()
+            self._csum_have = True
         for slot, ri in zip(used, take):
             self.outputs[ri].append(int(tok0_np[slot]))
             if not self.active_np[slot]:          # done at admission
@@ -1107,8 +1172,13 @@ class ServeSession:
         its token is emitted.  The flags stay on the card; the window's
         tokens, emit mask, quarantine mask and active bits come back in
         one host copy, the window's one synchronisation.  Returns the new
-        (cur, lengths, counts, active) and that (2K + 2, B) array."""
+        (cur, lengths, counts, active) and that (2K + 2, B) array; with the
+        checksum chain on, the entry and exit checksums are two more
+        rows."""
         eng = self.eng
+        chain = self.checksum_every > 0
+        if chain:
+            csum_in = M.decode_state_checksum(self.state)
         cur, lengths, counts, active = self.cur, self.lengths, self.counts, self.active
         quar = torch.zeros_like(active)
         toks, emits = [], []
@@ -1133,8 +1203,10 @@ class ServeSession:
             cur = torch.where(emit[:, None], nxt[:, None], cur)
             toks.append(nxt)
             emits.append(emit.long())
-        host = torch.cat([torch.stack(toks), torch.stack(emits),
-                          quar.long()[None], active.long()[None]]).cpu().numpy()
+        rows = [torch.stack(toks), torch.stack(emits), quar.long()[None], active.long()[None]]
+        if chain:
+            rows += [csum_in[None], M.decode_state_checksum(self.state)[None]]
+        host = torch.cat(rows).cpu().numpy()
         return cur, lengths, counts, active, host
 
     def _decode_window(self):
@@ -1156,6 +1228,13 @@ class ServeSession:
         prev_active, self.active_np = self.active_np, host[2 * k + 1].astype(bool)
         self.stats["decode_dispatches"] += 1
         self.stats["slot_steps"] += k * self.b
+        corrupt_np = np.zeros(self.b, bool)
+        if self.checksum_every > 0:
+            # This window's entry must equal the last dispatch's exit; the
+            # slots quarantined in the window recover by the NaN path.
+            corrupt_np = self._chain_check(host[2 * k + 2], skip=quar_np, emits_np=emits_np)
+            self._csum_base = host[2 * k + 3].copy()
+            self._csum_have = True
         # Quarantined slots: the victim re-prefills from its accepted prefix.
         for slot in np.nonzero(quar_np)[0]:
             ri = self.slot_req[slot]
@@ -1164,9 +1243,13 @@ class ServeSession:
             self.recoveries[ri] += 1
             self.recover_q.append(ri)
             self._free_slot(slot)
-        for slot in np.nonzero(prev_active & ~self.active_np & ~quar_np)[0]:
-            self._resolve(self.slot_req[slot])
-            self._free_slot(slot)
+        # Completions: a corrupt slot's completion was computed from bad bits
+        # (it requeued instead), and a slot the chain freed holds no request.
+        for slot in np.nonzero(prev_active & ~self.active_np & ~quar_np & ~corrupt_np)[0]:
+            ri = self.slot_req[slot]
+            if ri >= 0:
+                self._resolve(ri)
+                self._free_slot(slot)
         if self.chaos is not None:
             slot = self.chaos.maybe_drop_request(
                 self.active_np, self.stats["decode_dispatches"], self.slot_req)
@@ -1175,6 +1258,10 @@ class ServeSession:
                 self.active_np[slot] = False
                 self._free_slot(slot)
                 self._set_active()
+        if self.checksum_every > 0:
+            self._since_spot += 1
+            if self._since_spot >= self.checksum_every:
+                self._spot_check()
         if (self.snapshot_every > 0 and self.snapshot_dir is not None
                 and self.stats["decode_dispatches"] % self.snapshot_every == 0):
             self.snapshot_now()
@@ -1187,8 +1274,7 @@ class ServeSession:
         ``rollback`` tokens computed from bad bits, free the slot, and
         requeue the request for recovery, or end it ``corrupt`` past
         :data:`MAX_CORRUPTION_RECOVERIES`.  The caller refreshes the
-        device's active bits.  (The checksum chain that calls this in the
-        reference comes with the fleet.)"""
+        device's active bits."""
         ri = self.slot_req[slot]
         self.stats["corruptions"] += 1
         self.stats["quarantines"] += 1
@@ -1203,6 +1289,43 @@ class ServeSession:
             self.stats["recoveries"] += 1
             self.recoveries[ri] += 1
             self.recover_q.append(ri)
+
+    def _chain_check(self, entry_np, *, skip, emits_np):
+        """Hold a dispatch's entry checksums (B,) to the previous
+        dispatch's exit checksums, except in the ``skip`` rows (admitted
+        rows, rows quarantined in the window) and free slots.  For a window,
+        ``emits_np`` (K, B) rolls back the tokens it emitted from bad bits.
+        Returns the (B,) bool mask of corrupt slots."""
+        corrupt = np.zeros(self.b, bool)
+        if not self._csum_have:
+            return corrupt
+        for slot in range(self.b):
+            if skip[slot] or self.slot_req[slot] < 0 or entry_np[slot] == self._csum_base[slot]:
+                continue
+            corrupt[slot] = True
+            self._corrupted(slot, int(emits_np[:, slot].sum()) if emits_np is not None else 0)
+        if corrupt.any():
+            self._set_active()
+        return corrupt
+
+    def _spot_check(self):
+        """Shadow recompute, outside any dispatch: checksum the live state
+        again and hold it to the last exit checksums.  The chain sees bits
+        flipped between dispatches; this sees a flip after the last exit
+        (and an exit checksum that lies)."""
+        self._since_spot = 0
+        if not self._csum_have:
+            return
+        self.stats["checksum_spot_checks"] += 1
+        shadow = M.decode_state_checksum(self.state).cpu().numpy()
+        bad = False
+        for slot in range(self.b):
+            if self.slot_req[slot] >= 0 and shadow[slot] != self._csum_base[slot]:
+                self._corrupted(slot, rollback=0)
+                bad = True
+        if bad:
+            self._set_active()
+        self._csum_base = shadow.copy()
 
     # -- snapshot / teardown -----------------------------------------------
 
