@@ -67,8 +67,12 @@ Phases (any failure raises and exits non-zero, with no result line):
    4096; bit for bit against its plain version) and flash attention at Hq 10, Hkv 1, D 256 (causal window 2048 at
    T=4096, causal full at T=1024 and T=4096, a non-causal window, the
    decode offsets T=8 and T=1 against S=300, T not a block multiple), at
-   D 128, 64, 32 (T=1000, window 256), and at Gemma3's Hq 4 (T=4096, causal
-   window 1024 and causal with no window);
+   D 128, 64, 32 (T=1000, window 256), at Gemma3's Hq 4 (T=4096, causal
+   window 1024 and causal with no window), and at the decoder-only archs'
+   GQA shapes over several KV heads, (Hq, Hkv, D) = (14, 2, 64) at T=4096
+   and (32, 8, 128), (48, 8, 128), (28, 4, 128), (64, 4, 128) at T=2048,
+   each causal with no window, as an offset decode (T=8 against S=300) and
+   at T=1000;
 3e. the RecurrentGemma path, the RWKV6 engines and train state freed:
    full-size recurrentgemma-2b in bf16 (random weights from a seed, depth
    not cut) through ``ServeEngine.generate`` (B=4, 256-token prompts, 32
@@ -131,6 +135,24 @@ Phases (any failure raises and exits non-zero, with no result line):
    fleets) and paged gemma3 (kill) against their single engines and the
    CPU, every stream exact, and ``run_drill`` of the reduced rwkv6 on the
    card under 2 forced schedules;
+3l. the decoder-only archs, every earlier phase's weights freed, in bf16
+   at full width (random weights from a seed): qwen2-0.5b at full depth
+   through ``generate`` (B=4, 256-token prompts, 32 new, K=8), ``serve``
+   (6 ragged requests, 4 slots, K=8) and prompt scoring at B=1, T=4096,
+   with 0 / 0 / 24 flash launches, and one forward under the profiler;
+   minitron-8b, nemotron-4-15b and qwen2-vl-7b at full depth, one at a
+   time, scoring at B=1, T=4096 (qwen2-vl with 1024 leading patch
+   embeddings and (3, B, T) M-RoPE positions) with exactly 32 / 32 / 28
+   flash launches, then ``generate`` (B=4, P=64, +16, K=8) with none;
+   dbrx-132b and qwen3-moe at 4 of their 40 and 94 layers, scoring at
+   B=8, T=1024 through ``prefill_chunks`` (4 and 8 chunks) with exactly
+   16 / 32 flash launches, twice with bit-identical logits, each MoE
+   layer's capacity and dropped share printed, then ``generate``; every
+   flash launch causal with no window; then the six reduced f32 models on
+   the card against the CPU (logits within 1e-4; greedy generate and
+   serve streams equal; for the MoE archs a parted stream allowed only at
+   a router near-tie below 1e-6, its gap printed), and the serving example
+   (``repro_torch.examples.serve_decode``) on the card;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -150,7 +172,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    window at T=4096 against SDPA with ``is_causal=True``, whose backend is
    printed, and at Gemma3's two shapes (Hq 4, T=4096: window 1024 beside
    SDPA with the same mask and GQA, causal beside SDPA ``is_causal`` on K/V
-   repeated to 4 heads) with their launches a forward; the WKV rows with
+   repeated to 4 heads) with their launches a forward, and at the
+   decoder-only archs' scoring shapes (causal with no window, B=1:
+   qwen2-0.5b, minitron-8b, nemotron-4-15b and qwen2-vl-7b at T=4096,
+   qwen3-moe at its chunk's T=1024) beside SDPA is_causal with enable_gqa
+   and on K/V repeated, each with its backend; the WKV rows with
    their time per chunk, every column tile of the chunked forward and every
    cluster size of the backward at the training shape and at a seq shard,
    and a backward row at the seq gradient's shard; the decode rows with
@@ -468,6 +494,10 @@ def main():
     for name, n in _fleet_serving(torch, np).items():
         launches[name] = launches.get(name, 0) + n
 
+    # ---- 3l. the decoder-only archs: dense, relu2, M-RoPE and MoE ----------
+    arch_flash, arch_per_forward = _decoder_archs(torch, np)
+    launches["flash_attention_cuda"] += arch_flash
+
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
     launches.update(_paper_main_path(torch))
@@ -530,6 +560,12 @@ def main():
     rows += _time_train_kernels(torch, KC, BW, launches, worst)
     rows += _time_seq_kernels(torch, KC, BW, launches, worst, seq_extra)
     rows += _time_rg_kernels(torch, launches, worst, floor_ms, g3_split)
+    flash_row = next(r for r in rows if r["name"] == "flash_attention_cuda")
+    flash_row["large"] += [
+        {k: r[k] for k in ("shape", "launches", "ms", "call_ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "backend", "library_repeat_ms",
+                           "backend_repeat")}
+        for r in _time_arch_attention(torch, worst["flash_attention_cuda"], arch_per_forward)]
     rows += _time_paper_kernels(torch, launches, worst)
 
     print(json.dumps({"kernels": rows}))
@@ -1457,11 +1493,11 @@ def _shift_inputs(torch, b, t, dtype, seed, taps=4):
     return x.to(dtype), w.to(dtype)
 
 
-def _attn_inputs(torch, b, t, s, dtype, seed, d=RG_DH, hq=RG_HQ):
+def _attn_inputs(torch, b, t, s, dtype, seed, d=RG_DH, hq=RG_HQ, hkv=RG_HKV):
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, hq, t, d), generator=g, device="cuda")
-    k = torch.randn((b, RG_HKV, s, d), generator=g, device="cuda")
-    v = torch.randn((b, RG_HKV, s, d), generator=g, device="cuda")
+    k = torch.randn((b, hkv, s, d), generator=g, device="cuda")
+    v = torch.randn((b, hkv, s, d), generator=g, device="cuda")
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
@@ -1484,6 +1520,22 @@ G3_ATTN_CASES = (
     (4096, 4096, True, G3_WINDOW, RG_DH),
     (4096, 4096, True, None, RG_DH),
 )
+#: The decoder-only archs' flash shapes (phase 3l): (Hq, Hkv, D, T) of
+#: qwen2-0.5b, minitron-8b, nemotron-4-15b (and dbrx-132b), qwen2-vl-7b and
+#: qwen3-moe, GQA over several KV heads.
+ARCH_HEADS = {
+    "qwen2-0.5b": (14, 2, 64, 4096),
+    "minitron-8b": (32, 8, 128, 2048),
+    "nemotron-4-15b": (48, 8, 128, 2048),
+    "qwen2-vl-7b": (28, 4, 128, 2048),
+    "qwen3-moe-235b-a22b": (64, 4, 128, 2048),
+}
+#: Each checked causal with no window over the whole T, as an offset decode
+#: window (T=8 against S=300) and at a T that is not a block multiple.
+ARCH_ATTN_CASES = tuple(
+    (hq, hkv, tt, ss, True, None, d)
+    for hq, hkv, d, t in ARCH_HEADS.values()
+    for tt, ss in ((t, t), (8, 300), (1000, 1000)))
 
 
 def _rg_kernel_checks(torch):
@@ -1581,13 +1633,15 @@ def _rg_kernel_checks(torch):
                       f"version: {same}")
                 if not same:
                     raise SystemExit("token shift differs from its plain version")
-            cases = [(RG_HQ,) + c for c in ATTN_CASES] + [(G3_HQ,) + c for c in G3_ATTN_CASES]
-            for hq, t, s, causal, window, d in cases:
-                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s, d=d, hq=hq)
+            cases = ([(RG_HQ, RG_HKV) + c for c in ATTN_CASES]
+                     + [(G3_HQ, RG_HKV) + c for c in G3_ATTN_CASES] + list(ARCH_ATTN_CASES))
+            for hq, hkv, t, s, causal, window, d in cases:
+                q, k, v = _attn_inputs(torch, 1, t, s, dtype, seed=t + s, d=d, hq=hq, hkv=hkv)
                 got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
                 torch.cuda.synchronize()
                 case = f"T={t} S={s} {'causal' if causal else 'full'} W={window}" + (
-                    f" D={d}" if d != RG_DH else "") + (f" Hq={hq}" if hq != RG_HQ else "")
+                    f" D={d}" if d != RG_DH else "") + (f" Hq={hq}" if hq != RG_HQ else "") + (
+                    f" Hkv={hkv}" if hkv != RG_HKV else "")
                 want = FA.attention_ref(q, k, v, causal=causal, window=window)
                 if dtype == torch.bfloat16:
                     check_bf16_attention(case, got, want)
@@ -2990,6 +3044,379 @@ def _sdpa_backend(torch, fn, args):
                   and e.name.startswith("aten::_scaled_dot_product_")})
     kernels = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
     return "; ".join(ops + [k[:100] for k in kernels]) or "not told"
+
+# ---------------------------------------------------------------------------
+# The decoder-only archs (phase 3l and its rows of phase 4): qwen2-0.5b,
+# minitron-8b, nemotron-4-15b, qwen2-vl-7b, dbrx-132b and qwen3-moe through
+# the same engine and the same flash kernel.
+# ---------------------------------------------------------------------------
+
+#: Depth of the two MoE archs on one card: full width, 4 of their 40 (dbrx)
+#: and 94 (qwen3-moe) layers.  The full depth holds 263 and 470 GB of bf16
+#: weights; four layers and the embeddings about 29 and 22 GB.
+MOE_DEPTH = 4
+#: qwen2-vl's scoring: 1024 leading patch embeddings (a 32 x 32 grid).
+VL_PATCHES = 1024
+
+
+def _vision_extras(torch, b, t, d, s_f, seed, device="cuda", dtype=None):
+    """qwen2-vl inputs: ``s_f`` leading patch embeddings (N(0, 1) from a
+    seed) on a square grid, and (3, B, T) M-RoPE positions: each patch at
+    temporal position 0 with its row and column on the height and width
+    streams, the text after them continuing from the grid's side on all
+    three streams."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    fe = torch.randn((b, s_f, d), generator=g, device=device)
+    side = math.isqrt(s_f)
+    i = torch.arange(s_f, device=device)
+    pos = torch.empty((3, b, t), dtype=torch.int64, device=device)
+    pos[0, :, :s_f] = 0
+    pos[1, :, :s_f] = i // side
+    pos[2, :, :s_f] = i % side
+    pos[:, :, s_f:] = side + torch.arange(t - s_f, device=device)
+    return {"frontend_embeds": fe if dtype is None else fe.to(dtype), "positions": pos}
+
+
+def _flash_recorder(torch, FOPS, calls):
+    """A pass-through for ``ops.flash_attention_cuda`` that counts each
+    call by (causal, window); the launch counts are the wrapper's own."""
+    real = FOPS.flash_attention_cuda
+
+    def recording(q, k, v, **kw):
+        calls[(kw.get("causal", True), kw.get("window"))] += 1
+        return real(q, k, v, **kw)
+
+    return real, recording
+
+
+def _arch_path(torch, np, name, *, layers=None, gen=(4, 64, 16), serve=False,
+               score=(1, 4096), frontend=0, k_w=8, profile=False):
+    """One decoder-only arch at full width in bf16 (random weights from a
+    seed; ``layers`` cuts the depth) through ``generate`` (B, P, +new) and,
+    with ``serve``, phase 3's 6 ragged requests on 4 slots, each with every
+    launch count set to 0 just before and held at 0 just after (serving
+    attends in plain PyTorch), then prompt scoring through
+    ``make_prefill_step`` at ``score`` (B, T) (qwen2-vl with ``frontend``
+    leading patch embeddings and (3, B, T) positions), its flash launches
+    held to one causal launch with no window a layer and a chunk.  The MoE
+    archs score twice: the logits must be bit-identical (the combine has no
+    atomics), and the second run prints each layer's capacity and dropped
+    share of (token, k) assignments.  Returns the flash launches of the
+    scoring."""
+    from collections import Counter
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.local_attention import ops as FOPS
+    from repro_torch.model import model as M
+    from repro_torch.model import moe as MOE
+    from repro_torch.serve.engine import ServeEngine, make_prefill_step
+
+    cfg = get_config(name)
+    full_layers = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    tag = f"[{cfg.name}]"
+    counters = _counters()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"{tag} {n_params / 1e9:.3f}B params in {cfg.dtype} ({cfg.num_layers} of "
+          f"{full_layers} layers; Hq {cfg.num_heads} over Hkv {cfg.num_kv_heads}, head "
+          f"{cfg.head_dim}; mlp {cfg.mlp_type}"
+          + (f", {cfg.num_experts} experts top-{cfg.num_experts_per_tok}" if cfg.num_experts
+             else "") + f"), {torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, "
+          f"initialized in {time.perf_counter() - t0:.1f}s")
+    gb, gp, gnew = gen
+    engine = ServeEngine(cfg, params, max_len=512 if serve else 128, decode_window=k_w)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (gb, gp))
+    reqs = _g3_requests(np.random.default_rng(0), cfg.vocab_size) if serve else []
+    sb, st = score
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (sb, st))).cuda()
+    extras = (_vision_extras(torch, sb, st, cfg.d_model, frontend, seed=3, dtype=torch.bfloat16)
+              if frontend else {})
+    scoring = make_prefill_step(cfg)
+    n = cfg.prefill_chunks
+    chunks = n if n > 1 and sb % n == 0 else 1
+    with torch.inference_mode():                              # warm-up
+        engine.generate(prompts[:, :16], 2)
+        if serve:
+            engine.serve(reqs[:1], slots=4)
+        scoring(params, tokens[:chunks, :256], **{
+            k: (v[:, :chunks, :256] if k == "positions" else v[:chunks, :min(256, frontend)])
+            for k, v in extras.items()})
+
+    def hold(what, got, want):
+        want = {**dict.fromkeys(counters, 0), **want}
+        print(f"{tag} launches during {what}: {got['flash_attention_cuda']} flash, "
+              f"{sum(got.values())} in all; derived {sum(want.values())}")
+        if got != want:
+            raise SystemExit(f"{cfg.name} {what}: launch counts {got} != derived {want}")
+
+    out, dt, got = _counted(torch, counters, lambda: engine.generate(prompts, gnew))
+    hold("generate", got, {})
+    toks = out[:, gp:].cpu().numpy()
+    gen_ok = bool(M.decode_state_finite(engine.last_state).all())
+    print(f"{tag} generate B={gb} P={gp} +{gnew} K={k_w}: {dt:.3f}s, {gb * gnew / dt:.1f} tok/s "
+          f"incl. prefill; state finite: {gen_ok}")
+    if toks.shape != (gb, gnew) or toks.min() < 0 or toks.max() >= cfg.vocab_size or not gen_ok:
+        raise SystemExit(f"{cfg.name} generate: bad tokens or state, shape {toks.shape}")
+    if serve:
+        results, dt, got = _counted(torch, counters, lambda: engine.serve(reqs, slots=4))
+        hold("serve", got, {})
+        emitted = sum(r.size for r in results)
+        serve_ok = bool(M.decode_state_finite(engine.last_state).all())
+        print(f"{tag} serve 6 requests, 4 slots, K={k_w}: {emitted} tokens in {dt:.3f}s, "
+              f"{emitted / dt:.1f} tok/s; outcomes {[r.outcome for r in results]}; "
+              f"state finite: {serve_ok}")
+        for req, res in zip(reqs, results):
+            if res.outcome != "ok" or res.size != req.max_new_tokens:
+                raise SystemExit(f"{cfg.name} serve: {res.outcome} with {res.size} tokens")
+            if res.tokens.min() < 0 or res.tokens.max() >= cfg.vocab_size:
+                raise SystemExit(f"{cfg.name} serve: token outside the vocabulary")
+        if not serve_ok:
+            raise SystemExit(f"{cfg.name} serve: decode state not finite")
+    del engine
+
+    calls = Counter()
+    real, recording = _flash_recorder(torch, FOPS, calls)
+    FOPS.flash_attention_cuda = recording
+    try:
+        with torch.inference_mode():
+            logits, dt, got = _counted(torch, counters,
+                                       lambda: scoring(params, tokens, **extras))
+    finally:
+        FOPS.flash_attention_cuda = real
+    want = cfg.num_layers * chunks
+    hold(f"scoring B={sb} T={st} ({chunks} chunk{'s' * (chunks > 1)})", got,
+         {"flash_attention_cuda": want})
+    if dict(calls) != {(True, None): want}:
+        raise SystemExit(f"{cfg.name} scoring: flash calls {dict(calls)}, want {want} causal "
+                         "with no window")
+    fin = bool(torch.isfinite(logits[..., :cfg.vocab_size]).all())
+    nll = float(torch.nn.functional.cross_entropy(
+        logits[:, :-1, :cfg.vocab_size].reshape(-1, cfg.vocab_size).float(),
+        tokens[:, 1:].reshape(-1)))
+    print(f"{tag} scoring (make_prefill_step) B={sb} T={st}"
+          + (f" with {frontend} patch embeddings and (3, B, T) positions" if frontend else "")
+          + f": {dt:.3f}s, {sb * st / dt:,.0f} tok/s; logits {tuple(logits.shape)} finite: "
+          f"{fin}; mean NLL {nll:.3f} (random weights; ln V = {math.log(cfg.vocab_size):.3f})")
+    if logits.shape != (sb, st, cfg.padded_vocab) or not fin:
+        raise SystemExit(f"{cfg.name} scoring: bad logits")
+    if cfg.num_experts:
+        routes = []
+        real_dispatch = MOE.dispatch
+
+        def recording_dispatch(*a, **kw):
+            r = real_dispatch(*a, **kw)
+            routes.append((r.cap, (r.slot == cfg.num_experts * r.cap).sum(), r.slot.numel()))
+            return r
+
+        MOE.dispatch = recording_dispatch
+        try:
+            with torch.inference_mode():
+                again = scoring(params, tokens, **extras)
+        finally:
+            MOE.dispatch = real_dispatch
+        same = torch.equal(logits, again)
+        del again
+        dropped = [int(d) for _, d, _ in routes]
+        cap, per_call = routes[0][0], routes[0][2]
+        print(f"{tag} MoE of one scoring: {len(routes)} calls ({cfg.num_layers} layers x "
+              f"{chunks} chunks) of {per_call} (token, k) assignments, capacity {cap} rows "
+              f"an expert; dropped {sum(dropped)} of {per_call * len(routes)} "
+              f"({100 * sum(dropped) / (per_call * len(routes)):.3f}%; per call "
+              f"{min(dropped)}-{max(dropped)}); a second scoring bit-identical: {same}")
+        if not same:
+            raise SystemExit(f"{cfg.name}: two scorings of the same tokens differ")
+    del logits
+    if profile:
+        with torch.inference_mode():
+            _profile(torch, lambda: scoring(params, tokens, **extras),
+                     f"{cfg.name} scoring B={sb} T={st}", top=10)
+    del params
+    torch.cuda.empty_cache()
+    return want
+
+
+def _router_gap(torch, cfg, params, prefix):
+    """(gap at the last token, smallest gap over every token) between the
+    k-th and (k+1)-th router probability of ``prefix`` (T,), over the MoE
+    layers of a CPU forward."""
+    from repro_torch.model import model as M
+    from repro_torch.model import moe as MOE
+
+    gaps = []
+    real = MOE._topk_routing
+
+    def recording(logits, k):
+        top = torch.sort(torch.softmax(logits.float(), -1), dim=-1, descending=True).values
+        gaps.append(top[:, k - 1] - top[:, k])
+        return real(logits, k)
+
+    MOE._topk_routing = recording
+    try:
+        with torch.inference_mode():
+            M.forward(params, cfg, prefix[None].cpu())
+    finally:
+        MOE._topk_routing = real
+    g = torch.stack(gaps)                              # (layers, T)
+    return float(g[:, -1].min()), float(g.min())
+
+
+def _arch_reference_check(torch, np, name):
+    """The reduced f32 arch with flash on the card against the same weights
+    with the plain versions on the CPU: forward logits at T=200 within 1e-4
+    (qwen2-vl with 48 patch embeddings and (3, B, T) positions), greedy
+    ``generate`` tokens (a 40-token prompt, +12) and ``serve`` streams (5
+    ragged requests, 2 slots, K=4) equal.  For the MoE archs the only
+    allowed cause of a parted stream is a router near-tie: where one
+    parts, the gap between the k-th and (k+1)-th router probability over
+    its context must be below 1e-6."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(name).reduced()
+    p_cpu = M.init_params(cfg, seed=1, device="cpu")
+    p_gpu = _to(p_cpu, "cuda")
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 200)))
+    kw_cpu = (_vision_extras(torch, 2, 200, cfg.d_model, 49, seed=1, device="cpu")
+              if cfg.frontend == "vision" else {})
+    kw_gpu = {k: v.cuda() for k, v in kw_cpu.items()}
+    with torch.inference_mode():
+        l_cpu = M.forward(p_cpu, cfg, toks, **kw_cpu)
+        l_gpu = M.forward(p_gpu, cfg, toks.cuda(), **kw_gpu).cpu()
+    err = float((l_cpu - l_gpu).abs().max())
+    reqs = [Request(tokens=rng.integers(0, cfg.vocab_size, int(rng.integers(4, 30))),
+                    max_new_tokens=int(rng.integers(2, 10))) for _ in range(5)]
+    runs = {}
+    for dev, p in (("cpu", p_cpu), ("cuda", p_gpu)):
+        eng = ServeEngine(cfg, p, max_len=128, decode_window=4, device=dev)
+        g = eng.generate(toks[:, :40].to(dev), 12).cpu()
+        runs[dev] = [g[i, 40:].numpy() for i in range(2)] + [
+            np.asarray(r.tokens) for r in eng.serve(reqs, slots=2)]
+    contexts = [toks[i, :40].numpy() for i in range(2)] + [r.tokens for r in reqs]
+    parted = []
+    for i, (a, b, ctx) in enumerate(zip(runs["cpu"], runs["cuda"], contexts)):
+        if np.array_equal(a, b):
+            continue
+        j = int(np.argmax(a[:len(b)] != b[:len(a)])) if len(a) == len(b) else min(len(a), len(b))
+        prefix = torch.from_numpy(np.concatenate([ctx, a[:j]]).astype(np.int64))
+        gap = _router_gap(torch, cfg, p_cpu, prefix) if cfg.num_experts else (None, None)
+        parted.append((i, j, gap))
+        print(f"[reference] reduced f32 {cfg.name}: stream {i} parts at token {j}; router "
+              f"gap at that token {gap[0]}, smallest over its context {gap[1]}")
+    print(f"[reference] reduced f32 {cfg.name}, card vs CPU: forward T=200 max_abs_err="
+          f"{err:.2e} (tol 1e-4), {len(contexts) - len(parted)} of {len(contexts)} greedy "
+          f"streams (2 generate, 5 serve) equal")
+    if err > 1e-4:
+        raise SystemExit(f"card and CPU disagree on the reduced {cfg.name}'s logits")
+    for i, j, (_, low) in parted:
+        if low is None or low >= 1e-6:
+            raise SystemExit(f"reduced {cfg.name}: stream {i} parts at token {j} without a "
+                             f"router near-tie (smallest gap {low})")
+
+
+def _decoder_archs(torch, np):
+    """Phase 3l.  Returns (flash launches of the phase, the flash launches
+    a forward of each arch)."""
+    plan = (
+        ("qwen2-0.5b", dict(gen=(4, 256, 32), serve=True, profile=True)),
+        ("minitron-8b", {}),
+        ("nemotron-4-15b", {}),
+        ("qwen2-vl-7b", dict(frontend=VL_PATCHES)),
+        ("dbrx-132b", dict(layers=MOE_DEPTH, score=(8, 1024))),
+        ("qwen3-moe-235b-a22b", dict(layers=MOE_DEPTH, score=(8, 1024))),
+    )
+    t0 = time.perf_counter()
+    total, per_forward = 0, {}
+    for name, kw in plan:
+        per_forward[name] = _arch_path(torch, np, name, **kw)
+        total += per_forward[name]
+    t1 = time.perf_counter()
+    for name, _ in plan:
+        _arch_reference_check(torch, np, name)
+    t2 = time.perf_counter()
+    # The serving example on the card: the reduced gemma3, recurrentgemma
+    # and rwkv6 through generate, serve, a pinned NaN recovered with every
+    # stream bit-identical, and the deadline and shed outcomes.
+    from repro_torch.examples import serve_decode
+
+    for arch, r in serve_decode.main([]).items():
+        if (r["chaos"].count("recovered") != 1 or r["recoveries"] != 1 or not r["identical"]
+                or r["lifecycle"] != ["deadline", "ok", "ok", "shed", "shed", "shed"]):
+            raise SystemExit(f"examples/serve_decode on the card: {arch} {r}")
+    print(f"[time] phase 3l wall: {t1 - t0:.1f}s full-size paths, {t2 - t1:.1f}s reduced "
+          f"f32 card vs CPU, {time.perf_counter() - t2:.1f}s the serving example")
+    return total, per_forward
+
+
+def _time_arch_attention(torch, worst, per_forward):
+    """Phase 4 rows of flash attention at the decoder-only archs' scoring
+    shapes, bf16, causal with no window: qwen2-0.5b, minitron-8b,
+    nemotron-4-15b (dbrx-132b shares its heads and width) and qwen2-vl-7b at
+    B=1, T=4096, qwen3-moe at one chunk of its scoring (B=1, T=1024), each
+    beside its plain version, its bound and SDPA ``is_causal`` on the same
+    inputs with ``enable_gqa`` (the library call) and on K/V repeated to
+    the Hq heads before the timed region, with the backend each took."""
+    from repro_torch.kernels import card_checks as CC
+
+    F = torch.nn.functional
+    FA = _rg_modules()[3]
+    fa_src = "src/repro_torch/kernels/local_attention/csrc/flash_attention.cu"
+    fa_replaces = "src/repro/kernels/local_attention/kernel.py:137 (flash_attention_pallas)"
+    shapes = (("qwen2-0.5b", 4096), ("minitron-8b", 4096), ("nemotron-4-15b", 4096),
+              ("qwen2-vl-7b", 4096), ("qwen3-moe-235b-a22b", 1024))
+    rows = []
+
+    def gqa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+
+    def causal(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    with torch.inference_mode():
+        for arch, t in shapes:
+            hq, hkv, d, _ = ARCH_HEADS[arch]
+            nbytes = 2 * (2 * hq * t * d + 2 * hkv * t * d)
+            flops = 4 * d * hq * _visible_pairs(t, t, True, None)
+            sets = _cold_sets(lambda s: _attn_inputs(torch, 1, t, t, torch.bfloat16, s, d=d,
+                                                     hq=hq, hkv=hkv), nbytes)
+            kern = lambda q, k, v: FA.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+            ms, call_ms = _time_ms(torch, kern, sets, reps=20)
+            plain_ms, _ = _time_ms(torch, lambda q, k, v: FA.attention_ref(q, k, v, causal=True),
+                                   sets[:2], reps=3)
+            got = kern(*sets[0])
+            ratio = CC.attn_bf16_ratio(gqa(*sets[0]), got)
+            backend = _sdpa_backend(torch, gqa, sets[0])
+            lib_ms = _time_ms(torch, gqa, sets, reps=20)[0]
+            rep = [(q, k.repeat_interleave(hq // hkv, 1), v.repeat_interleave(hq // hkv, 1))
+                   for q, k, v in sets]
+            rep_backend = _sdpa_backend(torch, causal, rep[0])
+            rep_ms = _time_ms(torch, causal, rep, reps=20)[0]
+            del rep, sets
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            f_ms = flops / PEAK_BF16_FLOPS * 1e3
+            rows.append({
+                "name": "flash_attention_cuda", "route": "cuda", "source": fa_src,
+                "replaces": fa_replaces, "launches": per_forward[arch],
+                "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(b_ms, f_ms), "bound_by": "bytes" if b_ms >= f_ms else "operations",
+                "library_ms": lib_ms, "call_ms": call_ms,
+                "shape": f"B=1 Hq={hq} Hkv={hkv} T={t} D={d} causal bf16 ({arch})",
+                "backend": backend, "library_repeat_ms": rep_ms, "backend_repeat": rep_backend,
+            })
+            print(f"[time] flash_attention_cuda {rows[-1]['shape']:52s} device {ms * 1e3:9.2f} us, "
+                  f"per call {call_ms * 1e3:9.2f} us (plain {plain_ms * 1e3:10.1f} us, bound "
+                  f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']}; SDPA "
+                  f"enable_gqa {lib_ms * 1e3:.2f} us [{backend[:60]}], on repeated K/V "
+                  f"{rep_ms * 1e3:.2f} us [{rep_backend[:60]}]; SDPA agrees: worst err/tol "
+                  f"per element {ratio:.3f}); {per_forward[arch]} launches a forward")
+    return rows
+
 
 # ---------------------------------------------------------------------------
 # The paper demo: the 5-point stencil, the operand-forwarding matmul and the

@@ -117,6 +117,15 @@ class ArchConfig:
         total += v * d * (1 if self.tie_embeddings else 2)
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        full_mlp = (3 if self.mlp_type in ("swiglu", "geglu") else 2) * d * f
+        inactive = (self.num_experts - self.num_experts_per_tok) * full_mlp
+        return self.param_count() - inactive * self.num_layers
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test configuration of the same family (CPU-friendly)."""
         kv = max(1, min(self.num_kv_heads, 2))

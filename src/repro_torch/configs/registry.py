@@ -1,7 +1,8 @@
 """Architecture registry: ``get_config(name)`` / ``list_archs()``.
 
-The reference knows ten archs; the port runs only those listed in
-``_PORTED``.  Asking for a known arch the port does not run yet raises
+The reference knows ten archs; the port runs those listed in ``_PORTED``
+(every decoder-only one).  Asking for a known arch the port does not run
+yet (the encoder-decoder seamless-m4t) raises
 ``NotImplementedError``; an unknown name raises ``KeyError``, as in the
 reference.
 """
@@ -23,7 +24,17 @@ _ARCHS = (
     "seamless_m4t_large_v2",
 )
 
-_PORTED = ("rwkv6_1_6b", "recurrentgemma_2b", "gemma3_1b")
+_PORTED = (
+    "rwkv6_1_6b",
+    "recurrentgemma_2b",
+    "gemma3_1b",
+    "qwen2_0_5b",
+    "minitron_8b",
+    "nemotron_4_15b",
+    "qwen2_vl_7b",
+    "dbrx_132b",
+    "qwen3_moe_235b_a22b",
+)
 
 
 def canonical(name: str) -> str:

@@ -4,8 +4,12 @@ continuous-batching ``serve`` of :class:`repro_torch.serve.engine.ServeEngine`.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --continuous
 
 runs full-size RWKV6-1.6B (random weights from ``--seed``, bf16) on the
-card.  ``--smoke`` takes the reduced f32 config; ``--device cpu`` runs on
-the CPU with the kernels' plain versions:
+card.  ``--arch`` takes every arch the port runs
+(``repro_torch.configs.registry.list_archs()``: rwkv6-1.6b,
+recurrentgemma-2b, gemma3-1b, qwen2-0.5b, minitron-8b, nemotron-4-15b,
+qwen2-vl-7b, dbrx-132b, qwen3-moe-235b-a22b).  ``--smoke`` takes the
+reduced f32 config; ``--device cpu`` runs on the CPU with the kernels'
+plain versions:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke \
       --continuous --device cpu

@@ -3,6 +3,8 @@ and rotary embeddings (counterparts of ``repro.model.layers``)."""
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -33,28 +35,27 @@ def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
 # MLPs
 # --------------------------------------------------------------------------
 
-def _check_mlp(cfg):
-    if cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError(
-            f"mlp_type {cfg.mlp_type!r} is not ported yet (swiglu, geglu)")
-
-
 def init_mlp(mk, cfg, name: str):
-    _check_mlp(cfg)
     d, f = cfg.d_model, cfg.d_ff
-    return {"w_gate": mk(f"{name}.w_gate", (d, f)),
-            "w_up": mk(f"{name}.w_up", (d, f)),
-            "w_down": mk(f"{name}.w_down", (f, d))}
+    p = {}
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = mk(f"{name}.w_gate", (d, f))
+    p["w_up"] = mk(f"{name}.w_up", (d, f))              # relu2 (nemotron): no gate
+    p["w_down"] = mk(f"{name}.w_down", (f, d))
+    return p
 
 
 def apply_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    _check_mlp(cfg)
-    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
     if cfg.mlp_type == "swiglu":
-        gate = F.silu(gate)
-    else:                                   # geglu: the tanh-approximate gelu
-        gate = F.gelu(gate, approximate="tanh")
-    return (gate * (x @ params["w_up"])) @ params["w_down"]
+        h = F.silu(x @ params["w_gate"]) * up
+    elif cfg.mlp_type == "geglu":              # the tanh-approximate gelu
+        h = F.gelu(x @ params["w_gate"], approximate="tanh") * up
+    elif cfg.mlp_type == "relu2":
+        h = F.relu(up).square()
+    else:
+        raise ValueError(cfg.mlp_type)
+    return h @ params["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -84,7 +85,7 @@ def logits_projection(params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Rotary embeddings (1-D RoPE)
+# Rotary embeddings (RoPE and qwen2-vl's M-RoPE)
 # --------------------------------------------------------------------------
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -93,17 +94,38 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta ** exponent)
 
 
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
+    """(half,) int64: which positional stream each frequency band of
+    M-RoPE takes; built once per device, so no layer copies it again."""
+    ids = torch.repeat_interleave(torch.arange(len(sections)), torch.tensor(sections))
+    return ids.to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
                mrope_sections=None) -> torch.Tensor:
-    """x: (B, H, T, D); positions: (B, T).  Rotates the two halves of the
-    head dim by ``position * frequency`` in f32; output in x.dtype."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
+    """x: (B, H, T, D); positions: (B, T), or (3, B, T) for M-RoPE.
+    Rotates the two halves of the head dim by ``position * frequency`` in
+    f32; output in x.dtype.
+
+    M-RoPE (qwen2-vl): the half-dim frequency bands are split into
+    (temporal, height, width) sections, each rotated by its own positional
+    stream.  (B, T) positions broadcast to all three streams, so text
+    tokens (and every decode step) get plain 1-D RoPE."""
     d = x.shape[-1]
     half = d // 2
     freqs = rope_frequencies(d, theta, device=x.device)
-    angle = positions.float()[:, :, None] * freqs            # (B, T, half)
-    cos = torch.cos(angle)[:, None]                           # (B, 1, T, half)
+    pos = positions.float()
+    if mrope_sections is not None:
+        if sum(mrope_sections) != half:
+            raise ValueError(f"mrope_sections {mrope_sections} do not sum to {half}")
+        if pos.ndim == 2:
+            pos = pos[None].expand(3, *pos.shape)
+        section = _section_ids(tuple(mrope_sections), x.device)     # (half,)
+        angle = pos[section].permute(1, 2, 0) * freqs                # (B, T, half)
+    else:
+        angle = pos[:, :, None] * freqs                              # (B, T, half)
+    cos = torch.cos(angle)[:, None]                                  # (B, 1, T, half)
     sin = torch.sin(angle)[:, None]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

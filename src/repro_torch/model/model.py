@@ -1,6 +1,7 @@
 """Top-level model: init params, forward, decode state, decode step
-(counterpart of ``repro.model.model``; decoder-only text archs built from
-the ported layer kinds: RWKV6, RecurrentGemma and Gemma3).
+(counterpart of ``repro.model.model``; the decoder-only archs: RWKV6,
+RecurrentGemma, Gemma3, the dense Qwen2 and Nemotron families, Qwen2-VL's
+backbone with its stub frontend, and the MoE archs DBRX and Qwen3-MoE).
 
 Parameters are a plain dict with the reference's layout::
 
@@ -100,15 +101,27 @@ def init_params(cfg, seed: int = 0, *, device=None):
 # Forward
 # --------------------------------------------------------------------------
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, frontend_embeds=None):
     x = embed_tokens(params["tok"], tokens, cfg)
+    if frontend_embeds is not None:
+        # The stub frontend's patch embeddings take the first S_f
+        # positions, before the sqrt(d) scale, as in the reference.
+        s_f = frontend_embeds.shape[1]
+        x = torch.cat([frontend_embeds.to(x.dtype), x[:, s_f:]], dim=1)
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
 
 
-def forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (B, S, V) of a whole sequence from a zero state."""
-    x = _embed(params, cfg, tokens)
-    x, _ = tf.apply_stack(params["decoder"], x, cfg)
+def forward(params, cfg, tokens: torch.Tensor, *,
+            positions: torch.Tensor | None = None,
+            frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits (B, S, V) of a whole sequence from a zero state.
+
+    ``positions`` (B, S), or (3, B, S) for M-RoPE (qwen2-vl); ``None`` is
+    0..S-1.  ``frontend_embeds`` (B, S_f, D): precomputed patch embeddings
+    (the vision frontend is a stub, as in the reference) that replace the
+    first S_f embedded tokens."""
+    x = _embed(params, cfg, tokens, frontend_embeds)
+    x, _ = tf.apply_stack(params["decoder"], x, cfg, positions=positions)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return logits_projection(params["tok"], x, cfg)
 

@@ -4,7 +4,9 @@ periods plus a remainder (counterpart of ``repro.model.transformer``).
 The reference scans a jitted period body over the stacked parameters; the
 port walks the same ``{"scanned": [...], "remainder": [...]}`` layout in a
 Python loop.  Ported kinds: ``rwkv``, ``rec`` (RG-LRU) and the attention
-kinds ``attn``/``global`` (no window) and ``local`` (``cfg.attn_window``).
+kinds ``attn``/``global`` (no window) and ``local`` (``cfg.attn_window``);
+the feed-forward is the dense MLP or, where ``cfg.num_experts`` is set,
+the MoE layer (:mod:`repro_torch.model.moe`).
 
 Under autograd, ``cfg.remat == "full"`` (the reference's default,
 ``jax.checkpoint`` with nothing saveable) wraps each period in
@@ -22,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.model import attention as attn_mod
+from repro_torch.model import moe as moe_mod
 from repro_torch.model import recurrent as rec_mod
 from repro_torch.model.layers import apply_mlp, init_mlp, init_rmsnorm, rms_norm
 from repro_torch.model.sharding import remat_context
@@ -45,8 +48,23 @@ def init_block(mk, cfg, kind: str, name: str):
         p["rec"] = rec_mod.init_rglru_block(mk, cfg, f"{name}.rec")
     else:
         p["rwkv"] = rec_mod.init_rwkv_block(mk, cfg, f"{name}.rwkv")
-    p["ffn"] = init_mlp(mk, cfg, f"{name}.mlp")
+    if cfg.num_experts:
+        p["ffn"] = moe_mod.init_moe(mk, cfg, f"{name}.moe")
+    else:
+        p["ffn"] = init_mlp(mk, cfg, f"{name}.mlp")
     return p
+
+
+def apply_ffn(params, h, cfg):
+    """The block's feed-forward: the MoE layer where ``cfg.num_experts``
+    is set, else the dense MLP."""
+    if not cfg.num_experts:
+        return apply_mlp(params, h, cfg)
+    if cfg.moe_impl == "a2a":
+        raise NotImplementedError(
+            'moe_impl="a2a" (the all-to-all expert-parallel MoE) is not ported: '
+            "it needs the multi-card slice (ROADMAP Queue 1 item 7)")
+    return moe_mod.apply_moe(params, h, cfg)
 
 
 def apply_block(params, x, cfg, kind: str, *, positions=None, state=None,
@@ -68,7 +86,7 @@ def apply_block(params, x, cfg, kind: str, *, positions=None, state=None,
             params["rwkv"], h, cfg, state=state, token_mask=token_mask)
     x = x + out
     h = rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(params["ffn"], h, cfg), new_state
+    return x + apply_ffn(params["ffn"], h, cfg), new_state
 
 
 def plan_groups(cfg, num_layers: int | None = None):

@@ -82,17 +82,38 @@ def _prefill_rules(mesh, p: int, min_len: int = SEQ_PREFILL_MIN_T):
 
 
 def make_prefill_step(cfg):
-    """``(params, tokens (B, S)) -> logits (B, S, V)``: prompt scoring
-    through the cache-free :func:`~repro_torch.model.model.forward`.
-    The reference's ``cfg.prefill_chunks > 1`` (the batch scored in
-    sequential chunks) is not ported: no ported configuration sets it."""
-    if cfg.prefill_chunks > 1:
-        raise NotImplementedError(
-            f"make_prefill_step: prefill_chunks={cfg.prefill_chunks} is not "
-            "ported; only 1 (the whole batch in one forward) is")
+    """``(params, tokens (B, S), **extras) -> logits (B, S, V)``: prompt
+    scoring through the cache-free :func:`~repro_torch.model.model.forward`
+    (``extras``: its ``positions`` and ``frontend_embeds``).
 
-    def prefill_step(params, tokens):
-        return M.forward(params, cfg, tokens)
+    ``cfg.prefill_chunks = n > 1`` scores the batch in n sequential chunks
+    of B / n sequences, as the reference's ``lax.scan`` does, bounding the
+    live activations and the MoE dispatch; with ``n <= 1`` or B not a
+    multiple of n the batch goes through one forward.  Sequences are
+    independent, but an MoE layer's capacity counts the tokens of its call,
+    so for the MoE archs the chunked logits are the reference's chunked
+    ones, not the one-forward ones."""
+
+    def prefill_step(params, tokens, **kw):
+        n, b = cfg.prefill_chunks, tokens.shape[0]
+        if n <= 1 or b % n:
+            return M.forward(params, cfg, tokens, **kw)
+        c = b // n
+
+        def chunk(key, v, i):
+            if key == "positions" and v.ndim == 3 and v.shape[0] == 3:
+                return v[:, i * c:(i + 1) * c]
+            return v[i * c:(i + 1) * c]
+
+        out = None
+        for i in range(n):
+            logits = M.forward(params, cfg, tokens[i * c:(i + 1) * c],
+                               **{key: chunk(key, v, i) for key, v in kw.items()})
+            if out is None:
+                out = logits.new_empty((b,) + logits.shape[1:])
+            out[i * c:(i + 1) * c] = logits
+            del logits
+        return out
 
     return prefill_step
 
@@ -105,9 +126,9 @@ def make_seq_prefill_step(cfg, mesh, *, min_len: int = SEQ_PREFILL_MIN_T):
     axis.  Shorter prompts run under the plain ``prefill`` rules."""
     base = make_prefill_step(cfg)
 
-    def prefill_step(params, tokens):
+    def prefill_step(params, tokens, **kw):
         with _prefill_rules(mesh, tokens.shape[1], min_len):
-            return base(params, tokens)
+            return base(params, tokens, **kw)
 
     return prefill_step
 

@@ -116,8 +116,11 @@ def test_rope_matches_reference():
     want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0)
     got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 10_000.0)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 10_000.0, (8, 4, 4))
+    # M-RoPE (qwen2-vl's sections of the reduced config), 2-D positions
+    # broadcast to its three streams.
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 10_000.0, (8, 4, 4))
+    got = L.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 10_000.0, (8, 4, 4))
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("t", [1, 5, 16])

@@ -502,6 +502,50 @@ def test_flash_attention_matches_plain(cuda, dtype, d, case):
     _attn_close(got, FA.attention_ref(q, k, v, causal=causal, window=window))
 
 
+#: (Hq, Hkv, D, T) of the decoder-only archs' scoring: qwen2-0.5b (14/2 at
+#: 64, T=4096), minitron-8b (32/8), nemotron-4-15b and dbrx (48/8),
+#: qwen2-vl-7b (28/4) and qwen3-moe (64/4), all at 128 and T=2048.
+ARCH_HEADS = [(14, 2, 64, 4096), (32, 8, 128, 2048), (48, 8, 128, 2048),
+              (28, 4, 128, 2048), (64, 4, 128, 2048)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["causal", "decode-offset", "odd-T"])
+@pytest.mark.parametrize("heads", ARCH_HEADS, ids=lambda h: "-".join(map(str, h)))
+def test_flash_attention_at_decoder_arch_heads(cuda, dtype, mode, heads):
+    """GQA over several KV heads: causal with no window over the whole T,
+    an offset decode window (T=8 against S=300), and a T that is not a
+    block multiple."""
+    hq, hkv, d, t = heads
+    t, s = {"causal": (t, t), "decode-offset": (8, 300), "odd-T": (1000, 1000)}[mode]
+    q, k, v = _qkv(1, hq, hkv, t, s, d, hq * 13 + t, cuda, dtype)
+    got = FA.flash_attention_cuda(q, k, v, causal=True)
+    _attn_close(got, FA.attention_ref(q, k, v, causal=True))
+
+
+def test_moe_layer_is_deterministic_and_matches_cpu(cuda):
+    """The MoE layer's combine sums each token's rows in a fixed order (no
+    atomics): two card runs give the same bits, and the f32 layer equals
+    the CPU's within 1e-5 of its largest output."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.model import model as M
+    from repro_torch.model import moe as MoE
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(), num_experts=32,
+                              num_experts_per_tok=8)
+    gen = torch.Generator().manual_seed(0)
+    mk = M.init_mk(gen, torch.float32, torch.device("cpu"))
+    p_cpu = MoE.init_moe(mk, cfg, "moe")
+    p_gpu = {k: v.to(cuda) for k, v in p_cpu.items()}
+    x = torch.randn(4, 64, cfg.d_model, generator=gen)
+    a = MoE.apply_moe(p_gpu, x.to(cuda), cfg)
+    assert torch.equal(a, MoE.apply_moe(p_gpu, x.to(cuda), cfg))
+    want = MoE.apply_moe(p_cpu, x, cfg)
+    assert float((a.cpu() - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
 def test_flash_attention_fully_masked_rows_are_zero(cuda):
     # T > S, causal: the first T - S queries see no key.
     q, k, v = _qkv(1, 2, 2, 96, 64, 64, 0, cuda, torch.bfloat16)

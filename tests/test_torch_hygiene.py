@@ -15,7 +15,7 @@ import torch
 from repro_torch.benchmarks import matmul_plans, rodinia
 from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
-from repro_torch.examples import quickstart
+from repro_torch.examples import quickstart, serve_decode
 from repro_torch.kernels.matmul_fwd import kernel as matmul_kernel
 from repro_torch.kernels.matmul_fwd import ops as matmul_ops
 from repro_torch.kernels.stencil2d import kernel as stencil_kernel
@@ -118,6 +118,20 @@ def test_seq_parallel_modules_are_checked():
         assert mod in names, f"{mod} is not among the sources the import checks read"
 
 
+def test_decoder_arch_modules_are_checked():
+    """The MoE layer, the six configs of the last decoder-only archs and
+    the serving example are among the sources the import checks read."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if p.is_relative_to(PORT)}
+    for mod in ("model/moe.py", "model/layers.py", "configs/qwen2_0_5b.py",
+                "configs/minitron_8b.py", "configs/nemotron_4_15b.py",
+                "configs/qwen2_vl_7b.py", "configs/dbrx_132b.py",
+                "configs/qwen3_moe_235b_a22b.py", "examples/serve_decode.py"):
+        assert mod in names, f"{mod} is not among the sources the import checks read"
+    bad = [m for m in _imports(PORT / "model" / "moe.py")
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad
+
+
 def test_meshes_need_the_card_by_default(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh_mod.make_seq_mesh(4)
@@ -135,6 +149,8 @@ def test_paper_demo_entry_points_need_the_card_by_default(no_card):
         rodinia.main(["--smoke"])
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_decode.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         matmul_plans.main(["--shapes", "64x64x64"])
     assert rodinia.make_inputs(smoke=True, device="cpu")["x1"].device.type == "cpu"
@@ -237,7 +253,7 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 def test_registry_refuses_unported_and_unknown_archs():
     with pytest.raises(NotImplementedError):
-        get_config("qwen2-0.5b")
+        get_config("seamless-m4t-large-v2")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert np.isclose(get_config("rwkv6-1.6b").param_count() / 1e9, 1.93, atol=0.01)

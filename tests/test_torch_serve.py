@@ -159,7 +159,7 @@ class TestLauncher:
 
     def test_unported_arch_is_refused(self):
         with pytest.raises(NotImplementedError):
-            launcher.main(["--arch", "qwen2-0.5b", "--smoke", "--device", "cpu"])
+            launcher.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
@@ -223,12 +223,23 @@ class TestRecurrentGemma:
         assert got.shape == want.shape == (2, 90, cfg.padded_vocab)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
 
-    def test_prefill_step_refuses_chunks(self, rg_setup):
+    @pytest.mark.parametrize("b", [4, 3])
+    def test_prefill_step_chunks_match_reference(self, rg_setup, b):
+        """``prefill_chunks=2``: B=4 is scored in two chunks of two
+        sequences, B=3 (not a multiple) in one forward; both equal the
+        reference's and the unchunked scoring (sequences are independent
+        in an arch without MoE)."""
         import dataclasses
 
-        cfg = dataclasses.replace(rg_setup[1], prefill_chunks=2)
-        with pytest.raises(NotImplementedError, match="prefill_chunks"):
-            E.make_prefill_step(cfg)
+        cfg_j, cfg, pj, pt = rg_setup
+        cfg_j = dataclasses.replace(cfg_j, prefill_chunks=2)
+        cfg = dataclasses.replace(cfg, prefill_chunks=2)
+        toks = np.random.default_rng(b).integers(0, cfg.vocab_size, (b, 70)).astype(np.int32)
+        want = np.asarray(JE.make_prefill_step(cfg_j)(pj, jnp.asarray(toks)))
+        got = E.make_prefill_step(cfg)(pt, torch.from_numpy(toks).long()).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        whole = M.forward(pt, cfg, torch.from_numpy(toks).long()).numpy()
+        np.testing.assert_allclose(got, whole, rtol=1e-5, atol=1e-5)
 
     def test_reset_slot_rows_resets_kv_lengths_and_scrubs_nan(self, rg_setup):
         _, cfg, _, _ = rg_setup
@@ -248,3 +259,22 @@ class TestRecurrentGemma:
                        "--continuous", "--requests", "5", "--slots", "2", "--prompt-len", "8",
                        "--new-tokens", "6", "--max-len", "32", "--decode-window", "2"])
         assert "tok/s" in capsys.readouterr().out
+
+
+def test_serve_decode_example_on_cpu(capsys):
+    """The port of ``examples/serve_decode.py`` on the CPU: for each of its
+    three archs, lockstep generate, the continuous queue with every
+    request ok, one pinned NaN quarantined and recovered with every stream
+    bit-identical to the fault-free run, and the lifecycle drill's deadline
+    and shed outcomes, as the reference's example prints them."""
+    from repro_torch.examples import serve_decode
+
+    res = serve_decode.main(["--device", "cpu"])
+    assert list(res) == ["gemma3-1b", "recurrentgemma-2b", "rwkv6-1.6b"]
+    for arch, r in res.items():
+        assert tuple(r["generate"].shape) == (4, 28), arch
+        assert set(r["continuous"]) == {"ok"}, arch
+        assert r["chaos"].count("recovered") == 1 and r["recoveries"] == 1, arch
+        assert r["identical"], arch
+        assert r["lifecycle"] == ["deadline", "ok", "ok", "shed", "shed", "shed"], arch
+    assert "streams bit-identical: True" in capsys.readouterr().out
