@@ -1,11 +1,6 @@
-"""Architecture registry: ``get_config(name)`` / ``list_archs()``.
-
-The reference knows ten archs; the port runs those listed in ``_PORTED``
-(every decoder-only one).  Asking for a known arch the port does not run
-yet (the encoder-decoder seamless-m4t) raises
-``NotImplementedError``; an unknown name raises ``KeyError``, as in the
-reference.
-"""
+"""Architecture registry: ``get_config(name)`` / ``list_archs()``, the
+reference's ten archs; an unknown name raises ``KeyError``, as in the
+reference."""
 
 from __future__ import annotations
 
@@ -24,35 +19,18 @@ _ARCHS = (
     "seamless_m4t_large_v2",
 )
 
-_PORTED = (
-    "rwkv6_1_6b",
-    "recurrentgemma_2b",
-    "gemma3_1b",
-    "qwen2_0_5b",
-    "minitron_8b",
-    "nemotron_4_15b",
-    "qwen2_vl_7b",
-    "dbrx_132b",
-    "qwen3_moe_235b_a22b",
-)
-
 
 def canonical(name: str) -> str:
     return name.replace("-", "_").replace(".", "_")
 
 
 def list_archs() -> tuple[str, ...]:
-    """The archs the port runs."""
-    return _PORTED
+    return _ARCHS
 
 
 def get_config(name: str):
     mod_name = canonical(name)
     if mod_name not in _ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {_ARCHS}")
-    if mod_name not in _PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet; ported: {_PORTED}"
-        )
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG

@@ -7,9 +7,12 @@ runs full-size RWKV6-1.6B (random weights from ``--seed``, bf16) on the
 card.  ``--arch`` takes every arch the port runs
 (``repro_torch.configs.registry.list_archs()``: rwkv6-1.6b,
 recurrentgemma-2b, gemma3-1b, qwen2-0.5b, minitron-8b, nemotron-4-15b,
-qwen2-vl-7b, dbrx-132b, qwen3-moe-235b-a22b).  ``--smoke`` takes the
-reduced f32 config; ``--device cpu`` runs on the CPU with the kernels'
-plain versions:
+qwen2-vl-7b, dbrx-132b, qwen3-moe-235b-a22b); the encoder-decoder
+seamless-m4t-large-v2 is refused, as in the reference: its decoding
+needs the encoder's frames, which
+:func:`repro_torch.serve.engine.make_decode_step` takes.  ``--smoke``
+takes the reduced f32 config; ``--device cpu`` runs on the CPU with the
+kernels' plain versions:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b --smoke \
       --continuous --device cpu
@@ -69,6 +72,7 @@ fault-free single engine's (tier-1 lane 3e's drill):
 from __future__ import annotations
 
 import argparse
+import sys
 import tempfile
 import time
 
@@ -162,6 +166,11 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if cfg.is_enc_dec:
+        print("the port decodes an enc-dec arch against its frames with "
+              "repro_torch.model.model.encode and "
+              "repro_torch.serve.engine.make_decode_step(cfg)(..., enc_out=)", file=sys.stderr)
+        raise SystemExit("enc-dec serving demo: use examples/serve_decode.py")
     if args.paged and not args.continuous:
         raise SystemExit("--paged requires --continuous")
     if args.replicas < 1:

@@ -13,7 +13,11 @@ holds the same K/V in pooled fixed-size pages behind a per-slot page
 table: the window's K/V are written into the pool in place, the dense view
 is gathered back through the table, and the same positional-mask attention
 runs on it, so streams equal the dense cache's bit for bit.
-Cross-attention is not ported yet.
+
+Cross-attention (the encoder-decoder arch's decoder blocks) takes q from
+the decoder and K/V from the encoder's output ``x_kv`` of its own length
+S, with no RoPE and no cache: every call projects K/V again and runs the
+flash kernel non-causally, as the reference does.
 """
 
 from __future__ import annotations
@@ -78,8 +82,7 @@ class PagedKVCache:
 
 
 def init_attention(mk, cfg, name: str, *, cross: bool = False):
-    if cross:
-        raise NotImplementedError("cross-attention is not ported to repro_torch yet")
+    """Self-attention's params; cross-attention (``cross``) has the same."""
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads
     p = {
@@ -98,18 +101,19 @@ def init_attention(mk, cfg, name: str, *, cross: bool = False):
     return p
 
 
-def _project_qkv(params, x, cfg):
-    """q (B, Hq, T, Dh), k and v (B, Hkv, T, Dh)."""
+def _project_qkv(params, x, x_kv, cfg):
+    """q (B, Hq, T, Dh) from ``x``; k and v (B, Hkv, S, Dh) from ``x_kv``."""
     b, t, _ = x.shape
+    s = x_kv.shape[1]
     nq, nkv, hd = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads, cfg.head_dim
     q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    k = x_kv @ params["wk"]
+    v = x_kv @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(b, t, nq, hd).transpose(1, 2)
-    k = k.reshape(b, t, nkv, hd).transpose(1, 2)
-    v = v.reshape(b, t, nkv, hd).transpose(1, 2)
+    k = k.reshape(b, s, nkv, hd).transpose(1, 2)
+    v = v.reshape(b, s, nkv, hd).transpose(1, 2)
     if cfg.qk_norm:
         q = rms_norm(params["q_norm"], q, cfg.norm_eps)
         k = rms_norm(params["k_norm"], k, cfg.norm_eps)
@@ -131,19 +135,23 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
     inserted into the cache and do not advance the per-request length, so
     a finished slot's cache is untouched and pad tokens never become
     attendable.
+
+    ``x_kv`` (B, S, D) makes it cross-attention over that memory: no RoPE,
+    non-causal, and ``kv_cache`` (with ``token_mask``) is ignored, as in
+    the reference.
     """
-    if x_kv is not None:
-        raise NotImplementedError("cross-attention is not ported to repro_torch yet")
     b, t, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
+    cross = x_kv is not None
+    q, k, v = _project_qkv(params, x, x_kv if cross else x, cfg)
     window = cfg.attn_window if kind == "local" else None
-    if positions is None:
-        positions = torch.arange(t, device=x.device)[None].expand(b, t)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    if not cross:
+        if positions is None:
+            positions = torch.arange(t, device=x.device)[None].expand(b, t)
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
     new_cache = None
-    if kv_cache is not None:
+    if kv_cache is not None and not cross:
         advance = (torch.full((), t, dtype=torch.int32, device=x.device)
                    if token_mask is None else token_mask.sum(dim=1, dtype=torch.int32))
         if isinstance(kv_cache, PagedKVCache):
@@ -162,7 +170,7 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
                                 window=window)
     else:
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window)
+                              causal=causal and not cross, window=window)
     out = out.transpose(1, 2).reshape(b, t, (cfg.num_heads + cfg.head_pad) * cfg.head_dim)
     return out @ params["wo"], new_cache
 

@@ -1,20 +1,25 @@
-"""Top-level model: init params, forward, decode state, decode step
-(counterpart of ``repro.model.model``; the decoder-only archs: RWKV6,
+"""Top-level model: init params, forward, encode, decode state, decode step
+(counterpart of ``repro.model.model``; every arch of the reference: RWKV6,
 RecurrentGemma, Gemma3, the dense Qwen2 and Nemotron families, Qwen2-VL's
-backbone with its stub frontend, and the MoE archs DBRX and Qwen3-MoE).
+backbone with its stub frontend, the MoE archs DBRX and Qwen3-MoE, and the
+encoder-decoder SeamlessM4T, whose stub audio frontend hands the encoder
+precomputed frame embeddings).
 
 Parameters are a plain dict with the reference's layout::
 
     {"tok": {"embedding", "unembed"}, "final_norm": {"scale"},
      "decoder": {"scanned": [block dict with stacked leaves], "remainder": []}}
 
-and the decode state is ``{"scanned": [RecState, KVCache or PagedKVCache
-of stacked leaves], "remainder": [...]}``, so :mod:`repro_torch.model.convert` maps
-both frameworks' trees one to one.
+(the encoder-decoder arch adds ``"encoder"``, a stack of the same layout,
+and ``"enc_final_norm"``, with ``"ln_cross"`` and ``"cross"`` in every
+decoder block), and the decode state is ``{"scanned": [RecState, KVCache
+or PagedKVCache of stacked leaves], "remainder": [...]}``, so
+:mod:`repro_torch.model.convert` maps both frameworks' trees one to one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -66,20 +71,12 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def init_params(cfg, seed: int = 0, *, device=None):
-    """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (``None``: the card).  The reference draws from JAX keys, so the two
-    frameworks' numbers differ; tests convert the reference's params
-    instead (:func:`repro_torch.model.convert.params_from_jax`)."""
-    if cfg.is_enc_dec:
-        raise NotImplementedError("enc-dec models are not ported yet")
-    device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    mk = init_mk(gen, dtype_of(cfg), device)
-    pattern, n_periods, remainder = tf.plan_groups(cfg)
+def _init_stack(mk, cfg, *, num_layers=None, cross=False, name="dec"):
+    """A layer stack's params: ``{"scanned": [block dict of stacked
+    leaves, one a kind of the pattern] or None, "remainder": [block]}``."""
+    pattern, n_periods, remainder = tf.plan_groups(cfg, num_layers)
     periods = [
-        [tf.init_block(mk, cfg, kind, f"dec.p{i}.l{j}")
+        [tf.init_block(mk, cfg, kind, f"{name}.p{i}.l{j}", cross=cross)
          for j, kind in enumerate(pattern)]
         for i in range(n_periods)
     ]
@@ -88,13 +85,36 @@ def init_params(cfg, seed: int = 0, *, device=None):
         if n_periods else None
     )
     del periods
-    rem = [tf.init_block(mk, cfg, kind, f"dec.r{i}")
+    rem = [tf.init_block(mk, cfg, kind, f"{name}.r{i}", cross=cross)
            for i, kind in enumerate(remainder)]
-    return {
+    return {"scanned": scanned, "remainder": rem}
+
+
+def _encoder_cfg(cfg):
+    """The encoder's config: attention layers only, no experts."""
+    return dataclasses.replace(cfg, pattern=("attn",), num_experts=0)
+
+
+def init_params(cfg, seed: int = 0, *, device=None):
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (``None``: the card).  The reference draws from JAX keys, so the two
+    frameworks' numbers differ; tests convert the reference's params
+    instead (:func:`repro_torch.model.convert.params_from_jax`)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    mk = init_mk(gen, dtype_of(cfg), device)
+    decoder = _init_stack(mk, cfg, cross=cfg.is_enc_dec)
+    p = {
         "tok": init_embeddings(mk, cfg),
         "final_norm": init_rmsnorm(mk, cfg.d_model, "final_norm"),
-        "decoder": {"scanned": scanned, "remainder": rem},
+        "decoder": decoder,
     }
+    if cfg.is_enc_dec:
+        p["encoder"] = _init_stack(mk, _encoder_cfg(cfg), num_layers=cfg.encoder_layers,
+                                   name="enc")
+        p["enc_final_norm"] = init_rmsnorm(mk, cfg.d_model, "enc_final_norm")
+    return p
 
 
 # --------------------------------------------------------------------------
@@ -111,17 +131,43 @@ def _embed(params, cfg, tokens, frontend_embeds=None):
     return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
 
 
+def encode(params, cfg, enc_tokens_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder's output ``enc_out`` (B, S, D) of an encoder-decoder
+    arch: the frame embeddings (B, S, D), cast to the model's dtype with no
+    sqrt(d) scale, through the encoder's layers non-causally (RoPE at
+    0..S-1) and its final norm.  What :func:`forward` hands the decoder,
+    and what :func:`decode_step` takes as ``enc_out``."""
+    ex = enc_tokens_embeds.to(dtype_of(cfg))
+    ex, _ = tf.apply_stack(params["encoder"], ex, _encoder_cfg(cfg), causal=False,
+                           num_layers=cfg.encoder_layers)
+    return rms_norm(params["enc_final_norm"], ex, cfg.norm_eps)
+
+
+def _need_frames(cfg, given, what: str):
+    if cfg.is_enc_dec and given is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder arch: {what}")
+
+
 def forward(params, cfg, tokens: torch.Tensor, *,
             positions: torch.Tensor | None = None,
-            frontend_embeds: torch.Tensor | None = None) -> torch.Tensor:
-    """Logits (B, S, V) of a whole sequence from a zero state.
+            frontend_embeds: torch.Tensor | None = None,
+            enc_tokens_embeds: torch.Tensor | None = None) -> torch.Tensor:
+    """Logits (B, S, V) of a whole sequence from a zero state (the
+    decoder's, for an encoder-decoder arch).
 
     ``positions`` (B, S), or (3, B, S) for M-RoPE (qwen2-vl); ``None`` is
     0..S-1.  ``frontend_embeds`` (B, S_f, D): precomputed patch embeddings
     (the vision frontend is a stub, as in the reference) that replace the
-    first S_f embedded tokens."""
+    first S_f embedded tokens.  ``enc_tokens_embeds`` (B, S_enc, D): the
+    encoder's frame embeddings, which an encoder-decoder arch needs (see
+    :func:`encode`)."""
+    enc_out = None
+    if cfg.is_enc_dec:
+        _need_frames(cfg, enc_tokens_embeds, "forward needs enc_tokens_embeds")
+        enc_out = encode(params, cfg, enc_tokens_embeds)
     x = _embed(params, cfg, tokens, frontend_embeds)
-    x, _ = tf.apply_stack(params["decoder"], x, cfg, positions=positions)
+    x, _ = tf.apply_stack(params["decoder"], x, cfg, positions=positions,
+                          enc_out=enc_out)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return logits_projection(params["tok"], x, cfg)
 
@@ -337,6 +383,7 @@ def _check_ring_slack(cfg, state, t: int, max_len: int | None):
 # --------------------------------------------------------------------------
 
 def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
+                enc_out: torch.Tensor | None = None,
                 last_only: bool = False,
                 token_mask: torch.Tensor | None = None,
                 max_len: int | None = None):
@@ -356,8 +403,14 @@ def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
     without that slack raises (pass ``max_len``, the position cap the state
     was built with, to allow rings capped at it).
 
+    ``enc_out`` (B, S, D), from :func:`encode`, is the memory every decoder
+    block of an encoder-decoder arch cross-attends to; such an arch
+    refuses a call without it, where the reference would silently skip
+    its cross-attention.
+
     Returns (logits (B, K, V) or (B, 1, V), state).
     """
+    _need_frames(cfg, enc_out, "decode_step needs enc_out (see encode)")
     b, t = tokens.shape
     lengths = torch.as_tensor(lengths)
     if lengths.ndim > 1 or (lengths.ndim == 1 and lengths.shape[0] != b):
@@ -369,7 +422,7 @@ def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
                  + torch.arange(t, device=tokens.device)[None]).expand(b, t)
     x = _embed(params, cfg, tokens)
     x, state = tf.apply_stack(params["decoder"], x, cfg, positions=positions,
-                              states=state, token_mask=token_mask)
+                              states=state, enc_out=enc_out, token_mask=token_mask)
     if last_only:
         if token_mask is None:
             x = x[:, -1:]

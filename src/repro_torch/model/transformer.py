@@ -6,7 +6,9 @@ port walks the same ``{"scanned": [...], "remainder": [...]}`` layout in a
 Python loop.  Ported kinds: ``rwkv``, ``rec`` (RG-LRU) and the attention
 kinds ``attn``/``global`` (no window) and ``local`` (``cfg.attn_window``);
 the feed-forward is the dense MLP or, where ``cfg.num_experts`` is set,
-the MoE layer (:mod:`repro_torch.model.moe`).
+the MoE layer (:mod:`repro_torch.model.moe`).  A block built with
+``cross`` (the encoder-decoder arch's decoder) runs cross-attention over
+the encoder's output between its self-attention and its feed-forward.
 
 Under autograd, ``cfg.remat == "full"`` (the reference's default,
 ``jax.checkpoint`` with nothing saveable) wraps each period in
@@ -38,7 +40,7 @@ def check_kind(kind: str):
             f"layer kind {kind!r} is not ported to repro_torch yet")
 
 
-def init_block(mk, cfg, kind: str, name: str):
+def init_block(mk, cfg, kind: str, name: str, *, cross: bool = False):
     check_kind(kind)
     p: dict[str, Any] = {"ln1": init_rmsnorm(mk, cfg.d_model, f"{name}.ln1"),
                          "ln2": init_rmsnorm(mk, cfg.d_model, f"{name}.ln2")}
@@ -48,6 +50,9 @@ def init_block(mk, cfg, kind: str, name: str):
         p["rec"] = rec_mod.init_rglru_block(mk, cfg, f"{name}.rec")
     else:
         p["rwkv"] = rec_mod.init_rwkv_block(mk, cfg, f"{name}.rwkv")
+    if cross:
+        p["ln_cross"] = init_rmsnorm(mk, cfg.d_model, f"{name}.ln_cross")
+        p["cross"] = attn_mod.init_attention(mk, cfg, f"{name}.cross", cross=True)
     if cfg.num_experts:
         p["ffn"] = moe_mod.init_moe(mk, cfg, f"{name}.moe")
     else:
@@ -67,17 +72,19 @@ def apply_ffn(params, h, cfg):
     return moe_mod.apply_moe(params, h, cfg)
 
 
-def apply_block(params, x, cfg, kind: str, *, positions=None, state=None,
-                token_mask=None):
+def apply_block(params, x, cfg, kind: str, *, positions=None, causal=True,
+                state=None, enc_out=None, token_mask=None):
     """Pre-norm block.  Returns (x, new_state_or_None).  ``token_mask``
     (B, t) bool (stateful calls): masked tokens leave every state leaf
-    untouched."""
+    untouched.  ``causal=False`` is the encoder's self-attention;
+    ``enc_out`` (B, S, D) feeds a block's cross-attention, which runs only
+    where both it and the block's ``"cross"`` params are there."""
     check_kind(kind)
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     if kind in ATTN_KINDS:
         out, new_state = attn_mod.apply_attention(
             params["attn"], h, cfg, kind=kind, positions=positions,
-            kv_cache=state, token_mask=token_mask)
+            causal=causal, kv_cache=state, token_mask=token_mask)
     elif kind == "rec":
         out, new_state = rec_mod.apply_rglru_block(
             params["rec"], h, cfg, state=state, token_mask=token_mask)
@@ -85,6 +92,10 @@ def apply_block(params, x, cfg, kind: str, *, positions=None, state=None,
         out, new_state = rec_mod.apply_rwkv_block(
             params["rwkv"], h, cfg, state=state, token_mask=token_mask)
     x = x + out
+    if enc_out is not None and "cross" in params:
+        h = rms_norm(params["ln_cross"], x, cfg.norm_eps)
+        out, _ = attn_mod.apply_attention(params["cross"], h, cfg, x_kv=enc_out)
+        x = x + out
     h = rms_norm(params["ln2"], x, cfg.norm_eps)
     return x + apply_ffn(params["ffn"], h, cfg), new_state
 
@@ -140,19 +151,22 @@ def _write_back(node, new):
         dst.copy_(src)
 
 
-def apply_stack(stack_params, x, cfg, *, positions=None, states=None,
-                token_mask=None):
+def apply_stack(stack_params, x, cfg, *, positions=None, causal=True, states=None,
+                enc_out=None, num_layers=None, token_mask=None):
     """Apply the stacked periods, then the remainder.  Returns
     ``(x, states)``.  With ``states`` each layer's new state (a
     ``RecState``, ``KVCache`` or ``PagedKVCache``) is written into it in
     place (the reference donates the state to its jit), and the same tree
-    is returned; without, ``(x, None)``."""
-    pattern, n_periods, remainder = plan_groups(cfg)
+    is returned; without, ``(x, None)``.  ``causal`` and ``enc_out`` go to
+    every block (:func:`apply_block`); ``num_layers`` is the stack's depth
+    where it is not ``cfg.num_layers`` (the encoder's)."""
+    pattern, n_periods, remainder = plan_groups(cfg, num_layers)
     periods = [_unstack(tree, n_periods) for tree in stack_params["scanned"] or []]
+    block = dict(positions=positions, causal=causal, enc_out=enc_out)
     if states is None and _remat(cfg):
         def period(x, p):
             for j, kind in enumerate(pattern):
-                x, _ = apply_block(periods[j][p], x, cfg, kind, positions=positions)
+                x, _ = apply_block(periods[j][p], x, cfg, kind, **block)
             return x
 
         for p in range(n_periods):
@@ -160,22 +174,21 @@ def apply_stack(stack_params, x, cfg, *, positions=None, states=None,
                            context_fn=remat_context)
         # The reference remats the scanned periods only.
         for i, kind in enumerate(remainder):
-            x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind,
-                               positions=positions)
+            x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind, **block)
         return x, None
     for p in range(n_periods):
         for j, kind in enumerate(pattern):
             st = None
             if states is not None:
                 st = _layer_view(states["scanned"][j], p)
-            x, ns = apply_block(periods[j][p], x, cfg, kind, positions=positions,
-                                state=st, token_mask=token_mask)
+            x, ns = apply_block(periods[j][p], x, cfg, kind, state=st,
+                                token_mask=token_mask, **block)
             if st is not None:
                 _write_back(st, ns)
     for i, kind in enumerate(remainder):
         st = states["remainder"][i] if states is not None else None
-        x, ns = apply_block(stack_params["remainder"][i], x, cfg, kind,
-                            positions=positions, state=st, token_mask=token_mask)
+        x, ns = apply_block(stack_params["remainder"][i], x, cfg, kind, state=st,
+                            token_mask=token_mask, **block)
         if st is not None:
             _write_back(st, ns)
     return x, states

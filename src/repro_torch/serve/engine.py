@@ -1,6 +1,9 @@
-"""Serving: prompt scoring (``make_prefill_step``), cache prefill, a
-lockstep greedy ``generate`` and a continuous-batching ``serve``
-(counterpart of ``repro.serve.engine``).
+"""Serving: prompt scoring (``make_prefill_step``), cache prefill, one
+decode window (``make_decode_step``), a lockstep greedy ``generate`` and a
+continuous-batching ``serve`` (counterpart of ``repro.serve.engine``).
+The encoder-decoder arch scores through ``make_prefill_step`` with its
+frames and decodes through ``make_decode_step`` with the encoder's
+output; ``ServeEngine`` refuses it.
 
 The reference jits each step and donates the decode state so XLA updates
 it in place; here the state tensors are preallocated once per call and
@@ -84,7 +87,8 @@ def _prefill_rules(mesh, p: int, min_len: int = SEQ_PREFILL_MIN_T):
 def make_prefill_step(cfg):
     """``(params, tokens (B, S), **extras) -> logits (B, S, V)``: prompt
     scoring through the cache-free :func:`~repro_torch.model.model.forward`
-    (``extras``: its ``positions`` and ``frontend_embeds``).
+    (``extras``: its ``positions``, ``frontend_embeds`` and, for the
+    encoder-decoder arch, ``enc_tokens_embeds``, the frames).
 
     ``cfg.prefill_chunks = n > 1`` scores the batch in n sequential chunks
     of B / n sequences, as the reference's ``lax.scan`` does, bounding the
@@ -131,6 +135,20 @@ def make_seq_prefill_step(cfg, mesh, *, min_len: int = SEQ_PREFILL_MIN_T):
             return base(params, tokens, **kw)
 
     return prefill_step
+
+
+def make_decode_step(cfg):
+    """``(params, state, tokens (B, K), length, enc_out=None) -> (logits,
+    state)``: one :func:`~repro_torch.model.model.decode_step` window, K >= 1
+    (K == 1 is classic per-token decode).  ``enc_out`` (B, S, D) from
+    :func:`~repro_torch.model.model.encode` is what an encoder-decoder
+    arch's decoder cross-attends to; this is the engine's one entry that
+    decodes such an arch."""
+
+    def decode_step(params, state, tokens, length, enc_out=None):
+        return M.decode_step(params, cfg, state, tokens, length, enc_out=enc_out)
+
+    return decode_step
 
 
 def make_cache_prefill_step(cfg, mesh=None, *, min_len: int = SEQ_PREFILL_MIN_T,
@@ -359,6 +377,12 @@ class ServeEngine:
                     f"admit bucket, got {self.page_size}")
             if self.mesh is not None:
                 raise NotImplementedError("paged serving does not compose with a mesh yet")
+        if self.cfg.is_enc_dec:
+            raise ValueError(
+                f"{self.cfg.name} is an encoder-decoder arch: ServeEngine has no "
+                "encoder-decoder path (its windows would run the decoder without "
+                "the encoder's frames); decode with make_decode_step(cfg) and "
+                "model.encode's enc_out")
         self.device = resolve_device(self.device)
         emb = self.params["tok"]["embedding"]
         if emb.device.type != self.device.type:

@@ -117,8 +117,7 @@ class TestConfig:
             assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads, c.d_ff,
                     c.vocab_size) == want, name
         assert 14e9 <= get_config("qwen3-moe-235b-a22b").active_param_count() <= 30e9
-        with pytest.raises(NotImplementedError):
-            get_config("seamless-m4t-large-v2")
+        assert get_config("seamless-m4t-large-v2").param_count() == 1_772_304_384
 
     def test_param_layout_and_conversion(self, arch):
         cfg_j, cfg, pj, pt = arch

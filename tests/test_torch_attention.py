@@ -206,9 +206,21 @@ def test_layer_with_ring_cache_matches_reference(layer):
 
 
 def test_unported_attention_paths_raise(layer):
-    _, cfg, _, pt = layer
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError):
-        A.apply_attention(pt, x, cfg, x_kv=x)
-    with pytest.raises(NotImplementedError):
-        A.init_attention(None, cfg, "x", cross=True)
+    """Cross-attention, once refused, is ported: the layer's params over a
+    memory of another length (T = 4 against S = 7, no RoPE, non-causal)
+    match the reference, no cache comes back, and ``init_attention(cross=
+    True)`` builds the self-attention's keys and shapes."""
+    from repro_torch.model import model as M
+
+    cfg_j, cfg, pj, pt = layer
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 4, cfg.d_model)).astype(np.float32)
+    mem = rng.standard_normal((2, 7, cfg.d_model)).astype(np.float32)
+    want, _ = JA.apply_attention(pj, jnp.asarray(x), cfg_j, x_kv=jnp.asarray(mem))
+    got, cache = A.apply_attention(pt, torch.from_numpy(x), cfg, x_kv=torch.from_numpy(mem))
+    assert cache is None
+    np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
+    mk = M.init_mk(torch.Generator().manual_seed(0), torch.float32, torch.device("cpu"))
+    cross = A.init_attention(mk, cfg, "x", cross=True)
+    assert {k: tuple(v.shape) for k, v in cross.items()} == {
+        k: tuple(v.shape) for k, v in pt.items()}

@@ -523,6 +523,59 @@ def test_flash_attention_at_decoder_arch_heads(cuda, dtype, mode, heads):
     _attn_close(got, FA.attention_ref(q, k, v, causal=True))
 
 
+#: (T, S) of seamless-m4t-large-v2's flash shapes that fit a test, MHA (16
+#: query and 16 KV heads of 64), non-causal with no window: its encoder at
+#: 1000 frames, cross-attention in decoding (1 and 64 tokens over 1000
+#: frames) and with more queries than keys (600 over 300).
+#: (B, T, S, causal) of seamless-m4t's flash calls that fit a test: its
+#: encoder, its decoder's causal self-attention at MHA (group 1), and
+#: cross-attention at scoring and in decoding at B=4.
+SEAMLESS_SHAPES = [(1, 1000, 1000, False), (1, 1, 1000, False), (1, 64, 1000, False),
+                   (1, 600, 300, False), (1, 1024, 1024, True), (4, 1024, 1024, False),
+                   (4, 1, 1024, False), (4, 64, 1024, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SEAMLESS_SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_flash_attention_at_seamless_heads(cuda, dtype, shape):
+    b, t, s, causal = shape
+    q, k, v = _qkv(b, 16, 16, t, s, 64, t * 3 + s + b, cuda, dtype)
+    got = FA.flash_attention_cuda(q, k, v, causal=causal)
+    _attn_close(got, FA.attention_ref(q, k, v, causal=causal))
+
+
+def test_reduced_seamless_card_matches_cpu(cuda):
+    """The reduced f32 seamless-m4t through the flash kernel (encoder,
+    decoder and cross-attention) against the same weights with the plain
+    version on the CPU: forward logits within 1e-4 and greedy decoding
+    through ``make_decode_step`` against ``encode``'s output with equal
+    tokens."""
+    from repro_torch.serve.engine import make_decode_step
+
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    p_cpu = M.init_params(cfg, seed=1, device="cpu")
+    p_gpu = _to(p_cpu, cuda)
+    rng = np.random.default_rng(1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    fr = torch.from_numpy(rng.standard_normal((2, 48, cfg.d_model)).astype(np.float32))
+    step = make_decode_step(cfg)
+    outs = {}
+    with torch.inference_mode():
+        l_cpu = M.forward(p_cpu, cfg, toks, enc_tokens_embeds=fr)
+        l_gpu = M.forward(p_gpu, cfg, toks.to(cuda), enc_tokens_embeds=fr.to(cuda))
+        _close([l_gpu], [l_cpu], F32_TOL)
+        for dev, p in (("cpu", p_cpu), (cuda, p_gpu)):
+            enc = M.encode(p, cfg, fr.to(dev))
+            state = M.init_decode_state(cfg, 2, 64, 24, device=dev)
+            logits, state = step(p, state, toks[:, :24].to(dev), 0, enc_out=enc)
+            seq = [logits[:, -1].argmax(-1)]
+            for i in range(24, 36):
+                logits, state = step(p, state, seq[-1][:, None], i, enc_out=enc)
+                seq.append(logits[:, -1].argmax(-1))
+            outs[str(dev)] = torch.stack(seq, 1).cpu()
+    assert torch.equal(outs["cpu"], outs["cuda"])
+
+
 def test_moe_layer_is_deterministic_and_matches_cpu(cuda):
     """The MoE layer's combine sums each token's rows in a fixed order (no
     atomics): two card runs give the same bits, and the f32 layer equals

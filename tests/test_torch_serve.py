@@ -158,7 +158,9 @@ class TestLauncher:
         assert "tok/s" in capsys.readouterr().out
 
     def test_unported_arch_is_refused(self):
-        with pytest.raises(NotImplementedError):
+        """The launcher serves no encoder-decoder arch, as the reference's."""
+        with pytest.raises(SystemExit, match="^enc-dec serving demo: use "
+                           "examples/serve_decode.py$"):
             launcher.main(["--arch", "seamless-m4t-large-v2", "--smoke", "--device", "cpu"])
 
 
