@@ -17,8 +17,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    UTMALDG instructions, beside each kernel's registers, shared memory,
    stack frame and local memory (the token shift's too, and every kernel
    of the scan library), all read from the library file whether this run built it
-   or found it in ``build/``; fail if a count is 0 or a kernel spills (a
-   stack frame or local memory);
+   or found it in ``build/``, and the HMMA (mma.sync) instructions and every
+   kernel's registers and spills of flash attention's backward library;
+   fail if a count is 0 or a kernel spills (a stack frame or local memory);
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
@@ -30,6 +31,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    on (out, S, s_hist), the backward on its six outputs with random
    cotangents, and ``WKVFunction``'s grads on the card against the same
    Function on CPU copies;
+2c. the backward kernels of training against their plain versions, in f32
+   with TF32 off and in bf16, with random cotangents: flash attention's
+   (``flash_attention_bwd_cuda``) at (Hq, Hkv, D) = (10, 1, 256) causal
+   window 2048 at T=4096, (4, 1, 256) window 1024 and causal at T=2048,
+   (14, 2, 64) and (32, 8, 128) causal at T=2048, (16, 16, 64) non-causal
+   at T = S = 1024 and cross at T=256 over S=1024, T=1000, and f32 at D 96,
+   with the training forward's log-sum-exp against the plain version's and
+   its output bit for bit serving's; the scan's (B, T) = (4, 1024) and (1,
+   4096) at D=2560 bit for bit; the token shift's at T in 4, 67, 259, 4096
+   (dx bit for bit); each Function (flash attention, the scan chunked and
+   as windows of 1, 8, 64, the token shift) on the card against the same
+   Function on CPU copies, and the WKV decode window's grads at K in 1, 8,
+   37, 64 likewise;
 3. the serving path: full-size rwkv6-1.6b in bf16 (random weights from a
    seed) through ``ServeEngine.generate`` (B=4, 256-token prompts, 32 new
    tokens, K=8) and ``ServeEngine.serve`` (6 ragged requests, 4 slots,
@@ -170,6 +184,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    the profiler, and where the teacher-forced forward's argmax equals the
    greedy stream; (c) the reduced f32 model on the card against the CPU:
    forward logits within 1e-4 and greedy decode tokens equal;
+3n. training every arch, every earlier phase's weights freed: full-size
+   gemma3-1b (B=8, T=2048: its 1024-window local layers mask) and
+   recurrentgemma-2b (B=8, T=1024) in bf16 with each config's microbatch
+   and full remat, random weights from seed 0, 4 steps each: finite losses
+   and parameters, the last loss below the first, every kernel's launch
+   count (flash attention, the token shift and the scan, forward and
+   backward) set to 0 before and held after to the count the step's
+   structure gives (the scanned periods' forward twice under full remat,
+   the remainder once), peak memory, step time and train tokens/s, one
+   step under the profiler; then one step of each of the ten reduced f32
+   archs on the card against the CPU (loss, grad norm, updated
+   parameters), and ``repro_torch.examples.train_lm`` on the card for 4
+   steps at its default width (f32 heads of 96);
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -206,7 +233,12 @@ Phases (any failure raises and exits non-zero, with no result line):
    token shift at (B, T) = (1, 4096), (4, 4) and (4, 259); the elevator
    scan at (B, T) = (1, 4096) and (4, 256) in every plan; the elevator
    window at K in 1, 8, 32, 64 and B in 1, 4 in every plan, beside the
-   launch floor plus its bytes bound), printed as one ``{"kernels":
+   launch floor plus its bytes bound; the three backward kernels: flash
+   attention's at Gemma3's training shape (B=4, Hq 4 over 1 of 256,
+   T=2048; causal, and window 1024 under "large") beside SDPA's backward
+   alone (the grad of a kept graph, its backend printed), the scan's at
+   (1, 4096, 2560) f32, the token shift's at (1, 4096, 2560) bf16 beside
+   ``conv1d_input`` plus ``conv1d_weight``), printed as one ``{"kernels":
    [...]}`` line after the script's wall time;
    then the card's name and power limit, and the result line.
 """
@@ -217,8 +249,10 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -419,6 +453,9 @@ def main():
     # ---- 2b. the training kernels against their plain versions -------------
     worst.update(_train_kernel_checks(torch, KC, BW))
 
+    # ---- 2c. the backward kernels against their plain versions -------------
+    worst.update(_grad_kernel_checks(torch))
+
     # ---- 3. the serving path -------------------------------------------------
     cfg = get_config("rwkv6-1.6b")
     t0 = time.perf_counter()
@@ -530,6 +567,11 @@ def main():
     _seamless_reference_check(torch, np)
     print(f"[time] phase 3m wall: {time.perf_counter() - t0:.1f}s")
 
+    # ---- 3n. training every arch: gemma3-1b and recurrentgemma-2b at full
+    # size, every reduced arch card vs CPU, the train_lm example -----------
+    for name, n in _train_archs(torch).items():
+        launches[name] = launches.get(name, 0) + n
+
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
     launches.update(_paper_main_path(torch))
@@ -600,6 +642,7 @@ def main():
         for r in _time_arch_attention(torch, worst["flash_attention_cuda"], arch_per_forward)]
     flash_row["large"] += _time_seamless_attention(torch, worst["flash_attention_cuda"], sm_rows)
     rows += _time_paper_kernels(torch, launches, worst)
+    rows += _time_grad_kernels(torch, launches, worst)
 
     print(f"[time] chip_smoke wall: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": rows}))
@@ -653,15 +696,16 @@ def _hopper_report(common):
     for name, marker, need in (*((n, "wgmma_kernel", ("HGMMA", "UTMALDG")) for n in HOPPER_LIBRARIES),
                                *((n, k, ("UTMALDG",)) for n, k in WKV_TMA_LIBRARIES.items()),
                                *((n, k, ops) for n, (k, ops) in DECODE_LIBRARIES.items()),
-                               *((n, k, ops) for n, (k, ops) in SCAN_LIBRARIES.items())):
+                               *((n, k, ops) for n, (k, ops) in SCAN_LIBRARIES.items()),
+                               *((n, k, ops) for n, (k, ops) in BWD_LIBRARIES.items())):
         path = common._lib_path(name)
         sass = dump("--dump-sass", path)
         counts = {op: sum(op in ln for ln in sass.splitlines())
-                  for op in ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")}
+                  for op in ("HGMMA", "HMMA", "UTMALDG", "UTMASTG", "UBLKCP")}
         kernels = {k: v for k, v in _resource_usage(dump("--dump-resource-usage", path)).items()
                    if marker in k}
-        print(f"[build] {name}: SASS HGMMA {counts['HGMMA']}, UTMALDG {counts['UTMALDG']}, "
-              f"UTMASTG {counts['UTMASTG']}, UBLKCP {counts['UBLKCP']}")
+        print(f"[build] {name}: SASS HGMMA {counts['HGMMA']}, HMMA {counts['HMMA']}, UTMALDG "
+              f"{counts['UTMALDG']}, UTMASTG {counts['UTMASTG']}, UBLKCP {counts['UBLKCP']}")
         if len(kernels) > 10:
             # The token shift's 84 instantiations (tap count, rows, vector
             # or scalar slots, dtype) and the scan library's, summarised.
@@ -1474,11 +1518,16 @@ WKV_TMA_LIBRARIES = {"wkv_chunked": "wkv_fwd_kernel", "wkv_bwd": "wkv_bwd_kernel
 #: inputs by 1-D bulk copies (UBLKCP); the token shift has no such
 #: instruction, only its registers and spills are read.
 DECODE_LIBRARIES = {"wkv_decode": ("wkv_decode_kernel", ("UBLKCP",)),
-                    "token_shift": ("token_shift_kernel", ())}
+                    "token_shift": ("token_shift_", ())}
 #: The RG-LRU scan library redesigned after them: every kernel of it (the
 #: marker matches the scan's and the window's), and the TMA loads (UTMALDG)
 #: of the scan's ring and the staged window phase 1 must find.
 SCAN_LIBRARIES = {"elevator_scan": ("elevator_", ("UTMALDG",))}
+#: The backward kernels' library (flash attention's) and the
+#: tensor-core products (HMMA: mma.sync) phase 1 must find in it; the
+#: token shift's and the scan's backward kernels are read with their
+#: forwards' libraries above (the markers match every kernel there).
+BWD_LIBRARIES = {"flash_attention_bwd": ("flash_bwd_", ("HMMA",))}
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
@@ -1506,7 +1555,8 @@ def _counters():
            BW.wkv_bwd_cuda, KC.wkv_summary_cuda, KC.wkv_train_summary_cuda,
            EK.elevator_scan_cuda, ED.elevator_decode_window_cuda,
            TS.token_shift_cuda, FA.flash_attention_cuda, MM.matmul_fwd_cuda,
-           ST.stencil2d_cuda)
+           ST.stencil2d_cuda, FA.flash_attention_bwd_cuda, EK.elevator_scan_bwd_cuda,
+           TS.token_shift_bwd_cuda)
     return {fn.__name__: fn for fn in fns}
 
 
@@ -3747,6 +3797,514 @@ def _time_seamless_attention(torch, worst, launches):
                   f"agrees: worst err/tol per element {ratio:.3f}); {launches[row]} launches "
                   f"at this shape in phase 3m")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Training every arch (phases 2c and 3n and their rows of phase 4): the
+# backward kernels of flash attention, the RG-LRU scan and the token shift,
+# the WKV decode window under grad, full-size gemma3-1b and
+# recurrentgemma-2b training, every reduced f32 arch's step card vs CPU,
+# and the train_lm example.
+# ---------------------------------------------------------------------------
+
+#: The backward kernels, per output: (max error) <= ATOL + RTOL * max|plain|
+#: of that output.  f32: the same f32 math in another order (dK and dV sum
+#: over every query of a KV head's group).  bf16: flash attention rounds P
+#: and dS to bf16 as the mma operands (2**-9 relative each) besides its
+#: outputs, so 2e-2 of the largest value.  The scan's three outputs and the
+#: token shift's dx are held bit for bit (the plain versions' order); the
+#: token shift's dw sums its partials in another order.
+GRAD_TOLERANCE = {"float32": (1e-5, 1e-4), "bfloat16": (1e-3, 2e-2)}
+GRAD_KERNELS = ("flash_attention_bwd_cuda", "elevator_scan_bwd_cuda", "token_shift_bwd_cuda")
+#: (B, Hq, Hkv, T, S, D, causal, window) of phase 2c's flash checks:
+#: RecurrentGemma's local layers, Gemma3's two, qwen2-0.5b's and
+#: minitron-8b's GQA, seamless's MHA non-causal and cross, T off a tile.
+FLASH_GRAD_CASES = (
+    (1, 10, 1, 4096, 4096, 256, True, 2048),
+    (1, 4, 1, 2048, 2048, 256, True, 1024),
+    (1, 4, 1, 2048, 2048, 256, True, None),
+    (1, 14, 2, 2048, 2048, 64, True, None),
+    (1, 32, 8, 2048, 2048, 128, True, None),
+    (1, 16, 16, 1024, 1024, 64, False, None),
+    (1, 16, 16, 256, 1024, 64, False, None),
+    (2, 14, 2, 1000, 1000, 64, True, None),
+)
+#: f32 only: the train_lm example's head width.
+FLASH_GRAD_F32_CASES = ((1, 8, 2, 256, 256, 96, True, None),)
+#: Phase 3n: (arch, B, T) trained at full size, 4 steps.
+TRAIN_ARCHS = (("gemma3-1b", 8, 2048), ("recurrentgemma-2b", 8, 1024))
+
+
+def _grad_check(torch, worst, kname, case, dtype, got, want, exact=()):
+    """Each output within GRAD_TOLERANCE of the plain version's, finite;
+    those at ``exact`` bit for bit."""
+    atol, rtol = GRAD_TOLERANCE[str(dtype).split(".")[-1]]
+    errs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+    tols = [0.0 if i in exact else atol + rtol * float(b.float().abs().max())
+            for i, b in enumerate(want)]
+    ok = (all(e <= t for e, t in zip(errs, tols))
+          and all(bool(torch.isfinite(a).all()) for a in got))
+    print(f"[grad-kernels] {kname:24s} {case:34s} {str(dtype):15s} max_abs_err per output "
+          f"{['%.2e' % e for e in errs]} tol {['%.2e' % t for t in tols]} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{kname} {case} {dtype}: errors {errs} > {tols}")
+    if kname in worst:
+        worst[kname] = max(worst[kname], max(errs))
+
+
+def _function_card_vs_cpu(torch, fn, args, cots):
+    """The grads of sum(fn(*args) * cots) on the card and on CPU copies,
+    both returned on the CPU."""
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs = [a.detach().to(dev).requires_grad_(True) for a in args]
+        out = fn(*xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = sum((o.float() * c.to(dev).float()).sum() for o, c in zip(outs, cots))
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, xs)]
+    return grads["cuda"], grads["cpu"]
+
+
+def _grad_kernel_checks(torch):
+    """Phase 2c.  Returns the worst max abs error of each backward kernel."""
+    from repro_torch.kernels.elevator_scan.vjp import ElevatorScanFunction
+    from repro_torch.kernels.local_attention.vjp import FlashAttentionFunction
+    from repro_torch.kernels.token_shift.vjp import TokenShiftFunction
+    from repro_torch.kernels.wkv import ops as WO
+
+    EK, _, TS, FA = _rg_modules()
+    worst = dict.fromkeys(GRAD_KERNELS, 0.0)
+    t0 = time.perf_counter()
+
+    def randn(shape, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        cases = FLASH_GRAD_CASES + (FLASH_GRAD_F32_CASES if dtype == torch.float32 else ())
+        for i, (b, hq, hkv, t, s, d, causal, window) in enumerate(cases):
+            mask = dict(causal=causal, window=window)
+            case = f"B={b} {hq}/{hkv} T={t} S={s} D={d} " + (
+                f"W={window}" if window else "causal" if causal else "full")
+            with torch.no_grad():
+                q, k, v = _attn_inputs(torch, b, t, s, dtype, 700 + i, d=d, hq=hq, hkv=hkv)
+                do = randn(q.shape, dtype, 800 + i)
+                o, lse = FA.flash_attention_cuda(q, k, v, lse=True, **mask)
+                same = torch.equal(o, FA.flash_attention_cuda(q, k, v, **mask))
+                _, lse_ref = FA.attention_ref_lse(q, k, v, **mask)
+                seen = torch.isfinite(lse_ref)
+                lse_err = float((lse[seen] - lse_ref[seen]).abs().max())
+                if not same or not torch.equal(torch.isfinite(lse), seen) or lse_err > 1e-4:
+                    raise SystemExit(f"flash lse {case} {dtype}: output equal {same}, "
+                                     f"lse err {lse_err}")
+                got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+                torch.cuda.synchronize()
+                want = FA.attention_bwd_ref(q, k, v, o, lse, do, **mask)
+                _grad_check(torch, worst, "flash_attention_bwd_cuda", case, dtype, got, want)
+                again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise SystemExit("flash_attention_bwd_cuda does not repeat bit for bit")
+                del q, k, v, do, o, lse, lse_ref, got, want, again
+            torch.cuda.empty_cache()
+        print(f"[grad-kernels] flash lse {dtype}: the training forward's output equals "
+              "serving's bit for bit, its lse within 1e-4 of the plain version's")
+
+        # The scan's backward and its Function take f32 only: the model scans
+        # f32 inputs.
+        scan_f32 = dtype == torch.float32
+        with torch.no_grad():
+            for b, t in ((4, 1024), (1, 4096)) if scan_f32 else ():
+                a, x, h0 = _scan_inputs(torch, b, t, dtype, 900 + t)
+                h = EK.elevator_scan_cuda(a, x, h0)
+                dh = randn(x.shape, dtype, 901 + t)
+                got = EK.elevator_scan_bwd_cuda(a, h, dh, h0)
+                torch.cuda.synchronize()
+                _grad_check(torch, worst, "elevator_scan_bwd_cuda", f"B={b} T={t} D={RG_D}",
+                            dtype, got, EK.elevator_scan_bwd_ref(a, h, dh, h0), exact=(0, 1, 2))
+            for b, t in ((4, 4), (4, 67), (4, 259), (1, 4096)):
+                x, w = _shift_inputs(torch, b, t, dtype, 950 + t)
+                dout = randn(x.shape, dtype, 951 + t)
+                got = TS.token_shift_bwd_cuda(x, w, dout)
+                torch.cuda.synchronize()
+                _grad_check(torch, worst, "token_shift_bwd_cuda", f"B={b} T={t} D={RG_D} taps=4",
+                            dtype, got, TS.token_shift_bwd_ref(x, w, dout), exact=(0,))
+                again = TS.token_shift_bwd_cuda(x, w, dout)
+                if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                    raise SystemExit("token_shift_bwd_cuda does not repeat bit for bit")
+
+        # Each Function on the card against the same Function on CPU copies.
+        q, k, v = _attn_inputs(torch, 1, 512, 512, dtype, 990, hq=G3_HQ)
+        got, want = _function_card_vs_cpu(
+            torch, lambda *a: FlashAttentionFunction.apply(*a, True, 128, None), (q, k, v),
+            (randn(q.shape, dtype, 991),))
+        _grad_check(torch, {}, "FlashAttentionFunction", "B=1 4/1 T=512 D=256 W=128", dtype,
+                    got, want)
+        for kw, decode in ((256, False), (1, True), (8, True), (64, True)) if scan_f32 else ():
+            a, x, h0 = _scan_inputs(torch, 4, kw, dtype, 992 + kw)
+            got, want = _function_card_vs_cpu(
+                torch, lambda a_, x_, h_, d=decode: ElevatorScanFunction.apply(a_, x_, h_, d),
+                (a, x, h0), (randn(x.shape, dtype, 993 + kw),))
+            _grad_check(torch, {}, "ElevatorScanFunction",
+                        f"B=4 T={kw} " + ("window" if decode else "chunked"), dtype, got, want,
+                        exact=(0, 1, 2))
+        x, w = _shift_inputs(torch, 2, 259, dtype, 994)
+        got, want = _function_card_vs_cpu(torch, TokenShiftFunction.apply, (x, w),
+                                          (randn(x.shape, dtype, 995),))
+        _grad_check(torch, {}, "TokenShiftFunction", "B=2 T=259", dtype, got, want, exact=(0,))
+        # The WKV decode window under grad (the decode kernels forward, the
+        # training forward and the reverse sweep at chunk 1 backward).
+        for kw in (1, 8, 37, 64):
+            a = _inputs(torch, 4, kw, dtype, seed=996 + kw)
+            d_out, d_s = _cotangents(torch, 4, kw, dtype, seed=997 + kw)
+            got, want = _function_card_vs_cpu(
+                torch, lambda *x_: WO.wkv_fused(*x_, decode=True), a, (d_out, d_s))
+            atol, rtol = TRAIN_TOLERANCE[str(dtype).split(".")[-1]]
+            errs = [float((p.float().cpu() - q_.float()).abs().max()) for p, q_ in zip(got, want)]
+            tols = [atol + rtol * float(q_.float().abs().max()) for q_ in want]
+            ok = all(e <= t_ for e, t_ in zip(errs, tols))
+            print(f"[grad-kernels] WKVDecodeFunction      B=4 K={kw:<2d} card/cpu "
+                  f"{str(dtype):15s} max_abs_err {['%.2e' % e for e in errs]} tol "
+                  f"{['%.2e' % t_ for t_ in tols]} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"WKV decode grads K={kw} {dtype}: {errs} > {tols}")
+    torch.cuda.empty_cache()
+    print(f"[time] phase 2c wall: {time.perf_counter() - t0:.1f}s")
+    return worst
+
+
+def _train_launch_counts(cfg, n_micro, steps):
+    """The kernel launches ``steps`` train steps of ``cfg`` make, from the
+    code's structure: under remat the scanned periods run their forward
+    twice (the first pass and the recompute), the remainder once; every
+    layer's backward once; ``n_micro`` microbatches a step."""
+    from repro_torch.model.transformer import ATTN_KINDS, plan_groups
+
+    pattern, n_periods, remainder = plan_groups(cfg)
+    runs = 1 if cfg.remat == "none" else 2
+    fwd = [k for k in pattern for _ in range(n_periods * runs)] + list(remainder)
+    bwd = [k for k in pattern for _ in range(n_periods)] + list(remainder)
+    per = {}
+    for kinds, names in ((fwd, ("flash_attention_cuda", "token_shift_cuda",
+                                "elevator_scan_cuda")),
+                         (bwd, ("flash_attention_bwd_cuda", "token_shift_bwd_cuda",
+                                "elevator_scan_bwd_cuda"))):
+        per[names[0]] = sum(k in ATTN_KINDS for k in kinds)
+        per[names[1]] = per[names[2]] = sum(k == "rec" for k in kinds)
+    return {k: n * n_micro * steps for k, n in per.items()}
+
+
+def _train_arch(torch, name, batch, seq, steps=4):
+    """Phase 3n for one arch: full-size bf16 training through the port's
+    entry points.  Returns the launch counts of the ``steps`` steps."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import step as TS_
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(name)
+    counters = _counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = TS_.init_train_state(cfg, 0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(state.params))
+    print(f"[train-archs] {name}: {n_params / 1e9:.3f}B params in {cfg.dtype}, state "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, initialized in "
+          f"{time.perf_counter() - t0:.1f}s; microbatch {cfg.microbatch}, remat {cfg.remat}")
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    step_fn = TS_.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=steps))
+    batches = [make_batch(dcfg, i) for i in range(steps)]
+    want = _train_launch_counts(cfg, max(1, cfg.microbatch), steps)
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(loss)
+        print(f"[train-archs] {name} step {i}  loss {loss:.4f}  grad_norm {gnorm:.3f}  "
+              f"{times[-1] * 1e3:.1f} ms  {batch * seq / times[-1]:,.0f} tok/s")
+        if not math.isfinite(loss) or not math.isfinite(gnorm):
+            raise SystemExit(f"{name}: non-finite loss {loss} / grad norm {gnorm}")
+    launches = _nonzero({n: fn.launches for n, fn in counters.items()})
+    peak = torch.cuda.max_memory_allocated()
+    steady = sorted(times[1:])[len(times[1:]) // 2]
+    print(f"[train-archs] {name} launches during {steps} steps: {launches}; derived "
+          f"{_nonzero(want)}")
+    print(f"[train-archs] {name} B={batch} T={seq}: median step (steps 1-{steps - 1}) "
+          f"{steady * 1e3:.1f} ms, {batch * seq / steady:,.0f} train tok/s; first step "
+          f"{times[0] * 1e3:.1f} ms; peak memory {peak / 2**30:.2f} GiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    if not all(bool(torch.isfinite(p).all()) for p in tree_leaves(state.params)):
+        raise SystemExit(f"{name}: a parameter is not finite")
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"{name}: loss did not fall: {losses}")
+    if launches != _nonzero(want):
+        raise SystemExit(f"{name}: launch counts {launches} != derived {_nonzero(want)}")
+    _profile(torch, lambda: step_fn(state, batches[0]), f"{name} train step B={batch} T={seq}",
+             top=10)
+    del state, batches, step_fn
+    return launches
+
+
+def _reduced_train_batch(cfg, dev, seed=3):
+    """Two rows a microbatch of 32 tokens from the data stream, with the
+    arch's extra inputs (patch embeddings and M-RoPE positions, encoder
+    frames) from a seeded generator."""
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    b, t = 2 * max(1, cfg.microbatch), 32
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                  seed=seed), 0, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    if cfg.frontend == "vision":
+        batch["frontend_embeds"] = torch.randn((b, t // 4, cfg.d_model), generator=g).to(dev)
+        batch["positions"] = torch.arange(t, device=dev)[None, None].expand(3, b, t)
+    if cfg.is_enc_dec:
+        batch["enc_embeds"] = torch.randn((b, t, cfg.d_model), generator=g).to(dev)
+    return batch
+
+
+def _first_moment_ratio(got, want, tol=1e-4):
+    """Worst |got - want| / (tol |want| + tol max(1e-3, max|want|)) over the
+    leaves: the CPU tests' GRAD_TOL check, which passes at <= 1.  After one
+    step a first moment is (1 - b1) times the clipped gradient, so this holds
+    each gradient leaf, sign and size, to a tolerance scaled to the leaf."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        lim = tol * w.abs() + tol * max(1e-3, float(w.abs().max()))
+        worst = max(worst, float(((g - w).abs() / lim).max()))
+    return worst
+
+
+def _train_archs_reference_check(torch):
+    """One train step of every reduced f32 arch on the card against the
+    CPU, from the same weights and batch: loss and grad norm within 1e-5 /
+    1e-4 relative, each gradient leaf (read from AdamW's first moment)
+    within 1e-4 of the leaf's scale, parameters within 1e-5 (a first AdamW
+    step moves each by at most 2 lr, so this check alone sees few faults)."""
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS_
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for name in list_archs():
+        cfg = get_config(name).reduced()
+        params = TS_.init_train_state(cfg, 1, device="cpu").params
+        out = {}
+        for dev in ("cpu", "cuda"):
+            moved = tree_map(lambda p: p.detach().to(dev, copy=True).requires_grad_(True),
+                             params)
+            state = TS_.TrainState(moved, adamw.init_state(moved), None)
+            state, m = TS_.make_train_step(cfg)(state, _reduced_train_batch(cfg, dev))
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        [p.detach().cpu() for p in tree_leaves(state.params)],
+                        [mu.cpu() for mu in tree_leaves(state.opt.mu)])
+        (l_c, g_c, p_c, m_c), (l_g, g_g, p_g, m_g) = out["cpu"], out["cuda"]
+        perr = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c))
+        mratio = _first_moment_ratio(m_g, m_c)
+        ok = (abs(l_g - l_c) <= 1e-5 * abs(l_c) and abs(g_g - g_c) <= 1e-4 * abs(g_c)
+              and mratio <= 1.0 and perr <= 1e-5)
+        print(f"[reference] reduced f32 {name} train step, card vs CPU: loss {l_g:.6f} vs "
+              f"{l_c:.6f}, grad norm {g_g:.6f} vs {g_c:.6f}, gradient leaves (first "
+              f"moments) at {mratio:.3f} of their tolerance, params max_abs_err {perr:.2e} "
+              f"(tol 1e-5) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"card and CPU disagree on the reduced {name} train step")
+
+
+def _train_lm_on_card(torch):
+    """``repro_torch.examples.train_lm`` on the card, 4 steps at its default
+    width (d_model 768: 8 query heads over 2 KV heads of 96, f32, remat
+    none): exactly 8 flash forward and 8 backward launches a step."""
+    from repro_torch.examples import train_lm
+
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    # A new checkpoint directory each run: one that held the last run's step
+    # 4 would be restored and no step would run.
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="train_lm_ckpt_", dir=ROOT / "build")
+    try:
+        rc = train_lm.main(["--steps", "4", "--ckpt-dir", ckpt_dir])
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches = _nonzero({n: fn.launches for n, fn in counters.items()})
+    want = {"flash_attention_cuda": 32, "flash_attention_bwd_cuda": 32}
+    print(f"[train-archs] train_lm on the card: rc {rc}, {time.perf_counter() - t0:.1f}s, "
+          f"launches {launches} (derived {want})")
+    if rc != 0 or launches != want:
+        raise SystemExit("train_lm on the card failed or launched other kernels")
+    return launches
+
+
+def _train_archs(torch):
+    """Phase 3n.  Returns the launch counts of the full-size steps."""
+    t0 = time.perf_counter()
+    total = {}
+    for name, batch, seq in TRAIN_ARCHS:
+        _free(torch, f"phase 3n {name}")
+        for k, n in _train_arch(torch, name, batch, seq).items():
+            total[k] = total.get(k, 0) + n
+    _free(torch, "phase 3n reduced checks")
+    _train_archs_reference_check(torch)
+    _train_lm_on_card(torch)
+    print(f"[time] phase 3n wall: {time.perf_counter() - t0:.1f}s")
+    return total
+
+
+def _time_grad_kernels(torch, launches, worst):
+    """Phase 4 rows of the three backward kernels: flash attention's at
+    Gemma3's training shape (a microbatch of 4 rows, Hq 4 over 1 KV head of
+    256, T=2048; causal and window 1024) beside SDPA's backward alone (the
+    grad of a kept graph), the scan's at (1, 4096, 2560) f32 and the token
+    shift's at (1, 4096, 2560) bf16 beside ``conv1d_input`` plus
+    ``conv1d_weight``."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv1d_input, conv1d_weight
+
+    from repro_torch.kernels.local_attention.ref import attention_mask
+
+    EK, _, TS, FA = _rg_modules()
+    bf = torch.bfloat16
+    rows = []
+
+    def row(name, source, replaces, shape, sets, kern, plain, nbytes, flops, peak, reps,
+            library=None, lib_sets=None):
+        ms, call_ms = _time_ms(torch, kern, sets, reps=reps)
+        plain_ms = _time_ms(torch, plain, sets[:2], reps=2)[0]
+        lib_ms = _time_ms(torch, library, lib_sets, reps=reps)[0] if library else None
+        b_ms, f_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches.get(name, 0), "max_abs_err": worst[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(b_ms, f_ms),
+            "bound_by": "bytes" if b_ms >= f_ms else "operations", "library_ms": lib_ms,
+            "call_ms": call_ms, "shape": shape})
+        print(f"[time] {name:24s} {shape:40s} device {ms * 1e3:9.2f} us, per call "
+              f"{call_ms * 1e3:9.2f} us (plain {plain_ms * 1e3:10.1f} us, bound "
+              f"{rows[-1]['bound_ms'] * 1e3:.2f} us by {rows[-1]['bound_by']}"
+              + (f", library {lib_ms * 1e3:.2f} us" if lib_ms else "") + ")")
+
+    with torch.no_grad():
+        b, t, hq, d = 4, 2048, G3_HQ, RG_DH
+        for window in (None, G3_WINDOW):
+            mask = dict(causal=True, window=window)
+
+            def make(seed, mask=mask):
+                q, k, v = _attn_inputs(torch, b, t, t, bf, 1100 + seed, hq=hq)
+                g = torch.Generator(device="cuda").manual_seed(1200 + seed)
+                do = torch.randn(q.shape, generator=g, device="cuda").to(bf)
+                o, lse = FA.flash_attention_cuda(q, k, v, lse=True, **mask)
+                return q, k, v, o, lse, do
+
+            one = make(0)
+            nbytes = _nbytes(one) + _nbytes(one[:3])          # inputs, then dq, dk, dv
+            sets = _cold_sets(make, nbytes)
+            pairs = _visible_pairs(t, t, True, window)
+            flops = 10 * d * hq * b * pairs                    # S, dP, dV, dK, dQ
+            # The library: SDPA's backward alone, the grad of a kept graph
+            # (the same mask; causal on K/V repeated to the 4 heads).
+            am = None if window is None else attention_mask(t, t, causal=True, window=window,
+                                                            device="cuda")
+            lib_sets = []
+            with torch.enable_grad():
+                for q, k, v, _, _, do in sets:
+                    if window is None:
+                        k, v = (x.expand(-1, hq, -1, -1).contiguous() for x in (k, v))
+                    q_, k_, v_ = (x.detach().requires_grad_(True) for x in (q, k, v))
+                    out = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=am,
+                                                         is_causal=window is None,
+                                                         enable_gqa=window is not None)
+                    lib_sets.append((out, q_, k_, v_, do))
+
+            def sdpa_bwd(out, q_, k_, v_, do):
+                return torch.autograd.grad(out, (q_, k_, v_), do, retain_graph=True)
+
+            kern = FA.flash_attention_bwd_cuda
+            got = kern(*sets[0], **mask)
+            ref = sdpa_bwd(*lib_sets[0])
+            if window is None:
+                ref = (ref[0], ref[1].sum(1, keepdim=True), ref[2].sum(1, keepdim=True))
+            agree = [float((a.float() - r.float()).abs().max()) / float(r.float().abs().max())
+                     for a, r in zip(got, ref)]
+            print(f"[time] SDPA backward agrees with flash_attention_bwd_cuda W={window}: "
+                  f"max err / max|SDPA| per output {['%.2e' % a for a in agree]}; backend: "
+                  f"{_sdpa_backend(torch, sdpa_bwd, lib_sets[0])}")
+            row("flash_attention_bwd_cuda",
+                "src/repro_torch/kernels/local_attention/csrc/flash_attention_bwd.cu",
+                "src/repro/kernels/local_attention/kernel.py:137 (flash_attention_pallas: "
+                "its backward, which has no Pallas counterpart)",
+                f"B={b} Hq={hq} Hkv=1 T={t} D={d} " + (f"W={window}" if window else "causal")
+                + " bf16 (gemma3 training)", sets,
+                lambda *a, m=mask: kern(*a, **m),
+                lambda *a, m=mask: FA.attention_bwd_ref(*a, **m),
+                nbytes, flops, PEAK_BF16_FLOPS, reps=10, library=sdpa_bwd, lib_sets=lib_sets)
+            del sets, lib_sets, one
+            torch.cuda.empty_cache()
+
+        b, t = 1, 4096
+
+        def make_scan(seed):
+            a, x, h0 = _scan_inputs(torch, b, t, torch.float32, 1300 + seed)
+            h = EK.elevator_scan_cuda(a, x, h0)
+            dh = torch.randn(x.shape, device="cuda")
+            return a, h, dh, h0
+
+        one = make_scan(0)
+        nbytes = _nbytes(one) + _nbytes(one[:2]) + _nbytes(one[3:])   # da, dx, dh0 out
+        row("elevator_scan_bwd_cuda", "src/repro_torch/kernels/elevator_scan/csrc/elevator_scan.cu",
+            "src/repro/kernels/elevator_scan/kernel.py:78 (elevator_scan_pallas: its backward, "
+            "which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} f32",
+            _cold_sets(make_scan, nbytes), EK.elevator_scan_bwd_cuda, EK.elevator_scan_bwd_ref,
+            nbytes, 3 * b * t * RG_D, PEAK_F32_FLOPS, reps=20)
+
+        def make_shift(seed):
+            x, w = _shift_inputs(torch, b, t, bf, 1400 + seed)
+            return x, w, torch.randn(x.shape, device="cuda").to(bf)
+
+        one = make_shift(0)
+        nbytes = _nbytes(one) + _nbytes(one[:2])                        # dx, dw out
+        sets = _cold_sets(make_shift, nbytes)
+        taps = one[1].shape[0]
+        # The library: the input and weight grads of the depthwise conv1d on
+        # the (B, D, T) layout, padded taps - 1 on the left (phase 4's
+        # forward yardstick), from dout padded to the conv's full length.
+        lib_sets = [(x.transpose(1, 2).contiguous(), w.t().flip(1)[:, None].contiguous(),
+                     F.pad(dout.transpose(1, 2), (0, taps - 1)).contiguous())
+                    for x, w, dout in sets]
+
+        def conv_bwd(xt, wt, gpad):
+            return (conv1d_input(xt.shape, wt, gpad, padding=taps - 1, groups=RG_D),
+                    conv1d_weight(xt, wt.shape, gpad, padding=taps - 1, groups=RG_D))
+
+        dx, dw = TS.token_shift_bwd_cuda(*sets[0])
+        ldx, ldw = conv_bwd(*lib_sets[0])
+        agree = (float((ldx.transpose(1, 2).float() - dx.float()).abs().max()),
+                 float((ldw[:, 0].flip(1).t().float() - dw.float()).abs().max()))
+        print(f"[time] conv1d_input + conv1d_weight agree with token_shift_bwd_cuda: max_abs_err "
+              f"dx {agree[0]:.3e}, dw {agree[1]:.3e}")
+        row("token_shift_bwd_cuda", "src/repro_torch/kernels/token_shift/csrc/token_shift.cu",
+            "src/repro/kernels/token_shift/kernel.py:55 (token_shift_pallas: its backward, "
+            "which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} taps={taps} bf16", sets,
+            TS.token_shift_bwd_cuda, TS.token_shift_bwd_ref, nbytes, 4 * taps * b * t * RG_D,
+            PEAK_F32_FLOPS, reps=50, library=conv_bwd, lib_sets=lib_sets)
+    # The result line's row of flash attention's backward is the causal one;
+    # the window rides along under "large".
+    flash = [r for r in rows if r["name"] == "flash_attention_bwd_cuda"]
+    flash[0]["large"] = [{k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")} for r in flash[1:]]
+    return [r for r in rows if r not in flash[1:]]
 
 
 # ---------------------------------------------------------------------------

@@ -73,8 +73,8 @@ def check_kernel_tensors(name: str, strided: tuple = (), **tensors) -> None:
     """Every tensor given (``None`` skipped) lies on the first one's CUDA
     device, is contiguous (those named in ``strided`` excepted: their
     wrapper checks their layout) and does not require grad: the raw kernel
-    wrappers take no autograd (the WKV gradient goes through
-    ``wkv.vjp.WKVFunction``)."""
+    wrappers take no autograd (gradients go through the ``vjp.py``
+    Functions, which hand them detached tensors)."""
     given = {k: x for k, x in tensors.items() if x is not None}
     dev = next(iter(given.values())).device
     for key, x in given.items():
@@ -118,6 +118,7 @@ KERNEL_SOURCES = {
     "elevator_scan": _PKG / "elevator_scan" / "csrc" / "elevator_scan.cu",
     "token_shift": _PKG / "token_shift" / "csrc" / "token_shift.cu",
     "flash_attention": _PKG / "local_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": _PKG / "local_attention" / "csrc" / "flash_attention_bwd.cu",
     "stencil2d": _PKG / "stencil2d" / "csrc" / "stencil2d.cu",
     "matmul_fwd": _PKG / "matmul_fwd" / "csrc" / "matmul_fwd.cu",
 }
@@ -161,9 +162,12 @@ ENTRY_POINTS = {
     "elevator_scan": {
         "elevator_scan_fwd": [_P] * 4 + [_I] * 7 + [_P],
         "elevator_decode_window_fwd": [_P] * 5 + [_I] * 7 + [_P],
+        "elevator_scan_bwd": [_P] * 7 + [_I] * 3 + [_P],
     },
-    "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P]},
-    "flash_attention": {"flash_attention_fwd": [_P] * 4 + [_I] * 8 + [_F, _I, _P]},
+    "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P],
+                    "token_shift_bwd": [_P] * 6 + [_I] * 5 + [_P]},
+    "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
+    "flash_attention_bwd": {"flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F, _I, _P]},
     "stencil2d": {"stencil2d_fwd": [_P] * 3 + [_I] * 2 + [_F, _I, _P]},
     "matmul_fwd": {"matmul_fwd": [_P] * 4 + [_I] * 8 + [_P]},
 }

@@ -1,5 +1,5 @@
 // Elevator scan h[t] = a[t] * h[t-1] + x[t] for Hopper (sm_90a), plain C
-// interface.  Two entry points, one recurrence:
+// interface.  Three entry points, one recurrence:
 //
 // elevator_scan_fwd replaces src/repro/kernels/elevator_scan/kernel.py:
 //   elevator_scan_pallas, the RG-LRU recurrence of every `rec` layer in a
@@ -8,6 +8,8 @@
 // elevator_decode_window_fwd replaces src/repro/kernels/elevator_scan/
 //   decode.py:elevator_decode_window_pallas, every generated token (K = 1)
 //   and every admission of at most 64 tokens.
+// elevator_scan_bwd, the backward of both (no Pallas counterpart; see its
+//   note below), for every `rec` layer's gradient in training.
 //
 // What bounds them: device-memory bytes.  The scan reads a and x once and
 // writes h once: at B=4, T=256, D=2560 in f32 that is 31.5 MB, 9.4 us at
@@ -525,6 +527,86 @@ int launch_window(const void* a, const void* x, const void* h0, void* out, void*
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// The scan's backward
+// ---------------------------------------------------------------------------
+//
+// elevator_scan_bwd replaces no TPU kernel (the Pallas package has no
+// backward for the scan; the reference differentiates it in closed form):
+// the adjoint of h[t] = a[t] h[t-1] + x[t] is the same recurrence run
+// backward in time,
+//   g[t] = dh[t] + a[t+1] g[t+1]   (g[T-1] = dh[T-1]),
+//   da[t] = g[t] h[t-1],  dx[t] = g[t],  dh0 = a[0] g[0]   (h[-1] = h0),
+// from the forward's f32 h.  What bounds it: bytes (a, h, dh in; da, dx
+// out: 210 MB at B=1, T=4096, D=2560 in f32, 63 us at 3.35 TB/s).  f32
+// only: the model scans f32 inputs, whose states the forward returns.  One
+// thread runs one channel's chain from the last row to the first, a warp
+// a block over 32 neighbouring channels, so every row access of a warp is
+// one coalesced segment; each thread loads BWD_ROWS rows of a, dh and
+// h[t-1] at once, the next group's loads in flight while this group's
+// steps run, and writes da and dx in the same sweep.  Each step rounds
+// a * g before adding dh (__fmul_rn then __fadd_rn), the order of the plain
+// version ref.py:elevator_scan_bwd_ref, so the two are equal bit for bit.
+// Later work: the ring of the forward (TMA stages behind one chain warp),
+// which these per-thread register groups only approach.
+
+constexpr int BWD_THREADS = 32;     // a warp a block, a channel a lane
+constexpr int BWD_ROWS = 16;        // rows a thread loads at once
+
+// Rows t0 .. t0 + BWD_ROWS - 1 (those below Tn) of a, dh and h[t - 1].
+__device__ __forceinline__ void bwd_group(const float* __restrict__ a, const float* __restrict__ h,
+                                          const float* __restrict__ dh, size_t base, int t0, int Tn,
+                                          int D, float h_init, float (&ga)[BWD_ROWS],
+                                          float (&gd)[BWD_ROWS], float (&gp)[BWD_ROWS]) {
+#pragma unroll
+  for (int j = 0; j < BWD_ROWS; ++j) {
+    const int t = t0 + j;
+    ga[j] = gd[j] = gp[j] = 0.f;
+    if (t < Tn) {
+      ga[j] = a[base + (size_t)t * D];
+      gd[j] = dh[base + (size_t)t * D];
+      gp[j] = t > 0 ? h[base + (size_t)(t - 1) * D] : h_init;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(BWD_THREADS) elevator_scan_bwd_kernel(
+    const float* __restrict__ a, const float* __restrict__ h, const float* __restrict__ h0,
+    const float* __restrict__ dh, float* __restrict__ da, float* __restrict__ dx,
+    float* __restrict__ dh0, int Tn, int D) {
+  const int d = blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (d >= D) return;
+  const size_t base = (size_t)blockIdx.y * Tn * D + d;
+  const float h_init = h0 != nullptr ? h0[(size_t)blockIdx.y * D + d] : 0.f;
+  float ca[BWD_ROWS], cd[BWD_ROWS], cp[BWD_ROWS];
+  const int last = (Tn - 1) / BWD_ROWS;
+  bwd_group(a, h, dh, base, last * BWD_ROWS, Tn, D, h_init, ca, cd, cp);
+  float g = 0.f, a_next = 1.f;
+  for (int c = last; c >= 0; --c) {
+    float na[BWD_ROWS], nd[BWD_ROWS], np[BWD_ROWS];
+    if (c > 0) bwd_group(a, h, dh, base, (c - 1) * BWD_ROWS, Tn, D, h_init, na, nd, np);
+#pragma unroll
+    for (int j = BWD_ROWS - 1; j >= 0; --j) {
+      const int t = c * BWD_ROWS + j;
+      if (t >= Tn) continue;
+      g = __fadd_rn(__fmul_rn(a_next, g), cd[j]);
+      dx[base + (size_t)t * D] = g;
+      da[base + (size_t)t * D] = __fmul_rn(g, cp[j]);
+      a_next = ca[j];
+    }
+    if (c > 0) {
+#pragma unroll
+      for (int j = 0; j < BWD_ROWS; ++j) {
+        ca[j] = na[j];
+        cd[j] = nd[j];
+        cp[j] = np[j];
+      }
+    }
+  }
+  dh0[(size_t)blockIdx.y * D + d] = __fmul_rn(a_next, g);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (a, x, out); h0 float32 or null (zeros).
@@ -566,4 +648,17 @@ extern "C" int elevator_decode_window_fwd(const void* a, const void* x, const vo
   if (dtype == 1)
     return launch_window<__nv_bfloat16>(a, x, h0, out, h_out, B, K, D, vec, threads, mode, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The scan's backward.  a, h (the forward's states), dh, da, dx: (B, T, D)
+// float32; h0: (B, D) float32 or null (zeros); dh0: (B, D) float32,
+// written.  All contiguous.  Returns 0 or the cudaError_t of the launch.
+extern "C" int elevator_scan_bwd(const float* a, const float* h, const float* h0, const float* dh,
+                                 float* da, float* dx, float* dh0, int B, int Tn, int D,
+                                 void* stream) {
+  if (B < 1 || B > 65535 || Tn < 1 || D < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((D + BWD_THREADS - 1) / BWD_THREADS, B);
+  elevator_scan_bwd_kernel<<<grid, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, h, h0, dh, da, dx, dh0, Tn, D);
+  return (int)cudaGetLastError();
 }

@@ -19,6 +19,9 @@ dtype, the SM count and the inputs' alignment.
 :func:`elevator_scan_cuda` launches on CUDA tensors (counted in
 ``elevator_scan_cuda.launches``) or raises; CPU tensors take the plain
 version.  :func:`launch_plan` launches a given plan without counting it.
+:func:`elevator_scan_bwd_cuda` is the backward (``elevator_scan_bwd`` in the
+same source, no Pallas counterpart): one reverse chain a channel, bit for
+bit its plain version :func:`elevator_scan_bwd_ref`.
 """
 
 from __future__ import annotations
@@ -35,11 +38,12 @@ from repro_torch.kernels.common import (
     load_library,
     sm_count,
 )
-from repro_torch.kernels.elevator_scan.ref import elevator_scan_ref
+from repro_torch.kernels.elevator_scan.ref import elevator_scan_bwd_ref, elevator_scan_ref
 
 __all__ = ["SCAN_ROW_BYTES", "LOADER_COLS", "SCAN_ROWS", "RING_BYTES", "MAX_STAGES",
            "SCAN_MODES", "ScanPlan", "plan_scan", "scan_plans", "uses_tma", "pointer_alignment",
-           "launch_plan", "elevator_scan_cuda", "elevator_scan_ref", "check_scan_args"]
+           "launch_plan", "elevator_scan_cuda", "elevator_scan_ref", "check_scan_args",
+           "elevator_scan_bwd_cuda", "elevator_scan_bwd_ref"]
 
 #: The bytes of one row that a block of the TMA ring reads (its channels
 #: times the element size), widest first: 128 or 64 (32 or 16 f32 channels,
@@ -200,3 +204,31 @@ def elevator_scan_cuda(a: torch.Tensor, x: torch.Tensor,
 
 
 elevator_scan_cuda.launches = 0
+
+
+def elevator_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                           h0: torch.Tensor | None = None):
+    """The scan's backward from the forward's states.  a, h, dh: (B, T, D)
+    f32; h0: (B, D) f32 or None (zeros).  Returns (da, dx, dh0), all f32.
+    CPU tensors take the plain version."""
+    if a.device.type == "cpu":
+        return elevator_scan_bwd_ref(a, h, dh, h0)
+    check_scan_args("elevator_scan_bwd_cuda", a, dh, h0)
+    if a.dtype != torch.float32 or h.dtype != torch.float32 or h.shape != a.shape:
+        raise ValueError(f"elevator_scan_bwd_cuda: a, dh and h must be float32 of shape "
+                         f"{tuple(a.shape)}, got {a.dtype}, {dh.dtype}, {h.dtype} "
+                         f"{tuple(h.shape)}")
+    check_kernel_tensors("elevator_scan_bwd_cuda", a=a, h=h)
+    b, t, d = a.shape
+    da, dx = torch.empty_like(a), torch.empty_like(dh)
+    dh0 = torch.empty((b, d), dtype=torch.float32, device=a.device)
+    err = load_library("elevator_scan").elevator_scan_bwd(
+        a.data_ptr(), h.data_ptr(), None if h0 is None else h0.data_ptr(), dh.data_ptr(),
+        da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), b, t, d, launch_stream(a.device))
+    if err:
+        raise RuntimeError(f"elevator_scan_bwd launch failed: error {err}")
+    elevator_scan_bwd_cuda.launches += 1
+    return da, dx, dh0
+
+
+elevator_scan_bwd_cuda.launches = 0

@@ -7,6 +7,10 @@ of ``repro.kernels.elevator_scan.ops.elevator_scan``).
   tokens take the decode-window kernel; longer sweeps (the prompt prefill)
   take the chunked kernel.  ``decode=None`` infers ``T == 1``.
 * ``h0=None`` means zeros; h comes back in x.dtype.
+* Under autograd (grad enabled and a, x or h0 requiring grad) both paths
+  run, on f32 inputs, through :class:`~repro_torch.kernels.elevator_scan.vjp.ElevatorScanFunction`:
+  the same forward kernels and the backward kernel on the card, the plain
+  versions on the CPU.
 
 The reference's ``chunk`` argument sizes its Pallas tiles; the CUDA
 kernels' tiles come from their plans (``kernel.py:plan_scan``,
@@ -23,6 +27,7 @@ from repro_torch.kernels.elevator_scan.decode import (
 )
 from repro_torch.kernels.elevator_scan.kernel import elevator_scan_cuda
 from repro_torch.kernels.elevator_scan.ref import elevator_scan_ref
+from repro_torch.kernels.elevator_scan.vjp import ElevatorScanFunction
 
 
 def elevator_scan(a: torch.Tensor, x: torch.Tensor,
@@ -34,6 +39,9 @@ def elevator_scan(a: torch.Tensor, x: torch.Tensor,
     t = x.shape[1]
     if decode is None:
         decode = t == 1
+    if torch.is_grad_enabled() and any(
+            v is not None and v.requires_grad for v in (a, x, h0)):
+        return ElevatorScanFunction.apply(a, x, h0, decode)
     if not x.is_cuda:
         return elevator_scan_ref(a, x, h0)
     if decode and t <= ELEVATOR_DECODE_WINDOW_MAX:

@@ -49,7 +49,12 @@
 // Registers of a consumer thread at D = 256: O 128 f32, S 32, the pending
 // P 16.
 // float32 inputs take a CUDA-core kernel with f32 products throughout (no
-// TF32), one warp per four query rows; only the reduced f32 models use it.
+// TF32), one warp per four query rows, at head widths 32 to 256 and 96 (the
+// qwen2-100m training example's width); only the reduced f32 models use it.
+// Training launches also write each row's log-sum-exp (the `lse` output,
+// from the m and l the walk ends with), which the backward kernels of
+// flash_attention_bwd.cu read to recompute P; serving launches pass none
+// and run a bf16 instantiation without that store.
 // Later work: sharing K/V across a GQA group by cluster multicast, FA3's
 // ping-pong of the two consumer warpgroups (named barriers ordering their
 // softmax against each other's products), fp8.
@@ -59,6 +64,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -66,47 +72,10 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int NW = 4;                 // warps per block of the f32 kernel
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
-
-struct Mask {
-  int T, S, offset, window;   // window < 1: none
-  int causal;
-
-  __device__ __forceinline__ bool visible(int q, int k) const {
-    if (q >= T || k >= S) return false;
-    if (causal) {
-      if (k > q + offset) return false;
-      return window < 1 || k > q + offset - window;
-    }
-    return window < 1 || abs(k - q) < window;
-  }
-
-  // Keys [lo, hi) that some query of [q0, q1) can see (empty if hi <= lo).
-  __device__ __forceinline__ void key_range(int q0, int q1, int& lo, int& hi) const {
-    q1 = min(q1, T);
-    lo = 0;
-    hi = S;
-    if (causal) {
-      hi = min(S, q1 + offset);
-      if (window >= 1) lo = max(0, q0 + offset - window + 1);
-    } else if (window >= 1) {
-      lo = max(0, q0 - window + 1);
-      hi = min(S, q1 - 1 + window);
-    }
-  }
-
-  // Every query of [q0, q1) below T sees every key of [k0, k1): no
-  // per-element mask is needed.
-  __device__ __forceinline__ bool all_visible(int q0, int q1, int k0, int k1) const {
-    q1 = min(q1, T);
-    if (k1 > S) return false;
-    if (causal)
-      return k1 - 1 <= q0 + offset && (window < 1 || k0 > q1 - 1 + offset - window);
-    return window < 1 || (k1 - 1 - q0 < window && q1 - 1 - k0 < window);
-  }
-};
 
 // ---------------------------------------------------------------------------
 // bf16: wgmma fed by TMA, warp-specialised
@@ -213,11 +182,13 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (
   }
 }
 
-template <int D>
+// LSE: write each row's log-sum-exp (training); serving's instantiation
+// (false) holds no trace of it.
+template <int D, bool LSE>
 __global__ void __launch_bounds__(FA_THREADS, 1) flash_wgmma_kernel(
     const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
-    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out, int Hq, int group,
-    Mask mask, float scale_log2) {
+    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ out,
+    float* __restrict__ lse, int Hq, int group, Mask mask, float scale_log2) {
   using P = FlashPlan<D>;
   constexpr int BK = P::BK, SW = P::SW;
   extern __shared__ uint8_t smem_raw[];
@@ -379,6 +350,12 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_wgmma_kernel(
       const int r = row0 + 8 * h;
       if (r >= mask.T) continue;
       const float inv = l > 0.f ? 1.f / l : 0.f;
+      // The row's natural log-sum-exp of scale * q.k for the backward: m_run
+      // and l are in the log2 domain; +inf where the row sees no key.
+      if constexpr (LSE) {
+        if ((lane & 3) == 0)
+          lse[(size_t)bh * mask.T + r] = l > 0.f ? (m_run[h] + log2f(l)) * kLn2 : INFINITY;
+      }
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r * D + 8 * i + col0) =
@@ -396,10 +373,10 @@ constexpr int F_RPW = 4;     // query rows per warp
 constexpr int F_BK = 32;     // keys per tile (one per lane)
 
 template <int D>
-__global__ void __launch_bounds__(NW * 32) flash_f32_kernel(
+__global__ void __launch_bounds__(NW * 32, 1) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ out, int Hq, int group,
-    Mask mask, float scale) {
+    const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse, int Hq,
+    int group, Mask mask, float scale) {
   constexpr int CPL = D / 32;         // output columns per lane
   constexpr int KSTR = D + 1;         // padded K rows: lane j reads row j
   extern __shared__ __align__(16) float smf[];
@@ -473,6 +450,8 @@ __global__ void __launch_bounds__(NW * 32) flash_f32_kernel(
     const int r = q0 + warp * F_RPW + rr;
     if (r >= mask.T) continue;
     const float inv = l_run[rr] > 0.f ? 1.f / l_run[rr] : 0.f;
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * mask.T + r] = l_run[rr] > 0.f ? m_run[rr] + logf(l_run[rr]) : INFINITY;
 #pragma unroll
     for (int c = 0; c < CPL; ++c) og[(size_t)r * D + lane + 32 * c] = acc[rr][c] * inv;
   }
@@ -483,8 +462,8 @@ __global__ void __launch_bounds__(NW * 32) flash_f32_kernel(
 // ---------------------------------------------------------------------------
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                int Hkv, const Mask& mask, float scale, cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                int Hq, int Hkv, const Mask& mask, float scale, cudaStream_t s) {
   using P = FlashPlan<D>;
   CUtensorMap map_q, map_k, map_v;
   const uint64_t dims_q[3] = {(uint64_t)D, (uint64_t)mask.T, (uint64_t)B * Hq};
@@ -497,17 +476,18 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, int B, i
   if (!err) err = sm90::encode_bf16_map(&map_k, 3, k, dims_kv, strides_kv, box_kv, P::SW);
   if (!err) err = sm90::encode_bf16_map(&map_v, 3, v, dims_kv, strides_kv, box_kv, P::SW);
   if (err) return err;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
+  auto kernel = lse != nullptr ? flash_wgmma_kernel<D, true> : flash_wgmma_kernel<D, false>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::SMEM);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * Hq, (mask.T + P::BQ - 1) / P::BQ);
-  flash_wgmma_kernel<D><<<grid, FA_THREADS, P::SMEM, s>>>(
-      map_q, map_k, map_v, static_cast<bf16*>(out), Hq, Hq / Hkv, mask, scale * kLog2e);
+  kernel<<<grid, FA_THREADS, P::SMEM, s>>>(map_q, map_k, map_v, static_cast<bf16*>(out), lse, Hq,
+                                           Hq / Hkv, mask, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
+int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                int Hq, int group, const Mask& mask, float scale, cudaStream_t s) {
   const int smem = (F_BQ * D + F_BK * (D + 1) + F_BK * D) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
@@ -516,7 +496,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((mask.T + F_BQ - 1) / F_BQ, B * Hq);
   flash_f32_kernel<D><<<grid, NW * 32, smem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), Hq, group, mask, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, group, mask, scale);
   return (int)cudaGetLastError();
 }
 
@@ -524,10 +504,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
 
 // q: (B, Hq, T, D); k, v: (B, Hkv, S, D); out: (B, Hq, T, D); all contiguous,
 // one dtype: 0 = float32, 1 = bfloat16 (16-byte aligned: TMA reads it).
-// D in {32, 64, 128, 256}; Hkv | Hq.  causal: 0 or 1; window < 1 means none.
+// lse: null (serving) or (B, Hq, T) f32, each row's natural log-sum-exp of
+// scale * q.k over its visible keys (+inf for a row that sees none), which
+// the backward (flash_attention_bwd.cu) reads.
+// D in {32, 64, 128, 256}, and 96 in f32; Hkv | Hq.  causal: 0 or 1; window
+// < 1 means none.
 // Returns 0, a cudaError_t, or sm90::kTensorMapError + a CUresult.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* out, int B, int Hq, int Hkv, int T,
+                                   void* out, float* lse, int B, int Hq, int Hkv, int T,
                                    int S, int D, int causal, int window,
                                    float scale, int dtype, void* stream) {
   if (B < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv || T < 1 || S < 1 ||
@@ -538,19 +522,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (D) {
-      case 32: return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
-      case 64: return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
-      case 128: return launch_bf16<128>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
-      case 256: return launch_bf16<256>(q, k, v, out, B, Hq, Hkv, mask, scale, s);
+      case 32: return launch_bf16<32>(q, k, v, out, lse, B, Hq, Hkv, mask, scale, s);
+      case 64: return launch_bf16<64>(q, k, v, out, lse, B, Hq, Hkv, mask, scale, s);
+      case 128: return launch_bf16<128>(q, k, v, out, lse, B, Hq, Hkv, mask, scale, s);
+      case 256: return launch_bf16<256>(q, k, v, out, lse, B, Hq, Hkv, mask, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   if (dtype == 0) {
     switch (D) {
-      case 32: return launch_f32<32>(q, k, v, out, B, Hq, group, mask, scale, s);
-      case 64: return launch_f32<64>(q, k, v, out, B, Hq, group, mask, scale, s);
-      case 128: return launch_f32<128>(q, k, v, out, B, Hq, group, mask, scale, s);
-      case 256: return launch_f32<256>(q, k, v, out, B, Hq, group, mask, scale, s);
+      case 32: return launch_f32<32>(q, k, v, out, lse, B, Hq, group, mask, scale, s);
+      case 64: return launch_f32<64>(q, k, v, out, lse, B, Hq, group, mask, scale, s);
+      case 96: return launch_f32<96>(q, k, v, out, lse, B, Hq, group, mask, scale, s);
+      case 128: return launch_f32<128>(q, k, v, out, lse, B, Hq, group, mask, scale, s);
+      case 256: return launch_f32<256>(q, k, v, out, lse, B, Hq, group, mask, scale, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

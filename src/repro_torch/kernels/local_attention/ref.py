@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the flash-attention kernel (counterparts of
 ``repro.kernels.local_attention.ref``): the exact masked softmax
-(:func:`attention_ref`) and the flash-structured blockwise form
-(:func:`attention_blockwise`), both in f32.
+(:func:`attention_ref`, and :func:`attention_ref_lse` with each row's
+log-sum-exp), the flash-structured blockwise form
+(:func:`attention_blockwise`), both in f32, and the backward
+(:func:`attention_bwd_ref`), which has no Pallas counterpart.
 
 Visibility of key j to query i, with the decode offset o = S - T: causal
 ``j <= i + o`` and, with a window W, ``j > i + o - W``; non-causal with a
@@ -29,23 +31,73 @@ def attention_mask(t: int, s: int, *, causal: bool = True,
     return mask
 
 
+def _masked_logits(q, k, causal, window, scale):
+    """scale * q k^T over the visible pairs, -inf elsewhere, in f32 (f64
+    for f64 inputs), K repeated over each group's query heads."""
+    b, hq, t, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    wide = torch.promote_types(q.dtype, torch.float32)
+    k = k.repeat_interleave(hq // hkv, dim=1)
+    logits = torch.einsum("bhtd,bhsd->bhts", q.to(wide), k.to(wide)) * scale
+    mask = attention_mask(t, s, causal=causal, window=window, device=q.device)
+    return logits.masked_fill(~mask, float("-inf")), mask, scale
+
+
+def attention_ref_lse(q, k, v, *, causal: bool = True, window: int | None = None,
+                      scale: float | None = None):
+    """:func:`attention_ref` and each row's natural log-sum-exp of the
+    visible ``scale * q.k`` (B, Hq, T) f32, +inf for a row that sees no key
+    (the CUDA forward's ``lse`` output, what the backward reads)."""
+    return _attention(q, k, v, causal, window, scale, with_lse=True)
+
+
+def _attention(q, k, v, causal, window, scale, *, with_lse):
+    hq, hkv = q.shape[1], k.shape[1]
+    logits, _, _ = _masked_logits(q, k, causal, window, scale)
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(torch.isnan(probs), torch.zeros((), device=q.device), probs)
+    v = v.repeat_interleave(hq // hkv, dim=1)
+    out = torch.einsum("bhts,bhsd->bhtd", probs, v.to(probs.dtype)).to(q.dtype)
+    if not with_lse:
+        return out
+    lse = torch.logsumexp(logits, dim=-1)
+    return out, torch.where(torch.isneginf(lse), float("inf"), lse)
+
+
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
                   scale: float | None = None) -> torch.Tensor:
     """q: (B, Hq, T, D); k, v: (B, Hkv, S, D) with Hkv | Hq (kv head =
-    q head // group).  f32 math, output in q.dtype."""
+    q head // group).  f32 math (f64 for f64 inputs), output in q.dtype."""
+    return _attention(q, k, v, causal, window, scale, with_lse=False)
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                      window: int | None = None, scale: float | None = None):
+    """Plain version of the backward kernels (``csrc/flash_attention_bwd.cu``):
+    (dq, dk, dv) in the inputs' dtypes from the forward's output ``o`` and
+    ``lse`` and the output cotangent ``do``.  P = exp(scale q k^T - lse) on
+    the visible pairs, dV = P^T dO, dS = P (dO V^T - rowsum(dO o O)),
+    dQ = scale dS K, dK = scale dS^T Q; dK and dV summed over each KV head's
+    group of query heads.  f32 math (f64 for f64 inputs)."""
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     group = hq // hkv
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
-    k = k.repeat_interleave(group, dim=1)
-    v = v.repeat_interleave(group, dim=1)
-    logits = torch.einsum("bhtd,bhsd->bhts", q.float(), k.float()) * scale
-    mask = attention_mask(t, s, causal=causal, window=window, device=q.device)
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    probs = torch.where(torch.isnan(probs), torch.zeros((), device=q.device), probs)
-    out = torch.einsum("bhts,bhsd->bhtd", probs, v.float())
-    return out.to(q.dtype)
+    logits, mask, scale = _masked_logits(q, k, causal, window, scale)
+    wide = logits.dtype
+    p = torch.exp(logits - lse.to(wide)[..., None]).masked_fill(~mask, 0.0)
+    do_w, o_w = do.to(wide), o.to(wide)
+    k_w = k.to(wide).repeat_interleave(group, dim=1)
+    v_w = v.to(wide).repeat_interleave(group, dim=1)
+    dv = torch.einsum("bhts,bhtd->bhsd", p, do_w)
+    dp = torch.einsum("bhtd,bhsd->bhts", do_w, v_w)
+    delta = (do_w * o_w).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, k_w) * scale
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, q.to(wide)) * scale
+    dk = dk.reshape(b, hkv, group, s, d).sum(dim=2)
+    dv = dv.reshape(b, hkv, group, s, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_blockwise(q, k, v, *, causal: bool = True,

@@ -210,6 +210,127 @@ int launch(const void* xv, const void* wv, void* outv, int B, int Tn, int D, int
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------------
+// The backward
+// ---------------------------------------------------------------------------
+//
+// token_shift_bwd replaces no TPU kernel (the Pallas package has no
+// backward for the conv): from the output cotangent dout,
+//   dx[b, t, d] = sum_k w[k, d] dout[b, t + k, d]      (dout[t >= T] = 0),
+//   dw[k, d] = sum_{b, t} dout[b, t, d] x[b, t - k, d],
+// the same taps run anti-causally for dx and a tap-by-channel reduction for
+// dw.  What bounds it: bytes (x and dout read, dx written: 126 MB at B=1,
+// T=4096, D=2560 in f32, 38 us at 3.35 TB/s).  A block of BWD_NT threads
+// owns BWD_NT neighbouring channels (a thread one, so a warp's row accesses
+// are one coalesced segment) of a tile of BWD_TILE rows of one batch row;
+// a thread loads BWD_SUB rows of dout and of x with their halos at once,
+// then writes dx for them (tap 0 first, each product rounded before it is
+// added, as the plain version ref.py:token_shift_bwd_ref, so f32 dx equals
+// it bit for bit) and adds their products into its f32 dw partial, rows in
+// order.  Each block writes its partial for its channels into a scratch of
+// (B * tiles, taps, D) f32 that the wrapper allocates; a second kernel
+// sums the partials in block order, so dw does not change from run to run
+// (no atomics), and rounds it once to w's dtype.
+
+constexpr int BWD_NT = 128;         // threads of a backward block, a channel each
+constexpr int BWD_SUB = 16;         // rows a thread loads at once
+constexpr int BWD_TILE = 128;       // rows of a block (one dw partial)
+
+__device__ __forceinline__ float bwd_ld(const float* p) { return *p; }
+__device__ __forceinline__ float bwd_ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void bwd_st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void bwd_st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename T, int TAPS>
+__global__ void __launch_bounds__(BWD_NT) token_shift_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dout,
+    T* __restrict__ dx, float* __restrict__ part, int Tn, int D) {
+  constexpr int HALO = TAPS - 1;
+  const int d = blockIdx.x * BWD_NT + threadIdx.x;
+  if (d >= D) return;
+  const size_t base = (size_t)blockIdx.z * Tn * D + d;
+  float wf[TAPS], dwp[TAPS];
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k) {
+    wf[k] = bwd_ld(w + (size_t)k * D + d);
+    dwp[k] = 0.f;
+  }
+  const int t_begin = blockIdx.y * BWD_TILE, t_end = min(Tn, t_begin + BWD_TILE);
+  for (int s0 = t_begin; s0 < t_end; s0 += BWD_SUB) {
+    // go[i]: dout row s0 + i (zero past T); xs[i]: x row s0 - HALO + i (zero
+    // before 0).
+    float go[BWD_SUB + HALO], xs[BWD_SUB + HALO];
+#pragma unroll
+    for (int i = 0; i < BWD_SUB + HALO; ++i) {
+      const int t = s0 + i, tx = s0 - HALO + i;
+      go[i] = t < Tn ? bwd_ld(dout + base + (size_t)t * D) : 0.f;
+      xs[i] = tx >= 0 && tx < Tn ? bwd_ld(x + base + (size_t)tx * D) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BWD_SUB; ++j) {
+      const int t = s0 + j;
+      if (t >= t_end) break;
+      float acc = __fmul_rn(wf[0], go[j]);
+#pragma unroll
+      for (int k = 1; k < TAPS; ++k) acc = __fadd_rn(acc, __fmul_rn(wf[k], go[j + k]));
+      bwd_st(dx + base + (size_t)t * D, acc);
+#pragma unroll
+      for (int k = 0; k < TAPS; ++k) dwp[k] = __fadd_rn(dwp[k], __fmul_rn(go[j], xs[j + HALO - k]));
+    }
+  }
+  const size_t p = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k) part[(p * TAPS + k) * D + d] = dwp[k];
+}
+
+// dw[i] = the sum of the `parts` partials of entry i (taps * D entries), in
+// block order.
+template <typename T>
+__global__ void __launch_bounds__(BWD_NT) token_shift_dw_kernel(const float* __restrict__ part,
+                                                                T* __restrict__ dw, int parts,
+                                                                int n) {
+  const int i = blockIdx.x * BWD_NT + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);
+  bwd_st(dw + i, s);
+}
+
+template <typename T, int TAPS>
+int launch_bwd_taps(const T* x, const T* w, const T* dout, T* dx, float* part, T* dw, int B,
+                    int Tn, int D, cudaStream_t stream) {
+  const int tiles = (Tn + BWD_TILE - 1) / BWD_TILE;
+  dim3 grid((D + BWD_NT - 1) / BWD_NT, tiles, B);
+  token_shift_bwd_kernel<T, TAPS><<<grid, BWD_NT, 0, stream>>>(x, w, dout, dx, part, Tn, D);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = TAPS * D;
+  token_shift_dw_kernel<T><<<(n + BWD_NT - 1) / BWD_NT, BWD_NT, 0, stream>>>(part, dw, B * tiles,
+                                                                            n);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* xv, const void* wv, const void* dov, void* dxv, float* part, void* dwv,
+               int B, int Tn, int D, int taps, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  const T* w = static_cast<const T*>(wv);
+  const T* dout = static_cast<const T*>(dov);
+  T* dx = static_cast<T*>(dxv);
+  T* dw = static_cast<T*>(dwv);
+  switch (taps) {
+    case 2: return launch_bwd_taps<T, 2>(x, w, dout, dx, part, dw, B, Tn, D, s);
+    case 3: return launch_bwd_taps<T, 3>(x, w, dout, dx, part, dw, B, Tn, D, s);
+    case 4: return launch_bwd_taps<T, 4>(x, w, dout, dx, part, dw, B, Tn, D, s);
+    case 5: return launch_bwd_taps<T, 5>(x, w, dout, dx, part, dw, B, Tn, D, s);
+    case 6: return launch_bwd_taps<T, 6>(x, w, dout, dx, part, dw, B, Tn, D, s);
+    case 7: return launch_bwd_taps<T, 7>(x, w, dout, dx, part, dw, B, Tn, D, s);
+    case 8: return launch_bwd_taps<T, 8>(x, w, dout, dx, part, dw, B, Tn, D, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out alike).
@@ -224,5 +345,21 @@ extern "C" int token_shift_fwd(const void* x, const void* w, void* out, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(x, w, out, B, Tn, D, taps, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w, out, B, Tn, D, taps, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward: x, w, dout, dx, dw of one dtype (0 = float32, 1 = bfloat16),
+// x, dout, dx (B, T, D), w, dw (taps, D); part: f32 scratch of (B *
+// ceil(T / 128), taps, D), every entry written before it is read.  Returns 0
+// or the cudaError_t of the first launch that failed.
+extern "C" int token_shift_bwd(const void* x, const void* w, const void* dout, void* dx,
+                               float* part, void* dw, int B, int Tn, int D, int taps, int dtype,
+                               void* stream) {
+  if (B < 1 || B > 65535 || Tn < 1 || (Tn + BWD_TILE - 1) / BWD_TILE > 65535 || D < 1 ||
+      taps < 2 || taps > MAX_TAPS)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_bwd<float>(x, w, dout, dx, part, dw, B, Tn, D, taps, s);
+  if (dtype == 1) return launch_bwd<__nv_bfloat16>(x, w, dout, dx, part, dw, B, Tn, D, taps, s);
   return (int)cudaErrorInvalidValue;
 }

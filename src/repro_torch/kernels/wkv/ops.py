@@ -15,8 +15,10 @@ Counterpart of ``repro.kernels.wkv.ops.wkv_fused``, with the same contract:
 * Under autograd (grad enabled and any input requiring grad) the chunked
   path runs through :class:`~repro_torch.kernels.wkv.vjp.WKVFunction`: the
   training forward and the reverse-sweep backward, kernels on the card and
-  plain versions on the CPU.  The decode path has no backward yet and
-  raises under autograd.
+  plain versions on the CPU.  The decode path runs through
+  :class:`~repro_torch.kernels.wkv.vjp.WKVDecodeFunction` there: the
+  decode kernels forward, the training forward and the reverse sweep at
+  chunk 1 backward (the reference's ``wkv_decode_diff``).
 
 :func:`wkv_fused_summary` (counterpart of the reference's
 ``wkv_fused_summary``) is the chunked path that also returns ``a_seg``, the
@@ -41,7 +43,7 @@ from repro_torch.kernels.wkv.decode import (
     wkv_decode_window_cuda,
 )
 from repro_torch.kernels.wkv.kernel import wkv_cuda, wkv_plain, wkv_summary_cuda
-from repro_torch.kernels.wkv.vjp import WKVFunction, WKVSummaryFunction
+from repro_torch.kernels.wkv.vjp import WKVDecodeFunction, WKVFunction, WKVSummaryFunction
 
 # (T, chunk) pairs already warned about, keyed by warn scope.
 _CHUNK_WARNED: dict[str | None, set[tuple[int, int]]] = {}
@@ -92,9 +94,11 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
         x.requires_grad for x in (r, k, v, w, u, h0))
     if decode and t <= DECODE_WINDOW_MAX:
         if grad:
-            raise NotImplementedError(
-                "wkv_fused: the decode path has no backward in repro_torch yet; "
-                "training takes the chunked path (decode=False)")
+            if r.is_cuda != bool(kernel):
+                raise ValueError(
+                    "wkv_fused: under autograd the kernels run on CUDA tensors and "
+                    "the plain versions on CPU tensors")
+            return WKVDecodeFunction.apply(r, k, v, w, u, h0)
         if not kernel:
             return wkv_decode_plain(r, k, v, w, u, h0)
         if t == 1:

@@ -26,6 +26,13 @@ backward is the same reverse sweep plus the ``a_seg`` cotangent folded into
 a_seg / w_t`` on the in-range (unclipped) steps.  That cotangent is what
 flows back through the device-space carry of the sequence-parallel path
 (:mod:`repro_torch.kernels.wkv.seqpar`) during sequence-sharded training.
+
+:class:`WKVDecodeFunction` (counterpart of the reference's
+``wkv_decode_diff``) makes a stateful decode window differentiable: its
+forward is the decode kernels (the single step at K = 1, the window
+otherwise), and only the primals are saved.  Its backward recomputes over
+the stage, as the reference does: the training forward for ``s_hist``, then
+the reverse sweep, at :data:`DECODE_GRAD_CHUNK` (the reference's chunk 1).
 """
 
 from __future__ import annotations
@@ -34,6 +41,11 @@ import torch
 
 from repro_torch.kernels.common import largest_divisor_chunk
 from repro_torch.kernels.wkv.bwd import BWD_MAX_CHUNK, wkv_bwd_cuda, wkv_bwd_plain
+from repro_torch.kernels.wkv.decode import (
+    wkv_decode_cuda,
+    wkv_decode_plain,
+    wkv_decode_window_cuda,
+)
 from repro_torch.kernels.wkv.kernel import (
     wkv_train_cuda,
     wkv_train_plain,
@@ -41,7 +53,11 @@ from repro_torch.kernels.wkv.kernel import (
     wkv_train_summary_plain,
 )
 
-__all__ = ["WKVFunction", "WKVSummaryFunction"]
+__all__ = ["WKVFunction", "WKVSummaryFunction", "WKVDecodeFunction", "DECODE_GRAD_CHUNK"]
+
+#: The chunk of the decode window's recompute-over-stage backward (the
+#: reference's ``wkv_chunked_bwd_ref(..., chunk=1)``).
+DECODE_GRAD_CHUNK = 1
 
 
 def _train_forward(ctx, r, k, v, w, u, h0, chunk, summary):
@@ -122,3 +138,25 @@ class WKVSummaryFunction(torch.autograd.Function):
         fold = (d_a.float() * a_seg)[:, :, None, :] / w32.clamp(1e-8, 1.0)
         grads[3] = grads[3].float() + torch.where(in_range, fold, 0.0)
         return _cast(prims, grads)
+
+
+class WKVDecodeFunction(torch.autograd.Function):
+    """``WKVDecodeFunction.apply(r, k, v, w, u, h0) -> (out, S_out)``: a
+    K-token decode window, 1 <= K <= 64; out (B,H,K,Dh) in r.dtype, S_out
+    f32."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, h0):
+        prims = [x.detach().contiguous() for x in (r, k, v, w, u, h0)]
+        ctx.save_for_backward(*prims)
+        if not r.is_cuda:
+            return wkv_decode_plain(*prims)
+        return (wkv_decode_cuda if r.shape[2] == 1 else wkv_decode_window_cuda)(*prims)
+
+    @staticmethod
+    def backward(ctx, d_out, d_s_out):
+        prims = ctx.saved_tensors
+        fwd = wkv_train_cuda if prims[0].is_cuda else wkv_train_plain
+        s_hist = fwd(*prims, chunk=DECODE_GRAD_CHUNK)[2]
+        ctx.chunk = DECODE_GRAD_CHUNK
+        return _cast(*_reverse_sweep(ctx, (*prims, s_hist), d_out, d_s_out))[:6]

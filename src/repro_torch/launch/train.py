@@ -1,11 +1,14 @@
 """Training launcher (counterpart of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --arch rwkv6-1.6b --steps 8
-    python -m repro_torch.launch.train --arch rwkv6-1.6b --smoke --device cpu --steps 4
+    python -m repro_torch.launch.train --arch gemma3-1b --smoke --device cpu --steps 4
 
-Runs on the card unless ``--device`` names another.  The full config runs
-in its dtype (bf16 for rwkv6-1.6b) with its ``microbatch`` and ``remat``;
-``--smoke`` takes the reduced f32 config.  Fault tolerance is the
+Every arch the reference trains.  Runs on the card unless ``--device``
+names another.  The full config runs in its dtype (bf16) with its
+``microbatch`` and ``remat``; ``--smoke`` takes the reduced f32 config.  As
+in the reference, a frontend arch (qwen2-vl) trains its backbone on token
+streams (``frontend=None``), and an encoder-decoder arch (seamless-m4t)
+gets zero encoder frames of the batch's shape.  Fault tolerance is the
 reference's: ``run_with_restarts`` around each step, an ``AsyncSaver`` for
 ``--ckpt-dir``, and the step-keyed data stream, so a restart neither skips
 nor repeats data.  Prints loss, grad norm and tokens/s per logged step and
@@ -16,6 +19,7 @@ loss.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import sys
 import time
@@ -27,6 +31,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.data.pipeline import DataConfig, make_batch
 from repro_torch.ft.watchdog import run_with_restarts
 from repro_torch.kernels.common import resolve_device
+from repro_torch.model.layers import dtype_of
 from repro_torch.optim import adamw
 from repro_torch.train import step as train_mod
 
@@ -35,9 +40,13 @@ class NonFiniteLoss(RuntimeError):
     pass
 
 
-def main(argv=None) -> int:
+def main(argv=None, cfg=None) -> int:
+    """Parse ``argv`` and train the config ``--arch`` names, or ``cfg``
+    where the caller gives one (``repro_torch.examples.train_lm`` passes its
+    own); ``--arch`` is then no option."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    if cfg is None:
+        ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced f32 config")
     ap.add_argument("--steps", type=int, default=100)
@@ -54,9 +63,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
+    if cfg is None:
+        cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.reduced()
+    if cfg.frontend or cfg.is_enc_dec:
+        # Text-only training, as the reference's launcher: frontend archs train
+        # their backbone on token streams.
+        cfg = dataclasses.replace(cfg, frontend=None)
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                       global_batch=args.batch, seed=args.seed)
     opt_cfg = adamw.AdamWConfig(
@@ -75,6 +89,9 @@ def main(argv=None) -> int:
 
     def do_step(state, step):
         batch = make_batch(dcfg, step, device=device)
+        if cfg.is_enc_dec:
+            batch["enc_embeds"] = torch.zeros((args.batch, args.seq, cfg.d_model),
+                                              dtype=dtype_of(cfg), device=device)
         sync()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)

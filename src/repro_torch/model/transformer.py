@@ -14,16 +14,26 @@ Under autograd, ``cfg.remat == "full"`` (the reference's default,
 ``jax.checkpoint`` with nothing saveable) wraps each period in
 ``torch.utils.checkpoint``: a period keeps only its input, and its forward
 runs again in the backward (the remainder layers, as in the reference,
-are not recomputed), under the sharding rules its forward ran under.  ``"none"`` keeps every activation; ``"dots"``
-is not ported.  Without grad (serving) the stack runs plain.
+are not recomputed), under the sharding rules its forward ran under.
+``"dots"`` (the reference's ``checkpoint_dots_with_no_batch_dims``) is the
+same checkpoint with a selective policy: the outputs of the matrix products
+with no batch dims (``aten.mm``, ``aten.addmm``: the projections) are saved
+and everything else, batched products (``bmm``) included, is recomputed.
+``"none"`` keeps every activation.  Without grad (serving) the stack runs
+plain.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.model import attention as attn_mod
 from repro_torch.model import moe as moe_mod
@@ -125,12 +135,36 @@ def _remat(cfg) -> bool:
     """Whether to recompute each period in the backward (grad on only)."""
     if cfg.remat not in ("none", "dots", "full"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    if not torch.is_grad_enabled() or cfg.remat == "none":
-        return False
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            'remat="dots" is not ported to repro_torch yet; use "full" or "none"')
-    return True
+    return torch.is_grad_enabled() and cfg.remat != "none"
+
+
+#: The products whose outputs ``remat="dots"`` saves: those with no batch
+#: dims, as the reference's ``checkpoint_dots_with_no_batch_dims``.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _entered(*managers):
+    with contextlib.ExitStack() as stack:
+        for m in managers:
+            stack.enter_context(m)
+        yield
+
+
+def _dots_context():
+    """``context_fn`` of ``remat="dots"``: the selective policy's two
+    contexts, each entered with :func:`remat_context`'s."""
+    sel_fwd, sel_re = create_selective_checkpoint_contexts(_save_dots)
+    fwd, re = remat_context()
+    return _entered(sel_fwd, fwd), _entered(sel_re, re)
+
+
+def _context_fn(cfg):
+    return _dots_context if cfg.remat == "dots" else remat_context
 
 
 def _layer_view(node, p: int):
@@ -171,7 +205,7 @@ def apply_stack(stack_params, x, cfg, *, positions=None, causal=True, states=Non
 
         for p in range(n_periods):
             x = checkpoint(period, x, p, use_reentrant=False,
-                           context_fn=remat_context)
+                           context_fn=_context_fn(cfg))
         # The reference remats the scanned periods only.
         for i, kind in enumerate(remainder):
             x, _ = apply_block(stack_params["remainder"][i], x, cfg, kind, **block)

@@ -51,41 +51,50 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
 
 
+def _model_kwargs(batch):
+    """The forward's extra inputs a batch may carry, as the reference's:
+    ``frontend_embeds`` (B, S_f, D), ``positions`` ((B, S), or (3, B, S)
+    for M-RoPE) and ``enc_embeds`` (the encoder's frames)."""
+    kw = {}
+    if "frontend_embeds" in batch:
+        kw["frontend_embeds"] = batch["frontend_embeds"]
+    if "positions" in batch:
+        kw["positions"] = batch["positions"]
+    if "enc_embeds" in batch:
+        kw["enc_tokens_embeds"] = batch["enc_embeds"]
+    return kw
+
+
 def make_loss_fn(cfg):
     def loss_fn(params, batch):
-        return cross_entropy(M.forward(params, cfg, batch["tokens"]), batch["labels"])
+        logits = M.forward(params, cfg, batch["tokens"], **_model_kwargs(batch))
+        return cross_entropy(logits, batch["labels"])
 
     return loss_fn
 
 
 def _split_micro(batch, n_micro: int):
-    """Each (B, ...) entry as (n_micro, B / n_micro, ...)."""
+    """Each (B, ...) entry as (n_micro, B / n_micro, ...); M-RoPE's (3, B,
+    S) ``positions`` split along their batch axis, 1."""
     out = {}
     for k, x in batch.items():
-        b = x.shape[0]
+        mrope = k == "positions" and x.ndim == 3 and x.shape[0] == 3
+        b = x.shape[1] if mrope else x.shape[0]
         if b % n_micro:
             raise ValueError(f"batch {b} not divisible by microbatch {n_micro}")
-        out[k] = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
+        if mrope:
+            out[k] = x.reshape(3, n_micro, b // n_micro, x.shape[2]).movedim(1, 0)
+        else:
+            out[k] = x.reshape((n_micro, b // n_micro) + tuple(x.shape[1:]))
     return out
-
-
-#: Layer kinds whose gradients have kernels in the port: the WKV training
-#: forward and backward.  The RG-LRU scan, the token shift and flash
-#: attention have no backward kernel in the reference to port yet.
-TRAINABLE_KINDS = ("rwkv",)
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None, *,
                     compress: bool = False, accum_dtype=torch.float32):
     """The train step for ``cfg``: ``cfg.microbatch`` microbatches, their
-    grads summed in ``accum_dtype`` and divided by their number."""
-    missing = sorted(set(cfg.pattern) - set(TRAINABLE_KINDS))
-    if missing:
-        raise NotImplementedError(
-            f"training {cfg.name} is not ported to repro_torch yet: its layer "
-            f"kinds {missing} have no backward here, and the reference has no "
-            "backward kernel for elevator_scan_pallas or flash_attention_pallas "
-            "to port")
+    grads summed in ``accum_dtype`` and divided by their number.  Every
+    arch trains; on the card each gradient runs through the kernels'
+    backward (WKV, flash attention, the RG-LRU scan and the token shift)."""
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     loss_fn = make_loss_fn(cfg)
     n_micro = max(1, cfg.microbatch)

@@ -268,11 +268,21 @@ def test_function_grads_card_match_cpu(cuda, dtype):
     _close_scaled(grads["cuda"], grads["cpu"], tol)
 
 
+def _first_moments_close(got, want, tol=1e-4):
+    """After one step AdamW's first moment is (1 - b1) times the clipped
+    gradient: each leaf held as the CPU tests hold gradients (GRAD_TOL, 1e-4
+    of the leaf's largest value), so a gradient's sign and size both count."""
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol * max(1e-3, np.abs(w).max()))
+
+
 def test_reduced_train_step_card_matches_cpu(cuda):
     """One train step (microbatch 2, full remat) of the reduced f32 model
     through the kernels against the same step through the plain versions
-    on the CPU: loss, grad norm and updated parameters (a first AdamW step
-    moves each by at most 2 lr = 6e-6 here, so 1e-5 absolute)."""
+    on the CPU: loss, grad norm, each gradient leaf (AdamW's first moment)
+    and updated parameters (a first AdamW step moves each by at most 2 lr =
+    6e-6 here, so 1e-5 absolute)."""
     cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(), microbatch=2, remat="full")
     dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4, seed=2)
     params = TS.init_train_state(cfg, 1, device="cpu").params
@@ -283,9 +293,11 @@ def test_reduced_train_step_card_matches_cpu(cuda):
         state = TS.TrainState(moved, adamw.init_state(moved), None)
         state, m = TS.make_train_step(cfg)(state, make_batch(dcfg, 0, device=dev))
         out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
-                         [p.detach().cpu() for p in tree_leaves(state.params)])
-    (l_c, g_c, p_c), (l_g, g_g, p_g) = out["cpu"], out["cuda"]
+                         [p.detach().cpu() for p in tree_leaves(state.params)],
+                         tree_leaves(state.opt.mu))
+    (l_c, g_c, p_c, m_c), (l_g, g_g, p_g, m_g) = out["cpu"], out["cuda"]
     assert l_g == pytest.approx(l_c, rel=1e-5) and g_g == pytest.approx(g_c, rel=1e-4)
+    _first_moments_close(m_g, m_c)
     for a, b in zip(p_g, p_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-5)
 
@@ -645,7 +657,8 @@ def _compile_mutants(name, faults, out):
         cu = out / f"{fault}.cu"
         cu.write_text(src.replace(anchor, repl))
         procs[fault] = subprocess.Popen(
-            [common._nvcc(), *common._NVCC_FLAGS, "-o", str(out / f"{fault}.so"), str(cu)],
+            [common._nvcc(), *common._NVCC_FLAGS, "-I", str(common.KERNEL_SOURCES[name].parent),
+             "-o", str(out / f"{fault}.so"), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     for fault, proc in procs.items():
         report, _ = proc.communicate()
@@ -1209,6 +1222,34 @@ elif case == "elevator_window":
     torch.full_like(x, float("nan"))
     torch.full_like(h, float("nan"))
     got = list(ED.elevator_decode_window_cuda(a, x, h))
+elif case == "flash_bwd":
+    # Flash attention's backward at Gemma3's heads (4 over 1 of 256), T=512,
+    # causal window 128 (the tiles the band cuts and those it covers).
+    from repro_torch.kernels.local_attention import kernel as FA
+    q = torch.from_numpy(rand(1, 4, 512, 256)).cuda().to(dt)
+    k, v = (torch.from_numpy(rand(1, 1, 512, 256)).cuda().to(dt) for _ in range(2))
+    do = torch.from_numpy(rand(1, 4, 512, 256)).cuda().to(dt)
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, window=128, lse=True)
+    want = list(FA.attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=128))
+    common._LIBS[lib] = common.open_library(lib, so)
+    got = list(FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=128))
+elif case == "elevator_bwd":
+    # The scan's backward at B=2, T=300, D=2560, held bit for bit.
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (2, 300, 2560)).astype(np.float32)).cuda().to(dt)
+    h = torch.from_numpy(rand(2, 300, 2560)).cuda()
+    dh = torch.from_numpy(rand(2, 300, 2560)).cuda().to(dt)
+    h0 = torch.from_numpy(rand(2, 2560)).cuda()
+    want = list(EK.elevator_scan_bwd_ref(a, h, dh, h0))
+    common._LIBS[lib] = common.open_library(lib, so)
+    got = list(EK.elevator_scan_bwd_cuda(a, h, dh, h0))
+elif case == "shift_bwd":
+    # The token shift's backward at B=2, T=300 (three row tiles a batch row).
+    x = torch.from_numpy(rand(2, 300, 2560)).cuda().to(dt)
+    w = torch.from_numpy(rand(4, 2560)).cuda().to(dt)
+    do = torch.from_numpy(rand(2, 300, 2560)).cuda().to(dt)
+    want = list(TS.token_shift_bwd_ref(x, w, do))
+    common._LIBS[lib] = common.open_library(lib, so)
+    got = list(TS.token_shift_bwd_cuda(x, w, do))
 else:
     # The token shift at B=2, T=259, a D with a tail slot in either dtype;
     # the memory the output will take is filled with NaN first, so a channel
@@ -1372,3 +1413,246 @@ def test_elevator_check_rejects_planted_fault(cuda, elevator_mutants, fault):
     a, x, h = _scan_inputs(4, 8, 2560, 778, cuda)
     got, want = ED.elevator_decode_window_cuda(a, x, h), ED.elevator_decode_window_plain(a, x, h)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --------------------------------------------------------------------------
+# The backward kernels (training): flash attention, the RG-LRU scan, the
+# token shift; the WKV decode window under grad; the Functions card vs CPU
+# --------------------------------------------------------------------------
+
+#: Backward tolerance relative to each output's largest value: f32 the same
+#: math in another order; bf16 P and dS are rounded to bf16 as the mma
+#: operands besides the outputs (chip_smoke.py's GRAD_TOLERANCE).
+GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _grad_close(got, want, dtype):
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= GRAD_RTOL[dtype] * max(1e-2, float(w.float().abs().max())), err
+        assert bool(torch.isfinite(g).all())
+
+
+#: (b, hq, hkv, t, s, d, causal, window): every mask variant, GQA, T != S,
+#: T off a tile, each head width.
+FLASH_BWD_CASES = [
+    (1, 4, 1, 512, 512, 256, True, 128),
+    (2, 4, 1, 300, 300, 256, True, None),
+    (1, 14, 2, 333, 333, 64, True, None),
+    (1, 8, 2, 256, 256, 128, True, 100),
+    (1, 4, 4, 200, 200, 32, False, 50),
+    (2, 4, 4, 64, 320, 64, False, None),
+    (1, 4, 2, 320, 64, 128, False, None),
+    (1, 4, 1, 8, 300, 256, True, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_matches_plain(cuda, dtype, case):
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _qkv(b, hq, hkv, t, s, d, t + s, cuda, dtype)
+    do = _qkv(b, hq, hq, t, t, d, 1, cuda, dtype)[0]
+    mask = dict(causal=causal, window=window)
+    o, lse = FA.flash_attention_cuda(q, k, v, lse=True, **mask)
+    assert torch.equal(o, FA.flash_attention_cuda(q, k, v, **mask))
+    _, lse_ref = FA.attention_ref_lse(q, k, v, **mask)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), seen)
+    assert float((lse[seen] - lse_ref[seen]).abs().max()) <= 1e-4
+    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+    _grad_close(got, FA.attention_bwd_ref(q, k, v, o, lse, do, **mask), dtype)
+    again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_f32_head_dim_96(cuda):
+    """The train_lm example's width, forward and backward, in f32."""
+    q, k, v = _qkv(1, 8, 2, 256, 256, 96, 3, cuda, torch.float32)
+    do = _qkv(1, 8, 8, 256, 256, 96, 4, cuda, torch.float32)[0]
+    o, lse = FA.flash_attention_cuda(q, k, v, lse=True)
+    _close([o], [FA.attention_ref(q, k, v)], F32_TOL)
+    got = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    _grad_close(got, FA.attention_bwd_ref(q, k, v, o, lse, do), torch.float32)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention_cuda(q.bfloat16(), k.bfloat16(), v.bfloat16())
+
+
+@pytest.mark.parametrize("b,t,d,h0", [(4, 1024, 2560, True), (1, 37, 200, False),
+                                      (2, 1, 2560, True), (1, 4096, 2560, True)])
+def test_elevator_bwd_bit_for_bit(cuda, b, t, d, h0):
+    a, x, h_init = _scan_inputs(b, t, d, t + d, cuda, torch.float32, h0)
+    h = EK.elevator_scan_cuda(a, x, h_init)
+    dh = _scan_inputs(b, t, d, 5, cuda)[1]
+    got = EK.elevator_scan_bwd_cuda(a, h, dh, h_init)
+    want = EK.elevator_scan_bwd_ref(a, h, dh, h_init)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(g.dtype == torch.float32 for g in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,taps", [(4, 4, 2560, 4), (4, 67, 2560, 4), (4, 259, 2560, 4),
+                                        (1, 4096, 2560, 4), (2, 130, 2562, 3), (1, 9, 64, 8)])
+def test_token_shift_bwd_matches_plain(cuda, dtype, b, t, d, taps):
+    rng = np.random.default_rng(t + d)
+    x, dout = (torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(cuda, dtype)
+               for _ in range(2))
+    w = torch.from_numpy((rng.standard_normal((taps, d)) * 0.1).astype(np.float32)).to(cuda, dtype)
+    dx, dw = TS_K.token_shift_bwd_cuda(x, w, dout)
+    want = TS_K.token_shift_bwd_ref(x, w, dout)
+    assert torch.equal(dx, want[0])
+    _grad_close([dw], want[1:], dtype)
+    again = TS_K.token_shift_bwd_cuda(x, w, dout)
+    assert torch.equal(again[1], dw)
+
+
+def _card_and_cpu_grads(fn, args, cots):
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs = [a.detach().to(dev).requires_grad_(True) for a in args]
+        out = fn(*xs)
+        outs = out if isinstance(out, tuple) else (out,)
+        loss = sum((o.float() * c.to(dev).float()).sum() for o, c in zip(outs, cots))
+        grads[dev] = [g.cpu() for g in torch.autograd.grad(loss, xs)]
+    return grads["cuda"], grads["cpu"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_functions_card_match_cpu(cuda, dtype):
+    """Each training Function on the card against the same Function on CPU
+    copies (the plain versions): flash attention, the scan (chunked and a
+    window), the token shift, the WKV decode window (K = 1 and 8)."""
+    from repro_torch.kernels.elevator_scan.vjp import ElevatorScanFunction
+    from repro_torch.kernels.local_attention.vjp import FlashAttentionFunction
+    from repro_torch.kernels.token_shift.vjp import TokenShiftFunction
+    from repro_torch.kernels.wkv import ops as WO
+
+    q, k, v = _qkv(1, 4, 1, 256, 256, 256, 7, cuda, dtype)
+    cot = _qkv(1, 4, 4, 256, 256, 256, 8, cuda, dtype)[0]
+    _grad_close(*_card_and_cpu_grads(
+        lambda *a: FlashAttentionFunction.apply(*a, True, 64, None), (q, k, v), (cot,)), dtype)
+    # The scan's Function takes f32 only: the model scans f32 inputs.
+    for t, decode in ((256, False), (8, True)) if dtype == torch.float32 else ():
+        a, x, h0 = _scan_inputs(4, t, 2560, t, cuda, dtype)
+        got, want = _card_and_cpu_grads(
+            lambda *z, d=decode: ElevatorScanFunction.apply(*z, d), (a, x, h0), (x,))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    x = _scan_inputs(2, 259, 2560, 9, cuda, dtype)[1]
+    w = _scan_inputs(1, 4, 2560, 10, cuda, dtype)[1][0] * 0.1
+    got, want = _card_and_cpu_grads(TokenShiftFunction.apply, (x, w), (x,))
+    assert torch.equal(got[0], want[0])
+    for kw in (1, 8):
+        args = _inputs(2, 4, kw, kw, cuda, dtype)
+        cots = (args[0], torch.ones((2, 4, 64, 64), device=cuda))
+        got, want = _card_and_cpu_grads(lambda *z: WO.wkv_fused(*z, decode=True), args, cots)
+        assert _scaled_ratio(got, want, 1e-4 if dtype == torch.float32 else BF16_RTOL) <= 1.0
+
+
+@pytest.mark.parametrize("name", ["gemma3-1b", "recurrentgemma-2b"])
+def test_reduced_attention_train_step_card_matches_cpu(cuda, name):
+    """One train step of the reduced f32 model through the backward kernels
+    against the same step on the CPU: loss, grad norm, each gradient leaf
+    (AdamW's first moment), parameters."""
+    cfg = get_config(name).reduced()
+    params = TS.init_train_state(cfg, 1, device="cpu").params
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=2 * cfg.microbatch, seed=2), 0, device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        moved = tree_map(lambda p: p.detach().to(dev, copy=True).requires_grad_(True), params)
+        state = TS.TrainState(moved, adamw.init_state(moved), None)
+        state, m = TS.make_train_step(cfg)(state, {k: v.to(dev) for k, v in batch.items()})
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    [p.detach().cpu() for p in tree_leaves(state.params)],
+                    tree_leaves(state.opt.mu))
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    assert out["cuda"][1] == pytest.approx(out["cpu"][1], rel=1e-4)
+    _first_moments_close(out["cuda"][3], out["cpu"][3])
+    assert max(float((a - b).abs().max()) for a, b in zip(out["cuda"][2], out["cpu"][2])) <= 1e-5
+
+
+def test_backward_wrappers_refuse_grad_and_bad_args(cuda):
+    from repro_torch.kernels.elevator_scan.vjp import ElevatorScanFunction
+
+    q, k, v = _qkv(1, 4, 1, 8, 8, 64, 0, cuda, torch.bfloat16)
+    o, lse = FA.flash_attention_cuda(q, k, v, lse=True)
+    with pytest.raises(ValueError, match="grad"):
+        FA.flash_attention_bwd_cuda(q.clone().requires_grad_(True), k, v, o, lse, o)
+    with pytest.raises(ValueError, match="lse"):
+        FA.flash_attention_bwd_cuda(q, k, v, o, lse.bfloat16(), o)
+    a, x, h = _scan_inputs(1, 4, 64, 0, cuda)
+    with pytest.raises(ValueError, match="must be float32"):
+        EK.elevator_scan_bwd_cuda(a, x.bfloat16(), x, h)
+    with pytest.raises(ValueError, match="must be float32"):
+        EK.elevator_scan_bwd_cuda(a.bfloat16(), x, x.bfloat16(), h)
+    with pytest.raises(ValueError, match="float32 under grad"):
+        ElevatorScanFunction.apply(a.bfloat16(), x.bfloat16(), h, False)
+    with pytest.raises(ValueError, match="dout"):
+        TS_K.token_shift_bwd_cuda(x, torch.ones(4, 64, device=cuda), x.bfloat16())
+
+
+#: Faults planted in copies of the backward kernels' sources: (library,
+#: check case, dtype the faulty kernel serves, anchor, replacement).
+BWD_FAULTS = {
+    # dK/dV blocks skip the last tile of queries their keys see.
+    "flash_skip_last_query_tile": (
+        "flash_attention_bwd", "flash_bwd", torch.bfloat16,
+        "      for (int q0 = (qlo / BQ) * BQ; q0 < qhi; q0 += BQ) {\n",
+        "      for (int q0 = (qlo / BQ) * BQ; q0 < qhi - BQ; q0 += BQ) {\n"),
+    # No per-element mask in dK/dV: the band's cut tiles count every pair.
+    "flash_unmasked_tiles": (
+        "flash_attention_bwd", "flash_bwd", torch.bfloat16,
+        "        const bool whole = mask.all_visible(q0, q0 + BQ, kw, kw + 16);\n",
+        "        const bool whole = true;\n"),
+    # dQ takes the upper row's delta for the lower 8 rows of each warp.
+    "flash_dq_wrong_delta": (
+        "flash_attention_bwd", "flash_bwd", torch.bfloat16,
+        "    dl[h] = r < mask.T ? delta[(size_t)bh * mask.T + r] : 0.f;\n",
+        "    dl[h] = r < mask.T ? delta[(size_t)bh * mask.T + rw + g] : 0.f;\n"),
+    # The f32 dK leaves out the softmax scale.
+    "flash_f32_dk_unscaled": (
+        "flash_attention_bwd", "flash_bwd", torch.float32,
+        "      dk[at] = ak[j][c] * scale;\n", "      dk[at] = ak[j][c];\n"),
+    # The scan's backward loads each next group one row late.
+    "scan_group_off_by_one": (
+        "elevator_scan", "elevator_bwd", torch.float32,
+        "(c - 1) * BWD_ROWS, Tn, D, h_init, na, nd, np);",
+        "(c - 1) * BWD_ROWS + 1, Tn, D, h_init, na, nd, np);"),
+    # The token shift's dw drops the first block's partial.
+    "shift_dw_drops_a_partial": (
+        "token_shift", "shift_bwd", torch.float32,
+        "  for (int p = 0; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n",
+        "  for (int p = 1; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n"),
+}
+
+
+@pytest.fixture(scope="module")
+def bwd_mutants(tmp_path_factory):
+    """Each planted fault compiled into its own copy of its library; the
+    value is the shared object's path (loaded only by the check's process)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels are CUDA C++ for sm_90a")
+    out = tmp_path_factory.mktemp("bwd_mutants")
+    paths = {}
+    for lib in {e[0] for e in BWD_FAULTS.values()}:
+        faults = {f: e[3:] for f, e in BWD_FAULTS.items() if e[0] == lib}
+        _compile_mutants(lib, faults, out / lib)
+        paths.update({f: out / lib / f"{f}.so" for f in faults})
+    return paths
+
+
+@pytest.mark.parametrize("fault", list(BWD_FAULTS))
+def test_backward_check_rejects_planted_fault(cuda, bwd_mutants, fault):
+    """Each faulty backward launch and its check (the plain version's
+    tolerance of its dtype; the scan's bit for bit) in a process of its
+    own.  The good kernels pass the same checks here."""
+    lib, case, dtype = BWD_FAULTS[fault][:3]
+    tol = (0.0 if case == "elevator_bwd" else
+           (1e-4 if dtype == torch.float32 else GRAD_RTOL[dtype]))
+    what, rejected = _fault_outcome(lib, bwd_mutants[fault], dtype, tol, case)
+    print(f"[bwd-fault] {fault} {dtype}: {what}")
+    assert rejected, f"{fault} {dtype}: the check passed the faulty kernel ({what})"
+    from repro_torch.kernels import common
+
+    what, rejected = _fault_outcome(lib, common.build_libraries()[lib], dtype, tol, case)
+    assert not rejected, f"the good {lib} fails the same check ({what})"

@@ -3,6 +3,7 @@ it runs on the card unless the caller names the CPU, and no kernel wrapper
 falls back to the plain version around a launch."""
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
@@ -43,6 +44,9 @@ RG_WRAPPERS = [PORT / "kernels" / pkg / n for pkg, names in (
     ("token_shift", ("kernel.py", "ops.py")),
     ("local_attention", ("kernel.py", "ops.py")),
 ) for n in names]
+#: The training Functions of the kernels given a backward for training.
+GRAD_WRAPPERS = [PORT / "kernels" / pkg / "vjp.py"
+                 for pkg in ("elevator_scan", "token_shift", "local_attention")]
 #: The paper-demo kernels' wrappers and dispatch.
 PAPER_WRAPPERS = [PORT / "kernels" / pkg / n for pkg in ("stencil2d", "matmul_fwd")
                   for n in ("kernel.py", "ops.py")]
@@ -98,6 +102,21 @@ def test_no_try_in_recurrentgemma_kernel_wrappers(path):
 @pytest.mark.parametrize("path", PAPER_WRAPPERS, ids=lambda p: f"{p.parent.name}/{p.name}")
 def test_no_try_in_paper_demo_kernel_wrappers(path):
     test_no_try_in_kernel_wrappers(path)
+
+
+@pytest.mark.parametrize("path", GRAD_WRAPPERS, ids=lambda p: f"{p.parent.name}/{p.name}")
+def test_no_try_in_training_functions(path):
+    test_no_try_in_kernel_wrappers(path)
+
+
+def test_training_modules_are_checked():
+    """The training Functions, the train step, the launcher and the
+    train_lm example are among the sources the import checks read."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if p.is_relative_to(PORT)}
+    for mod in ("kernels/elevator_scan/vjp.py", "kernels/token_shift/vjp.py",
+                "kernels/local_attention/vjp.py", "kernels/wkv/vjp.py", "train/step.py",
+                "launch/train.py", "examples/train_lm.py"):
+        assert mod in names, f"{mod} is not among the sources the import checks read"
 
 
 def test_paper_demo_modules_are_checked():
@@ -216,9 +235,18 @@ def test_training_entry_points_need_the_card_by_default(no_card):
     assert state.params["tok"]["embedding"].device.type == "cpu"
 
 
-def test_recurrentgemma_training_is_refused():
-    with pytest.raises(NotImplementedError, match="backward kernel"):
-        train_launch.main(["--arch", "recurrentgemma-2b", "--smoke", "--device", "cpu"])
+def test_every_arch_has_a_train_step_and_a2a_moe_stays_refused():
+    from repro_torch.configs.registry import list_archs
+    from repro_torch.train.step import make_train_step
+
+    for name in list_archs():
+        assert callable(make_train_step(get_config(name).reduced()))
+    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(), moe_impl="a2a")
+    state = init_train_state(cfg, device="cpu")
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                                  global_batch=cfg.microbatch), 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="a2a"):
+        make_train_step(cfg)(state, batch)
 
 
 def test_kernel_sources_are_listed():
@@ -339,6 +367,9 @@ _SASS = """        /*0a90*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc
         /*0b10*/                   UTMALDG.2D [UR8], [UR14] ;
         /*0b20*/                   UBLKCP.S.G [UR12], [UR4], UR14 ;
 """
+#: The SASS of flash attention's backward library: mma.sync products.
+_BWD_SASS = """        /*0c40*/                   HMMA.16816.F32.BF16 R40, R4, R12, R40 ;
+"""
 #: The same for a WKV library (its kernel's name is filled in).
 _WKV_USAGE = """
 Resource usage:
@@ -356,20 +387,23 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     frame still fails."""
     smoke = _load_chip_smoke()
     usage = {"text": _USAGE, "wkv": _WKV_USAGE, "decode": _WKV_USAGE, "scan": _WKV_USAGE,
-             "sass": _SASS, "scan_sass": _SASS}
+             "bwd": _WKV_USAGE, "sass": _SASS, "scan_sass": _SASS, "bwd_sass": _BWD_SASS}
 
     def run(cmd, **kw):
         assert Path(cmd[-1]).parent == tmp_path
         lib = Path(cmd[-1]).stem[3:]                    # lib<name>.so
         if cmd[1] != "--dump-resource-usage":
             out = (usage["sass"] if lib == "wkv_decode" else
-                   usage["scan_sass"] if lib in smoke.SCAN_LIBRARIES else _SASS)
+                   usage["scan_sass"] if lib in smoke.SCAN_LIBRARIES else
+                   usage["bwd_sass"] if lib in smoke.BWD_LIBRARIES else _SASS)
         elif lib in smoke.WKV_TMA_LIBRARIES:
             out = usage["wkv"].replace("KERNEL", smoke.WKV_TMA_LIBRARIES[lib])
         elif lib in smoke.DECODE_LIBRARIES:
             out = usage["decode"].replace("KERNEL", smoke.DECODE_LIBRARIES[lib][0])
         elif lib in smoke.SCAN_LIBRARIES:
             out = usage["scan"].replace("KERNEL", smoke.SCAN_LIBRARIES[lib][0] + "scan_kernel")
+        elif lib in smoke.BWD_LIBRARIES:
+            out = usage["bwd"].replace("KERNEL", smoke.BWD_LIBRARIES[lib][0] + "dq_kernel")
         else:
             out = usage["text"]
         return subprocess.CompletedProcess(cmd, 0, stdout=out, stderr="")
@@ -414,4 +448,15 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     usage["scan"] = _WKV_USAGE
     usage["scan_sass"] = _SASS.replace("UTMALDG", "LDG")
     with pytest.raises(SystemExit, match="UTMALDG"):
+        smoke._hopper_report(common)
+    # Flash attention's backward library: a spill in any of its
+    # kernels fails, and its SASS must hold tensor-core products (HMMA).
+    usage["scan_sass"] = _SASS
+    smoke._hopper_report(common)
+    usage["bwd"] = _WKV_USAGE.replace("LOCAL:0", "LOCAL:28")
+    with pytest.raises(SystemExit, match="spills"):
+        smoke._hopper_report(common)
+    usage["bwd"] = _WKV_USAGE
+    usage["bwd_sass"] = _SASS
+    with pytest.raises(SystemExit, match="HMMA"):
         smoke._hopper_report(common)

@@ -193,13 +193,40 @@ class TestTrainStep:
         for a, b in zip(grads["none"], grads["full"]):
             assert torch.equal(a, b)
 
-    def test_remat_dots_is_not_ported(self):
-        cfg = dataclasses.replace(get_config("rwkv6-1.6b").reduced(), remat="dots")
-        params = tstep.init_train_state(cfg, 0, device="cpu").params
-        with pytest.raises(NotImplementedError, match="dots"):
-            tstep.make_loss_fn(cfg)(params, _tbatch(_batch(cfg, 1, 8)))
-        with torch.no_grad():                    # serving ignores remat
-            tstep.make_loss_fn(cfg)(params, _tbatch(_batch(cfg, 1, 8)))
+    def test_remat_dots_saves_the_products_and_recomputes_the_rest(self):
+        """``remat="dots"`` (the reference's
+        ``checkpoint_dots_with_no_batch_dims``): the backward runs no
+        ``aten.mm`` beyond what "none" runs (the projections' outputs are
+        saved), the batched products and everything else as "full"
+        recomputes them, and the grads equal both."""
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Count(TorchDispatchMode):
+            def __init__(self):
+                super().__init__()
+                self.n = {"mm": 0, "bmm": 0}
+
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if func is torch.ops.aten.mm.default:
+                    self.n["mm"] += 1
+                if func is torch.ops.aten.bmm.default:
+                    self.n["bmm"] += 1
+                return func(*args, **(kwargs or {}))
+
+        base = get_config("gemma3-1b").reduced()
+        nb = _tbatch(_batch(base, 2, 16))
+        counts, grads = {}, {}
+        for remat in ("none", "full", "dots"):
+            cfg = dataclasses.replace(base, remat=remat)
+            params = tstep.init_train_state(cfg, 0, device="cpu").params
+            loss = tstep.make_loss_fn(cfg)(params, nb)
+            with Count() as c:
+                grads[remat] = torch.autograd.grad(loss, tree_leaves(params))
+            counts[remat] = c.n
+        assert counts["dots"]["mm"] == counts["none"]["mm"] < counts["full"]["mm"]
+        assert counts["dots"]["bmm"] == counts["full"]["bmm"] > counts["none"]["bmm"]
+        for remat in ("full", "dots"):
+            assert all(torch.equal(a, b) for a, b in zip(grads["none"], grads[remat]))
 
     def test_loss_decreases(self):
         cfg = get_config("rwkv6-1.6b").reduced()

@@ -174,8 +174,16 @@ def test_no_grad_takes_the_inference_path():
     assert type(out.grad_fn).__name__ == "WKVFunctionBackward"
 
 
-def test_decode_under_grad_raises():
-    prims, _, _ = _np_inputs(1, 1, 4, 64, seed=3)
+@pytest.mark.parametrize("t", [1, 4])
+def test_decode_under_grad_matches_autograd(t):
+    """The decode path under grad (``WKVDecodeFunction``: the decode
+    kernels' plain version forward, the training forward and the reverse
+    sweep at chunk 1 backward) against ``torch.autograd`` through
+    ``wkv_sequential_ref``."""
+    prims, d_out, d_s_out = _np_inputs(1, 1, t, 64, seed=3)
     args = [a.requires_grad_(True) for a in _t(prims)]
-    with pytest.raises(NotImplementedError, match="decode"):
-        ops.wkv_fused(*args, decode=True)
+    out, s_fin = ops.wkv_fused(*args, decode=True)
+    assert type(out.grad_fn).__name__ == "WKVDecodeFunctionBackward"
+    loss = (out * torch.from_numpy(d_out)).sum() + (s_fin * torch.from_numpy(d_s_out)).sum()
+    got = torch.autograd.grad(loss, args)
+    _close(got, [g.numpy() for g in _autograd_sequential(prims, d_out, d_s_out)])
