@@ -17,8 +17,9 @@ Phases (any failure raises and exits non-zero, with no result line):
    UTMALDG instructions, beside each kernel's registers, shared memory,
    stack frame and local memory (the token shift's too, and every kernel
    of the scan library), all read from the library file whether this run built it
-   or found it in ``build/``, and the HMMA (mma.sync) instructions and every
-   kernel's registers and spills of flash attention's backward library;
+   or found it in ``build/``, and the HGMMA (wgmma), UTMALDG (TMA) and
+   UBLKCP (bulk copy) instructions and every kernel's registers and spills
+   of flash attention's backward library;
    fail if a count is 0 or a kernel spills (a stack frame or local memory);
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
@@ -36,10 +37,15 @@ Phases (any failure raises and exits non-zero, with no result line):
    (``flash_attention_bwd_cuda``) at (Hq, Hkv, D) = (10, 1, 256) causal
    window 2048 at T=4096, (4, 1, 256) window 1024 and causal at T=2048,
    (14, 2, 64) and (32, 8, 128) causal at T=2048, (16, 16, 64) non-causal
-   at T = S = 1024 and cross at T=256 over S=1024, T=1000, and f32 at D 96,
-   with the training forward's log-sum-exp against the plain version's and
-   its output bit for bit serving's; the scan's (B, T) = (4, 1024) and (1,
-   4096) at D=2560 bit for bit; the token shift's at T in 4, 67, 259, 4096
+   at T = S = 1024 and cross at T=256 over S=1024, T=1000,
+   RecurrentGemma's training microbatch (B=2, (10, 1, 256), T=1024, window
+   2048), and f32 at D 96, with the training forward's log-sum-exp against
+   the plain version's and its output bit for bit serving's, and in bf16
+   every plan of ``flash_bwd_plans`` (each GQA cluster size) through
+   ``launch_bwd_plan``, each repeating bit for bit; the
+   scan's (B, T) = (4, 1024), (1, 4096) and (2, 1024) at D=2560 bit for bit
+   in every plan of ``scan_bwd_plans`` (the TMA ring's two tiles, the
+   loader-warp variant); the token shift's at T in 4, 67, 259, 4096
    (dx bit for bit); each Function (flash attention, the scan chunked and
    as windows of 1, 8, 64, the token shift) on the card against the same
    Function on CPU copies, and the WKV decode window's grads at K in 1, 8,
@@ -235,9 +241,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    window at K in 1, 8, 32, 64 and B in 1, 4 in every plan, beside the
    launch floor plus its bytes bound; the three backward kernels: flash
    attention's at Gemma3's training shape (B=4, Hq 4 over 1 of 256,
-   T=2048; causal, and window 1024 under "large") beside SDPA's backward
-   alone (the grad of a kept graph, its backend printed), the scan's at
-   (1, 4096, 2560) f32, the token shift's at (1, 4096, 2560) bf16 beside
+   T=2048; causal with every plan timed, and window 1024 under "large") and
+   RecurrentGemma's (B=2, Hq 10 over 1, T=1024, window 2048, under
+   "large") beside SDPA's backward alone (the grad of a kept graph, its
+   backend printed), the scan's at (1, 4096, 2560) and (2, 1024, 2560)
+   (under "large") f32 in every plan, the token shift's at (1, 4096, 2560) bf16 beside
    ``conv1d_input`` plus ``conv1d_weight``), printed as one ``{"kernels":
    [...]}`` line after the script's wall time;
    then the card's name and power limit, and the result line.
@@ -1523,11 +1531,12 @@ DECODE_LIBRARIES = {"wkv_decode": ("wkv_decode_kernel", ("UBLKCP",)),
 #: marker matches the scan's and the window's), and the TMA loads (UTMALDG)
 #: of the scan's ring and the staged window phase 1 must find.
 SCAN_LIBRARIES = {"elevator_scan": ("elevator_", ("UTMALDG",))}
-#: The backward kernels' library (flash attention's) and the
-#: tensor-core products (HMMA: mma.sync) phase 1 must find in it; the
-#: token shift's and the scan's backward kernels are read with their
-#: forwards' libraries above (the markers match every kernel there).
-BWD_LIBRARIES = {"flash_attention_bwd": ("flash_bwd_", ("HMMA",))}
+#: The backward kernels' library (flash attention's) and what phase 1 must
+#: find in it: wgmma products (HGMMA), TMA loads (UTMALDG) and the ring's
+#: bulk copies of the lse and delta rows (UBLKCP); the token shift's and
+#: the scan's backward kernels are read with their forwards' libraries
+#: above (the markers match every kernel there).
+BWD_LIBRARIES = {"flash_attention_bwd": ("flash_bwd_", ("HGMMA", "UTMALDG", "UBLKCP"))}
 RG_KERNELS = ("elevator_scan_cuda", "elevator_decode_window_cuda",
               "token_shift_cuda", "flash_attention_cuda")
 WKV_KERNELS = ("wkv_cuda", "wkv_decode_cuda", "wkv_decode_window_cuda",
@@ -3828,6 +3837,7 @@ FLASH_GRAD_CASES = (
     (1, 16, 16, 1024, 1024, 64, False, None),
     (1, 16, 16, 256, 1024, 64, False, None),
     (2, 14, 2, 1000, 1000, 64, True, None),
+    (2, 10, 1, 1024, 1024, 256, True, 2048),
 )
 #: f32 only: the train_lm example's head width.
 FLASH_GRAD_F32_CASES = ((1, 8, 2, 256, 256, 96, True, None),)
@@ -3905,6 +3915,17 @@ def _grad_kernel_checks(torch):
                 again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
                 if not all(torch.equal(x, y) for x, y in zip(got, again)):
                     raise SystemExit("flash_attention_bwd_cuda does not repeat bit for bit")
+                # Every plan of the bf16 kernels (counts no launch).
+                for plan in (FA.flash_bwd_plans(b, hq, hkv, t, s, d)
+                             if dtype == torch.bfloat16 else ()):
+                    got = FA.launch_bwd_plan(q, k, v, o, lse, do, plan=plan, **mask)
+                    _grad_check(torch, worst, "flash_attention_bwd_cuda",
+                                f"{case} c={plan.cluster} st={plan.kv_stages}/{plan.dq_stages}",
+                                dtype, got, want)
+                    again = FA.launch_bwd_plan(q, k, v, o, lse, do, plan=plan, **mask)
+                    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                        raise SystemExit(f"flash_attention_bwd_cuda {plan} does not repeat "
+                                         "bit for bit")
                 del q, k, v, do, o, lse, lse_ref, got, want, again
             torch.cuda.empty_cache()
         print(f"[grad-kernels] flash lse {dtype}: the training forward's output equals "
@@ -3914,14 +3935,20 @@ def _grad_kernel_checks(torch):
         # f32 inputs.
         scan_f32 = dtype == torch.float32
         with torch.no_grad():
-            for b, t in ((4, 1024), (1, 4096)) if scan_f32 else ():
+            for b, t in ((4, 1024), (1, 4096), (2, 1024)) if scan_f32 else ():
                 a, x, h0 = _scan_inputs(torch, b, t, dtype, 900 + t)
                 h = EK.elevator_scan_cuda(a, x, h0)
                 dh = randn(x.shape, dtype, 901 + t)
                 got = EK.elevator_scan_bwd_cuda(a, h, dh, h0)
                 torch.cuda.synchronize()
+                want = EK.elevator_scan_bwd_ref(a, h, dh, h0)
                 _grad_check(torch, worst, "elevator_scan_bwd_cuda", f"B={b} T={t} D={RG_D}",
-                            dtype, got, EK.elevator_scan_bwd_ref(a, h, dh, h0), exact=(0, 1, 2))
+                            dtype, got, want, exact=(0, 1, 2))
+                for plan in EK.scan_bwd_plans(b, t, RG_D):
+                    _grad_check(torch, worst, "elevator_scan_bwd_cuda",
+                                f"B={b} T={t} {plan.mode} cols={plan.cols}", dtype,
+                                EK.launch_bwd_plan(a, h, dh, h0, plan=plan), want,
+                                exact=(0, 1, 2))
             for b, t in ((4, 4), (4, 67), (4, 259), (1, 4096)):
                 x, w = _shift_inputs(torch, b, t, dtype, 950 + t)
                 dout = randn(x.shape, dtype, 951 + t)
@@ -4166,8 +4193,10 @@ def _train_archs(torch):
 def _time_grad_kernels(torch, launches, worst):
     """Phase 4 rows of the three backward kernels: flash attention's at
     Gemma3's training shape (a microbatch of 4 rows, Hq 4 over 1 KV head of
-    256, T=2048; causal and window 1024) beside SDPA's backward alone (the
-    grad of a kept graph), the scan's at (1, 4096, 2560) f32 and the token
+    256, T=2048; causal, every plan timed, and window 1024) and
+    RecurrentGemma's (a microbatch of 2, Hq 10 over 1, T=1024, window 2048)
+    beside SDPA's backward alone (the grad of a kept graph), the scan's at
+    (1, 4096, 2560) and (2, 1024, 2560) f32 in every plan, and the token
     shift's at (1, 4096, 2560) bf16 beside ``conv1d_input`` plus
     ``conv1d_weight``."""
     import torch.nn.functional as F
@@ -4197,11 +4226,13 @@ def _time_grad_kernels(torch, launches, worst):
               + (f", library {lib_ms * 1e3:.2f} us" if lib_ms else "") + ")")
 
     with torch.no_grad():
-        b, t, hq, d = 4, 2048, G3_HQ, RG_DH
-        for window in (None, G3_WINDOW):
+        d = RG_DH
+        for b, t, hq, window, arch in ((4, 2048, G3_HQ, None, "gemma3"),
+                                       (4, 2048, G3_HQ, G3_WINDOW, "gemma3"),
+                                       (2, 1024, RG_HQ, RG_WINDOW, "recurrentgemma")):
             mask = dict(causal=True, window=window)
 
-            def make(seed, mask=mask):
+            def make(seed, mask=mask, b=b, t=t, hq=hq):
                 q, k, v = _attn_inputs(torch, b, t, t, bf, 1100 + seed, hq=hq)
                 g = torch.Generator(device="cuda").manual_seed(1200 + seed)
                 do = torch.randn(q.shape, generator=g, device="cuda").to(bf)
@@ -4246,28 +4277,44 @@ def _time_grad_kernels(torch, launches, worst):
                 "src/repro/kernels/local_attention/kernel.py:137 (flash_attention_pallas: "
                 "its backward, which has no Pallas counterpart)",
                 f"B={b} Hq={hq} Hkv=1 T={t} D={d} " + (f"W={window}" if window else "causal")
-                + " bf16 (gemma3 training)", sets,
+                + f" bf16 ({arch} training)", sets,
                 lambda *a, m=mask: kern(*a, **m),
                 lambda *a, m=mask: FA.attention_bwd_ref(*a, **m),
                 nbytes, flops, PEAK_BF16_FLOPS, reps=10, library=sdpa_bwd, lib_sets=lib_sets)
+            if window is None:
+                rows[-1]["plans"] = {
+                    f"cluster={p.cluster} stages={p.kv_stages}/{p.dq_stages}": round(1e3 * _time_ms(
+                        torch, lambda *a, p=p, m=mask: FA.launch_bwd_plan(*a, plan=p, **m), sets,
+                        reps=10)[0], 2)
+                    for p in FA.flash_bwd_plans(b, hq, 1, t, t, d)}
+                print(f"[time] flash_attention_bwd_cuda plans (device us): {rows[-1]['plans']}")
             del sets, lib_sets, one
             torch.cuda.empty_cache()
 
+        for b, t in ((1, 4096), (2, 1024)):
+
+            def make_scan(seed, b=b, t=t):
+                a, x, h0 = _scan_inputs(torch, b, t, torch.float32, 1300 + seed)
+                h = EK.elevator_scan_cuda(a, x, h0)
+                dh = torch.randn(x.shape, device="cuda")
+                return a, h, dh, h0
+
+            one = make_scan(0)
+            nbytes = _nbytes(one) + _nbytes(one[:2]) + _nbytes(one[3:])   # da, dx, dh0 out
+            sets = _cold_sets(make_scan, nbytes)
+            row("elevator_scan_bwd_cuda",
+                "src/repro_torch/kernels/elevator_scan/csrc/elevator_scan.cu",
+                "src/repro/kernels/elevator_scan/kernel.py:78 (elevator_scan_pallas: its "
+                "backward, which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} f32",
+                sets, EK.elevator_scan_bwd_cuda, EK.elevator_scan_bwd_ref,
+                nbytes, 3 * b * t * RG_D, PEAK_F32_FLOPS, reps=20)
+            rows[-1]["plans"] = {
+                f"{p.mode} cols={p.cols} stages={p.stages}": round(1e3 * _time_ms(
+                    torch, lambda *a, p=p: EK.launch_bwd_plan(*a, plan=p), sets, reps=20)[0], 2)
+                for p in EK.scan_bwd_plans(b, t, RG_D)}
+            print(f"[time] elevator_scan_bwd_cuda plans (device us): {rows[-1]['plans']}")
+            del sets, one
         b, t = 1, 4096
-
-        def make_scan(seed):
-            a, x, h0 = _scan_inputs(torch, b, t, torch.float32, 1300 + seed)
-            h = EK.elevator_scan_cuda(a, x, h0)
-            dh = torch.randn(x.shape, device="cuda")
-            return a, h, dh, h0
-
-        one = make_scan(0)
-        nbytes = _nbytes(one) + _nbytes(one[:2]) + _nbytes(one[3:])   # da, dx, dh0 out
-        row("elevator_scan_bwd_cuda", "src/repro_torch/kernels/elevator_scan/csrc/elevator_scan.cu",
-            "src/repro/kernels/elevator_scan/kernel.py:78 (elevator_scan_pallas: its backward, "
-            "which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} f32",
-            _cold_sets(make_scan, nbytes), EK.elevator_scan_bwd_cuda, EK.elevator_scan_bwd_ref,
-            nbytes, 3 * b * t * RG_D, PEAK_F32_FLOPS, reps=20)
 
         def make_shift(seed):
             x, w = _shift_inputs(torch, b, t, bf, 1400 + seed)
@@ -4299,12 +4346,17 @@ def _time_grad_kernels(torch, launches, worst):
             "which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} taps={taps} bf16", sets,
             TS.token_shift_bwd_cuda, TS.token_shift_bwd_ref, nbytes, 4 * taps * b * t * RG_D,
             PEAK_F32_FLOPS, reps=50, library=conv_bwd, lib_sets=lib_sets)
-    # The result line's row of flash attention's backward is the causal one;
-    # the window rides along under "large".
-    flash = [r for r in rows if r["name"] == "flash_attention_bwd_cuda"]
-    flash[0]["large"] = [{k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms")} for r in flash[1:]]
-    return [r for r in rows if r not in flash[1:]]
+    # The result line's row of flash attention's backward is Gemma3's causal
+    # one, the scan's the (1, 4096) one; the other shapes ride along under
+    # "large".
+    extra = []
+    for name in ("flash_attention_bwd_cuda", "elevator_scan_bwd_cuda"):
+        mine = [r for r in rows if r["name"] == name]
+        mine[0]["large"] = [{k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms", "plans") if k in r}
+                            for r in mine[1:]]
+        extra += mine[1:]
+    return [r for r in rows if r not in extra]
 
 
 # ---------------------------------------------------------------------------

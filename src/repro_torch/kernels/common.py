@@ -162,12 +162,13 @@ ENTRY_POINTS = {
     "elevator_scan": {
         "elevator_scan_fwd": [_P] * 4 + [_I] * 7 + [_P],
         "elevator_decode_window_fwd": [_P] * 5 + [_I] * 7 + [_P],
-        "elevator_scan_bwd": [_P] * 7 + [_I] * 3 + [_P],
+        "elevator_scan_bwd": [_P] * 7 + [_I] * 6 + [_P],
     },
     "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P],
                     "token_shift_bwd": [_P] * 6 + [_I] * 5 + [_P]},
     "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
-    "flash_attention_bwd": {"flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F, _I, _P]},
+    "flash_attention_bwd": {"flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
+                            "flash_bwd_smem": [_I] * 3},
     "stencil2d": {"stencil2d_fwd": [_P] * 3 + [_I] * 2 + [_F, _I, _P]},
     "matmul_fwd": {"matmul_fwd": [_P] * 4 + [_I] * 8 + [_P]},
 }

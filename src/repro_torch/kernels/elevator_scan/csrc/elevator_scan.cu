@@ -540,71 +540,211 @@ int launch_window(const void* a, const void* x, const void* h0, void* out, void*
 //   da[t] = g[t] h[t-1],  dx[t] = g[t],  dh0 = a[0] g[0]   (h[-1] = h0),
 // from the forward's f32 h.  What bounds it: bytes (a, h, dh in; da, dx
 // out: 210 MB at B=1, T=4096, D=2560 in f32, 63 us at 3.35 TB/s).  f32
-// only: the model scans f32 inputs, whose states the forward returns.  One
-// thread runs one channel's chain from the last row to the first, a warp
-// a block over 32 neighbouring channels, so every row access of a warp is
-// one coalesced segment; each thread loads BWD_ROWS rows of a, dh and
-// h[t-1] at once, the next group's loads in flight while this group's
-// steps run, and writes da and dx in the same sweep.  Each step rounds
+// only: the model scans f32 inputs, whose states the forward returns.
+//
+// The chunked scan's structure run from the last chunk to the first: a
+// block owns `cols` channels of one batch row; producers fill a ring of
+// `stages` stages, each three tiles of a row span [t0, t0 + R): a, dh, and
+// h shifted by one row (rows [t0 - 1, t0 + R - 1)), so the chain reads
+// h[t - 1] in place.  One chain warp, a lane a channel, walks each stage's
+// rows from the last to the first in the forward's two register groups and
+// stores dx and da from registers of their own; the first chunk's row -1
+// (zeros by TMA, not loaded by the loaders) takes h0.  Each step rounds
 // a * g before adding dh (__fmul_rn then __fadd_rn), the order of the plain
 // version ref.py:elevator_scan_bwd_ref, so the two are equal bit for bit.
-// Later work: the ring of the forward (TMA stages behind one chain warp),
-// which these per-thread register groups only approach.
+//   mode 0: one producer lane fills the ring by TMA (3-D maps of a, dh and
+//     h, the row coordinate t0 - 1 for h); 16 or 32 channels a block.
+//   mode 1: LOADERS warps fill it element by element (any layout), chunks
+//     in turn, LOADER_COLS channels a block.
+// The plan kernels/elevator_scan/kernel.py:plan_scan_bwd picks the mode,
+// the channel tile and the ring's depth.
 
-constexpr int BWD_THREADS = 32;     // a warp a block, a channel a lane
-constexpr int BWD_ROWS = 16;        // rows a thread loads at once
+// Shared memory of the backward: the header and `stages` stages of three
+// tiles (a, dh, h shifted), R x cols f32 each.
+__host__ __device__ constexpr int scan_bwd_smem(int R, int cols, int stages) {
+  return HEADER + 3 * stages * R * cols * 4;
+}
 
-// Rows t0 .. t0 + BWD_ROWS - 1 (those below Tn) of a, dh and h[t - 1].
-__device__ __forceinline__ void bwd_group(const float* __restrict__ a, const float* __restrict__ h,
-                                          const float* __restrict__ dh, size_t base, int t0, int Tn,
-                                          int D, float h_init, float (&ga)[BWD_ROWS],
-                                          float (&gd)[BWD_ROWS], float (&gp)[BWD_ROWS]) {
-#pragma unroll
-  for (int j = 0; j < BWD_ROWS; ++j) {
-    const int t = t0 + j;
-    ga[j] = gd[j] = gp[j] = 0.f;
-    if (t < Tn) {
-      ga[j] = a[base + (size_t)t * D];
-      gd[j] = dh[base + (size_t)t * D];
-      gp[j] = t > 0 ? h[base + (size_t)(t - 1) * D] : h_init;
-    }
+// Mode 1's loader warps: the rows [t0, t0 + R) of a and dh and [t0 - 1,
+// t0 + R - 1) of h into their tiles, zeros outside [0, Tn) and past D, a
+// lane a column of every 32 / COLS-th row.
+template <int COLS>
+__device__ __forceinline__ void load_rows_bwd(float* sa, float* sd, float* sp,
+                                              const float* __restrict__ a,
+                                              const float* __restrict__ dh,
+                                              const float* __restrict__ h, size_t row0, int t0,
+                                              int Tn, int R, int d0, int D, int lane) {
+  constexpr int STEP = 32 / COLS;
+  const int col = lane % COLS;
+  const bool col_ok = d0 + col < D;
+#pragma unroll 8
+  for (int r = lane / COLS; r < R; r += STEP) {
+    const int t = t0 + r;
+    const size_t at = (row0 + t) * D + d0 + col;
+    const bool ok = col_ok && t < Tn;
+    sa[r * COLS + col] = ok ? a[at] : 0.f;
+    sd[r * COLS + col] = ok ? dh[at] : 0.f;
+    sp[r * COLS + col] = col_ok && t >= 1 && t <= Tn ? h[at - D] : 0.f;
   }
 }
 
-__global__ void __launch_bounds__(BWD_THREADS) elevator_scan_bwd_kernel(
-    const float* __restrict__ a, const float* __restrict__ h, const float* __restrict__ h0,
-    const float* __restrict__ dh, float* __restrict__ da, float* __restrict__ dx,
-    float* __restrict__ dh0, int Tn, int D) {
-  const int d = blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (d >= D) return;
-  const size_t base = (size_t)blockIdx.y * Tn * D + d;
-  const float h_init = h0 != nullptr ? h0[(size_t)blockIdx.y * D + d] : 0.f;
-  float ca[BWD_ROWS], cd[BWD_ROWS], cp[BWD_ROWS];
-  const int last = (Tn - 1) / BWD_ROWS;
-  bwd_group(a, h, dh, base, last * BWD_ROWS, Tn, D, h_init, ca, cd, cp);
-  float g = 0.f, a_next = 1.f;
-  for (int c = last; c >= 0; --c) {
-    float na[BWD_ROWS], nd[BWD_ROWS], np[BWD_ROWS];
-    if (c > 0) bwd_group(a, h, dh, base, (c - 1) * BWD_ROWS, Tn, D, h_init, na, nd, np);
+template <int G>
+__device__ __forceinline__ void lds3(float (&va)[G], float (&vd)[G], float (&vp)[G],
+                                     const float* sa, const float* sd, const float* sp,
+                                     int stride) {
 #pragma unroll
-    for (int j = BWD_ROWS - 1; j >= 0; --j) {
-      const int t = c * BWD_ROWS + j;
-      if (t >= Tn) continue;
-      g = __fadd_rn(__fmul_rn(a_next, g), cd[j]);
-      dx[base + (size_t)t * D] = g;
-      da[base + (size_t)t * D] = __fmul_rn(g, cp[j]);
-      a_next = ca[j];
+  for (int i = 0; i < G; ++i) {
+    va[i] = sa[i * stride];
+    vd[i] = sd[i * stride];
+    vp[i] = sp[i * stride];
+  }
+}
+
+template <int MODE, int LANES>
+__global__ void __launch_bounds__(32 * (1 + LOADERS), 1) elevator_scan_bwd_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_dh,
+    const __grid_constant__ CUtensorMap map_h, const float* __restrict__ a,
+    const float* __restrict__ h, const float* __restrict__ h0, const float* __restrict__ dh,
+    float* __restrict__ da, float* __restrict__ dx, float* __restrict__ dh0, int Tn, int D,
+    int ns) {
+  constexpr int R = stage_rows(MODE);
+  constexpr int tile = R * LANES;               // floats of one tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + MAX_STAGES;
+  float* ring = reinterpret_cast<float*>(smem + HEADER);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int d0 = blockIdx.x * LANES, b = blockIdx.y;
+  const int nchunks = (Tn + R - 1) / R;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      sm90::mbar_init(&full[s], MODE == 1 ? 32 : 1);
+      sm90::mbar_init(&empty[s], 1);
     }
-    if (c > 0) {
-#pragma unroll
-      for (int j = 0; j < BWD_ROWS; ++j) {
-        ca[j] = na[j];
-        cd[j] = nd[j];
-        cp[j] = np[j];
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // ---- producers: the m-th chunk from the end into stage m % ns once the
+  // chunk ns before it is read ----
+  if (warp > 0) {
+    if constexpr (MODE == 1) {
+      for (int m = warp - 1; m < nchunks; m += LOADERS) {
+        const int s = m % ns;
+        if (m >= ns) sm90::mbar_wait(&empty[s], (m / ns - 1) & 1);
+        float* st = ring + (size_t)s * 3 * tile;
+        load_rows_bwd<LANES>(st, st + tile, st + 2 * tile, a, dh, h, (size_t)b * Tn,
+                             (nchunks - 1 - m) * R, Tn, R, d0, D, lane);
+        sm90::mbar_arrive(&full[s]);
+      }
+    } else if (warp == 1 && lane == 0) {
+      sm90::tma_prefetch_map(&map_a);
+      sm90::tma_prefetch_map(&map_dh);
+      sm90::tma_prefetch_map(&map_h);
+      for (int m = 0; m < nchunks; ++m) {
+        const int s = m % ns, t0 = (nchunks - 1 - m) * R;
+        if (m >= ns) sm90::mbar_wait(&empty[s], (m / ns - 1) & 1);
+        float* st = ring + (size_t)s * 3 * tile;
+        sm90::mbar_arrive_expect_tx(&full[s], 3u * tile * 4);
+        sm90::tma_load_3d(st, &map_a, &full[s], d0, t0, b);
+        sm90::tma_load_3d(st + tile, &map_dh, &full[s], d0, t0, b);
+        sm90::tma_load_3d(st + 2 * tile, &map_h, &full[s], d0, t0 - 1, b);
       }
     }
+    return;
   }
-  dh0[(size_t)blockIdx.y * D + d] = __fmul_rn(a_next, g);
+
+  // ---- the chain warp ----
+  const int ln = lane < LANES && d0 + lane < D ? lane : 0;
+  const int dl = d0 + ln;
+  const float h_init = h0 != nullptr ? h0[(size_t)b * D + dl] : 0.f;
+  float g = 0.f, a_next = 1.f;
+  for (int m = 0; m < nchunks; ++m) {
+    const int s = m % ns, c = nchunks - 1 - m;
+    const int t0 = c * R;
+    const int rows = min(R, Tn - t0);
+    sm90::mbar_wait(&full[s], (m / ns) & 1);
+    float* st = ring + (size_t)s * 3 * tile;
+    const float* sa = st + ln;
+    const float* sd = st + tile + ln;
+    float* sp = st + 2 * tile + ln;
+    if (c == 0) sp[0] = h_init;                 // h[-1]: the entering state
+    float* ox = dx + ((size_t)b * Tn + t0) * D + dl;
+    float* oa = da + ((size_t)b * Tn + t0) * D + dl;
+    // GROUP rows r0 + GROUP - 1 .. r0 of steps from registers into gx and
+    // ga, then their stores.
+    auto group = [&](int r0, const float (&va)[GROUP], const float (&vd)[GROUP],
+                     const float (&vp)[GROUP], float (&gx)[GROUP], float (&ga)[GROUP]) {
+#pragma unroll
+      for (int i = GROUP - 1; i >= 0; --i) {
+        g = step(a_next, g, vd[i]);
+        gx[i] = g;
+        ga[i] = __fmul_rn(g, vp[i]);
+        a_next = va[i];
+      }
+#pragma unroll
+      for (int i = 0; i < GROUP; ++i) {
+        ox[(size_t)(r0 + i) * D] = gx[i];
+        oa[(size_t)(r0 + i) * D] = ga[i];
+      }
+    };
+    if (rows == R) {
+      // Two register groups of each, from the top: group g + 1's shared
+      // loads go out before group g's steps, and each group's outputs sit
+      // in registers of their own until their stores.
+      float va0[GROUP], vd0[GROUP], vp0[GROUP], va1[GROUP], vd1[GROUP], vp1[GROUP];
+      float gx0[GROUP], ga0[GROUP], gx1[GROUP], ga1[GROUP];
+      int at = (R - GROUP) * LANES;
+      lds3<GROUP>(va0, vd0, vp0, sa + at, sd + at, sp + at, LANES);
+      for (int r0 = R - GROUP; r0 > 0; r0 -= 2 * GROUP) {
+        at = (r0 - GROUP) * LANES;
+        lds3<GROUP>(va1, vd1, vp1, sa + at, sd + at, sp + at, LANES);
+        group(r0, va0, vd0, vp0, gx0, ga0);
+        if (r0 - 2 * GROUP >= 0) {
+          at = (r0 - 2 * GROUP) * LANES;
+          lds3<GROUP>(va0, vd0, vp0, sa + at, sd + at, sp + at, LANES);
+        }
+        group(r0 - GROUP, va1, vd1, vp1, gx1, ga1);
+      }
+    } else {
+      for (int r = rows - 1; r >= 0; --r) {
+        g = step(a_next, g, sd[r * LANES]);
+        ox[(size_t)r * D] = g;
+        oa[(size_t)r * D] = __fmul_rn(g, sp[r * LANES]);
+        a_next = sa[r * LANES];
+      }
+    }
+    __syncwarp();                               // the stage is read: release it
+    if (lane == 0) sm90::mbar_arrive(&empty[s]);
+  }
+  dh0[(size_t)b * D + dl] = __fmul_rn(a_next, g);
+}
+
+template <int MODE, int LANES>
+int launch_bwd_mode(const float* a, const float* h, const float* h0, const float* dh, float* da,
+                    float* dx, float* dh0, int B, int Tn, int D, int ns, cudaStream_t stream) {
+  constexpr int R = stage_rows(MODE);
+  CUtensorMap ma, md, mh;
+  memset(&ma, 0, sizeof(ma));
+  memset(&md, 0, sizeof(md));
+  memset(&mh, 0, sizeof(mh));
+  if constexpr (MODE == 0) {
+    const uint64_t dims[3] = {(uint64_t)D, (uint64_t)Tn, (uint64_t)B};
+    const uint64_t strides[2] = {(uint64_t)D * 4, (uint64_t)Tn * D * 4};
+    const uint32_t box[3] = {(uint32_t)LANES, (uint32_t)R, 1};
+    int e = sm90::encode_plain_map(&ma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, a, dims, strides, box);
+    if (!e) e = sm90::encode_plain_map(&md, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, dh, dims, strides, box);
+    if (!e) e = sm90::encode_plain_map(&mh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, h, dims, strides, box);
+    if (e) return e;
+  }
+  const int smem = scan_bwd_smem(R, LANES, ns);
+  if (int err = allow_smem(elevator_scan_bwd_kernel<MODE, LANES>, smem)) return err;
+  dim3 grid((D + LANES - 1) / LANES, B);
+  elevator_scan_bwd_kernel<MODE, LANES><<<grid, 32 * (1 + (MODE == 1 ? LOADERS : 1)), smem,
+                                          stream>>>(ma, md, mh, a, h, h0, dh, da, dx, dh0, Tn,
+                                                    D, ns);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -652,13 +792,29 @@ extern "C" int elevator_decode_window_fwd(const void* a, const void* x, const vo
 
 // The scan's backward.  a, h (the forward's states), dh, da, dx: (B, T, D)
 // float32; h0: (B, D) float32 or null (zeros); dh0: (B, D) float32,
-// written.  All contiguous.  Returns 0 or the cudaError_t of the launch.
+// written.  All contiguous.  mode 0: the TMA ring (rows of D a multiple of
+// 16 bytes, a, h, dh 16-byte aligned; cols 16 or 32), 1: the ring filled by
+// loader warps (any layout; cols 16); stages: the ring's depth (1..8; no
+// more than T needs, mode 1 at least 3).  The wrapper's plan
+// (kernels/elevator_scan/kernel.py:plan_scan_bwd) picks them.  Returns 0, a
+// cudaError_t, or 10000 + the CUresult of a tensor map.
 extern "C" int elevator_scan_bwd(const float* a, const float* h, const float* h0, const float* dh,
-                                 float* da, float* dx, float* dh0, int B, int Tn, int D,
-                                 void* stream) {
-  if (B < 1 || B > 65535 || Tn < 1 || D < 1) return (int)cudaErrorInvalidValue;
-  dim3 grid((D + BWD_THREADS - 1) / BWD_THREADS, B);
-  elevator_scan_bwd_kernel<<<grid, BWD_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, h, h0, dh, da, dx, dh0, Tn, D);
-  return (int)cudaGetLastError();
+                                 float* da, float* dx, float* dh0, int B, int Tn, int D, int cols,
+                                 int stages, int mode, void* stream) {
+  if (B < 1 || B > 65535 || Tn < 1 || D < 1 || stages < 1 || stages > MAX_STAGES)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = stage_rows(mode), nchunks = (Tn + R - 1) / R;
+  if (mode == 1) {
+    if (cols != LOADER_COLS) return (int)cudaErrorInvalidValue;
+    const int ring = stages > LOADERS ? stages : LOADERS;
+    const int ns = ring < nchunks ? ring : nchunks;
+    return launch_bwd_mode<1, LOADER_COLS>(a, h, h0, dh, da, dx, dh0, B, Tn, D, ns, s);
+  }
+  if (mode != 0 || (cols != 16 && cols != 32)) return (int)cudaErrorInvalidValue;
+  if ((D * 4) % 16 != 0 || misaligned(a, 16) || misaligned(h, 16) || misaligned(dh, 16))
+    return (int)cudaErrorMisalignedAddress;
+  const int ns = stages < nchunks ? stages : nchunks;
+  if (cols == 32) return launch_bwd_mode<0, 32>(a, h, h0, dh, da, dx, dh0, B, Tn, D, ns, s);
+  return launch_bwd_mode<0, 16>(a, h, h0, dh, da, dx, dh0, B, Tn, D, ns, s);
 }

@@ -20,8 +20,10 @@ dtype, the SM count and the inputs' alignment.
 ``elevator_scan_cuda.launches``) or raises; CPU tensors take the plain
 version.  :func:`launch_plan` launches a given plan without counting it.
 :func:`elevator_scan_bwd_cuda` is the backward (``elevator_scan_bwd`` in the
-same source, no Pallas counterpart): one reverse chain a channel, bit for
-bit its plain version :func:`elevator_scan_bwd_ref`.
+same source, no Pallas counterpart): the same ring run from the last chunk
+to the first, one reverse chain a channel, bit for bit its plain version
+:func:`elevator_scan_bwd_ref`; :func:`plan_scan_bwd` picks its plan and
+:func:`launch_bwd_plan` launches a given one without counting it.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from repro_torch.kernels.elevator_scan.ref import elevator_scan_bwd_ref, elevato
 __all__ = ["SCAN_ROW_BYTES", "LOADER_COLS", "SCAN_ROWS", "RING_BYTES", "MAX_STAGES",
            "SCAN_MODES", "ScanPlan", "plan_scan", "scan_plans", "uses_tma", "pointer_alignment",
            "launch_plan", "elevator_scan_cuda", "elevator_scan_ref", "check_scan_args",
+           "BWD_RING_BYTES", "BWD_FILL", "plan_scan_bwd", "scan_bwd_plans", "launch_bwd_plan",
            "elevator_scan_bwd_cuda", "elevator_scan_bwd_ref"]
 
 #: The bytes of one row that a block of the TMA ring reads (its channels
@@ -64,6 +67,20 @@ SCAN_ROWS = {"ring": 128, "loaders": 64}
 RING_BYTES = 64 * 1024
 #: The ring's depth at most (the source's MAX_STAGES).
 MAX_STAGES = 8
+#: The backward's ring bytes a block aims for (a, dh and h tiles of all its
+#: stages): three tiles a stage, so more than the forward's to keep as
+#: many rows in flight.
+BWD_RING_BYTES = 96 * 1024
+#: The loader-warp variant's producer warps (the source's LOADERS): its ring
+#: is at least this deep.
+_LOADERS = 3
+#: The share of the SMs the backward's blocks should reach before a tile
+#: narrows.  On the H100 the 32-channel tile with its two 48 KB stages was
+#: the fastest plan at both of RecurrentGemma's training shapes, also where
+#: its 80 blocks leave SMs idle: 79.6 µs at (1, 4096, 2560) against
+#: 80.0-105.8 for 16 channels (two to four stages), 45.3 µs at (2, 1024,
+#: 2560) against 51.5 (PERF.md, §6: rows B2, B2b).
+BWD_FILL = 0.5
 
 
 @dataclass(frozen=True)
@@ -206,6 +223,65 @@ def elevator_scan_cuda(a: torch.Tensor, x: torch.Tensor,
 elevator_scan_cuda.launches = 0
 
 
+def _bwd_stages(cols: int, mode: str, t: int) -> int:
+    """The backward ring's depth: :data:`BWD_RING_BYTES` over a stage's three
+    f32 tiles, 2 to :data:`MAX_STAGES` (the loader-warp variant at least
+    its three loader warps, as the source takes it), and no more stages
+    than T has chunks."""
+    rows = SCAN_ROWS[mode]
+    depth = max(2, min(MAX_STAGES, BWD_RING_BYTES // (3 * rows * cols * 4)))
+    if mode == "loaders":
+        depth = max(depth, _LOADERS)
+    return min(depth, -(-t // rows))
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_scan_bwd(b: int, t: int, d: int, sms: int, align: int = 16) -> ScanPlan:
+    """The plan :func:`elevator_scan_bwd_cuda` launches for f32 (b, t, d)
+    inputs on a card of ``sms`` SMs, their addresses aligned to ``align``
+    bytes: the TMA ring at the widest channel tile whose blocks reach
+    :data:`BWD_FILL` of the SMs (32 channels at (1, 4096, 2560): 80 blocks;
+    at (2, 1024, 2560): 160), else the loader-warp variant."""
+    if min(b, t, d, sms) < 1:
+        raise ValueError(f"plan_scan_bwd: b={b} t={t} d={d} sms={sms} must be >= 1")
+    if not uses_tma(d, torch.float32, align):
+        return ScanPlan(LOADER_COLS, _bwd_stages(LOADER_COLS, "loaders", t), "loaders")
+    tiles = _tiles(4)
+    cols = next((c for c in tiles if b * -(-d // c) >= BWD_FILL * sms), tiles[-1])
+    return ScanPlan(cols, _bwd_stages(cols, "ring", t), "ring")
+
+
+def scan_bwd_plans(b: int, t: int, d: int, align: int = 16) -> list[ScanPlan]:
+    """Every plan the backward can launch for these f32 inputs: each channel
+    tile of the TMA ring where the layout takes it, and the loader-warp
+    variant."""
+    tiles = _tiles(4) if uses_tma(d, torch.float32, align) else []
+    return ([ScanPlan(cols, _bwd_stages(cols, "ring", t), "ring") for cols in tiles]
+            + [ScanPlan(LOADER_COLS, _bwd_stages(LOADER_COLS, "loaders", t), "loaders")])
+
+
+def _check_bwd_args(name, a, h, dh, h0):
+    check_scan_args(name, a, dh, h0)
+    if a.dtype != torch.float32 or h.dtype != torch.float32 or h.shape != a.shape:
+        raise ValueError(f"{name}: a, dh and h must be float32 of shape "
+                         f"{tuple(a.shape)}, got {a.dtype}, {dh.dtype}, {h.dtype} "
+                         f"{tuple(h.shape)}")
+    check_kernel_tensors(name, a=a, h=h)
+
+
+def _launch_bwd(a, h, dh, h0, plan: ScanPlan):
+    b, t, d = a.shape
+    da, dx = torch.empty_like(a), torch.empty_like(dh)
+    dh0 = torch.empty((b, d), dtype=torch.float32, device=a.device)
+    err = load_library("elevator_scan").elevator_scan_bwd(
+        a.data_ptr(), h.data_ptr(), None if h0 is None else h0.data_ptr(), dh.data_ptr(),
+        da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), b, t, d, plan.cols, plan.stages,
+        SCAN_MODES[plan.mode], launch_stream(a.device))
+    if err:
+        raise RuntimeError(f"elevator_scan_bwd launch failed ({plan}): error {err}")
+    return da, dx, dh0
+
+
 def elevator_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
                            h0: torch.Tensor | None = None):
     """The scan's backward from the forward's states.  a, h, dh: (B, T, D)
@@ -213,22 +289,23 @@ def elevator_scan_bwd_cuda(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     CPU tensors take the plain version."""
     if a.device.type == "cpu":
         return elevator_scan_bwd_ref(a, h, dh, h0)
-    check_scan_args("elevator_scan_bwd_cuda", a, dh, h0)
-    if a.dtype != torch.float32 or h.dtype != torch.float32 or h.shape != a.shape:
-        raise ValueError(f"elevator_scan_bwd_cuda: a, dh and h must be float32 of shape "
-                         f"{tuple(a.shape)}, got {a.dtype}, {dh.dtype}, {h.dtype} "
-                         f"{tuple(h.shape)}")
-    check_kernel_tensors("elevator_scan_bwd_cuda", a=a, h=h)
+    _check_bwd_args("elevator_scan_bwd_cuda", a, h, dh, h0)
     b, t, d = a.shape
-    da, dx = torch.empty_like(a), torch.empty_like(dh)
-    dh0 = torch.empty((b, d), dtype=torch.float32, device=a.device)
-    err = load_library("elevator_scan").elevator_scan_bwd(
-        a.data_ptr(), h.data_ptr(), None if h0 is None else h0.data_ptr(), dh.data_ptr(),
-        da.data_ptr(), dx.data_ptr(), dh0.data_ptr(), b, t, d, launch_stream(a.device))
-    if err:
-        raise RuntimeError(f"elevator_scan_bwd launch failed: error {err}")
+    plan = plan_scan_bwd(b, t, d, sm_count(a.device), pointer_alignment(a, h, dh))
+    out = _launch_bwd(a, h, dh, h0, plan)
     elevator_scan_bwd_cuda.launches += 1
-    return da, dx, dh0
+    return out
 
 
 elevator_scan_bwd_cuda.launches = 0
+
+
+def launch_bwd_plan(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                    h0: torch.Tensor | None = None, *, plan: ScanPlan):
+    """The backward on CUDA tensors with a given plan (one of
+    :func:`scan_bwd_plans`); counts no launch."""
+    _check_bwd_args("launch_bwd_plan", a, h, dh, h0)
+    b, t, d = a.shape
+    if plan not in scan_bwd_plans(b, t, d, pointer_alignment(a, h, dh)):
+        raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
+    return _launch_bwd(a, h, dh, h0, plan)

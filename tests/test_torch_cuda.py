@@ -642,9 +642,10 @@ FLASH_FAULTS = {
 
 
 def _compile_mutants(name, faults, out):
-    """Each planted fault compiled into its own copy of library ``name``
-    (nvcc in parallel, the build's flags); returns fault -> loaded library,
-    its entry points bound as the build binds them."""
+    """Each planted fault (an (anchor, replacement) pair or a tuple of them)
+    compiled into its own copy of library ``name`` (nvcc in parallel, the
+    build's flags); returns fault -> loaded library, its entry points bound
+    as the build binds them."""
     import subprocess
 
     from repro_torch.kernels import common
@@ -652,10 +653,14 @@ def _compile_mutants(name, faults, out):
     src = common.KERNEL_SOURCES[name].read_text()
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for fault, (anchor, repl) in faults.items():
-        assert src.count(anchor) == 1, fault
+    for fault, edit in faults.items():
+        # One (anchor, replacement) pair, or a tuple of them applied in turn.
+        text = src
+        for anchor, repl in (edit if isinstance(edit[0], tuple) else (edit,)):
+            assert text.count(anchor) == 1, fault
+            text = text.replace(anchor, repl)
         cu = out / f"{fault}.cu"
-        cu.write_text(src.replace(anchor, repl))
+        cu.write_text(text)
         procs[fault] = subprocess.Popen(
             [common._nvcc(), *common._NVCC_FLAGS, "-I", str(common.KERNEL_SOURCES[name].parent),
              "-o", str(out / f"{fault}.so"), str(cu)],
@@ -1233,6 +1238,29 @@ elif case == "flash_bwd":
     want = list(FA.attention_bwd_ref(q, k, v, o, lse, do, causal=True, window=128))
     common._LIBS[lib] = common.open_library(lib, so)
     got = list(FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True, window=128))
+elif case == "flash_bwd_ring":
+    # At Gemma3's heads, causal, T=2048: 32 key tiles a KV head, each block
+    # walking up to 32 query tiles through its two-stage ring; cold inputs.
+    from repro_torch.kernels.local_attention import kernel as FA
+    q = torch.from_numpy(rand(1, 4, 2048, 256)).cuda().to(dt)
+    k, v = (torch.from_numpy(rand(1, 1, 2048, 256)).cuda().to(dt) for _ in range(2))
+    do = torch.from_numpy(rand(1, 4, 2048, 256)).cuda().to(dt)
+    o, lse = FA.flash_attention_cuda(q, k, v, causal=True, lse=True)
+    want = list(FA.attention_bwd_ref(q, k, v, o, lse, do, causal=True))
+    common._LIBS[lib] = common.open_library(lib, so)
+    cold()
+    got = list(FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True))
+elif case == "elevator_bwd_ring":
+    # The scan's backward at B=1, T=4096, D=2560 (32 chunks through a ring
+    # of 4 at each of 160 blocks), cold inputs, held bit for bit.
+    a = torch.from_numpy(rng.uniform(0.5, 1.0, (1, 4096, 2560)).astype(np.float32)).cuda()
+    h = torch.from_numpy(rand(1, 4096, 2560)).cuda()
+    dh = torch.from_numpy(rand(1, 4096, 2560)).cuda()
+    h0 = torch.from_numpy(rand(1, 2560)).cuda()
+    want = list(EK.elevator_scan_bwd_ref(a, h, dh, h0))
+    common._LIBS[lib] = common.open_library(lib, so)
+    cold()
+    got = list(EK.elevator_scan_bwd_cuda(a, h, dh, h0))
 elif case == "elevator_bwd":
     # The scan's backward at B=2, T=300, D=2560, held bit for bit.
     a = torch.from_numpy(rng.uniform(0.5, 1.0, (2, 300, 2560)).astype(np.float32)).cuda().to(dt)
@@ -1444,6 +1472,13 @@ FLASH_BWD_CASES = [
     (2, 4, 4, 64, 320, 64, False, None),
     (1, 4, 2, 320, 64, 128, False, None),
     (1, 4, 1, 8, 300, 256, True, None),
+    # RecurrentGemma's training attention: a group of 10 over one KV head
+    # (a cluster of 5, two heads a block).
+    (1, 10, 1, 1024, 1024, 256, True, 2048),
+    # qwen2's group of 7 (a cluster of 7) at one KV head.
+    (1, 7, 1, 512, 512, 128, True, None),
+    # T a multiple of no tile (32, 64, 128).
+    (2, 4, 2, 1001, 1001, 64, True, 300),
 ]
 
 
@@ -1464,6 +1499,43 @@ def test_flash_bwd_matches_plain(cuda, dtype, case):
     _grad_close(got, FA.attention_bwd_ref(q, k, v, o, lse, do, **mask), dtype)
     again = FA.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mask)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_every_plan_matches_plain(cuda, case):
+    """Every plan of ``flash_bwd_plans`` (each cluster size that divides the
+    group) within GRAD_RTOL of the plain version in bf16, each repeating
+    bit for bit."""
+    b, hq, hkv, t, s, d, causal, window = case
+    q, k, v = _qkv(b, hq, hkv, t, s, d, t + s, cuda, torch.bfloat16)
+    do = _qkv(b, hq, hq, t, t, d, 1, cuda, torch.bfloat16)[0]
+    mask = dict(causal=causal, window=window)
+    o, lse = FA.flash_attention_cuda(q, k, v, lse=True, **mask)
+    want = FA.attention_bwd_ref(q, k, v, o, lse, do, **mask)
+    plans = FA.flash_bwd_plans(b, hq, hkv, t, s, d)
+    assert FA.plan_flash_bwd(b, hq, hkv, t, s, d, torch.cuda.get_device_properties(
+        0).multi_processor_count) in plans
+    before = FA.flash_attention_bwd_cuda.launches
+    for plan in plans:
+        got = FA.launch_bwd_plan(q, k, v, o, lse, do, plan=plan, **mask)
+        _grad_close(got, want, torch.bfloat16)
+        again = FA.launch_bwd_plan(q, k, v, o, lse, do, plan=plan, **mask)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), plan
+    assert FA.flash_attention_bwd_cuda.launches == before
+
+
+def test_flash_bwd_smem_matches_the_mirror(cuda):
+    """The source's shared-memory figure of each bf16 backward kernel equals
+    the planner's Python mirror at every head width and ring depth."""
+    from repro_torch.kernels import common
+
+    lib = common.load_library("flash_attention_bwd")
+    for d in FA.HEAD_DIMS:
+        for kernel, code in (("dkdv", 0), ("dq", 1)):
+            for stages in range(2, FA.BWD_MAX_STAGES + 1):
+                assert lib.flash_bwd_smem(d, code, stages) == FA.bwd_smem_bytes(
+                    d, kernel, stages), (d, kernel, stages)
+    assert lib.flash_bwd_smem(96, 0, 2) == -1
 
 
 def test_flash_f32_head_dim_96(cuda):
@@ -1488,6 +1560,39 @@ def test_elevator_bwd_bit_for_bit(cuda, b, t, d, h0):
     want = EK.elevator_scan_bwd_ref(a, h, dh, h_init)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert all(g.dtype == torch.float32 for g in got)
+
+
+@pytest.mark.parametrize("b,t,d,off", [(4, 1024, 2560, 0), (1, 37, 200, 0), (1, 4096, 2560, 0),
+                                       (2, 1024, 2560, 0), (2, 300, 2560, 1), (1, 130, 201, 0)])
+def test_elevator_bwd_every_plan_bit_for_bit(cuda, b, t, d, off):
+    """Every plan of ``scan_bwd_plans`` (the TMA ring's two channel tiles
+    where the layout takes them, the loader-warp variant) bit for bit
+    against the plain version; ``off`` starts the inputs one float into
+    their storage, which only the loader warps take, as does a row of 201
+    floats."""
+    a, x, h_init = _scan_inputs(b, t, d, t + d + off, cuda)
+    h = EK.elevator_scan_cuda(a, x, h_init)
+    dh = _scan_inputs(b, t, d, 6, cuda)[1]
+
+    def shifted(z):
+        buf = torch.empty(z.numel() + off, device=cuda)
+        buf[off:].copy_(z.reshape(-1))
+        return buf[off:].view(z.shape)
+
+    if off:
+        a, h, dh = shifted(a), shifted(h), shifted(dh)
+    align = EK.pointer_alignment(a, h, dh)
+    plans = EK.scan_bwd_plans(b, t, d, align)
+    chosen = EK.plan_scan_bwd(b, t, d, torch.cuda.get_device_properties(0).multi_processor_count,
+                              align)
+    assert chosen in plans
+    assert (chosen.mode == "loaders") == (off > 0 or d % 4 > 0)
+    want = EK.elevator_scan_bwd_ref(a, h, dh, h_init)
+    for plan in plans:
+        got = EK.launch_bwd_plan(a, h, dh, h_init, plan=plan)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), plan
+    got = EK.elevator_scan_bwd_cuda(a, h, dh, h_init)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1592,37 +1697,55 @@ def test_backward_wrappers_refuse_grad_and_bad_args(cuda):
 
 
 #: Faults planted in copies of the backward kernels' sources: (library,
-#: check case, dtype the faulty kernel serves, anchor, replacement).
+#: check case, dtype the faulty kernel serves, edits: (anchor, replacement)
+#: pairs applied in turn).
 BWD_FAULTS = {
     # dK/dV blocks skip the last tile of queries their keys see.
     "flash_skip_last_query_tile": (
-        "flash_attention_bwd", "flash_bwd", torch.bfloat16,
-        "      for (int q0 = (qlo / BQ) * BQ; q0 < qhi; q0 += BQ) {\n",
-        "      for (int q0 = (qlo / BQ) * BQ; q0 < qhi - BQ; q0 += BQ) {\n"),
+        "flash_attention_bwd", "flash_bwd", torch.bfloat16, ((
+            "  const int n_qt = qhi > qlo ? (qhi - qt_first + BQ - 1) / BQ : 0;\n",
+            "  const int n_qt = qhi > qlo ? (qhi - qt_first - 1) / BQ : 0;\n"),)),
     # No per-element mask in dK/dV: the band's cut tiles count every pair.
     "flash_unmasked_tiles": (
-        "flash_attention_bwd", "flash_bwd", torch.bfloat16,
-        "        const bool whole = mask.all_visible(q0, q0 + BQ, kw, kw + 16);\n",
-        "        const bool whole = true;\n"),
+        "flash_attention_bwd", "flash_bwd", torch.bfloat16, ((
+            "      const bool whole = mask.all_visible(q0, q0 + BQ, k0, k0 + BKV);\n",
+            "      const bool whole = true;\n"),)),
     # dQ takes the upper row's delta for the lower 8 rows of each warp.
     "flash_dq_wrong_delta": (
-        "flash_attention_bwd", "flash_bwd", torch.bfloat16,
-        "    dl[h] = r < mask.T ? delta[(size_t)bh * mask.T + r] : 0.f;\n",
-        "    dl[h] = r < mask.T ? delta[(size_t)bh * mask.T + rw + g] : 0.f;\n"),
+        "flash_attention_bwd", "flash_bwd", torch.bfloat16, ((
+            "      dl[h] = delta[(size_t)bh * Tp + row0 + 8 * h];\n",
+            "      dl[h] = delta[(size_t)bh * Tp + row0];\n"),)),
+    # The dK/dV consumers release a ring stage as soon as it has landed,
+    # before their products read it: the producer refills it under them.
+    "flash_ring_released_early": (
+        "flash_attention_bwd", "flash_bwd_ring", torch.bfloat16, (
+            ("      sm90::mbar_wait(&full[stage], phase);\n      // S^T = K Q^T",
+             "      sm90::mbar_wait(&full[stage], phase);\n"
+             "      if (lane == 0) sm90::mbar_arrive(&empty[stage]);\n      // S^T = K Q^T"),
+            ("      sm90::fence_regs(dk_acc);\n      if (lane == 0) sm90::mbar_arrive(&empty[stage]);\n",
+             "      sm90::fence_regs(dk_acc);\n"))),
     # The f32 dK leaves out the softmax scale.
     "flash_f32_dk_unscaled": (
-        "flash_attention_bwd", "flash_bwd", torch.float32,
-        "      dk[at] = ak[j][c] * scale;\n", "      dk[at] = ak[j][c];\n"),
-    # The scan's backward loads each next group one row late.
+        "flash_attention_bwd", "flash_bwd", torch.float32, ((
+            "      dk[at] = ak[j][c] * scale;\n", "      dk[at] = ak[j][c];\n"),)),
+    # The scan's backward loads each odd register group one row late.
     "scan_group_off_by_one": (
-        "elevator_scan", "elevator_bwd", torch.float32,
-        "(c - 1) * BWD_ROWS, Tn, D, h_init, na, nd, np);",
-        "(c - 1) * BWD_ROWS + 1, Tn, D, h_init, na, nd, np);"),
+        "elevator_scan", "elevator_bwd", torch.float32, ((
+            "        at = (r0 - GROUP) * LANES;\n", "        at = (r0 - GROUP + 1) * LANES;\n"),)),
+    # The scan's chain warp releases a ring stage as soon as it has landed,
+    # before it reads the stage's rows.
+    "scan_ring_released_early": (
+        "elevator_scan", "elevator_bwd_ring", torch.float32, (
+            ("    sm90::mbar_wait(&full[s], (m / ns) & 1);\n",
+             "    sm90::mbar_wait(&full[s], (m / ns) & 1);\n"
+             "    if (lane == 0) sm90::mbar_arrive(&empty[s]);\n"),
+            ("    __syncwarp();                               // the stage is read: release it\n"
+             "    if (lane == 0) sm90::mbar_arrive(&empty[s]);\n", ""))),
     # The token shift's dw drops the first block's partial.
     "shift_dw_drops_a_partial": (
-        "token_shift", "shift_bwd", torch.float32,
-        "  for (int p = 0; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n",
-        "  for (int p = 1; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n"),
+        "token_shift", "shift_bwd", torch.float32, ((
+            "  for (int p = 0; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n",
+            "  for (int p = 1; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n"),)),
 }
 
 
@@ -1635,7 +1758,7 @@ def bwd_mutants(tmp_path_factory):
     out = tmp_path_factory.mktemp("bwd_mutants")
     paths = {}
     for lib in {e[0] for e in BWD_FAULTS.values()}:
-        faults = {f: e[3:] for f, e in BWD_FAULTS.items() if e[0] == lib}
+        faults = {f: e[3] for f, e in BWD_FAULTS.items() if e[0] == lib}
         _compile_mutants(lib, faults, out / lib)
         paths.update({f: out / lib / f"{f}.so" for f in faults})
     return paths
@@ -1647,7 +1770,7 @@ def test_backward_check_rejects_planted_fault(cuda, bwd_mutants, fault):
     tolerance of its dtype; the scan's bit for bit) in a process of its
     own.  The good kernels pass the same checks here."""
     lib, case, dtype = BWD_FAULTS[fault][:3]
-    tol = (0.0 if case == "elevator_bwd" else
+    tol = (0.0 if case.startswith("elevator_bwd") else
            (1e-4 if dtype == torch.float32 else GRAD_RTOL[dtype]))
     what, rejected = _fault_outcome(lib, bwd_mutants[fault], dtype, tol, case)
     print(f"[bwd-fault] {fault} {dtype}: {what}")

@@ -367,8 +367,11 @@ _SASS = """        /*0a90*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc
         /*0b10*/                   UTMALDG.2D [UR8], [UR14] ;
         /*0b20*/                   UBLKCP.S.G [UR12], [UR4], UR14 ;
 """
-#: The SASS of flash attention's backward library: mma.sync products.
-_BWD_SASS = """        /*0c40*/                   HMMA.16816.F32.BF16 R40, R4, R12, R40 ;
+#: The SASS of flash attention's backward library: wgmma products, TMA
+#: loads and the bulk copies of its ring's lse and delta rows.
+_BWD_SASS = """        /*0c40*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;
+        /*0c50*/                   UTMALDG.3D [UR8], [UR14] ;
+        /*0c60*/                   UBLKCP.S.G [UR12], [UR4], UR14 ;
 """
 #: The same for a WKV library (its kernel's name is filled in).
 _WKV_USAGE = """
@@ -450,13 +453,17 @@ def test_hopper_report_reads_the_library_file(built_by, tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="UTMALDG"):
         smoke._hopper_report(common)
     # Flash attention's backward library: a spill in any of its
-    # kernels fails, and its SASS must hold tensor-core products (HMMA).
+    # kernels fails, and its SASS must hold wgmma products (HGMMA), not
+    # mma.sync (HMMA) alone, with its TMA loads and bulk copies.
     usage["scan_sass"] = _SASS
     smoke._hopper_report(common)
     usage["bwd"] = _WKV_USAGE.replace("LOCAL:0", "LOCAL:28")
     with pytest.raises(SystemExit, match="spills"):
         smoke._hopper_report(common)
     usage["bwd"] = _WKV_USAGE
-    usage["bwd_sass"] = _SASS
-    with pytest.raises(SystemExit, match="HMMA"):
+    usage["bwd_sass"] = _BWD_SASS.replace("HGMMA.64x128x16", "HMMA.16816")
+    with pytest.raises(SystemExit, match="HGMMA"):
+        smoke._hopper_report(common)
+    usage["bwd_sass"] = _BWD_SASS.replace("UBLKCP", "LDG")
+    with pytest.raises(SystemExit, match="UBLKCP"):
         smoke._hopper_report(common)

@@ -290,3 +290,82 @@ def test_stamp_edits_find_their_anchors_in_the_source(copy):
     if copy == "floor":
         src = SS._edit(src, SS.FLOOR)
         assert "vx[i] = va[i];" in src and "o[r * stride]" not in src
+
+
+# --------------------------------------------------------------------------
+# The scan's backward: plan_scan_bwd
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,t,blocks", [(1, 4096, 80), (2, 1024, 160)])
+def test_main_path_scan_bwd_plans_on_132_sms(b, t, blocks):
+    """RecurrentGemma's training shapes at D=2560: both take 32 channels a
+    block (at B=1 its 80 blocks reach BWD_FILL of the SMs; the fastest plan
+    on the H100 at both shapes), and a ring of BWD_RING_BYTES of a, dh and
+    h tiles: 2 stages of 48 KB."""
+    plan = EK.plan_scan_bwd(b, t, 2560, 132)
+    assert plan == EK.ScanPlan(32, 2, "ring")
+    assert b * 2560 // plan.cols == blocks >= EK.BWD_FILL * 132
+    assert 3 * 128 * plan.cols * 4 * plan.stages == EK.BWD_RING_BYTES
+    assert plan in EK.scan_bwd_plans(b, t, 2560)
+    # Below the fill the tile narrows: at D=1024, 32 channels give 32 blocks.
+    assert EK.plan_scan_bwd(b, t, 1024, 132).cols == 16
+
+
+@pytest.mark.parametrize("sms", [132, 66, 16, 1000])
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_scan_bwd_takes_the_widest_tile_that_fills_the_sms(b, sms):
+    for d in (64, 200, 384, 2560, 4096):
+        plan = EK.plan_scan_bwd(b, 256, d, sms)
+        assert plan.mode == "ring" and plan.cols in (16, 32)
+        reach = b * -(-d // 32) >= EK.BWD_FILL * sms
+        assert plan.cols == (32 if reach else 16)
+
+
+@pytest.mark.parametrize("align,d", [(8, 2560), (4, 2560), (16, 2563), (16, 201)])
+def test_scan_bwd_takes_the_loader_warps_where_tma_cannot(align, d):
+    """An 8- or 4-byte aligned input, or a row that is not a multiple of 16
+    bytes, takes the loader-warp variant: 16 channels, a ring of at least
+    its three loader warps' chunks."""
+    plan = EK.plan_scan_bwd(1, 4096, d, 132, align)
+    assert plan.mode == "loaders" and plan.cols == EK.LOADER_COLS
+    assert plan.stages == EK.MAX_STAGES      # 96 KB over 12 KB stages, capped
+    assert [p.mode for p in EK.scan_bwd_plans(1, 4096, d, align)] == ["loaders"]
+    assert EK.plan_scan_bwd(1, 100, d, 132, align).stages == 2   # chunks of T
+
+
+def test_scan_bwd_plans_are_deterministic_and_cached():
+    EK.plan_scan_bwd.cache_clear()
+    first = EK.plan_scan_bwd(1, 4096, 2560, 132)
+    assert first == EK.ScanPlan(32, 2, "ring")
+    assert EK.plan_scan_bwd(1, 4096, 2560, 132) is first
+    assert EK.plan_scan_bwd.cache_info().hits == 1
+    assert [EK.plan_scan_bwd(2, t, 2560, 132) for t in (1, 128, 129, 1024)] == [
+        EK.ScanPlan(32, 1, "ring"), EK.ScanPlan(32, 1, "ring"), EK.ScanPlan(32, 2, "ring"),
+        EK.ScanPlan(32, 2, "ring")]
+    with pytest.raises(ValueError):
+        EK.plan_scan_bwd(0, 4096, 2560, 132)
+
+
+def test_scan_bwd_wrapper_hands_the_plan_to_the_entry_point(monkeypatch):
+    """Ints B, T, D, cols, stages, mode after the seven pointers, for the
+    wrapper's plan (counted) and each of ``scan_bwd_plans`` (not)."""
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def elevator_scan_bwd(*args):
+            calls.append(list(args[7:-1]))
+            return 0
+
+    monkeypatch.setattr(EK, "load_library", lambda name: Lib())
+    monkeypatch.setattr(EK, "launch_stream", lambda dev: 0)
+    monkeypatch.setattr(EK, "_check_bwd_args", lambda *a: None)
+    monkeypatch.setattr(EK, "sm_count", lambda dev: 132)
+    a = torch.zeros((1, 4096, 2560))
+    plans = EK.scan_bwd_plans(1, 4096, 2560)
+    for plan in plans:
+        da, dx, dh0 = EK.launch_bwd_plan(a, a, a, None, plan=plan)
+        assert da.shape == dx.shape == a.shape and dh0.shape == (1, 2560)
+    assert calls == [[1, 4096, 2560, p.cols, p.stages, EK.SCAN_MODES[p.mode]] for p in plans]
+    with pytest.raises(ValueError, match="not a plan"):
+        EK.launch_bwd_plan(a, a, a, None, plan=EK.ScanPlan(8, 2, "ring"))
