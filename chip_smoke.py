@@ -45,8 +45,12 @@ Phases (any failure raises and exits non-zero, with no result line):
    ``launch_bwd_plan``, each repeating bit for bit; the
    scan's (B, T) = (4, 1024), (1, 4096) and (2, 1024) at D=2560 bit for bit
    in every plan of ``scan_bwd_plans`` (the TMA ring's two tiles, the
-   loader-warp variant); the token shift's at T in 4, 67, 259, 4096
-   (dx bit for bit); each Function (flash attention, the scan chunked and
+   loader-warp variant); the token shift's at (B, T) = (4, 4), (4, 67),
+   (4, 259), (1, 4096) and (2, 1024) (dx bit for bit), in every plan of
+   ``shift_bwd_plans`` through ``launch_bwd_plan`` (dw repeating bit for
+   bit), and a planted fault (a cluster rank's dw partial dropped, compiled
+   into a copy of the library) launched in a process of its own and
+   rejected by the same check; each Function (flash attention, the scan chunked and
    as windows of 1, 8, 64, the token shift) on the card against the same
    Function on CPU copies, and the WKV decode window's grads at K in 1, 8,
    37, 64 likewise;
@@ -245,7 +249,8 @@ Phases (any failure raises and exits non-zero, with no result line):
    RecurrentGemma's (B=2, Hq 10 over 1, T=1024, window 2048, under
    "large") beside SDPA's backward alone (the grad of a kept graph, its
    backend printed), the scan's at (1, 4096, 2560) and (2, 1024, 2560)
-   (under "large") f32 in every plan, the token shift's at (1, 4096, 2560) bf16 beside
+   (under "large") f32 in every plan, the token shift's at (1, 4096, 2560) and
+   (2, 1024, 2560) (under "large") bf16 in every plan beside
    ``conv1d_input`` plus ``conv1d_weight``), printed as one ``{"kernels":
    [...]}`` line after the script's wall time;
    then the card's name and power limit, and the result line.
@@ -253,6 +258,7 @@ Phases (any failure raises and exits non-zero, with no result line):
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -397,6 +403,7 @@ def main():
         common.load_library(name)
     print(f"[build] {len(common.KERNEL_SOURCES)} libraries in "
           f"{time.perf_counter() - t0:.2f}s")
+    shift_fault = _start_shift_fault_build(common)
     for name, (sec, report) in common.BUILD_REPORT.items():
         lines = [ln.strip() for ln in report.splitlines()
                  if "registers" in ln or "spill" in ln or "error" in ln]
@@ -462,7 +469,7 @@ def main():
     worst.update(_train_kernel_checks(torch, KC, BW))
 
     # ---- 2c. the backward kernels against their plain versions -------------
-    worst.update(_grad_kernel_checks(torch))
+    worst.update(_grad_kernel_checks(torch, common, shift_fault))
 
     # ---- 3. the serving path -------------------------------------------------
     cfg = get_config("rwkv6-1.6b")
@@ -650,6 +657,9 @@ def main():
         for r in _time_arch_attention(torch, worst["flash_attention_cuda"], arch_per_forward)]
     flash_row["large"] += _time_seamless_attention(torch, worst["flash_attention_cuda"], sm_rows)
     rows += _time_paper_kernels(torch, launches, worst)
+    # At the suite's 256 x 512 the stencil moves 1 MB: the launch floor, not
+    # its bytes, is the least time it could take (PERF.md row 13).
+    next(r for r in rows if r["name"] == "stencil2d_cuda")["launch_floor_ms"] = floor_ms
     rows += _time_grad_kernels(torch, launches, worst)
 
     print(f"[time] chip_smoke wall: {time.perf_counter() - t_start:.1f}s")
@@ -3876,7 +3886,83 @@ def _function_card_vs_cpu(torch, fn, args, cots):
     return grads["cuda"], grads["cpu"]
 
 
-def _grad_kernel_checks(torch):
+#: The token shift backward's planted fault: the cluster's sum of dw leaves
+#: out rank 0's partial.  Compiled into a copy of the library at phase 1,
+#: launched in phase 2c in a process of its own, so a fault that poisoned
+#: the CUDA context could not end this run.
+SHIFT_FAULT = ("    float acc = sm90::ld_cluster_f32(sm90::mapa(at + 4 * e, 0));\n",
+               "    float acc = 0.f;\n")
+#: The check the faulty and the good library both face: the backward at
+#: B=2, T=300, D=2560 in f32 (a cluster of 4 blocks), dx bit for bit and dw
+#: within GRAD_TOLERANCE of the plain version.  Prints one JSON line.
+SHIFT_FAULT_CHECK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[2])
+import torch
+from repro_torch.kernels import common
+from repro_torch.kernels.token_shift import kernel as TS
+
+g = torch.Generator(device="cuda").manual_seed(5)
+x, dout = (torch.randn((2, 300, 2560), generator=g, device="cuda") for _ in range(2))
+w = torch.randn((4, 2560), generator=g, device="cuda") * 0.1
+want = TS.token_shift_bwd_ref(x, w, dout)
+common._LIBS["token_shift"] = common.open_library("token_shift", sys.argv[1])
+dx, dw = TS.token_shift_bwd_cuda(x, w, dout)
+torch.cuda.synchronize()
+tol = float(sys.argv[3]) + float(sys.argv[4]) * float(want[1].abs().max())
+print(json.dumps({"dx_equal": torch.equal(dx, want[0]), "dw_err": float((dw - want[1]).abs().max()),
+                  "tol": tol}))
+"""
+
+
+def _start_shift_fault_build(common):
+    """Phase 1: starts nvcc on a copy of token_shift.cu with SHIFT_FAULT
+    planted, in ``build/chip_smoke_fault/``; returns (process, library)."""
+    src = common.KERNEL_SOURCES["token_shift"]
+    text = src.read_text()
+    if text.count(SHIFT_FAULT[0]) != 1:
+        raise SystemExit("the token shift's planted fault no longer matches its source")
+    out = common.BUILD_DIR / "chip_smoke_fault"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / "token_shift_fault.cu", out / "libtoken_shift_fault.so"
+    cu.write_text(text.replace(*SHIFT_FAULT))
+    so.unlink(missing_ok=True)
+    proc = subprocess.Popen([common._nvcc(), *common._NVCC_FLAGS, "-o", str(so), str(cu)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())   # a run that stops early
+    return proc, so
+
+
+def _shift_fault_check(torch, common, fault):
+    """Phase 2c: the planted fault's launch, in a process of its own, must
+    fail the check that the good library, in another, passes."""
+    proc, so = fault
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise SystemExit(f"the token shift's planted fault did not build:\n{report}")
+    atol, rtol = GRAD_TOLERANCE["float32"]
+    outcome = {}
+    for name, lib in (("fault", so), ("good", common.build_libraries()["token_shift"])):
+        run = subprocess.run([sys.executable, "-c", SHIFT_FAULT_CHECK, str(lib),
+                              str(ROOT / "src"), str(atol), str(rtol)],
+                             capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            lines = run.stderr.strip().splitlines() or ["?"]
+            outcome[name] = (False, f"launch failed: {lines[-1][:160]}")
+            continue
+        got = json.loads(run.stdout.strip().splitlines()[-1])
+        outcome[name] = (got["dx_equal"] and got["dw_err"] <= got["tol"],
+                         f"dx equal {got['dx_equal']}, dw err {got['dw_err']:.3e} "
+                         f"tol {got['tol']:.3e}")
+    print(f"[grad-kernels] token shift planted fault (rank 0's dw partial dropped), each in a "
+          f"process of its own: faulty library {outcome['fault'][1]}; good library "
+          f"{outcome['good'][1]}")
+    if outcome["fault"][0] or not outcome["good"][0]:
+        raise SystemExit("the token shift's check did not tell the planted fault from the "
+                         "good kernel")
+
+
+def _grad_kernel_checks(torch, common, shift_fault):
     """Phase 2c.  Returns the worst max abs error of each backward kernel."""
     from repro_torch.kernels.elevator_scan.vjp import ElevatorScanFunction
     from repro_torch.kernels.local_attention.vjp import FlashAttentionFunction
@@ -3949,16 +4035,27 @@ def _grad_kernel_checks(torch):
                                 f"B={b} T={t} {plan.mode} cols={plan.cols}", dtype,
                                 EK.launch_bwd_plan(a, h, dh, h0, plan=plan), want,
                                 exact=(0, 1, 2))
-            for b, t in ((4, 4), (4, 67), (4, 259), (1, 4096)):
+            for b, t in ((4, 4), (4, 67), (4, 259), (1, 4096), (2, 1024)):
                 x, w = _shift_inputs(torch, b, t, dtype, 950 + t)
                 dout = randn(x.shape, dtype, 951 + t)
                 got = TS.token_shift_bwd_cuda(x, w, dout)
                 torch.cuda.synchronize()
+                want = TS.token_shift_bwd_ref(x, w, dout)
                 _grad_check(torch, worst, "token_shift_bwd_cuda", f"B={b} T={t} D={RG_D} taps=4",
-                            dtype, got, TS.token_shift_bwd_ref(x, w, dout), exact=(0,))
+                            dtype, got, want, exact=(0,))
                 again = TS.token_shift_bwd_cuda(x, w, dout)
                 if not all(torch.equal(p, q) for p, q in zip(got, again)):
                     raise SystemExit("token_shift_bwd_cuda does not repeat bit for bit")
+                # Every plan (counts no launch): dx bit for bit, dw repeating.
+                for plan in TS.shift_bwd_plans(b, t, RG_D, 4, dtype):
+                    got = TS.launch_bwd_plan(x, w, dout, plan=plan)
+                    _grad_check(torch, worst, "token_shift_bwd_cuda",
+                                f"B={b} T={t} c={plan.cluster} g={plan.groups} r={plan.rows}",
+                                dtype, got, want, exact=(0,))
+                    if not torch.equal(got[1], TS.launch_bwd_plan(x, w, dout, plan=plan)[1]):
+                        raise SystemExit(f"token_shift_bwd_cuda {plan} does not repeat bit for bit")
+        if scan_f32:
+            _shift_fault_check(torch, common, shift_fault)
 
         # Each Function on the card against the same Function on CPU copies.
         q, k, v = _attn_inputs(torch, 1, 512, 512, dtype, 990, hq=G3_HQ)
@@ -4197,8 +4294,8 @@ def _time_grad_kernels(torch, launches, worst):
     RecurrentGemma's (a microbatch of 2, Hq 10 over 1, T=1024, window 2048)
     beside SDPA's backward alone (the grad of a kept graph), the scan's at
     (1, 4096, 2560) and (2, 1024, 2560) f32 in every plan, and the token
-    shift's at (1, 4096, 2560) bf16 beside ``conv1d_input`` plus
-    ``conv1d_weight``."""
+    shift's at the same two shapes in bf16, in every plan, beside
+    ``conv1d_input`` plus ``conv1d_weight``."""
     import torch.nn.functional as F
     from torch.nn.grad import conv1d_input, conv1d_weight
 
@@ -4314,43 +4411,50 @@ def _time_grad_kernels(torch, launches, worst):
                 for p in EK.scan_bwd_plans(b, t, RG_D)}
             print(f"[time] elevator_scan_bwd_cuda plans (device us): {rows[-1]['plans']}")
             del sets, one
-        b, t = 1, 4096
+        for b, t in ((1, 4096), (2, 1024)):
 
-        def make_shift(seed):
-            x, w = _shift_inputs(torch, b, t, bf, 1400 + seed)
-            return x, w, torch.randn(x.shape, device="cuda").to(bf)
+            def make_shift(seed, b=b, t=t):
+                x, w = _shift_inputs(torch, b, t, bf, 1400 + seed)
+                return x, w, torch.randn(x.shape, device="cuda").to(bf)
 
-        one = make_shift(0)
-        nbytes = _nbytes(one) + _nbytes(one[:2])                        # dx, dw out
-        sets = _cold_sets(make_shift, nbytes)
-        taps = one[1].shape[0]
-        # The library: the input and weight grads of the depthwise conv1d on
-        # the (B, D, T) layout, padded taps - 1 on the left (phase 4's
-        # forward yardstick), from dout padded to the conv's full length.
-        lib_sets = [(x.transpose(1, 2).contiguous(), w.t().flip(1)[:, None].contiguous(),
-                     F.pad(dout.transpose(1, 2), (0, taps - 1)).contiguous())
-                    for x, w, dout in sets]
+            one = make_shift(0)
+            nbytes = _nbytes(one) + _nbytes(one[:2])                    # dx, dw out
+            sets = _cold_sets(make_shift, nbytes)
+            taps = one[1].shape[0]
+            # The library: the input and weight grads of the depthwise conv1d
+            # on the (B, D, T) layout, padded taps - 1 on the left (phase 4's
+            # forward yardstick), from dout padded to the conv's full length.
+            lib_sets = [(x.transpose(1, 2).contiguous(), w.t().flip(1)[:, None].contiguous(),
+                         F.pad(dout.transpose(1, 2), (0, taps - 1)).contiguous())
+                        for x, w, dout in sets]
 
-        def conv_bwd(xt, wt, gpad):
-            return (conv1d_input(xt.shape, wt, gpad, padding=taps - 1, groups=RG_D),
-                    conv1d_weight(xt, wt.shape, gpad, padding=taps - 1, groups=RG_D))
+            def conv_bwd(xt, wt, gpad, taps=taps):
+                return (conv1d_input(xt.shape, wt, gpad, padding=taps - 1, groups=RG_D),
+                        conv1d_weight(xt, wt.shape, gpad, padding=taps - 1, groups=RG_D))
 
-        dx, dw = TS.token_shift_bwd_cuda(*sets[0])
-        ldx, ldw = conv_bwd(*lib_sets[0])
-        agree = (float((ldx.transpose(1, 2).float() - dx.float()).abs().max()),
-                 float((ldw[:, 0].flip(1).t().float() - dw.float()).abs().max()))
-        print(f"[time] conv1d_input + conv1d_weight agree with token_shift_bwd_cuda: max_abs_err "
-              f"dx {agree[0]:.3e}, dw {agree[1]:.3e}")
-        row("token_shift_bwd_cuda", "src/repro_torch/kernels/token_shift/csrc/token_shift.cu",
-            "src/repro/kernels/token_shift/kernel.py:55 (token_shift_pallas: its backward, "
-            "which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} taps={taps} bf16", sets,
-            TS.token_shift_bwd_cuda, TS.token_shift_bwd_ref, nbytes, 4 * taps * b * t * RG_D,
-            PEAK_F32_FLOPS, reps=50, library=conv_bwd, lib_sets=lib_sets)
+            dx, dw = TS.token_shift_bwd_cuda(*sets[0])
+            ldx, ldw = conv_bwd(*lib_sets[0])
+            agree = (float((ldx.transpose(1, 2).float() - dx.float()).abs().max()),
+                     float((ldw[:, 0].flip(1).t().float() - dw.float()).abs().max()))
+            print(f"[time] conv1d_input + conv1d_weight agree with token_shift_bwd_cuda at "
+                  f"B={b} T={t}: max_abs_err dx {agree[0]:.3e}, dw {agree[1]:.3e}")
+            row("token_shift_bwd_cuda", "src/repro_torch/kernels/token_shift/csrc/token_shift.cu",
+                "src/repro/kernels/token_shift/kernel.py:55 (token_shift_pallas: its backward, "
+                "which has no Pallas counterpart)", f"B={b} T={t} D={RG_D} taps={taps} bf16",
+                sets, TS.token_shift_bwd_cuda, TS.token_shift_bwd_ref, nbytes,
+                4 * taps * b * t * RG_D, PEAK_F32_FLOPS, reps=50, library=conv_bwd,
+                lib_sets=lib_sets)
+            rows[-1]["plans"] = {
+                f"cluster={p.cluster} groups={p.groups} rows={p.rows}": round(1e3 * _time_ms(
+                    torch, lambda *a, p=p: TS.launch_bwd_plan(*a, plan=p), sets, reps=50)[0], 2)
+                for p in TS.shift_bwd_plans(b, t, RG_D, taps, bf)}
+            print(f"[time] token_shift_bwd_cuda plans (device us): {rows[-1]['plans']}")
+            del sets, lib_sets, one
     # The result line's row of flash attention's backward is Gemma3's causal
-    # one, the scan's the (1, 4096) one; the other shapes ride along under
-    # "large".
+    # one, the scan's and the token shift's the (1, 4096) ones; the other
+    # shapes ride along under "large".
     extra = []
-    for name in ("flash_attention_bwd_cuda", "elevator_scan_bwd_cuda"):
+    for name in ("flash_attention_bwd_cuda", "elevator_scan_bwd_cuda", "token_shift_bwd_cuda"):
         mine = [r for r in rows if r["name"] == name]
         mine[0]["large"] = [{k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms",
                                                "bound_by", "library_ms", "plans") if k in r}

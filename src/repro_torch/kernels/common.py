@@ -30,6 +30,7 @@ __all__ = [
     "resolve_device",
     "DTYPE_CODE",
     "check_kernel_tensors",
+    "pointer_alignment",
     "validate_divisible",
     "largest_divisor_chunk",
     "KERNEL_SOURCES",
@@ -86,6 +87,16 @@ def check_kernel_tensors(name: str, strided: tuple = (), **tensors) -> None:
             raise ValueError(
                 f"{name}: {key} requires grad; the raw kernel wrappers take no "
                 "autograd")
+
+
+def pointer_alignment(*tensors) -> int:
+    """The largest power of two, at most 16, that divides every tensor's
+    address."""
+    align = 16
+    for t in tensors:
+        while t.data_ptr() % align:
+            align //= 2
+    return align
 
 
 # --------------------------------------------------------------------------
@@ -165,7 +176,8 @@ ENTRY_POINTS = {
         "elevator_scan_bwd": [_P] * 7 + [_I] * 6 + [_P],
     },
     "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P],
-                    "token_shift_bwd": [_P] * 6 + [_I] * 5 + [_P]},
+                    "token_shift_bwd": [_P] * 5 + [_I] * 10 + [_P],
+                    "token_shift_bwd_smem": [_I] * 4},
     "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
     "flash_attention_bwd": {"flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
                             "flash_bwd_smem": [_I] * 3},

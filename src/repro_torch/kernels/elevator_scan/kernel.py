@@ -38,6 +38,7 @@ from repro_torch.kernels.common import (
     check_kernel_tensors,
     launch_stream,
     load_library,
+    pointer_alignment,
     sm_count,
 )
 from repro_torch.kernels.elevator_scan.ref import elevator_scan_bwd_ref, elevator_scan_ref
@@ -92,16 +93,6 @@ class ScanPlan:
     cols: int
     stages: int
     mode: str
-
-
-def pointer_alignment(*tensors) -> int:
-    """The largest power of two, at most 16, that divides every tensor's
-    address."""
-    align = 16
-    for t in tensors:
-        while t.data_ptr() % align:
-            align //= 2
-    return align
 
 
 def uses_tma(d: int, dtype: torch.dtype, align: int = 16) -> bool:

@@ -6,8 +6,9 @@
 //
 // Included by local_attention/csrc/flash_attention.cu,
 // matmul_fwd/csrc/matmul_fwd.cu, wkv/csrc/wkv_chunked.cu,
-// wkv/csrc/wkv_bwd.cu, wkv/csrc/wkv_decode.cu and
-// elevator_scan/csrc/elevator_scan.cu (nvcc -I
+// wkv/csrc/wkv_bwd.cu, wkv/csrc/wkv_decode.cu,
+// elevator_scan/csrc/elevator_scan.cu and token_shift/csrc/token_shift.cu
+// (its backward's cluster helpers) (nvcc -I
 // .../kernels/hopper/csrc).  The build cache (kernels/common.py) hashes
 // every *.cuh under kernels/ into each library's name, so an edit here
 // rebuilds every library.

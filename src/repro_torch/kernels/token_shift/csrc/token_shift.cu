@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int MAX_TAPS = 8;
@@ -220,113 +222,324 @@ int launch(const void* xv, const void* wv, void* outv, int B, int Tn, int D, int
 //   dx[b, t, d] = sum_k w[k, d] dout[b, t + k, d]      (dout[t >= T] = 0),
 //   dw[k, d] = sum_{b, t} dout[b, t, d] x[b, t - k, d],
 // the same taps run anti-causally for dx and a tap-by-channel reduction for
-// dw.  What bounds it: bytes (x and dout read, dx written: 126 MB at B=1,
-// T=4096, D=2560 in f32, 38 us at 3.35 TB/s).  A block of BWD_NT threads
-// owns BWD_NT neighbouring channels (a thread one, so a warp's row accesses
-// are one coalesced segment) of a tile of BWD_TILE rows of one batch row;
-// a thread loads BWD_SUB rows of dout and of x with their halos at once,
-// then writes dx for them (tap 0 first, each product rounded before it is
-// added, as the plain version ref.py:token_shift_bwd_ref, so f32 dx equals
-// it bit for bit) and adds their products into its f32 dw partial, rows in
-// order.  Each block writes its partial for its channels into a scratch of
-// (B * tiles, taps, D) f32 that the wrapper allocates; a second kernel
-// sums the partials in block order, so dw does not change from run to run
-// (no atomics), and rounds it once to w's dtype.
+// dw.  What bounds it: bytes (x and dout read, dx written: 62.9 MB at B=1,
+// T=4096, D=2560 in bf16, 18.8 us at 3.35 TB/s; dw is taps rows of D).
+//
+// One launch.  A thread owns the forward's 16-byte slot (8 bf16 or 4 f32
+// channels) of a unit of `rows` consecutive rows of one batch row, and
+// walks them in sub-tiles of bwd_sub rows through its own ring of
+// BWD_STAGES sub-tiles in shared memory: BWD_STAGES - 1 sub-tiles of dout
+// and x are in flight while it computes one, filled by 16-byte cp.async
+// copies (zero-filled past T) at no register cost; a slot is refilled only
+// after the thread itself has read it.  Where D is not a multiple of the
+// slot or a pointer is off the 16-byte grid, the scalar variant fills the
+// same ring with scalar loads.  The taps - 1 rows of dout and x that the
+// next sub-tile needs stay in registers, so within a unit every row is read
+// once.  A block is `cols` slot columns (128 bytes of a row at 8) by
+// `groups` row lanes; the grid's y is one thread-block cluster of `cluster`
+// blocks, whose cluster * groups lanes take the B * ceil(T / rows) units of
+// the block's channels in turn, so one cluster covers every row of its
+// channels.  dx: tap 0 first, each product rounded
+// before it is added (__fmul_rn then __fadd_rn), the order of the plain
+// version ref.py:token_shift_bwd_ref, so f32 and bf16 dx equal it bit for
+// bit.  dw: each thread sums its rows' products in f32 in row order; the
+// block sums its lanes' partials in lane order through shared memory, and
+// the cluster its blocks' in rank order through distributed shared memory,
+// each rank a slice of the taps x channels, rounded once to w's dtype.  The
+// order is fixed by the plan alone, so dw repeats bit for bit, with no
+// atomics and no second launch.  The pure-Python planner
+// kernels/token_shift/kernel.py:plan_shift_bwd picks cols, groups, cluster
+// and rows.  (A variant that kept the next sub-tile in flight in registers
+// instead of the ring ran slower in every plan at both of RecurrentGemma's
+// training shapes: PERF.md, PR 27.)
 
-constexpr int BWD_NT = 128;         // threads of a backward block, a channel each
-constexpr int BWD_SUB = 16;         // rows a thread loads at once
-constexpr int BWD_TILE = 128;       // rows of a block (one dw partial)
+constexpr int BWD_THREADS = 128;     // threads of a block at most (cols * groups)
+constexpr int BWD_MAX_COLS = 8;      // slot columns of a block at most
+constexpr int BWD_MAX_CLUSTER = 8;   // blocks of a cluster at most (the portable size)
+constexpr int BWD_STAGES = 3;        // sub-tiles of a thread's ring
 
-__device__ __forceinline__ float bwd_ld(const float* p) { return *p; }
-__device__ __forceinline__ float bwd_ld(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void bwd_st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void bwd_st(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// Rows of a sub-tile: 8, fewer past 4 taps, whose weights, partials and
+// windows take the registers (1 row for the f32 sums of 8 bf16 channels a
+// tap: at 2 rows 6 taps spill).
+__host__ __device__ constexpr int bwd_sub(int taps, int v) {
+  return taps <= 4 ? 8 : v == 4 ? 2 : 1;
+}
 
-template <typename T, int TAPS>
-__global__ void __launch_bounds__(BWD_NT) token_shift_bwd_kernel(
+// Shared memory of a block: the threads' rings (16 bytes of dout and of x a
+// row), which the lanes' dw partials and the block's sum reuse at the end.
+__host__ __device__ constexpr int bwd_smem_bytes(int groups, int taps, int cols, int v) {
+  const int ring = BWD_STAGES * bwd_sub(taps, v) * 32 * cols * groups;
+  const int sums = (groups + 1) * taps * cols * v * 4;
+  return ring > sums ? ring : sums;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows s .. s + SUB - 1 of a unit ending at t1 into ring slot `slot` of
+// this thread: x rows s + j and dout rows s + j + HALO (zero past T, and
+// for rows past the unit); row j of tensor k at ((slot * SUB + j) * 2 + k)
+// * threads + thread, 16 bytes each.
+template <typename T, bool VEC, int HALO, int SUB>
+__device__ __forceinline__ void bwd_fill(uint4* ring, int slot, const T* x, const T* dout,
+                                         size_t base, int s, int t1, int Tn, int D, int left) {
+  uint4* at = ring + (size_t)slot * SUB * 2 * blockDim.x;
+  if constexpr (VEC) {
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) {
+      const int t = s + j;
+      const bool gl = t < t1 && t + HALO < Tn, xl = t < t1;
+      const uint32_t dst = sm90::smem_u32(at + 2 * j * blockDim.x);
+      cp_async16(dst, gl ? dout + base + (size_t)(t + HALO) * D : dout, gl);
+      cp_async16(dst + blockDim.x * 16, xl ? x + base + (size_t)t * D : x, xl);
+    }
+  } else {
+    uint4 g[SUB], xr[SUB];
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) {
+      const int t = s + j;
+      g[j] = t < t1 && t + HALO < Tn
+                 ? load_slot<T, false>(dout + base + (size_t)(t + HALO) * D, left)
+                 : make_uint4(0, 0, 0, 0);
+      xr[j] = t < t1 ? load_slot<T, false>(x + base + (size_t)t * D, left)
+                     : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < SUB; ++j) {
+      at[2 * j * blockDim.x] = g[j];
+      at[(2 * j + 1) * blockDim.x] = xr[j];
+    }
+  }
+}
+
+// The sub-tile at row s, from ring slot `slot`: dx of its rows before t1,
+// their products added to the dw partial, and the windows moved on.  gw[k]
+// holds dout row s + k, xw[k] x row s - HALO + k.
+template <typename T, bool VEC, int TAPS, int SUB>
+__device__ __forceinline__ void bwd_rows(const uint4* ring, int slot, uint4 (&gw)[TAPS - 1],
+                                         uint4 (&xw)[TAPS - 1],
+                                         const float (&wf)[TAPS][Slot<T>::V],
+                                         float (&dwp)[TAPS][Slot<T>::V], T* dx, size_t base,
+                                         int s, int t1, int D, int left) {
+  using S = Slot<T>;
+  constexpr int V = S::V, HALO = TAPS - 1;
+  const uint4* at = ring + (size_t)slot * SUB * 2 * blockDim.x;
+  // G[i]: dout row s + i; X[i]: x row s - HALO + i.
+  float G[HALO + SUB][V], X[HALO + SUB][V];
+#pragma unroll
+  for (int j = 0; j < SUB; ++j) {
+    const uint4 g = at[2 * j * blockDim.x], xr = at[(2 * j + 1) * blockDim.x];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      G[HALO + j][c] = S::chan(g, c);
+      X[HALO + j][c] = S::chan(xr, c);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < HALO; ++k)
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      G[k][c] = S::chan(gw[k], c);
+      X[k][c] = S::chan(xw[k], c);
+    }
+  // The next sub-tile's windows, before the rows' arithmetic.
+#pragma unroll
+  for (int k = 0; k < HALO; ++k) {
+    gw[k] = SUB + k < HALO ? gw[SUB + k] : at[2 * (SUB + k - HALO) * blockDim.x];
+    xw[k] = SUB + k < HALO ? xw[SUB + k] : at[(2 * (SUB + k - HALO) + 1) * blockDim.x];
+  }
+#pragma unroll
+  for (int j = 0; j < SUB; ++j) {
+    if (s + j >= t1) break;
+    float acc[V];
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      acc[c] = __fmul_rn(wf[0][c], G[j][c]);
+#pragma unroll
+      for (int k = 1; k < TAPS; ++k) acc[c] = __fadd_rn(acc[c], __fmul_rn(wf[k][c], G[j + k][c]));
+    }
+    store_slot<T, VEC>(dx + base + (size_t)(s + j) * D, acc, left);
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k)
+#pragma unroll
+      for (int c = 0; c < V; ++c) dwp[k][c] = __fmaf_rn(G[j][c], X[HALO + j - k][c], dwp[k][c]);
+  }
+}
+
+template <typename T, int TAPS, bool VEC>
+__global__ void __launch_bounds__(BWD_THREADS) token_shift_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ w, const T* __restrict__ dout,
-    T* __restrict__ dx, float* __restrict__ part, int Tn, int D) {
-  constexpr int HALO = TAPS - 1;
-  const int d = blockIdx.x * BWD_NT + threadIdx.x;
-  if (d >= D) return;
-  const size_t base = (size_t)blockIdx.z * Tn * D + d;
-  float wf[TAPS], dwp[TAPS];
-#pragma unroll
-  for (int k = 0; k < TAPS; ++k) {
-    wf[k] = bwd_ld(w + (size_t)k * D + d);
-    dwp[k] = 0.f;
-  }
-  const int t_begin = blockIdx.y * BWD_TILE, t_end = min(Tn, t_begin + BWD_TILE);
-  for (int s0 = t_begin; s0 < t_end; s0 += BWD_SUB) {
-    // go[i]: dout row s0 + i (zero past T); xs[i]: x row s0 - HALO + i (zero
-    // before 0).
-    float go[BWD_SUB + HALO], xs[BWD_SUB + HALO];
-#pragma unroll
-    for (int i = 0; i < BWD_SUB + HALO; ++i) {
-      const int t = s0 + i, tx = s0 - HALO + i;
-      go[i] = t < Tn ? bwd_ld(dout + base + (size_t)t * D) : 0.f;
-      xs[i] = tx >= 0 && tx < Tn ? bwd_ld(x + base + (size_t)tx * D) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < BWD_SUB; ++j) {
-      const int t = s0 + j;
-      if (t >= t_end) break;
-      float acc = __fmul_rn(wf[0], go[j]);
-#pragma unroll
-      for (int k = 1; k < TAPS; ++k) acc = __fadd_rn(acc, __fmul_rn(wf[k], go[j + k]));
-      bwd_st(dx + base + (size_t)t * D, acc);
-#pragma unroll
-      for (int k = 0; k < TAPS; ++k) dwp[k] = __fadd_rn(dwp[k], __fmul_rn(go[j], xs[j + HALO - k]));
-    }
-  }
-  const size_t p = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
-#pragma unroll
-  for (int k = 0; k < TAPS; ++k) part[(p * TAPS + k) * D + d] = dwp[k];
-}
+    T* __restrict__ dx, T* __restrict__ dw, int B, int Tn, int D, int cols, int rows) {
+  using S = Slot<T>;
+  constexpr int V = S::V, HALO = TAPS - 1, SUB = bwd_sub(TAPS, V);
+  extern __shared__ __align__(16) float red[];
+  const int groups = blockDim.x / cols, wide = cols * V;   // channels of the block
+  const int col = threadIdx.x % cols, lane = threadIdx.x / cols;
+  const int d0 = (blockIdx.x * cols + col) * V;
+  const int left = D - d0;
+  const int rank = (int)sm90::cluster_ctarank(), nrank = gridDim.y;
 
-// dw[i] = the sum of the `parts` partials of entry i (taps * D entries), in
-// block order.
-template <typename T>
-__global__ void __launch_bounds__(BWD_NT) token_shift_dw_kernel(const float* __restrict__ part,
-                                                                T* __restrict__ dw, int parts,
-                                                                int n) {
-  const int i = blockIdx.x * BWD_NT + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int p = 0; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);
-  bwd_st(dw + i, s);
+  float dwp[TAPS][V];
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k)
+#pragma unroll
+    for (int c = 0; c < V; ++c) dwp[k][c] = 0.f;
+  if (d0 < D) {
+    float wf[TAPS][V];
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) {
+      const uint4 q = load_slot<T, VEC>(w + (size_t)k * D + d0, left);
+#pragma unroll
+      for (int c = 0; c < V; ++c) wf[k][c] = S::chan(q, c);
+    }
+    const int per_batch = (Tn + rows - 1) / rows;
+    const long units = (long)B * per_batch;
+    uint4* ring = reinterpret_cast<uint4*>(red) + threadIdx.x;
+    for (long u = (long)rank * groups + lane; u < units; u += (long)nrank * groups) {
+      const int b = (int)(u / per_batch), t0 = (int)(u % per_batch) * rows;
+      const int t1 = min(Tn, t0 + rows);
+      const size_t base = (size_t)b * Tn * D + d0;
+      uint4 gw[HALO], xw[HALO];
+#pragma unroll
+      for (int k = 0; k < HALO; ++k) {
+        gw[k] = t0 + k < Tn ? load_slot<T, VEC>(dout + base + (size_t)(t0 + k) * D, left)
+                            : make_uint4(0, 0, 0, 0);
+        xw[k] = t0 - HALO + k >= 0
+                    ? load_slot<T, VEC>(x + base + (size_t)(t0 - HALO + k) * D, left)
+                    : make_uint4(0, 0, 0, 0);
+      }
+      const int nsub = (t1 - t0 + SUB - 1) / SUB;
+#pragma unroll
+      for (int i = 0; i < BWD_STAGES - 1; ++i) {
+        if (i < nsub)
+          bwd_fill<T, VEC, HALO, SUB>(ring, i, x, dout, base, t0 + i * SUB, t1, Tn, D, left);
+        cp_async_commit();
+      }
+      // Sub-tile i + BWD_STAGES - 1 goes into the slot that sub-tile i - 1
+      // left, which this thread has read.
+      for (int i = 0; i < nsub; ++i) {
+        const int ahead = i + BWD_STAGES - 1;
+        if (ahead < nsub)
+          bwd_fill<T, VEC, HALO, SUB>(ring, ahead % BWD_STAGES, x, dout, base, t0 + ahead * SUB,
+                                      t1, Tn, D, left);
+        cp_async_commit();
+        cp_async_wait<BWD_STAGES - 1>();
+        bwd_rows<T, VEC, TAPS, SUB>(ring, i % BWD_STAGES, gw, xw, wf, dwp, dx, base,
+                                    t0 + i * SUB, t1, D, left);
+      }
+      cp_async_wait<0>();
+    }
+  }
+
+  // dw: the lanes' partials, summed in lane order into the block's, over
+  // the rings once every thread has left its own; the loads of four lanes
+  // are issued before their adds.
+  __syncthreads();
+  float* part = red;                               // [groups][TAPS][wide]
+  float* blk = red + groups * TAPS * wide;         // [TAPS][wide]
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k)
+#pragma unroll
+    for (int c = 0; c < V; ++c) part[(lane * TAPS + k) * wide + col * V + c] = dwp[k][c];
+  __syncthreads();
+  const int n = TAPS * wide;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    float acc = part[e];
+    for (int g0 = 1; g0 < groups; g0 += 4) {
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = g0 + i < groups ? part[(g0 + i) * n + e] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (g0 + i < groups) acc = __fadd_rn(acc, v[i]);
+    }
+    blk[e] = acc;
+  }
+  // The cluster's blocks in rank order: rank r sums its slice of the taps x
+  // channels over every rank's block sum, then rounds it once.
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
+  const int per = (n + nrank - 1) / nrank, e1 = min(n, (rank + 1) * per);
+  const uint32_t at = sm90::smem_u32(blk);
+  for (int e = rank * per + threadIdx.x; e < e1; e += blockDim.x) {
+    float acc = sm90::ld_cluster_f32(sm90::mapa(at + 4 * e, 0));
+    for (int r = 1; r < nrank; ++r)
+      acc = __fadd_rn(acc, sm90::ld_cluster_f32(sm90::mapa(at + 4 * e, r)));
+    const int k = e / wide, d = blockIdx.x * wide + e % wide;
+    if (d < D) S::put(dw + (size_t)k * D + d, acc);
+  }
+  // No block leaves while another rank may still read its sum.
+  sm90::cluster_arrive();
+  sm90::cluster_wait();
 }
 
 template <typename T, int TAPS>
-int launch_bwd_taps(const T* x, const T* w, const T* dout, T* dx, float* part, T* dw, int B,
-                    int Tn, int D, cudaStream_t stream) {
-  const int tiles = (Tn + BWD_TILE - 1) / BWD_TILE;
-  dim3 grid((D + BWD_NT - 1) / BWD_NT, tiles, B);
-  token_shift_bwd_kernel<T, TAPS><<<grid, BWD_NT, 0, stream>>>(x, w, dout, dx, part, Tn, D);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int n = TAPS * D;
-  token_shift_dw_kernel<T><<<(n + BWD_NT - 1) / BWD_NT, BWD_NT, 0, stream>>>(part, dw, B * tiles,
-                                                                            n);
-  return (int)cudaGetLastError();
+int launch_bwd_taps(const T* x, const T* w, const T* dout, T* dx, T* dw, int B, int Tn, int D,
+                    int cols, int groups, int cluster, int rows, bool vec, cudaStream_t stream) {
+  constexpr int V = Slot<T>::V;
+  const void* kernel = vec ? reinterpret_cast<const void*>(token_shift_bwd_kernel<T, TAPS, true>)
+                           : reinterpret_cast<const void*>(token_shift_bwd_kernel<T, TAPS, false>);
+  const int smem = bwd_smem_bytes(groups, TAPS, cols, V);
+  if (smem > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int slots = (D + V - 1) / V;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((slots + cols - 1) / cols, cluster, 1);
+  cfg.blockDim = dim3(cols * groups, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {&x, &w, &dout, &dx, &dw, &B, &Tn, &D, &cols, &rows};
+  return (int)cudaLaunchKernelExC(&cfg, kernel, args);
 }
 
 template <typename T>
-int launch_bwd(const void* xv, const void* wv, const void* dov, void* dxv, float* part, void* dwv,
-               int B, int Tn, int D, int taps, cudaStream_t s) {
+int launch_bwd(const void* xv, const void* wv, const void* dov, void* dxv, void* dwv, int B,
+               int Tn, int D, int taps, int cols, int groups, int cluster, int rows, int vec,
+               cudaStream_t s) {
+  constexpr int V = Slot<T>::V;
   const T* x = static_cast<const T*>(xv);
   const T* w = static_cast<const T*>(wv);
   const T* dout = static_cast<const T*>(dov);
   T* dx = static_cast<T*>(dxv);
   T* dw = static_cast<T*>(dwv);
+  // The 16-byte variant only where every row and pointer is on the 16-byte
+  // grid: the plan must agree, or the launch is refused.
+  const bool aligned = D % V == 0 && !((reinterpret_cast<uintptr_t>(x) |
+                                        reinterpret_cast<uintptr_t>(w) |
+                                        reinterpret_cast<uintptr_t>(dout) |
+                                        reinterpret_cast<uintptr_t>(dx) |
+                                        reinterpret_cast<uintptr_t>(dw)) & 15);
+  if (vec && !aligned) return (int)cudaErrorMisalignedAddress;
   switch (taps) {
-    case 2: return launch_bwd_taps<T, 2>(x, w, dout, dx, part, dw, B, Tn, D, s);
-    case 3: return launch_bwd_taps<T, 3>(x, w, dout, dx, part, dw, B, Tn, D, s);
-    case 4: return launch_bwd_taps<T, 4>(x, w, dout, dx, part, dw, B, Tn, D, s);
-    case 5: return launch_bwd_taps<T, 5>(x, w, dout, dx, part, dw, B, Tn, D, s);
-    case 6: return launch_bwd_taps<T, 6>(x, w, dout, dx, part, dw, B, Tn, D, s);
-    case 7: return launch_bwd_taps<T, 7>(x, w, dout, dx, part, dw, B, Tn, D, s);
-    case 8: return launch_bwd_taps<T, 8>(x, w, dout, dx, part, dw, B, Tn, D, s);
+#define TS_BWD_TAPS(K)                                                                      \
+  case K:                                                                                   \
+    return launch_bwd_taps<T, K>(x, w, dout, dx, dw, B, Tn, D, cols, groups, cluster, rows, \
+                                 vec, s);
+    TS_BWD_TAPS(2) TS_BWD_TAPS(3) TS_BWD_TAPS(4) TS_BWD_TAPS(5) TS_BWD_TAPS(6)
+    TS_BWD_TAPS(7) TS_BWD_TAPS(8)
+#undef TS_BWD_TAPS
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -349,17 +562,30 @@ extern "C" int token_shift_fwd(const void* x, const void* w, void* out, int B,
 }
 
 // The backward: x, w, dout, dx, dw of one dtype (0 = float32, 1 = bfloat16),
-// x, dout, dx (B, T, D), w, dw (taps, D); part: f32 scratch of (B *
-// ceil(T / 128), taps, D), every entry written before it is read.  Returns 0
-// or the cudaError_t of the first launch that failed.
+// x, dout, dx (B, T, D), w, dw (taps, D), one launch of the plan's cols,
+// groups, cluster, rows a unit and variant (vec: 1 the 16-byte copies,
+// refused with cudaErrorMisalignedAddress unless D is a multiple of the
+// slot and every pointer 16-byte aligned; 0 the scalar loads).  Returns 0
+// or the cudaError_t of the launch.
 extern "C" int token_shift_bwd(const void* x, const void* w, const void* dout, void* dx,
-                               float* part, void* dw, int B, int Tn, int D, int taps, int dtype,
-                               void* stream) {
-  if (B < 1 || B > 65535 || Tn < 1 || (Tn + BWD_TILE - 1) / BWD_TILE > 65535 || D < 1 ||
-      taps < 2 || taps > MAX_TAPS)
+                               void* dw, int B, int Tn, int D, int taps, int dtype, int cols,
+                               int groups, int cluster, int rows, int vec, void* stream) {
+  if (B < 1 || Tn < 1 || D < 1 || taps < 2 || taps > MAX_TAPS || cols < 1 ||
+      cols > BWD_MAX_COLS || groups < 1 || cols * groups > BWD_THREADS || cluster < 1 ||
+      cluster > BWD_MAX_CLUSTER || rows < 1 || (vec != 0 && vec != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_bwd<float>(x, w, dout, dx, part, dw, B, Tn, D, taps, s);
-  if (dtype == 1) return launch_bwd<__nv_bfloat16>(x, w, dout, dx, part, dw, B, Tn, D, taps, s);
+  if (dtype == 0)
+    return launch_bwd<float>(x, w, dout, dx, dw, B, Tn, D, taps, cols, groups, cluster, rows,
+                             vec, s);
+  if (dtype == 1)
+    return launch_bwd<__nv_bfloat16>(x, w, dout, dx, dw, B, Tn, D, taps, cols, groups, cluster,
+                                     rows, vec, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward's dynamic shared memory a block, in bytes, for a plan's
+// groups and cols (the mirror kernel.py:bwd_smem_bytes must agree).
+extern "C" int token_shift_bwd_smem(int groups, int taps, int cols, int dtype) {
+  return bwd_smem_bytes(groups, taps, cols, dtype == 0 ? 4 : 8);
 }

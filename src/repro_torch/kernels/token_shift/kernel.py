@@ -15,11 +15,18 @@ stateful calls of the model pass T = taps - 1 + window.
 :func:`token_shift_cuda` launches the kernel on CUDA tensors (counted in
 ``token_shift_cuda.launches``) or raises; CPU tensors take the plain
 version.  :func:`token_shift_bwd_cuda` is the backward (``token_shift_bwd``
-in the same source, no Pallas counterpart): dx by the taps run
-anti-causally, dw by per-block f32 partials summed in block order.
+in the same source, no Pallas counterpart), one launch: dx by the taps run
+anti-causally, dw summed in the same launch in a fixed order (lanes, then
+the blocks of a thread-block cluster in rank order).  Its launch shape
+comes from the pure-Python planner :func:`plan_shift_bwd`;
+:func:`launch_bwd_plan` launches any plan of :func:`shift_bwd_plans`
+without counting it.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -28,16 +35,35 @@ from repro_torch.kernels.common import (
     check_kernel_tensors,
     launch_stream,
     load_library,
+    pointer_alignment,
+    sm_count,
 )
 from repro_torch.kernels.token_shift.ref import token_shift_bwd_ref, token_shift_ref
 
-__all__ = ["MAX_TAPS", "BWD_TILE", "token_shift_cuda", "token_shift_ref",
-           "token_shift_bwd_cuda", "token_shift_bwd_ref"]
+__all__ = ["MAX_TAPS", "BWD_THREADS", "BWD_MAX_COLS", "BWD_MAX_CLUSTER", "BWD_STAGES",
+           "BWD_GROUPS", "BWD_IN_FLIGHT", "ShiftBwdPlan", "slot_channels",
+           "bwd_sub", "bwd_smem_bytes", "plan_shift_bwd", "shift_bwd_plans", "launch_bwd_plan",
+           "token_shift_cuda", "token_shift_ref", "token_shift_bwd_cuda",
+           "token_shift_bwd_ref"]
 
 #: Largest tap count the kernel takes (the reference's token-buffer budget).
 MAX_TAPS = 8
-#: Rows of one block of the backward (one dw partial; the source's BWD_TILE).
-BWD_TILE = 128
+#: The backward's constants, as the source has them: threads of a block at
+#: most, slot columns of a block at most (8: 128 bytes of a row), blocks of
+#: a cluster at most (the portable size), sub-tiles of a thread's ring.
+BWD_THREADS = 128
+BWD_MAX_COLS = 8
+BWD_MAX_CLUSTER = 8
+BWD_STAGES = 3
+#: Row lanes of a block, most first (at 8 columns: 128, 64 or 32 threads).
+BWD_GROUPS = (16, 8, 4)
+#: The bytes the planner wants the rings of a launch to hold in flight:
+#: the card's 3.35 TB/s over a DRAM round trip of about a microsecond,
+#: with a margin.  On the H100 at (1, 4096, 2560) bf16 (PERF.md, section 6,
+#: PR 27; ``benchmarks/train_bwd.py``), 32 lanes a stripe (5.2 MB in
+#: flight) ran 29.1-29.6 us in every split of clusters and lanes, 64 lanes
+#: 30.6-30.7, 16 lanes (2.6 MB) 40.0-40.5.
+BWD_IN_FLIGHT = 3 << 20
 
 
 def _check(name, x, w):
@@ -74,30 +100,146 @@ def token_shift_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 token_shift_cuda.launches = 0
 
 
-def token_shift_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dout: torch.Tensor):
-    """The backward of :func:`token_shift_cuda`: x, dout (B, T, D) and w
-    (taps, D) of one dtype.  Returns (dx in x.dtype, dw in w.dtype), summed
-    in f32; two kernels (dx with per-block dw partials, then their sum in
-    block order), one launch counted in ``token_shift_bwd_cuda.launches``.
-    CPU tensors take the plain version."""
-    if x.device.type == "cpu":
-        return token_shift_bwd_ref(x, w, dout)
-    check_kernel_tensors("token_shift_bwd_cuda", x=x, w=w, dout=dout)
-    _check("token_shift_bwd_cuda", x, w)
+@dataclass(frozen=True)
+class ShiftBwdPlan:
+    """One launch of the backward: ``cols`` 16-byte slot columns by
+    ``groups`` row lanes a block, a cluster of ``cluster`` blocks covering
+    every row of its channels, units of ``rows`` rows of one batch row, and
+    the ring filled by 16-byte copies (``vec``) or by scalar loads."""
+
+    cols: int
+    groups: int
+    cluster: int
+    rows: int
+    vec: bool
+
+
+def slot_channels(dtype: torch.dtype) -> int:
+    """Channels of a 16-byte slot: 4 f32 or 8 bf16."""
+    if dtype not in DTYPE_CODE:
+        raise ValueError(f"token shift: dtype {dtype} not supported (float32, bfloat16)")
+    return 16 // dtype.itemsize
+
+
+def bwd_sub(taps: int, dtype: torch.dtype) -> int:
+    """Rows of a sub-tile (the source's ``bwd_sub``): 8, fewer past 4 taps,
+    whose f32 weights, partials and windows take the registers."""
+    return 8 if taps <= 4 else 2 if slot_channels(dtype) == 4 else 1
+
+
+def bwd_smem_bytes(plan: ShiftBwdPlan, taps: int, dtype: torch.dtype) -> int:
+    """The backward's dynamic shared memory a block (the source's
+    ``bwd_smem_bytes``): the threads' rings (16 bytes of dout and of x a
+    row, :data:`BWD_STAGES` sub-tiles), or the lanes' f32 dw partials and
+    the block's sum that reuse them, whichever is larger."""
+    red = (plan.groups + 1) * taps * plan.cols * slot_channels(dtype) * 4
+    return max(red, BWD_STAGES * bwd_sub(taps, dtype) * 32 * plan.cols * plan.groups)
+
+
+def _check_shape(name, b, t, d, taps):
+    if min(b, t, d) < 1 or not 2 <= taps <= MAX_TAPS:
+        raise ValueError(f"{name}: b={b} t={t} d={d} must be >= 1 and taps={taps} in "
+                         f"2..{MAX_TAPS}")
+
+
+def _vec(d, dtype, align) -> bool:
+    """Whether the 16-byte slots tile D and the inputs are 16-byte aligned
+    (else the ring is filled by scalar loads)."""
+    return d % slot_channels(dtype) == 0 and align >= 16
+
+
+def _plan(b, t, d, dtype, align, groups, cluster) -> ShiftBwdPlan:
+    """The plan of ``groups`` lanes and a cluster of ``cluster``: as many
+    slot columns as D has, up to 8; units of the fewest rows whose count
+    the cluster's lanes cover."""
+    cols = min(BWD_MAX_COLS, -(-d // slot_channels(dtype)))
+    per = max(1, cluster * groups // b)
+    return ShiftBwdPlan(cols, groups, cluster, -(-t // per), _vec(d, dtype, align))
+
+
+def shift_bwd_plans(b: int, t: int, d: int, taps: int, dtype: torch.dtype,
+                    align: int = 16) -> list[ShiftBwdPlan]:
+    """Every plan the backward can launch for (b, t, d) inputs of
+    ``dtype`` whose addresses are aligned to ``align`` bytes: each cluster
+    size by each lane count, in the layout's variant."""
+    _check_shape("shift_bwd_plans", b, t, d, taps)
+    return [_plan(b, t, d, dtype, align, g, c) for c in (8, 4, 2, 1) for g in BWD_GROUPS]
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_shift_bwd(b: int, t: int, d: int, taps: int, dtype: torch.dtype, sms: int,
+                   align: int = 16) -> ShiftBwdPlan:
+    """The plan :func:`token_shift_bwd_cuda` launches on a card of ``sms``
+    SMs.  Lanes a channel stripe: the fewest (a power of two, 4 to 128)
+    whose in-flight sub-tiles hold :data:`BWD_IN_FLIGHT` bytes, and no more
+    than B * T; then the smallest cluster whose blocks cover the SMs (else
+    the largest that leaves 4 lanes a block).  At (1, 4096, 2560) and (2,
+    1024, 2560) bf16 on 132 SMs: 40 stripes of 64 channels, 32 lanes, as
+    clusters of 4 blocks of 8 lanes (160 blocks of 64 threads), units of
+    128 and 64 rows; the 16-byte copies wherever the layout takes them."""
+    _check_shape("plan_shift_bwd", b, t, d, taps)
+    if sms < 1:
+        raise ValueError(f"plan_shift_bwd: sms={sms} must be >= 1")
+    cols = min(BWD_MAX_COLS, -(-d // slot_channels(dtype)))
+    stripes = -(-d // (slot_channels(dtype) * cols))
+    flight = (BWD_STAGES - 1) * bwd_sub(taps, dtype) * 32 * cols * stripes
+    lanes = BWD_GROUPS[-1]
+    while lanes < BWD_MAX_CLUSTER * BWD_GROUPS[0] and lanes * flight < BWD_IN_FLIGHT:
+        lanes *= 2
+    while lanes > BWD_GROUPS[-1] and lanes > b * t:
+        lanes //= 2
+    sizes = [c for c in (1, 2, 4, 8) if BWD_GROUPS[-1] <= lanes // c <= BWD_GROUPS[0]]
+    cluster = next((c for c in sizes if stripes * c >= sms), sizes[-1])
+    return _plan(b, t, d, dtype, align, lanes // cluster, cluster)
+
+
+def _check_bwd(name, x, w, dout):
+    check_kernel_tensors(name, x=x, w=w, dout=dout)
+    _check(name, x, w)
     if dout.shape != x.shape or dout.dtype != x.dtype:
-        raise ValueError(f"token_shift_bwd_cuda: dout {dout.dtype} {tuple(dout.shape)} must "
+        raise ValueError(f"{name}: dout {dout.dtype} {tuple(dout.shape)} must "
                          f"match x {x.dtype} {tuple(x.shape)}")
+
+
+def _launch_bwd(x, w, dout, plan: ShiftBwdPlan):
     b, t, d = x.shape
-    taps = w.shape[0]
     dx, dw = torch.empty_like(x), torch.empty_like(w)
-    part = torch.empty((b * -(-t // BWD_TILE), taps, d), dtype=torch.float32, device=x.device)
     err = load_library("token_shift").token_shift_bwd(
-        x.data_ptr(), w.data_ptr(), dout.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        dw.data_ptr(), b, t, d, taps, DTYPE_CODE[x.dtype], launch_stream(x.device))
+        x.data_ptr(), w.data_ptr(), dout.data_ptr(), dx.data_ptr(), dw.data_ptr(), b, t, d,
+        w.shape[0], DTYPE_CODE[x.dtype], plan.cols, plan.groups, plan.cluster, plan.rows,
+        int(plan.vec), launch_stream(x.device))
     if err:
-        raise RuntimeError(f"token_shift_bwd launch failed: cudaError {err}")
-    token_shift_bwd_cuda.launches += 1
+        raise RuntimeError(f"token_shift_bwd launch failed ({plan}): cudaError {err}")
     return dx, dw
 
 
+def token_shift_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dout: torch.Tensor):
+    """The backward of :func:`token_shift_cuda`: x, dout (B, T, D) and w
+    (taps, D) of one dtype.  Returns (dx in x.dtype, dw in w.dtype), summed
+    in f32; one launch of :func:`plan_shift_bwd`'s plan, counted in
+    ``token_shift_bwd_cuda.launches``.  CPU tensors take the plain
+    version."""
+    if x.device.type == "cpu":
+        return token_shift_bwd_ref(x, w, dout)
+    _check_bwd("token_shift_bwd_cuda", x, w, dout)
+    b, t, d = x.shape
+    plan = plan_shift_bwd(b, t, d, w.shape[0], x.dtype, sm_count(x.device),
+                          pointer_alignment(x, w, dout))
+    out = _launch_bwd(x, w, dout, plan)
+    token_shift_bwd_cuda.launches += 1
+    return out
+
+
 token_shift_bwd_cuda.launches = 0
+
+
+def launch_bwd_plan(x: torch.Tensor, w: torch.Tensor, dout: torch.Tensor, *,
+                    plan: ShiftBwdPlan):
+    """The backward on CUDA tensors with a given plan (one of
+    :func:`shift_bwd_plans`); counts no launch."""
+    _check_bwd("launch_bwd_plan", x, w, dout)
+    b, t, d = x.shape
+    if plan not in shift_bwd_plans(b, t, d, w.shape[0], x.dtype,
+                                   pointer_alignment(x, w, dout)):
+        raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
+    return _launch_bwd(x, w, dout, plan)

@@ -1597,8 +1597,11 @@ def test_elevator_bwd_every_plan_bit_for_bit(cuda, b, t, d, off):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,d,taps", [(4, 4, 2560, 4), (4, 67, 2560, 4), (4, 259, 2560, 4),
-                                        (1, 4096, 2560, 4), (2, 130, 2562, 3), (1, 9, 64, 8)])
+                                        (1, 4096, 2560, 4), (2, 130, 2562, 3), (1, 9, 64, 8),
+                                        (2, 1024, 2560, 4)])
 def test_token_shift_bwd_matches_plain(cuda, dtype, b, t, d, taps):
+    """The wrapper's plan and every plan of ``shift_bwd_plans``: dx bit for
+    bit, dw within the gradient tolerance and repeating bit for bit."""
     rng = np.random.default_rng(t + d)
     x, dout = (torch.from_numpy(rng.standard_normal((b, t, d)).astype(np.float32)).to(cuda, dtype)
                for _ in range(2))
@@ -1609,6 +1612,42 @@ def test_token_shift_bwd_matches_plain(cuda, dtype, b, t, d, taps):
     _grad_close([dw], want[1:], dtype)
     again = TS_K.token_shift_bwd_cuda(x, w, dout)
     assert torch.equal(again[1], dw)
+    for plan in TS_K.shift_bwd_plans(b, t, d, taps, dtype):
+        got = TS_K.launch_bwd_plan(x, w, dout, plan=plan)
+        assert torch.equal(got[0], want[0]), plan
+        _grad_close([got[1]], want[1:], dtype)
+        assert torch.equal(TS_K.launch_bwd_plan(x, w, dout, plan=plan)[1], got[1]), plan
+
+
+def test_token_shift_bwd_off_the_16_byte_grid(cuda):
+    """Inputs that start 2 or 4 bytes into their storage take the scalar
+    variant in every plan (the 16-byte copies are refused for them), bit for
+    bit in dx as before; the shared-memory mirror equals the source's."""
+    from repro_torch.kernels import common
+
+    lib = common.load_library("token_shift")
+    for dtype, off in ((torch.float32, 1), (torch.bfloat16, 1), (torch.bfloat16, 2)):
+        b, t, d = 2, 67, 2560
+        rng = np.random.default_rng(off)
+        x, dout = (torch.from_numpy(rng.standard_normal(b * t * d + off).astype(np.float32))
+                   .to(cuda, dtype)[off:].view(b, t, d) for _ in range(2))
+        w = torch.from_numpy((rng.standard_normal((4, d)) * 0.1).astype(np.float32)).to(cuda, dtype)
+        want = TS_K.token_shift_bwd_ref(x, w, dout)
+        plans = TS_K.shift_bwd_plans(b, t, d, 4, dtype, common.pointer_alignment(x, w, dout))
+        assert not any(p.vec for p in plans)
+        for plan in plans + [None]:
+            got = (TS_K.token_shift_bwd_cuda(x, w, dout) if plan is None
+                   else TS_K.launch_bwd_plan(x, w, dout, plan=plan))
+            assert torch.equal(got[0], want[0]), plan
+            _grad_close([got[1]], want[1:], dtype)
+        with pytest.raises(RuntimeError, match="cudaError"):
+            TS_K._launch_bwd(x, w, dout, dataclasses.replace(plans[0], vec=True))
+    for plan in TS_K.shift_bwd_plans(1, 4096, 2560, 4, torch.bfloat16) + plans:
+        for taps in range(2, TS_K.MAX_TAPS + 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                assert lib.token_shift_bwd_smem(plan.groups, taps, plan.cols,
+                                                common.DTYPE_CODE[dtype]) == \
+                    TS_K.bwd_smem_bytes(plan, taps, dtype)
 
 
 def _card_and_cpu_grads(fn, args, cots):
@@ -1741,11 +1780,16 @@ BWD_FAULTS = {
              "    if (lane == 0) sm90::mbar_arrive(&empty[s]);\n"),
             ("    __syncwarp();                               // the stage is read: release it\n"
              "    if (lane == 0) sm90::mbar_arrive(&empty[s]);\n", ""))),
-    # The token shift's dw drops the first block's partial.
+    # The token shift's dw drops the first cluster rank's partial.
     "shift_dw_drops_a_partial": (
         "token_shift", "shift_bwd", torch.float32, ((
-            "  for (int p = 0; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n",
-            "  for (int p = 1; p < parts; ++p) s = __fadd_rn(s, part[(size_t)p * n + i]);\n"),)),
+            "    float acc = sm90::ld_cluster_f32(sm90::mapa(at + 4 * e, 0));\n",
+            "    float acc = 0.f;\n"),)),
+    # The token shift carries x's rows into the next sub-tile's dout window.
+    "shift_window_from_x": (
+        "token_shift", "shift_bwd", torch.bfloat16, ((
+            "    gw[k] = SUB + k < HALO ? gw[SUB + k] : at[2 * (SUB + k - HALO) * blockDim.x];\n",
+            "    gw[k] = SUB + k < HALO ? gw[SUB + k] : at[(2 * (SUB + k - HALO) + 1) * blockDim.x];\n"),)),
 }
 
 
