@@ -21,6 +21,17 @@ Phases (any failure raises and exits non-zero, with no result line):
    UBLKCP (bulk copy) instructions and every kernel's registers and spills
    of flash attention's backward library;
    fail if a count is 0 or a kernel spills (a stack frame or local memory);
+1b. every kernel launch that ``repro_torch.analysis.resources`` declares
+   for the ten full configs at the card's SM count (the planners' grids,
+   blocks, clusters and shared memory at the main paths' shapes): each
+   Python byte count (and the token shift's rows a thread) against the
+   library's own C answer, and the card's blocks an SM for the
+   instantiation each plan launches, from
+   ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with the plan's
+   dynamic shared memory, beside the blocks an SM shared memory allows, a
+   line per (kernel, arch, shape); then ``python -m repro_torch.analysis
+   --strict --sms <the card's>`` over every arch in a process of its own;
+   fail on an ERROR, a mismatch or 0 blocks an SM;
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
@@ -210,7 +221,8 @@ Phases (any failure raises and exits non-zero, with no result line):
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
-   8192) and the operand-forwarding matmul (the suite's 256^3, the
+   8192), every rows-a-thread plan bit for bit the planner's, and the
+   operand-forwarding matmul (the suite's 256^3, the
    reference test's (512, 256) x (256, 384) with blocks (256, 128, 128),
    4096^3, and the shapes that reach the planner's other branches:
    (1024, 256, 1024), (2048, 512, 2048), (33, 65, 17)); then the Rodinia
@@ -222,6 +234,7 @@ Phases (any failure raises and exits non-zero, with no result line):
 4. each kernel's median time at its main path's shapes beside its plain
    version's time, its bound and, where one PyTorch call computes the same
    function, that call's time (the paper-demo kernels also at 8192^2, the
+   stencil in every rows-a-thread plan, the
    matmul at 256^3 bf16 and 4096^3; flash attention also causal with no
    window at T=4096 against SDPA with ``is_causal=True``, whose backend is
    printed, and at Gemma3's two shapes (Hq 4, T=4096: window 1024 beside
@@ -263,6 +276,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -409,6 +423,9 @@ def main():
                  if "registers" in ln or "spill" in ln or "error" in ln]
         print(f"[build] {name}: {sec:.2f}s " + " | ".join(lines))
     _hopper_report(common)
+
+    # ---- 1b. every launch's geometry and shared memory against the card -----
+    _launch_resources(torch, common)
 
     # ---- 2. kernels against their plain versions ---------------------------
     worst = {"wkv_cuda": 0.0, "wkv_decode_cuda": 0.0, "wkv_decode_window_cuda": 0.0}
@@ -671,6 +688,65 @@ def main():
     print(smi.stdout.strip())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count()}}))
+
+
+def _launch_resources(torch, common):
+    """Phase 1b.  The resources pass over all ten full configs at the card's
+    SM count; for every launch it declares, each Python byte count (and the
+    token shift's rows a thread) against the library's own C answer, and the
+    blocks an SM the card reports for the instantiation the plan launches
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` through the library's
+    ``<library>_occupancy`` query, with the plan's dynamic shared memory)
+    beside the blocks an SM shared memory allows.  One line per (kernel,
+    arch, shape).  Then ``python -m repro_torch.analysis --strict`` over
+    every arch in a process of its own.  Fails on any ERROR, any mismatch,
+    or a launch the card fits no block of."""
+    from repro_torch.analysis import resources
+    from repro_torch.analysis.findings import Severity, format_table
+    from repro_torch.configs.registry import get_config, list_archs
+
+    t0 = time.perf_counter()
+    sms = common.sm_count(torch.device("cuda", 0))
+    archs = [get_config(a).name for a in list_archs()]
+    card = {}
+    n = 0
+    for arch in archs:
+        cfg = get_config(arch)
+        findings = resources.run(cfg, sms=sms)
+        bad = [f for f in findings if f.severity >= Severity.ERROR]
+        if bad:
+            raise SystemExit("resources pass failed:\n" + format_table(bad, title=arch))
+        for launch in resources.launches(cfg, sms):
+            lib = common.load_library(launch.library)
+            for entry, args, want in launch.queries:
+                got = getattr(lib, entry)(*args)
+                if got != want:
+                    raise SystemExit(f"{launch.kernel} [{arch} {launch.shape}]: {entry}{args} "
+                                     f"= {got}, the Python mirror says {want}")
+            key = (launch.library, launch.occupancy)
+            if key not in card:
+                args = tuple(launch.occupancy) + (0,) * (6 - len(launch.occupancy))
+                card[key] = getattr(lib, common.occupancy_entry(launch.library))(*args)
+            n += 1
+            print(f"[resources] {launch.kernel:26s} {arch:22s} {launch.shape:26s} "
+                  f"grid {str(launch.grid):15s} x {launch.threads:3d}"
+                  + (f" cluster {launch.cluster_size}" if launch.cluster_size > 1 else "")
+                  + f" smem {launch.dynamic_smem:6d} of {common.SMEM_LIMIT} B; blocks/SM: "
+                  f"{launch.smem_blocks_per_sm()} by smem, {card[key]} by the card")
+            if card[key] < 1:
+                raise SystemExit(f"{launch.kernel} [{arch} {launch.shape}]: the card fits "
+                                 f"{card[key]} blocks an SM (a negative number is a cudaError)")
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--strict", "--sms", str(sms)]
+    for arch in archs:
+        cmd += ["--arch", arch]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    print(f"[resources] python -m repro_torch.analysis --strict --sms {sms} over "
+          f"{len(archs)} archs: exit {res.returncode} ({len(res.stdout.splitlines())} lines)")
+    if res.returncode != 0:
+        raise SystemExit("the analysis CLI failed:\n" + res.stdout[-4000:] + res.stderr[-4000:])
+    print(f"[resources] {n} launches of {len(archs)} archs, {len(card)} instantiations "
+          f"queried, in {time.perf_counter() - t0:.1f}s")
 
 
 def _resource_usage(text):
@@ -4494,6 +4570,7 @@ def _paper_kernel_checks(torch):
 
     MM, ST = _paper_modules()
     worst = dict.fromkeys(PAPER_KERNELS, 0.0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             for h, w, coeffs, bnd in CC.STENCIL_CASES:
@@ -4506,13 +4583,18 @@ def _paper_kernel_checks(torch):
                 # f32: bit for bit; bf16: one ulp of the plain output.
                 ok = same if dtype == torch.float32 else bool(
                     (err <= CC.bf16_ulp(want)).all())
+                # Every rows-a-thread tile bit for bit the planner's.
+                plans = {r: torch.equal(ST.launch_plan(x, c, rows=r, boundary=bnd), got)
+                         for r in ST.ROW_TILES}
                 print(f"[paper-kernels] stencil2d_cuda  {h}x{w} c={coeffs} b={bnd} "
                       f"{str(dtype):15s} max_abs_err={float(err.max()):.3e} "
-                      f"bit-identical: {same} {'ok' if ok else 'FAIL'}")
+                      f"bit-identical: {same} {'ok' if ok else 'FAIL'}; plan "
+                      f"{ST.plan_stencil(h, w, dtype, sms)} rows, every plan bit-equal: {plans}")
                 if not ok:
                     raise SystemExit(f"stencil2d_cuda {h}x{w} {dtype} disagrees with its plain version")
+                if not all(plans.values()):
+                    raise SystemExit(f"stencil2d plans differ at {h}x{w} {dtype}: {plans}")
                 worst["stencil2d_cuda"] = max(worst["stencil2d_cuda"], float(err.max()))
-            sms = torch.cuda.get_device_properties(0).multi_processor_count
             for m, k, n, bm, bn, bk in CC.MATMUL_CASES:
                 a, b = _matmul_inputs(torch, m, k, n, dtype, seed=m + n)
                 got = MM.matmul_fwd_cuda(a, b, block_m=bm, block_n=bn, block_k=bk)
@@ -4654,6 +4736,14 @@ def _time_paper_kernels(torch, launches, worst):
                     lambda x, c: ST.stencil2d_cuda(x, c),
                     lambda x, c: ST.stencil2d_ref(x, c), conv2d, nbytes, 9 * h * w,
                     PEAK_F32_FLOPS, reps=100 if h < 8192 else 20)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            measured[-1]["plan_rows"] = ST.plan_stencil(h, w, f32, sms)
+            measured[-1]["plans"] = {
+                r: _time_ms(torch, lambda x, c, r=r: ST.launch_plan(x, c, rows=r), sets,
+                            reps=100 if h < 8192 else 20)[0] for r in ST.ROW_TILES}
+            print(f"[time] stencil2d_cuda {h}x{w}: planned {measured[-1]['plan_rows']} rows; "
+                  "every plan (rows: device us) " + ", ".join(
+                      f"{r}: {t * 1e3:.2f}" for r, t in measured[-1]["plans"].items()))
         torch.backends.cudnn.benchmark = False
         for dim, dtype, peak in ((256, f32, PEAK_F32_FLOPS), (256, bf, PEAK_BF16_FLOPS),
                                  (4096, bf, PEAK_BF16_FLOPS), (4096, f32, PEAK_F32_FLOPS)):
@@ -4673,7 +4763,8 @@ def _time_paper_kernels(torch, launches, worst):
         mine = [r for r in measured if r["name"] == name]
         rows.append({**mine[0], "large": [
             {k: r[k] for k in ("shape", "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms")} for r in mine[1:]]})
+                               "library_ms", "plan_rows", "plans") if k in r}
+            for r in mine[1:]]})
     return rows
 
 

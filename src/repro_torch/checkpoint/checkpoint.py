@@ -126,7 +126,8 @@ class AsyncSaver:
             if err is not None:
                 self._error = err
 
-    def save_async(self, directory, step, tree, *, mesh_shape=None):
+    def save_async(self, directory: str | os.PathLike, step: int, tree: Any, *,
+                   mesh_shape: tuple | None = None):
         self.wait()
         # Snapshot to host memory now (the caller may update the tree in
         # place on the next step); write in the background.

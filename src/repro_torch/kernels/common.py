@@ -1,5 +1,7 @@
 """Shared machinery of the port's kernels: device resolution, chunk
-resolution, and the build-and-load of the hand-written CUDA libraries.
+resolution, the build-and-load of the hand-written CUDA libraries, and the
+launch declarations (:class:`KernelLaunch`) that ``repro_torch.analysis``
+audits.
 
 Every CUDA source (``kernels/<name>/csrc/*.cu``) is compiled by ``nvcc``
 into its own shared library with a plain C interface and loaded through
@@ -17,12 +19,15 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
 import time
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable
 
 import torch
 
@@ -44,6 +49,25 @@ __all__ = [
     "load_library",
     "launch_stream",
     "sm_count",
+    "H100_SMS",
+    "SMEM_LIMIT",
+    "SMEM_PER_SM",
+    "SMEM_RESERVED",
+    "KernelLaunch",
+    "KERNEL_LAUNCH_SPECS",
+    "EVERY_ARCH_SPECS",
+    "register_launch_spec",
+    "occupancy_entry",
+    "scoring_shape",
+    "SERVE_BATCH",
+    "SERVE_PROMPT",
+    "DECODE_WINDOWS",
+    "TRAIN_BATCH",
+    "TRAIN_TOKENS",
+    "train_microbatch",
+    "SEQ_SHARDS",
+    "SEQ_PROMPT",
+    "SEQ_GRAD",
 ]
 
 
@@ -152,8 +176,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: stream as ``c_void_p``, else ctypes would pass each as a 32-bit int).
 #: Every entry point returns an int: the launches 0, a ``cudaError_t`` or
 #: 10000 + the ``CUresult`` of a tensor map, the ``*_smem`` functions a byte
-#: count.  :func:`open_library` binds them once, when the library is loaded,
-#: so no wrapper sets them on a call.
+#: count, and each library's ``<library>_occupancy(kernel, p0, .., p4)``
+#: the card's blocks an SM for the instantiation a plan launches (or minus
+#: a ``cudaError_t``).  :func:`open_library` binds them once, when the
+#: library is loaded, so no wrapper sets them on a call.
 ENTRY_POINTS = {
     "wkv_chunked": {
         "wkv_chunked_fwd": [_P] * 8 + [_I] * 7 + [_P],
@@ -161,28 +187,43 @@ ENTRY_POINTS = {
         "wkv_chunked_summary_fwd": [_P] * 9 + [_I] * 8 + [_P],
         "wkv_chunked_train_summary_fwd": [_P] * 10 + [_I] * 8 + [_P],
         "wkv_chunked_smem": [_I] * 3,
+        "wkv_chunked_occupancy": [_I] * 6,
     },
     "wkv_decode": {
         "wkv_decode_window_fwd": [_P] * 8 + [_I] * 6 + [_P],
         "wkv_decode_smem": [_I] * 2,
+        "wkv_decode_occupancy": [_I] * 6,
     },
     "wkv_bwd": {
         "wkv_bwd": [_P] * 14 + [_I] * 8 + [_P],
         "wkv_bwd_smem": [_I] * 3,
+        "wkv_bwd_occupancy": [_I] * 6,
     },
     "elevator_scan": {
         "elevator_scan_fwd": [_P] * 4 + [_I] * 7 + [_P],
         "elevator_decode_window_fwd": [_P] * 5 + [_I] * 7 + [_P],
         "elevator_scan_bwd": [_P] * 7 + [_I] * 6 + [_P],
+        "elevator_scan_smem": [_I] * 5,
+        "elevator_window_smem": [_I] * 4,
+        "elevator_scan_bwd_smem": [_I] * 4,
+        "elevator_scan_occupancy": [_I] * 6,
     },
     "token_shift": {"token_shift_fwd": [_P] * 3 + [_I] * 5 + [_P],
                     "token_shift_bwd": [_P] * 5 + [_I] * 10 + [_P],
-                    "token_shift_bwd_smem": [_I] * 4},
-    "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P]},
+                    "token_shift_bwd_smem": [_I] * 4,
+                    "token_shift_fwd_rows": [_I] * 5,
+                    "token_shift_occupancy": [_I] * 6},
+    "flash_attention": {"flash_attention_fwd": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
+                        "flash_fwd_smem": [_I] * 2,
+                        "flash_attention_occupancy": [_I] * 6},
     "flash_attention_bwd": {"flash_attention_bwd": [_P] * 10 + [_I] * 8 + [_F] + [_I] * 6 + [_P],
-                            "flash_bwd_smem": [_I] * 3},
-    "stencil2d": {"stencil2d_fwd": [_P] * 3 + [_I] * 2 + [_F, _I, _P]},
-    "matmul_fwd": {"matmul_fwd": [_P] * 4 + [_I] * 8 + [_P]},
+                            "flash_bwd_smem": [_I] * 3,
+                            "flash_attention_bwd_occupancy": [_I] * 6},
+    "stencil2d": {"stencil2d_fwd": [_P] * 3 + [_I] * 2 + [_F, _I, _I, _P],
+                  "stencil2d_occupancy": [_I] * 6},
+    "matmul_fwd": {"matmul_fwd": [_P] * 4 + [_I] * 8 + [_P],
+                   "matmul_smem": [_I] * 3,
+                   "matmul_fwd_occupancy": [_I] * 6},
 }
 
 _LOCK = threading.Lock()
@@ -277,3 +318,119 @@ def launch_stream(device: torch.device) -> int:
 def sm_count(device: torch.device) -> int:
     """The SMs of the card ``device`` names (read once per device)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# --------------------------------------------------------------------------
+# Launch declarations
+# --------------------------------------------------------------------------
+
+#: The SMs of the card the planners plan for by default (H100 SXM).
+H100_SMS = 132
+#: Dynamic shared memory one block may opt in to on the H100 (227 KB), the
+#: shared memory of an SM, and what the card reserves of it for each
+#: resident block: 232448 + 1024 = 233472, so a block at the limit still
+#: lands one block an SM.
+SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
+SMEM_RESERVED = 1024
+
+
+@dataclass(frozen=True)
+class KernelLaunch:
+    """One kernel launch that a main path makes at full width, as its
+    planner and its launcher shape it.
+
+    ``kernel`` names the wrapper (its launch counter's name), ``shape`` the
+    path and its inputs, ``location`` the launcher in the repo.  ``grid``,
+    ``threads``, ``cluster`` and ``dynamic_smem`` are what the launcher
+    passes; ``static_smem`` the kernel's ``__shared__`` bytes where known.
+    ``occupancy`` holds the arguments of the library's
+    ``<library>_occupancy`` query for the instantiation this launch takes;
+    each entry of ``queries`` is a C entry point, its arguments and the
+    value the Python mirror computed (the C must answer the same).
+    ``meta`` keeps the launch's dimensions for the passes' cross-checks, and
+    ``state_bytes`` the recurrent state a block reads and writes in device
+    memory, where it has one."""
+
+    kernel: str
+    location: str
+    shape: str
+    grid: tuple[int, int, int]
+    threads: int
+    dynamic_smem: int
+    library: str
+    occupancy: tuple[int, ...]
+    queries: tuple[tuple[str, tuple[int, ...], int], ...] = ()
+    cluster: tuple[int, int, int] = (1, 1, 1)
+    static_smem: int | None = None
+    state_bytes: int | None = None
+    meta: tuple[tuple[str, int], ...] = ()
+
+    @property
+    def blocks(self) -> int:
+        return math.prod(self.grid)
+
+    @property
+    def cluster_size(self) -> int:
+        return math.prod(self.cluster)
+
+    def smem_blocks_per_sm(self) -> int:
+        """Blocks an SM that shared memory alone allows: the SM's bytes over
+        a block's static and dynamic bytes and the card's reservation."""
+        per = self.dynamic_smem + (self.static_smem or 0) + SMEM_RESERVED
+        return SMEM_PER_SM // per
+
+
+#: kernel name -> ``fn(cfg, sms) -> list[KernelLaunch]`` (empty where the
+#: arch never launches the kernel).  Each kernel's module registers its own,
+#: from its own planner.
+KERNEL_LAUNCH_SPECS: dict[str, Callable] = {}
+#: The specs whose launches do not depend on the arch (the paper demo's).
+EVERY_ARCH_SPECS: set[str] = set()
+
+
+def register_launch_spec(name: str, fn: Callable, *, every_arch: bool = False) -> Callable:
+    """Register ``fn(cfg, sms)`` as the launch spec of kernel ``name``."""
+    KERNEL_LAUNCH_SPECS[name] = fn
+    if every_arch:
+        EVERY_ARCH_SPECS.add(name)
+    return fn
+
+
+def occupancy_entry(library: str) -> str:
+    """The C entry point of ``library``'s launch query."""
+    return f"{library}_occupancy"
+
+
+# The main paths' shapes at full width (PERF.md, section 4), which the
+# launch specs cover: serving prefill B=4 of 256-token prompts and decode
+# windows of these sizes, prompt scoring (B=1, T=4096; the MoE archs B=8,
+# T=1024 in their prefill chunks), each training microbatch, and the
+# sequence-parallel path's shards.
+SERVE_BATCH = 4
+SERVE_PROMPT = 256
+DECODE_WINDOWS = (1, 8, 32, 64)
+#: The trained archs' batch and tokens (``chip_smoke.py`` phases 3b, 3n),
+#: split into ``cfg.microbatch`` microbatches.
+TRAIN_BATCH = 8
+TRAIN_TOKENS = {"rwkv6-1.6b": 256, "gemma3-1b": 2048, "recurrentgemma-2b": 1024}
+#: The seq path's shards, its prefill's prompt and its gradient's tokens.
+SEQ_SHARDS, SEQ_PROMPT, SEQ_GRAD = 4, 4096, 2048
+_SCORING, _SCORING_CHUNKED = (1, 4096), (8, 1024)
+
+
+def train_microbatch(cfg) -> tuple[int, int] | None:
+    """(batch, tokens) of one training microbatch of a trained arch, or
+    None: RWKV6 (4, 256), Gemma3-1B (4, 2048), RecurrentGemma-2B (2,
+    1024)."""
+    if cfg.name not in TRAIN_TOKENS:
+        return None
+    return TRAIN_BATCH // max(1, cfg.microbatch), TRAIN_TOKENS[cfg.name]
+
+
+def scoring_shape(cfg) -> tuple[int, int]:
+    """(batch of one prefill chunk, tokens) of the arch's prompt scoring."""
+    if cfg.prefill_chunks > 1:
+        b, t = _SCORING_CHUNKED
+        return max(1, b // cfg.prefill_chunks), t
+    return _SCORING

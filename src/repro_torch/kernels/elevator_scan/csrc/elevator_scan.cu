@@ -140,6 +140,15 @@ __host__ __device__ constexpr int stage_rows(int mode) {
   return mode == 1 ? LOADER_ROWS : RING_ROWS;
 }
 
+// The ring's depth a launch takes for a plan's `stages`: no more than T has
+// chunks, and for the loader warps (mode 1), who take chunks in turn, at
+// least LOADERS, so any waiter stays within one phase of its barrier.
+__host__ __device__ constexpr int ring_stages(int stages, int mode, int Tn) {
+  const int nchunks = (Tn + stage_rows(mode) - 1) / stage_rows(mode);
+  const int ring = mode == 1 && stages < LOADERS ? LOADERS : stages;
+  return ring < nchunks ? ring : nchunks;
+}
+
 // Mode 1's loader warps: chunk c's rows of a and x, element by element (any
 // layout), into its stage, a lane a column of every 32 / COLS-th row.
 template <typename T, int COLS>
@@ -433,13 +442,9 @@ int launch_scan(const void* a, const void* x, const void* h0, void* out, int B, 
                 int cols, int stages, int mode, cudaStream_t stream) {
   if (stages < 1 || stages > MAX_STAGES || (mode != 0 && mode != 1))
     return (int)cudaErrorInvalidValue;
-  const int R = stage_rows(mode), nchunks = (Tn + R - 1) / R;
+  const int ns = ring_stages(stages, mode, Tn);
   if (mode == 1) {
     if (cols != LOADER_COLS) return (int)cudaErrorInvalidValue;
-    // The loader warps take chunks in turn: a ring of at least LOADERS
-    // stages keeps any waiter within one phase of its barrier.
-    const int ring = stages > LOADERS ? stages : LOADERS;
-    const int ns = ring < nchunks ? ring : nchunks;
     return launch_mode<T, 1, LOADER_COLS>(a, x, h0, out, B, Tn, D, ns, stream);
   }
   // The chain warp's lanes, 16 or 32, a 4-byte word of a row each.
@@ -447,7 +452,6 @@ int launch_scan(const void* a, const void* x, const void* h0, void* out, int B, 
   if (cols != 16 * per && cols != 32 * per) return (int)cudaErrorInvalidValue;
   if ((D * sizeof(T)) % 16 != 0 || misaligned(a, 16) || misaligned(x, 16) || misaligned(out, 16))
     return (int)cudaErrorMisalignedAddress;
-  const int ns = stages < nchunks ? stages : nchunks;
   if (cols == 32 * per) return launch_mode<T, 0, 32>(a, x, h0, out, B, Tn, D, ns, stream);
   return launch_mode<T, 0, 16>(a, x, h0, out, B, Tn, D, ns, stream);
 }
@@ -498,6 +502,12 @@ int launch_window_tma(const void* a, const void* x, const void* h0, void* out, v
   return (int)cudaGetLastError();
 }
 
+// The tokens whose loads a register-window thread issues at once: 1 for a
+// single step, else the window rounded up to 8 tokens, at most WIN_KMAX.
+__host__ __device__ constexpr int window_kmax(int K) {
+  return K == 1 ? 1 : (K >= WIN_KMAX ? WIN_KMAX : (K + 7) / 8 * 8);
+}
+
 template <typename T>
 int launch_window(const void* a, const void* x, const void* h0, void* out, void* h_out, int B,
                   int K, int D, int vec, int threads, int mode, cudaStream_t s) {
@@ -513,9 +523,7 @@ int launch_window(const void* a, const void* x, const void* h0, void* out, void*
     return (int)cudaErrorInvalidValue;
   }
   if (mode != 0 || D % vec != 0) return (int)cudaErrorInvalidValue;
-  // The tokens whose loads go out at once: 1 for a single step, else the
-  // window rounded up to 8 tokens, at most WIN_KMAX.
-  const int kmax = K == 1 ? 1 : (K >= WIN_KMAX ? WIN_KMAX : (K + 7) / 8 * 8);
+  const int kmax = window_kmax(K);
   const uintptr_t bytes = vec * sizeof(T);
   for (const void* p : {a, x, static_cast<const void*>(out)})
     if (misaligned(p, bytes)) return (int)cudaErrorMisalignedAddress;
@@ -747,6 +755,76 @@ int launch_bwd_mode(const float* a, const float* h, const float* h0, const float
   return (int)cudaGetLastError();
 }
 
+// Blocks an SM of an instantiation with a launch's block and dynamic shared
+// memory, opted in as the launchers do; or minus a cudaError_t.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
+  int err = allow_smem(kernel, smem);
+  int n = 0;
+  if (!err) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return err ? -err : n;
+}
+
+// The scan's block: its chain warp and one producer (mode 0) or LOADERS.
+__host__ __device__ constexpr int scan_threads(int mode) { return 32 * (1 + (mode == 1 ? LOADERS : 1)); }
+
+template <typename T>
+int scan_occupancy(int cols, int stages, int mode, int Tn) {
+  const int per = 4 / (int)sizeof(T), ns = ring_stages(stages, mode, Tn);
+  if (mode == 1 && cols == LOADER_COLS)
+    return blocks_per_sm(elevator_scan_kernel<T, 1, LOADER_COLS>, scan_threads(1),
+                         scan_smem(stage_rows(1), cols, sizeof(T), ns));
+  const int smem = scan_smem(stage_rows(0), cols, sizeof(T), ns);
+  if (mode == 0 && cols == 32 * per)
+    return blocks_per_sm(elevator_scan_kernel<T, 0, 32>, scan_threads(0), smem);
+  if (mode == 0 && cols == 16 * per)
+    return blocks_per_sm(elevator_scan_kernel<T, 0, 16>, scan_threads(0), smem);
+  return -(int)cudaErrorInvalidValue;
+}
+
+template <typename T, int V>
+int window_regs_occupancy(int kmax, int threads) {
+  switch (kmax) {
+#define WIN_OCC(KM)                                                              \
+  case KM:                                                                       \
+    if constexpr (2 * V * KM > WIN_VALUES) return -(int)cudaErrorInvalidValue;   \
+    else return blocks_per_sm(elevator_window_kernel<T, V, KM>, threads, 0);
+    WIN_OCC(1) WIN_OCC(8) WIN_OCC(16) WIN_OCC(24) WIN_OCC(32)
+#undef WIN_OCC
+  }
+  return -(int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int window_occupancy(int K, int vec, int threads, int mode) {
+  if (mode == 1) {
+    const int smem = window_smem(K, threads, sizeof(T));
+    if (threads == 128) return blocks_per_sm(elevator_window_tma_kernel<T, 128>, 128, smem);
+    if (threads == 64) return blocks_per_sm(elevator_window_tma_kernel<T, 64>, 64, smem);
+    if (threads == 32) return blocks_per_sm(elevator_window_tma_kernel<T, 32>, 32, smem);
+    return -(int)cudaErrorInvalidValue;
+  }
+  const int kmax = window_kmax(K);
+  if (vec == 4) return window_regs_occupancy<T, 4>(kmax, threads);
+  if (vec == 2) return window_regs_occupancy<T, 2>(kmax, threads);
+  if (vec == 1) return window_regs_occupancy<T, 1>(kmax, threads);
+  return -(int)cudaErrorInvalidValue;
+}
+
+int scan_bwd_occupancy(int cols, int stages, int mode, int Tn) {
+  const int ns = ring_stages(stages, mode, Tn);
+  if (mode == 1 && cols == LOADER_COLS)
+    return blocks_per_sm(elevator_scan_bwd_kernel<1, LOADER_COLS>, scan_threads(1),
+                         scan_bwd_smem(stage_rows(1), cols, ns));
+  if (mode == 0 && cols == 32)
+    return blocks_per_sm(elevator_scan_bwd_kernel<0, 32>, scan_threads(0),
+                         scan_bwd_smem(stage_rows(0), cols, ns));
+  if (mode == 0 && cols == 16)
+    return blocks_per_sm(elevator_scan_bwd_kernel<0, 16>, scan_threads(0),
+                         scan_bwd_smem(stage_rows(0), cols, ns));
+  return -(int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (a, x, out); h0 float32 or null (zeros).
@@ -804,17 +882,50 @@ extern "C" int elevator_scan_bwd(const float* a, const float* h, const float* h0
   if (B < 1 || B > 65535 || Tn < 1 || D < 1 || stages < 1 || stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = stage_rows(mode), nchunks = (Tn + R - 1) / R;
+  const int ns = ring_stages(stages, mode, Tn);
   if (mode == 1) {
     if (cols != LOADER_COLS) return (int)cudaErrorInvalidValue;
-    const int ring = stages > LOADERS ? stages : LOADERS;
-    const int ns = ring < nchunks ? ring : nchunks;
     return launch_bwd_mode<1, LOADER_COLS>(a, h, h0, dh, da, dx, dh0, B, Tn, D, ns, s);
   }
   if (mode != 0 || (cols != 16 && cols != 32)) return (int)cudaErrorInvalidValue;
   if ((D * 4) % 16 != 0 || misaligned(a, 16) || misaligned(h, 16) || misaligned(dh, 16))
     return (int)cudaErrorMisalignedAddress;
-  const int ns = stages < nchunks ? stages : nchunks;
   if (cols == 32) return launch_bwd_mode<0, 32>(a, h, h0, dh, da, dx, dh0, B, Tn, D, ns, s);
   return launch_bwd_mode<0, 16>(a, h, h0, dh, da, dx, dh0, B, Tn, D, ns, s);
+}
+
+// The dynamic shared memory (bytes) one block of the chunked scan takes for
+// a plan (dtype, cols channels, stages, mode) over T rows: scan_smem at the
+// ring's depth ring_stages gives the launch (the planner's mirror,
+// elevator_scan/kernel.py:scan_smem_bytes).
+extern "C" int elevator_scan_smem(int Tn, int dtype, int cols, int stages, int mode) {
+  return scan_smem(stage_rows(mode), cols, dtype == 0 ? 4 : 2, ring_stages(stages, mode, Tn));
+}
+
+// The window's dynamic shared memory for a K-token window: window_smem for
+// the staged mode (1, `threads` channels a block), none for the register
+// mode (0) (the mirror, elevator_scan/decode.py:window_smem_bytes).
+extern "C" int elevator_window_smem(int K, int dtype, int threads, int mode) {
+  return mode == 1 ? window_smem(K, threads, dtype == 0 ? 4 : 2) : 0;
+}
+
+// The backward's dynamic shared memory for a plan over T rows (the mirror,
+// elevator_scan/kernel.py:scan_bwd_smem_bytes).
+extern "C" int elevator_scan_bwd_smem(int Tn, int cols, int stages, int mode) {
+  return scan_bwd_smem(stage_rows(mode), cols, ring_stages(stages, mode, Tn));
+}
+
+// The library's launch query: blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor on the instantiation a plan
+// launches, with its dynamic shared memory, or minus a cudaError_t.
+//   kernel 0, the chunked scan: p0 dtype, p1 cols, p2 stages, p3 mode, p4 T;
+//   kernel 1, the window: p0 dtype, p1 K, p2 vec, p3 threads, p4 mode;
+//   kernel 2, the backward: p0 cols, p1 stages, p2 mode, p3 T.
+extern "C" int elevator_scan_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  if (kernel == 0 && p0 == 0) return scan_occupancy<float>(p1, p2, p3, p4);
+  if (kernel == 0 && p0 == 1) return scan_occupancy<__nv_bfloat16>(p1, p2, p3, p4);
+  if (kernel == 1 && p0 == 0) return window_occupancy<float>(p1, p2, p3, p4);
+  if (kernel == 1 && p0 == 1) return window_occupancy<__nv_bfloat16>(p1, p2, p3, p4);
+  if (kernel == 2) return scan_bwd_occupancy(p0, p1, p2, p3);
+  return -(int)cudaErrorInvalidValue;
 }

@@ -31,8 +31,21 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.common import DTYPE_CODE, launch_stream, load_library, sm_count
-from repro_torch.kernels.elevator_scan.kernel import check_scan_args, pointer_alignment
+from repro_torch.kernels.common import (
+    DECODE_WINDOWS,
+    DTYPE_CODE,
+    SERVE_BATCH,
+    KernelLaunch,
+    launch_stream,
+    load_library,
+    register_launch_spec,
+    sm_count,
+)
+from repro_torch.kernels.elevator_scan.kernel import (
+    check_scan_args,
+    pointer_alignment,
+    rglru_width,
+)
 from repro_torch.kernels.elevator_scan.ref import elevator_scan_ref_f32
 
 # Stateful (decode) dispatches at or below this many tokens take the window
@@ -59,7 +72,7 @@ WINDOW_MODES = {"regs": 0, "tma": 1}
 __all__ = ["ELEVATOR_DECODE_WINDOW_MAX", "WINDOW_VECS", "WINDOW_THREADS", "WINDOW_TMA_COLS",
            "WINDOW_MODES", "WindowPlan", "window_kmax", "window_uses_tma", "plan_window",
            "window_plans", "launch_plan", "elevator_decode_window_cuda",
-           "elevator_decode_window_plain"]
+           "elevator_decode_window_plain", "window_smem_bytes"]
 
 
 @dataclass(frozen=True)
@@ -190,3 +203,49 @@ def elevator_decode_window_cuda(a: torch.Tensor, x: torch.Tensor,
 
 
 elevator_decode_window_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Shared memory and launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+
+def window_smem_bytes(plan: WindowPlan, k: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the window: for the staged mode
+    the barrier and the a and x tiles (k rows of ``plan.threads`` channels,
+    each on a 128-byte boundary: the source's ``window_smem``), none for the
+    register mode.  The source's ``elevator_window_smem`` returns the
+    same."""
+    if plan.mode != "tma":
+        return 0
+    tile = -(-(k * plan.threads * _item(dtype)) // 128) * 128
+    return 128 + 2 * tile
+
+
+def window_launch(shape, plan, b, k, d, dtype):
+    """The launch of ``plan`` for a k-token window of (b, d) channels."""
+    code, mode = DTYPE_CODE[dtype], WINDOW_MODES[plan.mode]
+    per_block = plan.threads * plan.vec
+    smem = window_smem_bytes(plan, k, dtype)
+    return KernelLaunch(
+        kernel="elevator_decode_window_cuda",
+        location=("src/repro_torch/kernels/elevator_scan/csrc/elevator_scan.cu:"
+                  + ("launch_window_tma" if plan.mode == "tma" else "launch_window_k")),
+        shape=shape, grid=(-(-d // per_block), b, 1), threads=plan.threads, dynamic_smem=smem,
+        library="elevator_scan", occupancy=(1, code, k, plan.vec, plan.threads, mode),
+        queries=(("elevator_window_smem", (k, code, plan.threads, mode), smem),),
+        meta=(("b", b), ("k", k), ("d", d)))
+
+
+def _window_spec(cfg, sms):
+    """The window's launches: every decode window size at serving's batch
+    (a single step and the admissions' windows)."""
+    d = rglru_width(cfg)
+    if d is None:
+        return []
+    f32, b = torch.float32, SERVE_BATCH
+    return [window_launch(f"decode B={b} K={k}", plan_window(b, k, d, f32, sms),
+                          b, k, d, f32) for k in DECODE_WINDOWS]
+
+
+register_launch_spec("elevator_decode_window_cuda", _window_spec)

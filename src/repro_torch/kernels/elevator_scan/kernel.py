@@ -35,11 +35,17 @@ import torch
 
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    SERVE_BATCH,
+    SERVE_PROMPT,
+    KernelLaunch,
     check_kernel_tensors,
     launch_stream,
     load_library,
     pointer_alignment,
+    register_launch_spec,
+    scoring_shape,
     sm_count,
+    train_microbatch,
 )
 from repro_torch.kernels.elevator_scan.ref import elevator_scan_bwd_ref, elevator_scan_ref
 
@@ -47,7 +53,8 @@ __all__ = ["SCAN_ROW_BYTES", "LOADER_COLS", "SCAN_ROWS", "RING_BYTES", "MAX_STAG
            "SCAN_MODES", "ScanPlan", "plan_scan", "scan_plans", "uses_tma", "pointer_alignment",
            "launch_plan", "elevator_scan_cuda", "elevator_scan_ref", "check_scan_args",
            "BWD_RING_BYTES", "BWD_FILL", "plan_scan_bwd", "scan_bwd_plans", "launch_bwd_plan",
-           "elevator_scan_bwd_cuda", "elevator_scan_bwd_ref"]
+           "elevator_scan_bwd_cuda", "elevator_scan_bwd_ref", "ring_stages", "scan_threads",
+           "scan_smem_bytes", "scan_bwd_smem_bytes"]
 
 #: The bytes of one row that a block of the TMA ring reads (its channels
 #: times the element size), widest first: 128 or 64 (32 or 16 f32 channels,
@@ -300,3 +307,97 @@ def launch_bwd_plan(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     if plan not in scan_bwd_plans(b, t, d, pointer_alignment(a, h, dh)):
         raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
     return _launch_bwd(a, h, dh, h0, plan)
+
+
+# --------------------------------------------------------------------------
+# Shared memory and launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+#: Shared bytes before a block's ring: its stages' barriers (the source's
+#: HEADER).
+_HEADER = 256
+
+
+def ring_stages(plan: ScanPlan, t: int) -> int:
+    """The ring's depth a launch of ``plan`` over ``t`` rows takes (the
+    source's ``ring_stages``): no more stages than T has chunks, and the
+    loader-warp variant at least its three loader warps' worth."""
+    chunks = -(-t // SCAN_ROWS[plan.mode])
+    ring = max(plan.stages, _LOADERS) if plan.mode == "loaders" else plan.stages
+    return min(ring, chunks)
+
+
+def scan_threads(plan: ScanPlan) -> int:
+    """Threads of a block: the chain warp and one producer warp, or the
+    loader warps."""
+    return 32 * (1 + (_LOADERS if plan.mode == "loaders" else 1))
+
+
+def scan_smem_bytes(plan: ScanPlan, t: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the chunked scan (the source's
+    ``scan_smem`` at the depth :func:`ring_stages` gives): the barriers, then
+    the ring's a and x tiles of ``SCAN_ROWS[mode]`` rows by ``plan.cols``
+    channels.  The source's ``elevator_scan_smem`` returns the same."""
+    item = _check_dtype("scan_smem_bytes", dtype)
+    return _HEADER + 2 * ring_stages(plan, t) * SCAN_ROWS[plan.mode] * plan.cols * item
+
+
+def scan_bwd_smem_bytes(plan: ScanPlan, t: int) -> int:
+    """Dynamic shared memory of one block of the backward (the source's
+    ``scan_bwd_smem``): the barriers and three f32 tiles a stage (a, dh, h).
+    The source's ``elevator_scan_bwd_smem`` returns the same."""
+    return _HEADER + 3 * ring_stages(plan, t) * SCAN_ROWS[plan.mode] * plan.cols * 4
+
+
+def scan_launch(kernel, shape, plan, b, t, d, dtype, bwd=False):
+    """The launch of ``plan`` over (b, t, d): a block ``plan.cols`` channels
+    of one batch row.  The occupancy query takes the backward's tile in
+    channels, the forward's in channels too (the C maps them to lanes)."""
+    mode = SCAN_MODES[plan.mode]
+    if bwd:
+        smem = scan_bwd_smem_bytes(plan, t)
+        occ = (2, plan.cols, plan.stages, mode, t)
+        query = ("elevator_scan_bwd_smem", (t, plan.cols, plan.stages, mode), smem)
+    else:
+        smem = scan_smem_bytes(plan, t, dtype)
+        code = DTYPE_CODE[dtype]
+        occ = (0, code, plan.cols, plan.stages, mode, t)
+        query = ("elevator_scan_smem", (t, code, plan.cols, plan.stages, mode), smem)
+    return KernelLaunch(
+        kernel=kernel, location=("src/repro_torch/kernels/elevator_scan/csrc/elevator_scan.cu:"
+                                 + ("launch_bwd_mode" if bwd else "launch_mode")),
+        shape=shape, grid=(-(-d // plan.cols), b, 1), threads=scan_threads(plan),
+        dynamic_smem=smem, library="elevator_scan", occupancy=occ, queries=(query,),
+        meta=(("b", b), ("t", t), ("d", d), ("cols", plan.cols)))
+
+
+def rglru_width(cfg):
+    """The RG-LRU's width (its scans run in f32), or None without one."""
+    return cfg.d_rnn if cfg.rglru else None
+
+
+def _scan_spec(cfg, sms):
+    """The chunked scan's launches: the serving prefill (longer than a
+    decode window), scoring and a training microbatch."""
+    d = rglru_width(cfg)
+    if d is None:
+        return []
+    shapes = [("prefill", SERVE_BATCH, SERVE_PROMPT), ("scoring", *scoring_shape(cfg))]
+    if train_microbatch(cfg):
+        shapes.append(("train", *train_microbatch(cfg)))
+    f32 = torch.float32
+    return [scan_launch("elevator_scan_cuda", f"{path} B={b} T={t}",
+                        plan_scan(b, t, d, f32, sms), b, t, d, f32) for path, b, t in shapes]
+
+
+def _scan_bwd_spec(cfg, sms):
+    d = rglru_width(cfg)
+    if d is None or not train_microbatch(cfg):
+        return []
+    b, t = train_microbatch(cfg)
+    return [scan_launch("elevator_scan_bwd_cuda", f"train B={b} T={t}",
+                        plan_scan_bwd(b, t, d, sms), b, t, d, torch.float32, bwd=True)]
+
+
+register_launch_spec("elevator_scan_cuda", _scan_spec)
+register_launch_spec("elevator_scan_bwd_cuda", _scan_bwd_spec)

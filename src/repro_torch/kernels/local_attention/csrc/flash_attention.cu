@@ -486,10 +486,17 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out, float* l
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory of one block of the f32 kernel: its Q rows, the
+// padded K tile and the V tile.
+template <int D>
+__host__ __device__ constexpr int f32_smem() {
+  return (F_BQ * D + F_BK * (D + 1) + F_BK * D) * (int)sizeof(float);
+}
+
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                int Hq, int group, const Mask& mask, float scale, cudaStream_t s) {
-  const int smem = (F_BQ * D + F_BK * (D + 1) + F_BK * D) * (int)sizeof(float);
+  const int smem = f32_smem<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -498,6 +505,29 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, float* ls
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, Hq, group, mask, scale);
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM of the instantiation a launch takes (the card's own answer,
+// with the launch's dynamic shared memory opted in as the launcher does),
+// or minus a cudaError_t.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <int D>
+int occupancy_bf16(int lse) {
+  using P = FlashPlan<D>;
+  return lse ? blocks_per_sm(flash_wgmma_kernel<D, true>, FA_THREADS, P::SMEM)
+             : blocks_per_sm(flash_wgmma_kernel<D, false>, FA_THREADS, P::SMEM);
+}
+
+template <int D>
+int occupancy_f32() {
+  return blocks_per_sm(flash_f32_kernel<D>, NW * 32, f32_smem<D>());
 }
 
 }  // namespace
@@ -540,4 +570,55 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
     }
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory (bytes) of one block of the forward at head
+// width d and dtype (0 = float32, 1 = bfloat16): the bf16 kernel's
+// FlashPlan::SMEM or the f32 kernel's f32_smem, the numbers the launchers
+// pass (the planner's mirror, local_attention/kernel.py:fwd_smem_bytes); -1
+// for a width that is not compiled.
+extern "C" int flash_fwd_smem(int d, int dtype) {
+  if (dtype == 1) {
+    switch (d) {
+      case 32: return FlashPlan<32>::SMEM;
+      case 64: return FlashPlan<64>::SMEM;
+      case 128: return FlashPlan<128>::SMEM;
+      case 256: return FlashPlan<256>::SMEM;
+    }
+  } else if (dtype == 0) {
+    switch (d) {
+      case 32: return f32_smem<32>();
+      case 64: return f32_smem<64>();
+      case 96: return f32_smem<96>();
+      case 128: return f32_smem<128>();
+      case 256: return f32_smem<256>();
+    }
+  }
+  return -1;
+}
+
+// The library's launch query (kernel 0, the forward; p0 the head width, p1
+// the dtype, p2 1 for the instantiation that writes the log-sum-exp):
+// blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor, or minus
+// a cudaError_t.
+extern "C" int flash_attention_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  (void)p3, (void)p4;
+  if (kernel != 0) return -(int)cudaErrorInvalidValue;
+  if (p1 == 1) {
+    switch (p0) {
+      case 32: return occupancy_bf16<32>(p2);
+      case 64: return occupancy_bf16<64>(p2);
+      case 128: return occupancy_bf16<128>(p2);
+      case 256: return occupancy_bf16<256>(p2);
+    }
+  } else if (p1 == 0) {
+    switch (p0) {
+      case 32: return occupancy_f32<32>();
+      case 64: return occupancy_f32<64>();
+      case 96: return occupancy_f32<96>();
+      case 128: return occupancy_f32<128>();
+      case 256: return occupancy_f32<256>();
+    }
+  }
+  return -(int)cudaErrorInvalidValue;
 }

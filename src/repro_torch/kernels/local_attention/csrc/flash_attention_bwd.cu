@@ -943,6 +943,26 @@ int launch_f32(const void* q, const void* k, const void* v, const void* dout, co
   return (int)cudaGetLastError();
 }
 
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 0)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+// Blocks an SM of the bf16 backward's kernel 0 (dK/dV), 1 (dQ) or 2 (prep)
+// at a ring of `stages`, with the shared memory its launcher gives it.
+template <int D>
+int occupancy_bf16(int kernel, int stages) {
+  if (kernel == 0) return blocks_per_sm(flash_bwd_dkdv_wgmma_kernel<D>, BW_THREADS, dkdv_smem<D>(stages));
+  if (kernel == 1) return blocks_per_sm(flash_bwd_dq_wgmma_kernel<D>, BW_THREADS, dq_smem<D>(stages));
+  if (kernel == 2) return blocks_per_sm(flash_bwd_prep_kernel<D>, NT, 0);
+  return -(int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // q, out, dout, dq: (B, Hq, T, D); k, v, dk, dv: (B, Hkv, S, D); all
@@ -1009,5 +1029,21 @@ extern "C" int flash_bwd_smem(int d, int kernel, int stages) {
     case 128: return kernel == 0 ? dkdv_smem<128>(stages) : dq_smem<128>(stages);
     case 256: return kernel == 0 ? dkdv_smem<256>(stages) : dq_smem<256>(stages);
     default: return -1;
+  }
+}
+
+// The library's launch query for the bf16 backward (kernel 0 dK/dV, 1 dQ, 2
+// prep; p0 the head width, p1 the ring's stages): blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor with the launch's dynamic
+// shared memory, or minus a cudaError_t.
+extern "C" int flash_attention_bwd_occupancy(int kernel, int p0, int p1, int p2, int p3,
+                                             int p4) {
+  (void)p2, (void)p3, (void)p4;
+  switch (p0) {
+    case 32: return occupancy_bf16<32>(kernel, p1);
+    case 64: return occupancy_bf16<64>(kernel, p1);
+    case 128: return occupancy_bf16<128>(kernel, p1);
+    case 256: return occupancy_bf16<256>(kernel, p1);
+    default: return -(int)cudaErrorInvalidValue;
   }
 }

@@ -33,10 +33,15 @@ import torch
 
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    SMEM_LIMIT,
+    KernelLaunch,
     check_kernel_tensors,
     launch_stream,
     load_library,
+    register_launch_spec,
+    scoring_shape,
     sm_count,
+    train_microbatch,
 )
 from repro_torch.kernels.local_attention.ref import (
     attention_bwd_ref,
@@ -46,7 +51,7 @@ from repro_torch.kernels.local_attention.ref import (
 
 __all__ = ["HEAD_DIMS", "F32_HEAD_DIMS", "BWD_KV_TILE", "BWD_Q_TILE", "BWD_DQ_ROWS",
            "BWD_DQ_KEYS", "BWD_MAX_STAGES", "MAX_CLUSTER", "BWD_WAVES", "SMEM_LIMIT",
-           "FlashBwdPlan", "bwd_smem_bytes", "plan_flash_bwd", "flash_bwd_plans",
+           "FlashBwdPlan", "bwd_smem_bytes", "fwd_smem_bytes", "plan_flash_bwd", "flash_bwd_plans",
            "flash_attention_cuda", "flash_attention_bwd_cuda", "launch_bwd_plan",
            "attention_ref", "attention_ref_lse", "attention_bwd_ref"]
 
@@ -76,9 +81,13 @@ MAX_CLUSTER = 8
 #: of 4 ran 1.28x faster than none, but 13% slower than a cluster of 2
 #: (at most 30 clusters of 4, 120 SMs, run at once; PERF.md, §6: row B1).
 BWD_WAVES = 4
-#: Dynamic shared memory a block may take on the H100 (227 KB).
-SMEM_LIMIT = 232448
 _ALIGN_SLACK, _BAR_BYTES = 1024, 256
+#: The forward's compiled tiles (``csrc/flash_attention.cu``): bf16 query
+#: rows a block and keys a K/V tile by head width (``FlashPlan``); f32
+#: query rows a block and keys a tile (``F_BQ``, ``F_BK``).
+FWD_Q_TILE = 128
+FWD_KV_TILE = {32: 128, 64: 128, 128: 128, 256: 64}
+F32_Q_TILE, F32_KV_TILE = 16, 32
 
 
 def _up(x: int, m: int) -> int:
@@ -101,6 +110,19 @@ def bwd_smem_bytes(d: int, kernel: str, stages: int) -> int:
     else:
         raise ValueError(f"bwd_smem_bytes: kernel {kernel!r} is 'dkdv' or 'dq'")
     return _ALIGN_SLACK + tiles + _BAR_BYTES
+
+
+def fwd_smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the forward at head width
+    ``d``: bf16 the Q tile and two stages of K and V tiles, with 1024 bytes
+    of alignment slack (``FlashPlan::SMEM``); f32 the Q rows, the K tile
+    padded a column and the V tile (``f32_smem``).  The source's
+    ``flash_fwd_smem`` returns the same."""
+    if dtype == torch.bfloat16 and d in HEAD_DIMS:
+        return FWD_Q_TILE * d * 2 + 2 * 2 * FWD_KV_TILE[d] * d * 2 + 1024
+    if dtype == torch.float32 and d in F32_HEAD_DIMS:
+        return (F32_Q_TILE * d + F32_KV_TILE * (d + 1) + F32_KV_TILE * d) * 4
+    raise ValueError(f"fwd_smem_bytes: head dim {d} is not compiled for {dtype}")
 
 
 def _deepest(d: int, kernel: str) -> int:
@@ -300,3 +322,105 @@ def launch_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.
     if plan not in flash_bwd_plans(b, hq, k.shape[1], t, k.shape[2], d):
         raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
     return _launch_bwd(q, k, v, o, lse, do, causal, window, scale, plan)
+
+
+# --------------------------------------------------------------------------
+# Launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+#: Threads of a block of the bf16 kernels (a producer warpgroup and two
+#: consumers), of the f32 forward, and of the backward's prep kernel; the
+#: rows a prep block takes (a warp a row).
+WG_THREADS, F32_THREADS, PREP_THREADS = 384, 128, 128
+#: Static shared memory of the bf16 forward: its nine mbarriers.
+FWD_STATIC_SMEM = 9 * 8
+_FWD = "src/repro_torch/kernels/local_attention/csrc/flash_attention.cu:"
+_BWD = "src/repro_torch/kernels/local_attention/csrc/flash_attention_bwd.cu:launch_bf16"
+
+
+def attention_heads(cfg):
+    """(query heads, KV heads, head width) of an arch's attention, or None
+    for an arch without attention layers."""
+    if not any(k in ("attn", "local", "global") for k in cfg.layer_kinds):
+        return None
+    return cfg.num_heads + cfg.head_pad, cfg.num_kv_heads, cfg.head_dim
+
+
+def _fwd_shapes(cfg):
+    """(path, b, t, lse) of every forward launch shape on the arch's main
+    paths.  Decoder-only serving attends in plain PyTorch; prompt scoring
+    and training run flash.  The encoder-decoder arch also runs it in its
+    encoder (4096 frames when scoring, 1024 in ``encode``), its decoder's
+    self-attention (1024 tokens) and cross-attention (while scoring, and
+    each decode step and prompt window against the frames)."""
+    if cfg.is_enc_dec:
+        return [("encoder", 1, 4096, False), ("decoder", 1, 1024, False),
+                ("encode", 4, 1024, False), ("decode cross K=1", 4, 1, False),
+                ("decode cross K=64", 4, 64, False)]
+    shapes = [("scoring", *scoring_shape(cfg), False)]
+    if train_microbatch(cfg):
+        shapes.append(("train", *train_microbatch(cfg), True))
+    return shapes
+
+
+def fwd_launch(shape, b, hq, t, d, dtype, lse=False):
+    """The forward's launch for (b, hq, t, d) queries: bf16 a block of
+    FWD_Q_TILE query rows of one head, the last tile first; f32 a block of
+    F32_Q_TILE rows."""
+    code, smem = DTYPE_CODE[dtype], fwd_smem_bytes(d, dtype)
+    bf16 = dtype == torch.bfloat16
+    grid = ((b * hq, -(-t // FWD_Q_TILE), 1) if bf16 else (-(-t // F32_Q_TILE), b * hq, 1))
+    return KernelLaunch(
+        kernel="flash_attention_cuda", location=_FWD + ("launch_bf16" if bf16 else "launch_f32"),
+        shape=shape, grid=grid, threads=WG_THREADS if bf16 else F32_THREADS,
+        dynamic_smem=smem, static_smem=FWD_STATIC_SMEM if bf16 else None,
+        library="flash_attention", occupancy=(0, d, code, int(lse)),
+        queries=(("flash_fwd_smem", (d, code), smem),),
+        meta=(("b", b), ("hq", hq), ("t", t), ("d", d)))
+
+
+def bwd_launches(shape, b, hq, hkv, t, s, d, sms):
+    """The bf16 backward's three launches in :func:`plan_flash_bwd`'s plan:
+    prep (a warp a padded query row), dK/dV (a cluster of ``plan.cluster``
+    blocks a KV head and key tile) and dQ (BWD_DQ_ROWS queries a block)."""
+    plan = plan_flash_bwd(b, hq, hkv, t, s, d, sms)
+    tp = _up(t, BWD_DQ_ROWS)
+    kv_smem = bwd_smem_bytes(d, "dkdv", plan.kv_stages)
+    dq_smem = bwd_smem_bytes(d, "dq", plan.dq_stages)
+    meta = (("b", b), ("hq", hq), ("hkv", hkv), ("t", t), ("d", d))
+    common = dict(shape=shape, library="flash_attention_bwd", location=_BWD, meta=meta,
+                  kernel="flash_attention_bwd_cuda")
+    return [
+        KernelLaunch(grid=(-(-b * hq * tp // (PREP_THREADS // 32)), 1, 1),
+                     threads=PREP_THREADS, dynamic_smem=0, occupancy=(2, d, 0), **common),
+        KernelLaunch(grid=(b * hkv * plan.cluster, -(-s // plan.kv_tile), 1),
+                     threads=WG_THREADS, cluster=(plan.cluster, 1, 1), dynamic_smem=kv_smem,
+                     occupancy=(0, d, plan.kv_stages),
+                     queries=(("flash_bwd_smem", (d, 0, plan.kv_stages), kv_smem),), **common),
+        KernelLaunch(grid=(b * hq, tp // BWD_DQ_ROWS, 1), threads=WG_THREADS,
+                     dynamic_smem=dq_smem, occupancy=(1, d, plan.dq_stages),
+                     queries=(("flash_bwd_smem", (d, 1, plan.dq_stages), dq_smem),), **common),
+    ]
+
+
+def _fwd_spec(cfg, sms):
+    heads = attention_heads(cfg)
+    if heads is None:
+        return []
+    hq, _, d = heads
+    dtype = getattr(torch, cfg.dtype)
+    return [fwd_launch(f"{path} B={b} T={t}", b, hq, t, d, dtype, lse)
+            for path, b, t, lse in _fwd_shapes(cfg)]
+
+
+def _bwd_spec(cfg, sms):
+    heads = attention_heads(cfg)
+    if heads is None or not train_microbatch(cfg):
+        return []
+    hq, hkv, d = heads
+    b, t = train_microbatch(cfg)
+    return bwd_launches(f"train B={b} T={t}", b, hq, hkv, t, t, d, sms)
+
+
+register_launch_spec("flash_attention_cuda", _fwd_spec)
+register_launch_spec("flash_attention_bwd_cuda", _bwd_spec)

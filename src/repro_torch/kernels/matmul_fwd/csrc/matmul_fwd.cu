@@ -539,6 +539,55 @@ int launch_f32(bool vec, const void* a, const void* b, void* c, float* ws, int M
   return (int)cudaGetLastError();
 }
 
+// The dynamic shared memory of one block of a plan's kernel, as its
+// launcher passes it: the f32 kernels' F32Plan::SMEM, the wgmma kernel's
+// WgPlan::SMEM, none for the element-wise bf16 kernel (static tiles); -1
+// for a tile the variant is not compiled for.
+int plan_smem(int variant, int tile_m, int tile_n) {
+  if (variant == 0 || variant == 1) {
+    if (tile_m == 128 && tile_n == 128) return F32Plan<128, 128>::SMEM;
+    if (tile_m == 64 && tile_n == 128) return F32Plan<64, 128>::SMEM;
+    if (tile_m == 64 && tile_n == 64) return F32Plan<64, 64>::SMEM;
+    if (tile_m == 32 && tile_n == 64) return F32Plan<32, 64>::SMEM;
+  } else if (variant == 2 && tile_m == WG_BM) {
+    if (tile_n == 256) return WgPlan<256>::SMEM;
+    if (tile_n == 64) return WgPlan<64>::SMEM;
+  } else if (variant == 3 && tile_m == EM && tile_n == EN) {
+    return 0;
+  }
+  return -1;
+}
+
+template <typename Kern>
+int blocks_per_sm(Kern kernel, int threads, int smem) {
+  int err = set_smem(kernel, smem);
+  int n = 0;
+  if (!err) err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return err ? -err : n;
+}
+
+template <int TM, int TN>
+int f32_occupancy(bool vec) {
+  return vec ? blocks_per_sm(matmul_f32_kernel<TM, TN, true>, F_THREADS, F32Plan<TM, TN>::SMEM)
+             : blocks_per_sm(matmul_f32_kernel<TM, TN, false>, F_THREADS, F32Plan<TM, TN>::SMEM);
+}
+
+int plan_occupancy(int variant, int tile_m, int tile_n) {
+  const bool vec = variant == 0;
+  if (variant == 0 || variant == 1) {
+    if (tile_m == 128 && tile_n == 128) return f32_occupancy<128, 128>(vec);
+    if (tile_m == 64 && tile_n == 128) return f32_occupancy<64, 128>(vec);
+    if (tile_m == 64 && tile_n == 64) return f32_occupancy<64, 64>(vec);
+    if (tile_m == 32 && tile_n == 64) return f32_occupancy<32, 64>(vec);
+  } else if (variant == 2 && tile_m == WG_BM) {
+    if (tile_n == 256) return blocks_per_sm(matmul_wgmma_kernel<256>, WG_THREADS, WgPlan<256>::SMEM);
+    if (tile_n == 64) return blocks_per_sm(matmul_wgmma_kernel<64>, WG_THREADS, WgPlan<64>::SMEM);
+  } else if (variant == 3 && tile_m == EM && tile_n == EN) {
+    return blocks_per_sm(matmul_bf16_elem_kernel, E_THREADS, 0);
+  }
+  return -(int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // A: (M, K), B: (K, N), C: (M, N), all contiguous and of one dtype, as the
@@ -595,4 +644,24 @@ extern "C" int matmul_fwd(const void* a, const void* b, void* c, void* ws, int M
   else
     splitk_reduce_kernel<bf16><<<blocks, threads, 0, s>>>(W, static_cast<bf16*>(c), mn, split);
   return (int)cudaGetLastError();
+}
+
+// The dynamic shared memory (bytes) of one block of a plan's kernel
+// (variant and tile as matmul_fwd takes them; the planner's mirror,
+// matmul_fwd/kernel.py:smem_bytes); -1 for a tile that is not compiled.
+extern "C" int matmul_smem(int variant, int tile_m, int tile_n) {
+  return plan_smem(variant, tile_m, tile_n);
+}
+
+// The library's launch query: kernel 0, a plan's product kernel (p0 the
+// variant, p1 tile_m, p2 tile_n); kernel 1, the split-K reduction (p0 the
+// dtype, 0 = float32, 1 = bfloat16).  Blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor with the launch's dynamic
+// shared memory, or minus a cudaError_t.
+extern "C" int matmul_fwd_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  (void)p3, (void)p4;
+  if (kernel == 0) return plan_occupancy(p0, p1, p2);
+  if (kernel == 1 && p0 == 0) return blocks_per_sm(splitk_reduce_kernel<float>, 256, 0);
+  if (kernel == 1 && p0 == 1) return blocks_per_sm(splitk_reduce_kernel<bf16>, 256, 0);
+  return -(int)cudaErrorInvalidValue;
 }

@@ -25,15 +25,17 @@ import torch
 
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    KernelLaunch,
     check_kernel_tensors,
     launch_stream,
     load_library,
+    register_launch_spec,
     sm_count,
 )
 from repro_torch.kernels.matmul_fwd.ref import matmul_ref
 
 __all__ = ["VARIANTS", "MAX_SPLIT", "FILL", "plan", "launch_plan", "matmul_fwd_cuda",
-           "matmul_ref"]
+           "matmul_ref", "smem_bytes", "matmul_launches"]
 
 #: variant -> (its code in the C entry point, the K extent of one k-tile,
 #: the fewest k-tiles a split leaves each K range, the output tiles it is
@@ -152,3 +154,90 @@ def launch_plan(a: torch.Tensor, b: torch.Tensor, variant: str, tile_m: int, til
 
 
 matmul_fwd_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Shared memory and launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+#: The source's constants: the f32 kernels' ring (stages, k-tile, the A
+#: rows' padding, threads), the wgmma kernel's (M and K extents of a tile,
+#: threads), the element-wise bf16 kernel's tiles and threads, and the
+#: split-K reduction's threads.
+_F_STAGES, _F_BK, _F_APAD, _F_THREADS = 3, 32, 4, 256
+_WG_BM, _WG_BK, _WG_THREADS = 128, 64, 384
+_E_TILE, _E_BK, _E_THREADS = 128, 32, 256
+_REDUCE_THREADS = 256
+_LOCATION = "src/repro_torch/kernels/matmul_fwd/csrc/matmul_fwd.cu:"
+
+
+def _wg_stages(tile_n: int) -> int:
+    return 4 if tile_n == 256 else 5
+
+
+def smem_bytes(variant: str, tile_m: int, tile_n: int) -> int:
+    """Dynamic shared memory of one block of ``variant`` at a tile of
+    ``tile_m`` x ``tile_n`` (as the source's launchers pass it): the f32
+    kernels' ring of three stages of A rows (padded) and B rows
+    (``F32Plan::SMEM``), the wgmma kernel's ring of A and B tiles with 1024
+    bytes of alignment slack (``WgPlan::SMEM``), and none for the
+    element-wise bf16 kernel, whose tiles are static.  The source's
+    ``matmul_smem`` returns the same."""
+    if (tile_m, tile_n) not in VARIANTS[variant][3]:
+        raise ValueError(f"smem_bytes: {variant} is not compiled for a {tile_m} x {tile_n} tile")
+    if variant in ("f32", "f32_elem"):
+        return _F_STAGES * (tile_m * (_F_BK + _F_APAD) + _F_BK * tile_n) * 4
+    if variant == "wgmma":
+        return _wg_stages(tile_n) * (_WG_BM * _WG_BK * 2 + _WG_BK * tile_n * 2) + 1024
+    return 0
+
+
+def _static_smem(variant: str, tile_n: int) -> int:
+    """The kernels' ``__shared__`` bytes: the wgmma ring's barriers, the
+    element-wise kernel's padded A and B tiles."""
+    if variant == "wgmma":
+        return 2 * _wg_stages(tile_n) * 8
+    if variant == "mma_elem":
+        return (_E_TILE * (_E_BK + 8) + _E_BK * (_E_TILE + 8)) * 2
+    return 0
+
+
+def matmul_launches(shape: str, m: int, n: int, k: int, dtype: torch.dtype,
+                    sms: int) -> list[KernelLaunch]:
+    """The launches of one product in :func:`plan`'s plan: the product
+    kernel (the wgmma kernel's persistent grid at most one block an SM), and
+    with a split of K the reduction's."""
+    variant, tm, tn, split = plan(m, n, k, dtype, sms)
+    code, smem = VARIANTS[variant][0], smem_bytes(variant, tm, tn)
+    tiles = (-(-n // tn), -(-m // tm), split)
+    grid = (min(math.prod(tiles), sms), 1, 1) if variant == "wgmma" else tiles
+    threads = {"wgmma": _WG_THREADS, "mma_elem": _E_THREADS}.get(variant, _F_THREADS)
+    launcher = {"wgmma": "launch_wgmma", "mma_elem": "matmul_fwd"}.get(variant, "launch_f32")
+    meta = (("m", m), ("n", n), ("k", k), ("split", split))
+    out = [KernelLaunch(
+        kernel="matmul_fwd_cuda", location=_LOCATION + launcher, shape=shape, grid=grid,
+        threads=threads, dynamic_smem=smem, static_smem=_static_smem(variant, tn),
+        library="matmul_fwd", occupancy=(0, code, tm, tn),
+        queries=(("matmul_smem", (code, tm, tn), smem),), meta=meta)]
+    if split > 1:
+        blocks = min(-(-m * n // _REDUCE_THREADS), sms * 8)
+        out.append(KernelLaunch(
+            kernel="matmul_fwd_cuda", location=_LOCATION + "matmul_fwd", shape=shape,
+            grid=(blocks, 1, 1), threads=_REDUCE_THREADS, dynamic_smem=0, static_smem=0,
+            library="matmul_fwd", occupancy=(1, DTYPE_CODE[dtype]), meta=meta))
+    return out
+
+
+def _spec(cfg, sms):
+    """The paper demo's products, whatever the arch: the Rodinia suite's
+    matrixMul (256^3 f32) and the large ones phase 4 times."""
+    f32, bf = torch.float32, torch.bfloat16
+    out = []
+    for dim, dtype, what in ((256, f32, "rodinia matrixMul"), (4096, bf, "large"),
+                             (4096, f32, "large")):
+        name = "f32" if dtype == f32 else "bf16"
+        out += matmul_launches(f"{what} {dim}^3 {name}", dim, dim, dim, dtype, sms)
+    return out
+
+
+register_launch_spec("matmul_fwd_cuda", _spec, every_arch=True)

@@ -16,7 +16,10 @@
 // Design: the paper's elevator in Hopper terms.  The Pallas kernel loaded a
 // block of rows plus the neighbouring blocks' halo rows into VMEM and took
 // column neighbours by lane rotates.  Here one warp owns a strip 32 columns
-// wide and ROWS rows deep, one thread a column:
+// wide and ROWS rows deep, one thread a column (ROWS, 16 to 1, is the
+// plan's: kernels/stencil2d/kernel.py:plan_stencil takes the most rows whose
+// grid still reaches the SMs, so a small grid is not left on a quarter of
+// the card):
 // - rows: each thread loads its column's ROWS rows plus one halo row above
 //   and one below into registers, all loads issued before any arithmetic,
 //   then walks down carrying up / cur / down.  Each element is read from
@@ -42,14 +45,14 @@
 namespace {
 
 constexpr int WARPS = 8;    // strips per block: 256 columns
-constexpr int ROWS = 16;    // rows a thread walks
+constexpr int MAX_ROWS = 16;  // rows a thread walks, at most
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
-template <typename T>
+template <typename T, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32) stencil2d_kernel(
     const T* __restrict__ x, const float* __restrict__ coeffs, T* __restrict__ out,
     int H, int W, float bnd) {
@@ -95,27 +98,68 @@ __global__ void __launch_bounds__(WARPS * 32) stencil2d_kernel(
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* coeffs, void* out, int H, int W, float bnd,
-           cudaStream_t stream) {
+template <typename T, int ROWS>
+int launch_rows(const void* x, const void* coeffs, void* out, int H, int W, float bnd,
+                cudaStream_t stream) {
   dim3 block(32, WARPS);
   dim3 grid((W + 32 * WARPS - 1) / (32 * WARPS), (H + ROWS - 1) / ROWS);
-  stencil2d_kernel<T><<<grid, block, 0, stream>>>(
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  stencil2d_kernel<T, ROWS><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(coeffs), static_cast<T*>(out),
       H, W, bnd);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch(const void* x, const void* coeffs, void* out, int H, int W, float bnd, int rows,
+           cudaStream_t stream) {
+  switch (rows) {
+    case 16: return launch_rows<T, 16>(x, coeffs, out, H, W, bnd, stream);
+    case 8: return launch_rows<T, 8>(x, coeffs, out, H, W, bnd, stream);
+    case 4: return launch_rows<T, 4>(x, coeffs, out, H, W, bnd, stream);
+    case 2: return launch_rows<T, 2>(x, coeffs, out, H, W, bnd, stream);
+    case 1: return launch_rows<T, 1>(x, coeffs, out, H, W, bnd, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks an SM of the instantiation that `rows` launches (the card's own
+// occupancy answer; no dynamic shared memory).
+template <typename T>
+int occupancy(int rows) {
+  int n = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (rows) {
+    case 16: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stencil2d_kernel<T, 16>, 32 * WARPS, 0); break;
+    case 8: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stencil2d_kernel<T, 8>, 32 * WARPS, 0); break;
+    case 4: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stencil2d_kernel<T, 4>, 32 * WARPS, 0); break;
+    case 2: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stencil2d_kernel<T, 2>, 32 * WARPS, 0); break;
+    case 1: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, stencil2d_kernel<T, 1>, 32 * WARPS, 0); break;
+  }
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 }  // namespace
 
 // x, out: (H, W) contiguous, dtype 0 = float32, 1 = bfloat16; coeffs: 5
-// float32 on the device.  Returns 0 or the cudaError_t of the launch.
+// float32 on the device; rows: the rows a thread walks (16, 8, 4, 2 or 1,
+// the plan's).  Returns 0 or the cudaError_t of the launch.
 extern "C" int stencil2d_fwd(const void* x, const void* coeffs, void* out, int H,
-                             int W, float boundary, int dtype, void* stream) {
-  if (H < 1 || W < 1 || (H + ROWS - 1) / ROWS > 65535)
-    return (int)cudaErrorInvalidValue;
+                             int W, float boundary, int dtype, int rows, void* stream) {
+  if (H < 1 || W < 1 || rows < 1 || rows > MAX_ROWS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, coeffs, out, H, W, boundary, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, coeffs, out, H, W, boundary, s);
+  if (dtype == 0) return launch<float>(x, coeffs, out, H, W, boundary, rows, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(x, coeffs, out, H, W, boundary, rows, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The library's launch query (kernel 0, the stencil; p0 the dtype, p1 the
+// rows): blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// or minus a cudaError_t.
+extern "C" int stencil2d_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  (void)p2, (void)p3, (void)p4;
+  if (kernel != 0) return -(int)cudaErrorInvalidValue;
+  if (p0 == 0) return occupancy<float>(p1);
+  if (p0 == 1) return occupancy<__nv_bfloat16>(p1);
+  return -(int)cudaErrorInvalidValue;
 }

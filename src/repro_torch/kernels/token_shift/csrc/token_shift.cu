@@ -172,18 +172,23 @@ int launch_rows(const T* x, const T* w, T* out, int B, int Tn, int D, bool vec,
   return (int)cudaGetLastError();
 }
 
-// ROWS: the most rows a thread (8 or 4) that still gives every SM FILL
-// blocks, else 1.
+// The rows a thread of the forward takes: the most (8 or 4) that still
+// gives every SM FILL blocks, else 1 (v channels a slot).
+inline int fwd_rows(int B, int Tn, int D, int v, int sms) {
+  const long slots = (long)B * ((D + v * NT - 1) / (v * NT));
+  if (slots * ((Tn + 7) / 8) >= (long)FILL * sms) return 8;
+  if (slots * ((Tn + 3) / 4) >= (long)FILL * sms) return 4;
+  return 1;
+}
+
 template <typename T, int TAPS>
 int launch_taps(const T* x, const T* w, T* out, int B, int Tn, int D, bool vec, int sms,
                 cudaStream_t stream) {
-  constexpr int V = Slot<T>::V;
-  const long slots = (long)B * ((D + V * NT - 1) / (V * NT));
-  if (slots * ((Tn + 7) / 8) >= (long)FILL * sms)
-    return launch_rows<T, TAPS, 8>(x, w, out, B, Tn, D, vec, stream);
-  if (slots * ((Tn + 3) / 4) >= (long)FILL * sms)
-    return launch_rows<T, TAPS, 4>(x, w, out, B, Tn, D, vec, stream);
-  return launch_rows<T, TAPS, 1>(x, w, out, B, Tn, D, vec, stream);
+  switch (fwd_rows(B, Tn, D, Slot<T>::V, sms)) {
+    case 8: return launch_rows<T, TAPS, 8>(x, w, out, B, Tn, D, vec, stream);
+    case 4: return launch_rows<T, TAPS, 4>(x, w, out, B, Tn, D, vec, stream);
+    default: return launch_rows<T, TAPS, 1>(x, w, out, B, Tn, D, vec, stream);
+  }
 }
 
 template <typename T>
@@ -544,6 +549,47 @@ int launch_bwd(const void* xv, const void* wv, const void* dov, void* dxv, void*
   return (int)cudaErrorInvalidValue;
 }
 
+// Blocks an SM of an instantiation with a launch's block and dynamic shared
+// memory, opted in as the launchers do; or minus a cudaError_t.
+int blocks_per_sm(const void* kernel, int threads, int smem) {
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T, int TAPS>
+int fwd_occupancy(int rows, bool vec) {
+  const void* k = nullptr;
+  if (rows == 8) k = vec ? (const void*)token_shift_kernel<T, TAPS, 8, true> : (const void*)token_shift_kernel<T, TAPS, 8, false>;
+  if (rows == 4) k = vec ? (const void*)token_shift_kernel<T, TAPS, 4, true> : (const void*)token_shift_kernel<T, TAPS, 4, false>;
+  if (rows == 1) k = vec ? (const void*)token_shift_kernel<T, TAPS, 1, true> : (const void*)token_shift_kernel<T, TAPS, 1, false>;
+  return k == nullptr ? -(int)cudaErrorInvalidValue : blocks_per_sm(k, NT, 0);
+}
+
+template <typename T, int TAPS>
+int bwd_occupancy(int groups, int cols, bool vec) {
+  const void* k = vec ? (const void*)token_shift_bwd_kernel<T, TAPS, true>
+                      : (const void*)token_shift_bwd_kernel<T, TAPS, false>;
+  return blocks_per_sm(k, cols * groups, bwd_smem_bytes(groups, TAPS, cols, Slot<T>::V));
+}
+
+// kernel 0: the forward at `rows` rows a thread (a = rows); kernel 1: the
+// backward (a = groups, b = cols).
+template <typename T>
+int occupancy(int kernel, int taps, int a, int b, bool vec) {
+  switch (taps) {
+#define TS_OCC(K)                                                                   \
+  case K:                                                                           \
+    return kernel == 0 ? fwd_occupancy<T, K>(a, vec) : bwd_occupancy<T, K>(a, b, vec);
+    TS_OCC(2) TS_OCC(3) TS_OCC(4) TS_OCC(5) TS_OCC(6) TS_OCC(7) TS_OCC(8)
+#undef TS_OCC
+  }
+  return -(int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w and out alike).
@@ -588,4 +634,24 @@ extern "C" int token_shift_bwd(const void* x, const void* w, const void* dout, v
 // groups and cols (the mirror kernel.py:bwd_smem_bytes must agree).
 extern "C" int token_shift_bwd_smem(int groups, int taps, int cols, int dtype) {
   return bwd_smem_bytes(groups, taps, cols, dtype == 0 ? 4 : 8);
+}
+
+// The rows a thread the forward launches with for (B, T, D) of dtype on a
+// card of `sms` SMs: fwd_rows, the launcher's own rule (the mirror,
+// token_shift/kernel.py:fwd_rows).
+extern "C" int token_shift_fwd_rows(int B, int Tn, int D, int dtype, int sms) {
+  return fwd_rows(B, Tn, D, dtype == 0 ? 4 : 8, sms);
+}
+
+// The library's launch query: blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor on the instantiation a
+// launch takes, with its dynamic shared memory, or minus a cudaError_t.
+//   kernel 0, the forward: p0 taps, p1 dtype, p2 rows a thread, p3 vec;
+//   kernel 1, the backward: p0 taps, p1 dtype, p2 groups, p3 cols, p4 vec.
+extern "C" int token_shift_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  if (kernel != 0 && kernel != 1) return -(int)cudaErrorInvalidValue;
+  const bool vec = (kernel == 0 ? p3 : p4) != 0;
+  if (p1 == 0) return occupancy<float>(kernel, p0, p2, p3, vec);
+  if (p1 == 1) return occupancy<__nv_bfloat16>(kernel, p0, p2, p3, vec);
+  return -(int)cudaErrorInvalidValue;
 }

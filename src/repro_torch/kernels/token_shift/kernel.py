@@ -31,12 +31,19 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.kernels.common import (
+    DECODE_WINDOWS,
     DTYPE_CODE,
+    SERVE_BATCH,
+    SERVE_PROMPT,
+    KernelLaunch,
     check_kernel_tensors,
     launch_stream,
     load_library,
     pointer_alignment,
+    register_launch_spec,
+    scoring_shape,
     sm_count,
+    train_microbatch,
 )
 from repro_torch.kernels.token_shift.ref import token_shift_bwd_ref, token_shift_ref
 
@@ -44,7 +51,7 @@ __all__ = ["MAX_TAPS", "BWD_THREADS", "BWD_MAX_COLS", "BWD_MAX_CLUSTER", "BWD_ST
            "BWD_GROUPS", "BWD_IN_FLIGHT", "ShiftBwdPlan", "slot_channels",
            "bwd_sub", "bwd_smem_bytes", "plan_shift_bwd", "shift_bwd_plans", "launch_bwd_plan",
            "token_shift_cuda", "token_shift_ref", "token_shift_bwd_cuda",
-           "token_shift_bwd_ref"]
+           "token_shift_bwd_ref", "FWD_THREADS", "FWD_FILL", "fwd_rows"]
 
 #: Largest tap count the kernel takes (the reference's token-buffer budget).
 MAX_TAPS = 8
@@ -243,3 +250,84 @@ def launch_bwd_plan(x: torch.Tensor, w: torch.Tensor, dout: torch.Tensor, *,
                                    pointer_alignment(x, w, dout)):
         raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
     return _launch_bwd(x, w, dout, plan)
+
+
+# --------------------------------------------------------------------------
+# Launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+#: The forward's block (one 16-byte slot a thread) and the blocks an SM a
+#: plan of more rows a thread must keep (the source's NT and FILL).
+FWD_THREADS, FWD_FILL = 64, 8
+
+
+def fwd_rows(b: int, t: int, d: int, dtype: torch.dtype, sms: int) -> int:
+    """The rows a thread of the forward takes (the source picks them at each
+    launch, ``fwd_rows``): the most, 8 or 4, that still gives every SM
+    :data:`FWD_FILL` blocks, else 1.  The source's ``token_shift_fwd_rows``
+    answers the same."""
+    slots = b * -(-d // (slot_channels(dtype) * FWD_THREADS))
+    for rows in (8, 4):
+        if slots * -(-t // rows) >= FWD_FILL * sms:
+            return rows
+    return 1
+
+
+def _fwd_launch(shape, b, t, d, taps, dtype, sms):
+    rows, code = fwd_rows(b, t, d, dtype, sms), DTYPE_CODE[dtype]
+    vec = int(_vec(d, dtype, 16))
+    return KernelLaunch(
+        kernel="token_shift_cuda",
+        location="src/repro_torch/kernels/token_shift/csrc/token_shift.cu:launch_rows",
+        shape=shape, grid=(-(-d // (slot_channels(dtype) * FWD_THREADS)), -(-t // rows), b),
+        threads=FWD_THREADS, dynamic_smem=0, library="token_shift",
+        occupancy=(0, taps, code, rows, vec),
+        queries=(("token_shift_fwd_rows", (b, t, d, code, sms), rows),),
+        meta=(("b", b), ("t", t), ("d", d), ("rows", rows)))
+
+
+def _conv(cfg):
+    """(width, taps, dtype) of the RG-LRU block's temporal conv, or None."""
+    return (cfg.d_rnn, cfg.conv_width, getattr(torch, cfg.dtype)) if cfg.rglru else None
+
+
+def _fwd_spec(cfg, sms):
+    """The forward's launches: a stateful call shifts the conv's taps - 1
+    rows of state in front of its window (the serving prefill, each decode
+    window); scoring and training shift bare sequences."""
+    conv = _conv(cfg)
+    if conv is None:
+        return []
+    d, taps, dtype = conv
+    tail = taps - 1
+    shapes = [("prefill", SERVE_BATCH, tail + SERVE_PROMPT)]
+    shapes += [(f"decode K={k}", SERVE_BATCH, tail + k) for k in DECODE_WINDOWS]
+    shapes.append(("scoring", *scoring_shape(cfg)))
+    if train_microbatch(cfg):
+        shapes.append(("train", *train_microbatch(cfg)))
+    return [_fwd_launch(f"{path} B={b} T={t}", b, t, d, taps, dtype, sms)
+            for path, b, t in shapes]
+
+
+def _bwd_spec(cfg, sms):
+    conv = _conv(cfg)
+    if conv is None or not train_microbatch(cfg):
+        return []
+    d, taps, dtype = conv
+    b, t = train_microbatch(cfg)
+    plan = plan_shift_bwd(b, t, d, taps, dtype, sms)
+    code, smem = DTYPE_CODE[dtype], bwd_smem_bytes(plan, taps, dtype)
+    slots = -(-d // slot_channels(dtype))
+    return [KernelLaunch(
+        kernel="token_shift_bwd_cuda",
+        location="src/repro_torch/kernels/token_shift/csrc/token_shift.cu:launch_bwd_taps",
+        shape=f"train B={b} T={t}",
+        grid=(-(-slots // plan.cols), plan.cluster, 1),
+        threads=plan.cols * plan.groups, cluster=(1, plan.cluster, 1), dynamic_smem=smem,
+        library="token_shift", occupancy=(1, taps, code, plan.groups, plan.cols, int(plan.vec)),
+        queries=(("token_shift_bwd_smem", (plan.groups, taps, plan.cols, code), smem),),
+        meta=(("b", b), ("t", t), ("d", d)))]
+
+
+register_launch_spec("token_shift_cuda", _fwd_spec)
+register_launch_spec("token_shift_bwd_cuda", _bwd_spec)

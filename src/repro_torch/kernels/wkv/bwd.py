@@ -26,10 +26,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import (
+    SEQ_GRAD,
+    SEQ_SHARDS,
+    KernelLaunch,
     check_kernel_tensors,
     launch_stream,
     load_library,
+    register_launch_spec,
     sm_count,
+    train_microbatch,
     validate_divisible,
 )
 from repro_torch.kernels.wkv.kernel import (
@@ -39,6 +44,7 @@ from repro_torch.kernels.wkv.kernel import (
     _up128,
     padded_chunk,
     row_stride,
+    rwkv_geometry,
 )
 
 __all__ = ["BWD_MAX_CHUNK", "CLUSTERS", "bwd_smem_bytes", "plan_cluster",
@@ -228,3 +234,39 @@ def launch_plan(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int, cluster=No
 
 
 wkv_bwd_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+#: Threads of a block of the backward.
+BWD_THREADS = 256
+
+
+def _bwd_spec(cfg, sms):
+    """The backward's launches: a training microbatch and a shard of the
+    seq path's gradient, each a cluster of :func:`plan_cluster`'s size a
+    (b, h)."""
+    geo = rwkv_geometry(cfg)
+    if geo is None:
+        return []
+    h, chunk, dtype = geo
+    code, item = DTYPE_CODE[dtype], dtype.itemsize
+    shapes = [("seq gradient shard", 1, SEQ_GRAD // SEQ_SHARDS)]
+    if train_microbatch(cfg):
+        shapes.insert(0, ("train", *train_microbatch(cfg)))
+    out = []
+    for path, b, t in shapes:
+        c = plan_cluster(b, h, t, chunk, dtype, sms)
+        out.append(KernelLaunch(
+            kernel="wkv_bwd_cuda", location="src/repro_torch/kernels/wkv/csrc/wkv_bwd.cu:launch",
+            shape=f"{path} B={b} T={t}", grid=(c, b * h, 1), threads=BWD_THREADS,
+            cluster=(c, 1, 1), dynamic_smem=bwd_smem_bytes(chunk, c, item),
+            library="wkv_bwd", occupancy=(0, chunk, c, code),
+            queries=(("wkv_bwd_smem", (chunk, c, code), bwd_smem_bytes(chunk, c, item)),),
+            meta=(("b", b), ("h", h), ("t", t), ("chunk", chunk), ("cluster", c))))
+    return out
+
+
+register_launch_spec("wkv_bwd_cuda", _bwd_spec)

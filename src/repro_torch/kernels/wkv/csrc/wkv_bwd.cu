@@ -726,6 +726,31 @@ int launch_padded(const void* r, const void* k, const void* v, const void* w, co
   }
 }
 
+// Blocks an SM of the instantiation a plan launches (chunk, cluster,
+// dtype), with its dynamic shared memory opted in as the launcher does; or
+// minus a cudaError_t.
+template <typename T, int LP>
+int occupancy_lp(int C) {
+  const Layout Y = layout(LP, C, sizeof(T));
+  if (Y.total > SMEM_LIMIT) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(wkv_bwd_kernel<T, LP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Y.total);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wkv_bwd_kernel<T, LP>, NT, (int)Y.total);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T>
+int occupancy(int chunk, int C) {
+  switch (padded(chunk)) {
+    case 4: return occupancy_lp<T, 4>(C);
+    case 8: return occupancy_lp<T, 8>(C);
+    case 16: return occupancy_lp<T, 16>(C);
+    default: return occupancy_lp<T, 32>(C);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, u, d_out and dr, dk, dv,
@@ -758,4 +783,15 @@ extern "C" int wkv_bwd(const void* r, const void* k, const void* v, const void* 
 extern "C" int wkv_bwd_smem(int chunk, int cluster, int dtype) {
   const size_t total = layout(padded(chunk), cluster, dtype == 0 ? 4 : 2).total;
   return total > SMEM_LIMIT ? 0 : (int)total;
+}
+
+// The library's launch query (kernel 0, the backward; p0 the chunk, p1 the
+// cluster size, p2 the dtype): blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, or minus a cudaError_t.
+extern "C" int wkv_bwd_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  (void)p3, (void)p4;
+  if (kernel != 0 || p0 < 1 || p0 > MAX_CHUNK) return -(int)cudaErrorInvalidValue;
+  if (p2 == 0) return occupancy<float>(p0, p1);
+  if (p2 == 1) return occupancy<__nv_bfloat16>(p0, p1);
+  return -(int)cudaErrorInvalidValue;
 }

@@ -567,6 +567,32 @@ int dispatch(const void* r, const void* k, const void* v, const void* w, const v
   return (int)cudaErrorInvalidValue;
 }
 
+// Blocks an SM of the instantiation a plan launches (chunk, column tile,
+// dtype), with its dynamic shared memory opted in as the launcher does; or
+// minus a cudaError_t.
+template <typename T, int LP>
+int occupancy_lp(int JT) {
+  const Layout Y = fit_layout(LP, JT, sizeof(T));
+  if (Y.total > SMEM_LIMIT) return -(int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(wkv_fwd_kernel<T, LP>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Y.total);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wkv_fwd_kernel<T, LP>, NT, (int)Y.total);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T>
+int occupancy(int chunk, int JT) {
+  switch (padded(chunk)) {
+    case 4: return occupancy_lp<T, 4>(JT);
+    case 8: return occupancy_lp<T, 8>(JT);
+    case 16: return occupancy_lp<T, 16>(JT);
+    case 32: return occupancy_lp<T, 32>(JT);
+    default: return occupancy_lp<T, 64>(JT);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, u, out); h0 and s_out float32.
@@ -621,4 +647,16 @@ extern "C" int wkv_chunked_train_summary_fwd(const void* r, const void* k, const
 extern "C" int wkv_chunked_smem(int chunk, int col_tile, int dtype) {
   const size_t total = fit_layout(padded(chunk), col_tile, dtype == 0 ? 4 : 2).total;
   return total > SMEM_LIMIT ? 0 : (int)total;
+}
+
+// The library's launch query (kernel 0, the chunked forward, every entry
+// point's; p0 the chunk, p1 the column tile, p2 the dtype): blocks an SM
+// from cudaOccupancyMaxActiveBlocksPerMultiprocessor, or minus a
+// cudaError_t.
+extern "C" int wkv_chunked_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  (void)p3, (void)p4;
+  if (kernel != 0 || p0 < 1 || p0 > MAX_CHUNK) return -(int)cudaErrorInvalidValue;
+  if (p2 == 0) return occupancy<float>(p0, p1);
+  if (p2 == 1) return occupancy<__nv_bfloat16>(p0, p1);
+  return -(int)cudaErrorInvalidValue;
 }

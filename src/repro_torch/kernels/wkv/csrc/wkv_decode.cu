@@ -319,6 +319,28 @@ int launch(const void* r, const void* k, const void* v, const void* w,
 
 bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) & 15; }
 
+// Blocks an SM of the instantiation a window launches (K = 1 or longer, the
+// dtype, the column tile's block), with its dynamic shared memory opted in
+// as the launcher does; or minus a cudaError_t.
+template <typename T, int NB>
+int occupancy_nb(int K, int col_tile) {
+  const int smem = layout(K, sizeof(T)).total;
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(wkv_decode_kernel<T, NB>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wkv_decode_kernel<T, NB>,
+                                                      32 * col_tile / WARP_COLS, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
+template <typename T>
+int occupancy(int K, int col_tile) {
+  return K == 1 ? occupancy_nb<T, 1>(K, col_tile) : occupancy_nb<T, NB_WINDOW>(K, col_tile);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (r, k, v, w, u, out); h0 and s_out float32.
@@ -346,4 +368,17 @@ extern "C" int wkv_decode_window_fwd(const void* r, const void* k, const void* v
 // kernels/wkv/decode.py:decode_smem_bytes computes the same.
 extern "C" int wkv_decode_smem(int K, int dtype) {
   return layout(K, dtype == 0 ? 4 : 2).total;
+}
+
+// The library's launch query (kernel 0, the window; p0 K, p1 the dtype, p2
+// the column tile): blocks an SM from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor, or minus a cudaError_t.
+extern "C" int wkv_decode_occupancy(int kernel, int p0, int p1, int p2, int p3, int p4) {
+  (void)p3, (void)p4;
+  if (kernel != 0 || p0 < 1 || p0 > MAX_WINDOW ||
+      (p2 != 64 && p2 != 32 && p2 != 16 && p2 != WARP_COLS))
+    return -(int)cudaErrorInvalidValue;
+  if (p1 == 0) return occupancy<float>(p0, p2);
+  if (p1 == 1) return occupancy<__nv_bfloat16>(p0, p2);
+  return -(int)cudaErrorInvalidValue;
 }

@@ -21,8 +21,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import DTYPE_CODE, launch_stream, load_library, sm_count
-from repro_torch.kernels.wkv.kernel import WKV_DH, check_wkv_args
+from repro_torch.kernels.common import (
+    DECODE_WINDOWS,
+    DTYPE_CODE,
+    SERVE_BATCH,
+    KernelLaunch,
+    launch_stream,
+    load_library,
+    register_launch_spec,
+    sm_count,
+)
+from repro_torch.kernels.wkv.kernel import WKV_DH, check_wkv_args, rwkv_geometry
 from repro_torch.kernels.wkv.ref import wkv_sequential_ref
 
 # Stateful (decode) dispatches at or below this many tokens take the window
@@ -155,3 +164,45 @@ def wkv_decode_window_cuda(r, k, v, w, u, h0):
 
 wkv_decode_cuda.launches = 0
 wkv_decode_window_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+_LOCATION = "src/repro_torch/kernels/wkv/csrc/wkv_decode.cu:launch_nb"
+#: The batches the decode launches are declared at: serving's, and one
+#: request (the reference's per-window state cross-check is at B=1).
+DECODE_BATCHES = (SERVE_BATCH, 1)
+
+
+def decode_launch(kernel, shape, b, h, k, dtype, sms):
+    """The window kernel's launch for a ``k``-token window of (b, h) heads:
+    :func:`plan_decode_columns`'s tile, one block a (b, h) and column tile,
+    8 columns a warp.  Each block reads its 64 x tile slice of S once and
+    writes it once."""
+    col = plan_decode_columns(b, h, k, dtype, sms)
+    code, item = DTYPE_CODE[dtype], dtype.itemsize
+    return KernelLaunch(
+        kernel=kernel, location=_LOCATION, shape=shape, grid=(b * h, WKV_DH // col, 1),
+        threads=32 * col // 8, dynamic_smem=decode_smem_bytes(k, item), library="wkv_decode",
+        occupancy=(0, k, code, col),
+        queries=(("wkv_decode_smem", (k, code), decode_smem_bytes(k, item)),),
+        state_bytes=2 * WKV_DH * col * 4,
+        meta=(("b", b), ("h", h), ("k", k), ("col_tile", col)))
+
+
+def _spec(kernel, windows):
+    def spec(cfg, sms):
+        geo = rwkv_geometry(cfg)
+        if geo is None:
+            return []
+        h, _, dtype = geo
+        return [decode_launch(kernel, f"decode B={b} K={k}", b, h, k, dtype, sms)
+                for b in DECODE_BATCHES for k in windows]
+    return spec
+
+
+register_launch_spec("wkv_decode_cuda", _spec("wkv_decode_cuda", (1,)))
+register_launch_spec("wkv_decode_window_cuda", _spec(
+    "wkv_decode_window_cuda", tuple(k for k in DECODE_WINDOWS if k > 1)))

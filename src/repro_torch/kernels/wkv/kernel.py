@@ -39,10 +39,20 @@ import torch
 
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    SEQ_GRAD,
+    SEQ_PROMPT,
+    SEQ_SHARDS,
+    SERVE_BATCH,
+    SERVE_PROMPT,
+    SMEM_LIMIT,
+    KernelLaunch,
     check_kernel_tensors,
     launch_stream,
     load_library,
+    register_launch_spec,
+    scoring_shape,
     sm_count,
+    train_microbatch,
     validate_divisible,
 )
 from repro_torch.kernels.wkv.ref import (
@@ -64,8 +74,6 @@ MAX_CHUNK = 64
 #: The value-column tiles one block of the chunked kernel may take, widest
 #: first.
 COL_TILES = (64, 32, 16, 8)
-#: Dynamic shared memory one block may take on the H100 (227 KB).
-SMEM_LIMIT = 232448
 #: The blocks the chunked kernel's plan aims to keep resident on each SM
 #: (a block's two roles are 12 warps), and the share of that it must reach.
 BLOCKS_PER_SM, FILL = 1, 0.9
@@ -308,3 +316,58 @@ def wkv_train_summary_cuda(r, k, v, w, u, h0, *, chunk: int):
 
 
 wkv_train_summary_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Launch declarations (``repro_torch.analysis.resources``)
+# --------------------------------------------------------------------------
+
+#: Threads of a block of the chunked kernel: its prep and carry roles.
+FWD_THREADS = 512
+_LOCATION = "src/repro_torch/kernels/wkv/csrc/wkv_chunked.cu:launch"
+
+
+def rwkv_geometry(cfg):
+    """(heads, the model's chunk, the inputs' dtype) of an RWKV arch's WKV
+    launches, or None for an arch without RWKV layers."""
+    if not cfg.rwkv:
+        return None
+    from repro_torch.model.recurrent import WKV_CHUNK
+
+    return cfg.d_model // WKV_DH, WKV_CHUNK, getattr(torch, cfg.dtype)
+
+
+def chunked_launch(kernel, shape, b, h, t, chunk, dtype, sms):
+    """The chunked kernel's launch for (b, h, t, 64) inputs at ``chunk``:
+    :func:`plan_columns`'s tile, one block a (b, h) and column tile."""
+    col = plan_columns(b, h, t, chunk, dtype, sms)
+    code, item = DTYPE_CODE[dtype], dtype.itemsize
+    return KernelLaunch(
+        kernel=kernel, location=_LOCATION, shape=shape, grid=(WKV_DH // col, b * h, 1),
+        threads=FWD_THREADS, dynamic_smem=fwd_smem_bytes(chunk, col, item),
+        library="wkv_chunked", occupancy=(0, chunk, col, code),
+        queries=(("wkv_chunked_smem", (chunk, col, code), fwd_smem_bytes(chunk, col, item)),),
+        meta=(("b", b), ("h", h), ("t", t), ("chunk", chunk), ("col_tile", col)))
+
+
+def _fwd_spec(kernel, shapes):
+    """A spec over ``shapes(cfg)``: (path, b, t) triples."""
+    def spec(cfg, sms):
+        geo = rwkv_geometry(cfg)
+        if geo is None:
+            return []
+        h, chunk, dtype = geo
+        return [chunked_launch(kernel, f"{path} B={b} T={t}", b, h, t, chunk,
+                               dtype, sms) for path, b, t in shapes(cfg)]
+    return spec
+
+
+register_launch_spec("wkv_cuda", _fwd_spec("wkv_cuda", lambda cfg: [
+    ("prefill", SERVE_BATCH, SERVE_PROMPT), ("scoring", *scoring_shape(cfg))]))
+register_launch_spec("wkv_train_cuda", _fwd_spec("wkv_train_cuda", lambda cfg: [
+    ("train", *train_microbatch(cfg))] if train_microbatch(cfg) else []))
+register_launch_spec("wkv_summary_cuda", _fwd_spec("wkv_summary_cuda", lambda cfg: [
+    ("seq prefill shard", 1, SEQ_PROMPT // SEQ_SHARDS),
+    ("seq generate shard", 2, SEQ_GRAD // SEQ_SHARDS)]))
+register_launch_spec("wkv_train_summary_cuda", _fwd_spec("wkv_train_summary_cuda", lambda cfg: [
+    ("seq gradient shard", 1, SEQ_GRAD // SEQ_SHARDS)]))

@@ -1823,3 +1823,113 @@ def test_backward_check_rejects_planted_fault(cuda, bwd_mutants, fault):
 
     what, rejected = _fault_outcome(lib, common.build_libraries()[lib], dtype, tol, case)
     assert not rejected, f"the good {lib} fails the same check ({what})"
+
+
+# ---------------------------------------------------------------------------
+# Launch declarations: the C's own answers against the Python mirrors, every
+# plan of the stencil, and the card's blocks an SM for every declared launch
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", STENCIL_CASES, ids=lambda c: f"{c[0]}x{c[1]}-b{c[3]}")
+def test_stencil2d_every_plan_bit_for_bit(cuda, dtype, case):
+    """Every rows-a-thread tile gives the planner's output bit for bit, and
+    the plain version's; ``launch_plan`` counts no launch."""
+    h, w, coeffs, boundary = case
+    rng = np.random.default_rng(h * 3 + w)
+    x = torch.from_numpy(rng.standard_normal((h, w)).astype(np.float32)).to(cuda, dtype)
+    c = torch.tensor(coeffs, device=cuda)
+    planned = ST.stencil2d_cuda(x, c, boundary=boundary)
+    n = ST.stencil2d_cuda.launches
+    for rows in ST.ROW_TILES:
+        assert torch.equal(ST.launch_plan(x, c, rows=rows, boundary=boundary), planned), rows
+    assert ST.stencil2d_cuda.launches == n
+    assert torch.equal(planned, ST.stencil2d_ref(x, c, boundary))
+
+
+def test_flash_fwd_smem_matches_the_mirror(cuda):
+    from repro_torch.kernels import common
+
+    lib = common.load_library("flash_attention")
+    for d in (32, 64, 128, 256):
+        assert lib.flash_fwd_smem(d, 1) == FA.fwd_smem_bytes(d, torch.bfloat16), d
+    for d in FA.F32_HEAD_DIMS:
+        assert lib.flash_fwd_smem(d, 0) == FA.fwd_smem_bytes(d, torch.float32), d
+    assert lib.flash_fwd_smem(96, 1) == -1 and lib.flash_fwd_smem(48, 0) == -1
+
+
+def test_matmul_smem_matches_the_mirror(cuda):
+    from repro_torch.kernels import common
+
+    lib = common.load_library("matmul_fwd")
+    for variant, (code, _, _, tiles) in MM.VARIANTS.items():
+        for tm, tn in tiles:
+            assert lib.matmul_smem(code, tm, tn) == MM.smem_bytes(variant, tm, tn), (variant, tm)
+    assert lib.matmul_smem(2, 64, 64) == -1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_elevator_smem_matches_the_mirrors(cuda, dtype):
+    """The scan's, the window's and the backward's shared memory, in every
+    plan at the main path's shapes and at ragged ones, equal the source's
+    ``elevator_scan_smem``, ``elevator_window_smem`` and
+    ``elevator_scan_bwd_smem`` (which the launchers use)."""
+    from repro_torch.kernels import common
+
+    lib = common.load_library("elevator_scan")
+    code = common.DTYPE_CODE[dtype]
+    for b, t, d in ((4, 256, 2560), (1, 4096, 2560), (2, 1024, 2560), (3, 100, 72),
+                    (1, 5, 2562)):
+        for align in (16, 4):
+            for plan in EK.scan_plans(b, t, d, dtype, align):
+                mode = EK.SCAN_MODES[plan.mode]
+                assert lib.elevator_scan_smem(t, code, plan.cols, plan.stages, mode) == \
+                    EK.scan_smem_bytes(plan, t, dtype), (b, t, d, plan)
+            for plan in EK.scan_bwd_plans(b, t, d, align):
+                mode = EK.SCAN_MODES[plan.mode]
+                assert lib.elevator_scan_bwd_smem(t, plan.cols, plan.stages, mode) == \
+                    EK.scan_bwd_smem_bytes(plan, t), (b, t, d, plan)
+        for k in (1, 8, 37, 64):
+            for plan in ED.window_plans(b, k, d, dtype):
+                mode = ED.WINDOW_MODES[plan.mode]
+                assert lib.elevator_window_smem(k, code, plan.threads, mode) == \
+                    ED.window_smem_bytes(plan, k, dtype), (b, k, d, plan)
+
+
+def test_token_shift_fwd_rows_match_the_mirror(cuda):
+    from repro_torch.kernels import common
+
+    lib = common.load_library("token_shift")
+    sms = common.sm_count(torch.device("cuda"))
+    for dtype in (torch.float32, torch.bfloat16):
+        code = common.DTYPE_CODE[dtype]
+        for b, t, d in ((4, 4, 2560), (4, 259, 2560), (1, 4096, 2560), (2, 1024, 2560),
+                        (1, 1, 8), (7, 33, 1000)):
+            for n in (sms, 16, 1):
+                assert lib.token_shift_fwd_rows(b, t, d, code, n) == \
+                    TS_K.fwd_rows(b, t, d, dtype, n), (b, t, d, n)
+
+
+def test_every_declared_launch_fits_the_card(cuda):
+    """For every arch's declared launches at the card's SM count: each C
+    query equals its mirror, and the card reports at least one block an SM
+    for the instantiation each launch takes (as ``chip_smoke.py`` phase
+    1b)."""
+    from repro_torch.analysis import resources
+    from repro_torch.configs.registry import list_archs
+    from repro_torch.kernels import common
+
+    sms = common.sm_count(torch.device("cuda"))
+    seen = {}
+    for arch in list_archs():
+        for launch in resources.launches(get_config(arch), sms):
+            lib = common.load_library(launch.library)
+            for entry, args, want in launch.queries:
+                assert getattr(lib, entry)(*args) == want, (arch, launch.shape, entry)
+            key = (launch.library, launch.occupancy)
+            if key not in seen:
+                args = tuple(launch.occupancy) + (0,) * (6 - len(launch.occupancy))
+                seen[key] = getattr(lib, common.occupancy_entry(launch.library))(*args)
+            assert seen[key] >= 1, (arch, launch.kernel, launch.shape, seen[key])
+    assert len(seen) >= 30
