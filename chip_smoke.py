@@ -218,6 +218,30 @@ Phases (any failure raises and exits non-zero, with no result line):
    archs on the card against the CPU (loss, grad norm, updated
    parameters), and ``repro_torch.examples.train_lm`` on the card for 4
    steps at its default width (f32 heads of 96);
+3o. the one-card dry run (``repro_torch.launch.dryrun``) held against the
+   card: (a) the dry run of every decode_32k and long_500k cell (the train
+   and prefill cells fit no card and their traces take minutes: the CLI
+   runs them), each cell's row printed; (b) every cell it marks as fitting
+   one card (decode_32k of rwkv6-1.6b, recurrentgemma-2b, gemma3-1b and
+   qwen2-0.5b, long_500k of the three sub-quadratic archs; any other set
+   fails) built on the card at full width through ``dryrun.make_cell``
+   from seed 0: the rise of the allocator's requested bytes equal to the
+   dry run's state bytes, exactly, and of ``torch.cuda.memory_allocated()``
+   at least their sum rounded to the allocator's 512 B a tensor, at most
+   0.5% above it (the allocator's unsplit block tails); one
+   ``make_decode_step`` call's launch counters equal to the recorded
+   launches, exactly; ``FlopCounterMode``'s aten FLOPs equal to the
+   traced aten FLOPs, exactly; ``max_memory_allocated()`` over the state
+   within 5% or 256 MiB (the larger) of the traced peak of live bytes;
+   finite logits; then 5 steps timed with CUDA events after a warm-up,
+   printed beside the roofline bound, the memory terms' share of the step
+   and ``model_flops`` over the time over 989 TFLOP/s, and one more step
+   under the profiler (the card's busy and idle shares, the kernels with
+   the most device time, the copies' and fills' share); (c) the meta trace
+   of phase 3h's Gemma3-1B scoring (B=1, T=4096) and phase 3b's RWKV6
+   train step (B=8, T=256) held to those phases' counts on the card in
+   this run: 22 windowed + 4 causal flash launches; 96 ``wkv_train_cuda``
+   and 48 ``wkv_bwd_cuda`` a step;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -603,6 +627,10 @@ def main():
     # size, every reduced arch card vs CPU, the train_lm example -----------
     for name, n in _train_archs(torch).items():
         launches[name] = launches.get(name, 0) + n
+
+    # ---- 3o. the one-card dry run held against the card ------------------
+    _free(torch, "phase 3o")
+    _dry_run_holds(torch, g3_split, train_launches, train_steps=6)
 
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
@@ -4537,6 +4565,156 @@ def _time_grad_kernels(torch, launches, worst):
                             for r in mine[1:]]
         extra += mine[1:]
     return [r for r in rows if r not in extra]
+
+
+# ---------------------------------------------------------------------------
+# The one-card dry run held against the card (phase 3o).
+# ---------------------------------------------------------------------------
+
+#: The cells the dry run must mark as fitting one card, and only these.
+FITTING_CELLS = (("rwkv6-1.6b", "decode_32k"), ("recurrentgemma-2b", "decode_32k"),
+                 ("gemma3-1b", "decode_32k"), ("qwen2-0.5b", "decode_32k"),
+                 ("rwkv6-1.6b", "long_500k"), ("recurrentgemma-2b", "long_500k"),
+                 ("gemma3-1b", "long_500k"))
+#: The peak's tolerance: 5% of the traced peak or 256 MiB, the larger.
+PEAK_REL, PEAK_ABS = 0.05, 256 * 2**20
+#: What the caching allocator may add to the rounded bytes of the state: it
+#: hands out a whole cached block where the tail a split would leave is
+#: under 1 MiB, so ``memory_allocated()`` can exceed the rounded sum by the
+#: unsplit tails (its ``requested_bytes`` counter is exact).
+TAIL_SHARE = 0.005
+
+
+def _requested(torch):
+    """The bytes the live allocations asked the caching allocator for."""
+    n = torch.cuda.memory_stats().get("requested_bytes.all.current")
+    if n is None:
+        raise SystemExit("this PyTorch's allocator reports no requested_bytes")
+    return n
+
+
+def _hold_cell(torch, DR, arch, shape, row, counters, steps=5):
+    """Phase 3o (b) for one cell: build it on the card, hold its state
+    bytes, one step's launches, aten FLOPs and peak to the dry run's row,
+    then time ``steps`` steps after a warm-up."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import get_config
+
+    mem = row["memory"]
+    torch.cuda.synchronize()
+    base, base_req = torch.cuda.memory_allocated(), _requested(torch)
+    cell = DR.make_cell(get_config(arch), shape, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    state_req = _requested(torch) - base_req
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as fc:
+        logits, _ = cell.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    launches = {n: fn.launches for n, fn in counters.items() if fn.launches}
+    aten = sum(row["cost"]["aten_flops"].values())
+    traced_peak = mem["peak_live_bytes"]
+    tol = max(PEAK_REL * traced_peak, PEAK_ABS)
+    finite = bool(torch.isfinite(logits).all())
+    print(f"[dry] {arch} {shape} on the card: state requested {state_req} B (dry run "
+          f"{mem['state_bytes']} B), allocated {state} B (dry run "
+          f"{mem['state_bytes_allocated']} B rounded to 512; the allocator's unsplit "
+          f"block tails {state - mem['state_bytes_allocated']} B); "
+          f"launches {launches} (dry run {row['launches']}); aten FLOPs {fc.get_total_flops()} "
+          f"(dry run {aten}); peak over the state {peak / 2**30:.3f} GiB (dry run "
+          f"{traced_peak / 2**30:.3f} GiB, tolerance {tol / 2**30:.3f}); logits "
+          f"{tuple(logits.shape)} finite: {finite}")
+    if state_req != mem["state_bytes"]:
+        raise SystemExit(f"dry run {arch} {shape}: state requested {state_req} != "
+                         f"{mem['state_bytes']}")
+    if not 0 <= state - mem["state_bytes_allocated"] <= TAIL_SHARE * mem["state_bytes"]:
+        raise SystemExit(f"dry run {arch} {shape}: state allocated {state} against "
+                         f"{mem['state_bytes_allocated']} rounded")
+    if launches != row["launches"]:
+        raise SystemExit(f"dry run {arch} {shape}: launches {launches} != {row['launches']}")
+    if fc.get_total_flops() != aten:
+        raise SystemExit(f"dry run {arch} {shape}: aten FLOPs {fc.get_total_flops()} != {aten}")
+    if abs(peak - traced_peak) > tol:
+        raise SystemExit(f"dry run {arch} {shape}: peak {peak} vs traced {traced_peak}")
+    if not finite or tuple(logits.shape) != (cell.shape.global_batch, 1, cell.cfg.padded_vocab):
+        raise SystemExit(f"dry run {arch} {shape}: logits {tuple(logits.shape)} finite {finite}")
+    del logits
+    cell.run()                                        # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        cell.run()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    r = row["roofline"]
+    bound_ms = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+    fused_ms = max(r["compute_s"], r["memory_analytic_s"]) * 1e3
+    mfu = row["model_flops"] / (ms * 1e-3) / 989e12
+    print(f"[dry] {arch} {shape}: {ms:.3f} ms a step (B={cell.shape.global_batch}, "
+          f"S={cell.shape.seq_len}); roofline bound {bound_ms:.3f} ms by traced bytes "
+          f"({r['dominant']}), {fused_ms:.3f} ms fused ({r['dominant_fused']}); memory term "
+          f"{r['memory_s'] * 1e3 / ms:.3f} of the step traced, "
+          f"{r['memory_analytic_s'] * 1e3 / ms:.4f} fused; model_flops / time / 989e12 = "
+          f"{mfu:.2e}")
+    _profile(torch, cell.run, f"{arch} {shape} decode step", top=6)
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound_ms, "fused_ms": fused_ms, "mfu": mfu}
+
+
+def _dry_run_holds(torch, g3_split, train_launches, train_steps):
+    """Phase 3o."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config, list_archs
+    from repro_torch.core.lowering import cost_counting
+    from repro_torch.launch import dryrun as DR
+
+    t0 = time.perf_counter()
+    # (a) the dry run of the decode cells.
+    rows = {}
+    for shape in ("decode_32k", "long_500k"):
+        for arch in list_archs():
+            name = get_config(arch).name
+            rows[(name, shape)] = DR.run_cell(name, shape)
+    failed = [k for k, r in rows.items() if not r["ok"]]
+    if failed:
+        raise SystemExit(f"dry run: cells failed: {failed}")
+    fits = tuple(k for k, r in rows.items() if r.get("memory", {}).get("fits_one_card"))
+    print(f"[dry] cells that fit one card: {fits}; dry run {time.perf_counter() - t0:.1f}s")
+    if sorted(fits) != sorted(FITTING_CELLS):
+        raise SystemExit(f"dry run: fitting cells {fits} != {FITTING_CELLS}")
+    # (b) each fitting cell on the card.
+    counters = _counters()
+    for arch, shape in FITTING_CELLS:
+        _hold_cell(torch, DR, arch, shape, rows[(arch, shape)], counters)
+    # (c) the Functions' and the forward's meta branches against phases 3h and 3b.
+    cfg = get_config("gemma3-1b")
+    with cost_counting() as c:
+        DR.make_cell(cfg, ShapeConfig("phase 3h scoring", 4096, 1, "prefill")).run()
+    plans = c.kernels["flash_attention_cuda"].plans
+    split = {"window": plans.get(repr((("causal", True), ("window", cfg.attn_window))), 0),
+             "causal": plans.get(repr((("causal", True), ("window", None))), 0)}
+    print(f"[dry] meta trace of phase 3h's scoring B=1 T=4096: {c.launches()}, by mask "
+          f"{split}; the card's {g3_split}")
+    if split != g3_split or c.launches() != {"flash_attention_cuda": sum(g3_split.values())}:
+        raise SystemExit(f"dry run: gemma3 scoring flash {plans} != the card's {g3_split}")
+    cfg = get_config("rwkv6-1.6b")
+    with cost_counting() as c:
+        DR.make_cell(cfg, ShapeConfig("phase 3b train", 256, 8, "train")).run()
+    per_step = {k: n // train_steps for k, n in train_launches.items()}
+    print(f"[dry] meta trace of phase 3b's train step B=8 T=256: {c.launches()}; the card's "
+          f"{per_step} a step ({train_launches} over {train_steps} steps)")
+    if c.launches() != per_step or any(n % train_steps for n in train_launches.values()):
+        raise SystemExit(f"dry run: rwkv6 train step {c.launches()} != the card's {per_step}")
+    print(f"[time] phase 3o wall: {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Architecture configuration schema: the port's own copy of
 ``repro.configs.base.ArchConfig`` (same fields, same ``reduced()`` and
-``padded_vocab``), so the port imports nothing of the JAX package."""
+``padded_vocab``) and of its ``ShapeConfig`` cells (``SHAPES``, the dry
+run's), so the port imports nothing of the JAX package."""
 
 from __future__ import annotations
 
@@ -153,3 +154,22 @@ class ArchConfig:
             dtype="float32",
             remat="none",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell (the reference's ``ShapeConfig``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+#: The reference's four cells, the dry run's shapes.
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

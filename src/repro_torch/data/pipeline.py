@@ -8,7 +8,9 @@ index.  The stream is the reference's in kind (Zipf token ids, every 8th
 position copying the token 4 back, labels shifted by one) but not in its
 numbers: the reference draws from JAX threefry, which numpy does not
 reproduce.  Tests that compare the two frameworks hand both one numpy
-batch.
+batch.  :func:`host_batch_numpy`, the reference's loader variant, is
+numpy in both, so the two frameworks' batches are equal there;
+:func:`batch_specs` are the dry run's meta stand-ins.
 """
 
 from __future__ import annotations
@@ -56,3 +58,24 @@ def make_batch(cfg: DataConfig, step: int, *, device=None) -> dict[str, torch.Te
     device = resolve_device(device)
     return {k: torch.from_numpy(v).to(device)
             for k, v in make_batch_numpy(cfg, step).items()}
+
+
+def batch_specs(cfg: DataConfig) -> dict[str, torch.Tensor]:
+    """Meta tensors of one batch's ``tokens`` and ``labels`` (the dry run's
+    inputs; nothing allocated), int64 as :func:`make_batch` gives them."""
+    shape = (cfg.global_batch, cfg.seq_len)
+    return {k: torch.empty(shape, dtype=torch.int64, device="meta")
+            for k in ("tokens", "labels")}
+
+
+def host_batch_numpy(cfg: DataConfig, step: int) -> dict[str, np.ndarray]:
+    """The reference's host-side loader variant, the same numbers: Zipf
+    tokens from ``np.random.default_rng((seed << 32) ^ step)`` (no copied
+    positions), int32, labels shifted by one."""
+    rng = np.random.default_rng((cfg.seed << 32) ^ step)
+    b, s = cfg.global_batch, cfg.seq_len
+    u = rng.random((b, s))
+    k = np.power(1.0 - u, -1.0 / (cfg.zipf_exponent - 1.0))
+    tokens = (np.clip(k, 1.0, float(cfg.vocab_size)) - 1.0).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    return {"tokens": tokens, "labels": labels}

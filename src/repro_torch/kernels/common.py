@@ -31,10 +31,19 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.h100 import (  # noqa: F401 — re-exported
+    H100_SMS,
+    SMEM_LIMIT,
+    SMEM_PER_SM,
+    SMEM_RESERVED,
+)
+
 __all__ = [
     "resolve_device",
     "DTYPE_CODE",
     "check_kernel_tensors",
+    "on_kernel_device",
+    "by_device",
     "pointer_alignment",
     "validate_divisible",
     "largest_divisor_chunk",
@@ -94,23 +103,39 @@ def resolve_device(device=None) -> torch.device:
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def check_kernel_tensors(name: str, strided: tuple = (), **tensors) -> None:
+def check_kernel_tensors(name: str, strided: tuple = (), *, device_type: str = "cuda",
+                         **tensors) -> None:
     """Every tensor given (``None`` skipped) lies on the first one's CUDA
     device, is contiguous (those named in ``strided`` excepted: their
     wrapper checks their layout) and does not require grad: the raw kernel
     wrappers take no autograd (gradients go through the ``vjp.py``
-    Functions, which hand them detached tensors)."""
+    Functions, which hand them detached tensors).  The meta twins of the
+    wrappers check the same with ``device_type="meta"``."""
     given = {k: x for k, x in tensors.items() if x is not None}
     dev = next(iter(given.values())).device
+    where = "one CUDA device" if device_type == "cuda" else "the meta device"
     for key, x in given.items():
-        if x.device != dev or x.device.type != "cuda":
-            raise ValueError(f"{name}: {key} must be on one CUDA device, got {x.device}")
+        if x.device != dev or x.device.type != device_type:
+            raise ValueError(f"{name}: {key} must be on {where}, got {x.device}")
         if key not in strided and not x.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
         if x.requires_grad:
             raise ValueError(
                 f"{name}: {key} requires grad; the raw kernel wrappers take no "
                 "autograd")
+
+
+def on_kernel_device(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the kernels: CUDA tensors launch them, meta
+    tensors take their meta twins (``repro_torch.core.lowering``)."""
+    return x.device.type in ("cuda", "meta")
+
+
+def by_device(x: torch.Tensor, cuda, meta, plain=None):
+    """The kernel wrapper for CUDA tensors, its meta twin for meta tensors,
+    the plain version for any other.  ``plain=None`` means the wrapper
+    itself, which runs its plain version on CPU tensors."""
+    return {"cuda": cuda, "meta": meta}.get(x.device.type, plain or cuda)
 
 
 def pointer_alignment(*tensors) -> int:
@@ -323,17 +348,6 @@ def sm_count(device: torch.device) -> int:
 # --------------------------------------------------------------------------
 # Launch declarations
 # --------------------------------------------------------------------------
-
-#: The SMs of the card the planners plan for by default (H100 SXM).
-H100_SMS = 132
-#: Dynamic shared memory one block may opt in to on the H100 (227 KB), the
-#: shared memory of an SM, and what the card reserves of it for each
-#: resident block: 232448 + 1024 = 233472, so a block at the limit still
-#: lands one block an SM.
-SMEM_LIMIT = 232448
-SMEM_PER_SM = 233472
-SMEM_RESERVED = 1024
-
 
 @dataclass(frozen=True)
 class KernelLaunch:

@@ -31,9 +31,11 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
     DECODE_WINDOWS,
     DTYPE_CODE,
+    H100_SMS,
     SERVE_BATCH,
     KernelLaunch,
     launch_stream,
@@ -72,7 +74,8 @@ WINDOW_MODES = {"regs": 0, "tma": 1}
 __all__ = ["ELEVATOR_DECODE_WINDOW_MAX", "WINDOW_VECS", "WINDOW_THREADS", "WINDOW_TMA_COLS",
            "WINDOW_MODES", "WindowPlan", "window_kmax", "window_uses_tma", "plan_window",
            "window_plans", "launch_plan", "elevator_decode_window_cuda",
-           "elevator_decode_window_plain", "window_smem_bytes"]
+           "elevator_decode_window_plain", "window_smem_bytes", "window_cost",
+           "elevator_decode_window_meta"]
 
 
 @dataclass(frozen=True)
@@ -169,10 +172,10 @@ def _launch(a, x, h0, plan: WindowPlan):
     return out, h_out
 
 
-def _check(name, a, x, h0):
+def _check(name, a, x, h0, device_type="cuda"):
     if h0 is None:
         raise ValueError(f"{name}: h0 is required")
-    check_scan_args(name, a, x, h0)
+    check_scan_args(name, a, x, h0, device_type)
     return pointer_alignment(a, x, h0)
 
 
@@ -203,6 +206,26 @@ def elevator_decode_window_cuda(a: torch.Tensor, x: torch.Tensor,
 
 
 elevator_decode_window_cuda.launches = 0
+
+
+def window_cost(b: int, k: int, d: int, dtype: torch.dtype) -> LaunchCost:
+    """One launch of the window, as PERF.md's row 9 bounds it: a and x read
+    and h written in their dtype, h0 read and the exit state written in f32;
+    2 f32 operations an element."""
+    nbytes = 3 * b * k * d * dtype.itemsize + 2 * b * d * 4
+    return LaunchCost.of(2 * b * k * d, "f32", nbytes)
+
+
+def elevator_decode_window_meta(a: torch.Tensor, x: torch.Tensor, h0: torch.Tensor):
+    """:func:`elevator_decode_window_cuda` on meta tensors: the same checks
+    and plan, empty outputs, and the launch recorded (``core.lowering``)."""
+    align = _check("elevator_decode_window_cuda", a, x, h0, device_type="meta")
+    b, k, d = x.shape
+    plan = plan_window(b, k, d, x.dtype, H100_SMS, align)
+    with kernel_scope():
+        out = torch.empty_like(x), torch.empty_like(h0)
+    record_launch("elevator_decode_window_cuda", window_cost(b, k, d, x.dtype), plan)
+    return out
 
 
 # --------------------------------------------------------------------------

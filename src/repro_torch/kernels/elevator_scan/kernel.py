@@ -33,8 +33,10 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    H100_SMS,
     SERVE_BATCH,
     SERVE_PROMPT,
     KernelLaunch,
@@ -54,7 +56,8 @@ __all__ = ["SCAN_ROW_BYTES", "LOADER_COLS", "SCAN_ROWS", "RING_BYTES", "MAX_STAG
            "launch_plan", "elevator_scan_cuda", "elevator_scan_ref", "check_scan_args",
            "BWD_RING_BYTES", "BWD_FILL", "plan_scan_bwd", "scan_bwd_plans", "launch_bwd_plan",
            "elevator_scan_bwd_cuda", "elevator_scan_bwd_ref", "ring_stages", "scan_threads",
-           "scan_smem_bytes", "scan_bwd_smem_bytes"]
+           "scan_smem_bytes", "scan_bwd_smem_bytes", "scan_cost", "scan_bwd_cost",
+           "elevator_scan_meta", "elevator_scan_bwd_meta"]
 
 #: The bytes of one row that a block of the TMA ring reads (its channels
 #: times the element size), widest first: 128 or 64 (32 or 16 f32 channels,
@@ -162,10 +165,11 @@ def scan_plans(b: int, t: int, d: int, dtype: torch.dtype, align: int = 16) -> l
             + [ScanPlan(LOADER_COLS, _stages(LOADER_COLS, "loaders", item, t), "loaders")])
 
 
-def check_scan_args(name, a, x, h0):
+def check_scan_args(name, a, x, h0, device_type="cuda"):
     """a and x: (B, T, D) of one dtype (f32 or bf16); h0: None or (B, D)
-    f32; all on one CUDA device, contiguous, without autograd."""
-    check_kernel_tensors(name, a=a, x=x, h0=h0)
+    f32; all on one CUDA device (the meta device for the meta twins),
+    contiguous, without autograd."""
+    check_kernel_tensors(name, device_type=device_type, a=a, x=x, h0=h0)
     if x.dtype not in DTYPE_CODE or a.dtype != x.dtype:
         raise ValueError(f"{name}: a {a.dtype} and x {x.dtype} must be one of "
                          "float32, bfloat16")
@@ -258,13 +262,13 @@ def scan_bwd_plans(b: int, t: int, d: int, align: int = 16) -> list[ScanPlan]:
             + [ScanPlan(LOADER_COLS, _bwd_stages(LOADER_COLS, "loaders", t), "loaders")])
 
 
-def _check_bwd_args(name, a, h, dh, h0):
-    check_scan_args(name, a, dh, h0)
+def _check_bwd_args(name, a, h, dh, h0, device_type="cuda"):
+    check_scan_args(name, a, dh, h0, device_type)
     if a.dtype != torch.float32 or h.dtype != torch.float32 or h.shape != a.shape:
         raise ValueError(f"{name}: a, dh and h must be float32 of shape "
                          f"{tuple(a.shape)}, got {a.dtype}, {dh.dtype}, {h.dtype} "
                          f"{tuple(h.shape)}")
-    check_kernel_tensors(name, a=a, h=h)
+    check_kernel_tensors(name, device_type=device_type, a=a, h=h)
 
 
 def _launch_bwd(a, h, dh, h0, plan: ScanPlan):
@@ -307,6 +311,52 @@ def launch_bwd_plan(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
     if plan not in scan_bwd_plans(b, t, d, pointer_alignment(a, h, dh)):
         raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
     return _launch_bwd(a, h, dh, h0, plan)
+
+
+# --------------------------------------------------------------------------
+# The meta branch (``core.lowering``)
+# --------------------------------------------------------------------------
+
+def scan_cost(b: int, t: int, d: int, dtype: torch.dtype, h0: bool = True) -> LaunchCost:
+    """One launch of the chunked scan, as PERF.md's row 8 bounds it: a and x
+    read and h written in their dtype, h0 read in f32 where given; 2 f32
+    operations an element."""
+    nbytes = 3 * b * t * d * dtype.itemsize + (b * d * 4 if h0 else 0)
+    return LaunchCost.of(2 * b * t * d, "f32", nbytes)
+
+
+def scan_bwd_cost(b: int, t: int, d: int, h0: bool = True) -> LaunchCost:
+    """One launch of the scan's backward, as PERF.md's row B2 bounds it: a,
+    h and dh read, da and dx written (all f32), h0 read where given and dh0
+    written; 3 f32 operations an element."""
+    nbytes = 5 * b * t * d * 4 + (b * d * 4 if h0 else 0) + b * d * 4
+    return LaunchCost.of(3 * b * t * d, "f32", nbytes)
+
+
+def elevator_scan_meta(a: torch.Tensor, x: torch.Tensor,
+                       h0: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`elevator_scan_cuda` on meta tensors: the same checks and plan,
+    an empty h, and the launch recorded."""
+    check_scan_args("elevator_scan_cuda", a, x, h0, device_type="meta")
+    b, t, d = x.shape
+    plan = plan_scan(b, t, d, x.dtype, H100_SMS, pointer_alignment(a, x))
+    with kernel_scope():
+        out = torch.empty_like(x)
+    record_launch("elevator_scan_cuda", scan_cost(b, t, d, x.dtype, h0 is not None), plan)
+    return out
+
+
+def elevator_scan_bwd_meta(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor,
+                           h0: torch.Tensor | None = None):
+    """:func:`elevator_scan_bwd_cuda` on meta tensors."""
+    _check_bwd_args("elevator_scan_bwd_cuda", a, h, dh, h0, device_type="meta")
+    b, t, d = a.shape
+    plan = plan_scan_bwd(b, t, d, H100_SMS, pointer_alignment(a, h, dh))
+    with kernel_scope():
+        out = (torch.empty_like(a), torch.empty_like(dh),
+               torch.empty((b, d), dtype=torch.float32, device="meta"))
+    record_launch("elevator_scan_bwd_cuda", scan_bwd_cost(b, t, d, h0 is not None), plan)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Public op: the decayed sequence scan with device dispatch (counterpart
 of ``repro.kernels.elevator_scan.ops.elevator_scan``).
 
-* CUDA tensors take the CUDA kernels; CPU tensors take the plain version.
+* CUDA tensors take the CUDA kernels; CPU tensors take the plain version;
+  meta tensors take the kernels' meta twins (:mod:`repro_torch.core.lowering`).
 * ``decode=True`` marks a stateful serving call: windows of at most
   :data:`~repro_torch.kernels.elevator_scan.decode.ELEVATOR_DECODE_WINDOW_MAX`
   tokens take the decode-window kernel; longer sweeps (the prompt prefill)
@@ -21,11 +22,13 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import by_device, on_kernel_device
 from repro_torch.kernels.elevator_scan.decode import (
     ELEVATOR_DECODE_WINDOW_MAX,
     elevator_decode_window_cuda,
+    elevator_decode_window_meta,
 )
-from repro_torch.kernels.elevator_scan.kernel import elevator_scan_cuda
+from repro_torch.kernels.elevator_scan.kernel import elevator_scan_cuda, elevator_scan_meta
 from repro_torch.kernels.elevator_scan.ref import elevator_scan_ref
 from repro_torch.kernels.elevator_scan.vjp import ElevatorScanFunction
 
@@ -42,11 +45,12 @@ def elevator_scan(a: torch.Tensor, x: torch.Tensor,
     if torch.is_grad_enabled() and any(
             v is not None and v.requires_grad for v in (a, x, h0)):
         return ElevatorScanFunction.apply(a, x, h0, decode)
-    if not x.is_cuda:
+    if not on_kernel_device(x):
         return elevator_scan_ref(a, x, h0)
     if decode and t <= ELEVATOR_DECODE_WINDOW_MAX:
         if h0 is None:
             h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32,
                              device=x.device)
-        return elevator_decode_window_cuda(a, x, h0)[0]
-    return elevator_scan_cuda(a, x, h0)
+        window = by_device(x, elevator_decode_window_cuda, elevator_decode_window_meta)
+        return window(a, x, h0)[0]
+    return by_device(x, elevator_scan_cuda, elevator_scan_meta)(a, x, h0)

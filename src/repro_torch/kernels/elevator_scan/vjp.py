@@ -14,28 +14,37 @@ chunked scan, which the reference leaves to autodiff of its jnp path).
   ``da[t] = g[t] h[t-1]``, ``dx = g``, ``dh0 = a[0] g[0]``.
 
 CPU tensors run the same structure through the plain versions; on CUDA
-tensors the kernels launch or raise.
+tensors the kernels launch or raise; meta tensors take the kernels' meta
+twins.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import by_device
 from repro_torch.kernels.elevator_scan.decode import (
     ELEVATOR_DECODE_WINDOW_MAX,
     elevator_decode_window_cuda,
+    elevator_decode_window_meta,
 )
-from repro_torch.kernels.elevator_scan.kernel import elevator_scan_bwd_cuda, elevator_scan_cuda
+from repro_torch.kernels.elevator_scan.kernel import (
+    elevator_scan_bwd_cuda,
+    elevator_scan_bwd_meta,
+    elevator_scan_cuda,
+    elevator_scan_meta,
+)
 
 __all__ = ["ElevatorScanFunction"]
 
 
 def _scan(a, x, h0, window: bool):
+    # The wrappers take CPU tensors through their plain versions.
     if not window:
-        return elevator_scan_cuda(a, x, h0)
+        return by_device(x, elevator_scan_cuda, elevator_scan_meta)(a, x, h0)
     if h0 is None:
         h0 = torch.zeros((x.shape[0], x.shape[2]), dtype=torch.float32, device=x.device)
-    return elevator_decode_window_cuda(a, x, h0)[0]
+    return by_device(x, elevator_decode_window_cuda, elevator_decode_window_meta)(a, x, h0)[0]
 
 
 class ElevatorScanFunction(torch.autograd.Function):
@@ -61,5 +70,6 @@ class ElevatorScanFunction(torch.autograd.Function):
         # h is this node's output: detached, as the kernel wrappers take no
         # autograd.
         a, h0, h = (None if t is None else t.detach() for t in ctx.saved_tensors)
-        da, dx, dh0 = elevator_scan_bwd_cuda(a, h, dh.contiguous(), h0)
+        bwd = by_device(a, elevator_scan_bwd_cuda, elevator_scan_bwd_meta)
+        da, dx, dh0 = bwd(a, h, dh.contiguous(), h0)
         return da, dx, dh0 if ctx.needs_input_grad[2] else None, None

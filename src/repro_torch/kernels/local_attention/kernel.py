@@ -29,10 +29,18 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
+from repro_torch.core.lowering import (
+    LaunchCost,
+    flop_class,
+    kernel_scope,
+    record_launch,
+)
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    H100_SMS,
     SMEM_LIMIT,
     KernelLaunch,
     check_kernel_tensors,
@@ -53,7 +61,8 @@ __all__ = ["HEAD_DIMS", "F32_HEAD_DIMS", "BWD_KV_TILE", "BWD_Q_TILE", "BWD_DQ_RO
            "BWD_DQ_KEYS", "BWD_MAX_STAGES", "MAX_CLUSTER", "BWD_WAVES", "SMEM_LIMIT",
            "FlashBwdPlan", "bwd_smem_bytes", "fwd_smem_bytes", "plan_flash_bwd", "flash_bwd_plans",
            "flash_attention_cuda", "flash_attention_bwd_cuda", "launch_bwd_plan",
-           "attention_ref", "attention_ref_lse", "attention_bwd_ref"]
+           "attention_ref", "attention_ref_lse", "attention_bwd_ref", "visible_pairs",
+           "flash_cost", "flash_bwd_cost", "flash_attention_meta", "flash_attention_bwd_meta"]
 
 #: Head widths the kernels are compiled for, in bf16 and in f32 (96: the
 #: qwen2-100m training example's width).
@@ -191,6 +200,45 @@ def flash_bwd_plans(b: int, hq: int, hkv: int, t: int, s: int, d: int) -> list[F
     return [_plan(d, c, _deepest(d, "dkdv"), _deepest(d, "dq")) for c in _clusters(hq, hkv)]
 
 
+def visible_pairs(t: int, s: int, causal: bool, window: int | None) -> int:
+    """The query-key pairs the kernels' mask admits for T queries over S
+    keys (the work of one (batch, head)): causal with the decode offset
+    S - T, or not, each with an optional window."""
+    i = np.arange(t, dtype=np.int64)
+    if causal:
+        j = i + (s - t)
+        hi = np.minimum(s, j + 1)
+        lo = np.maximum(0, j - window + 1) if window else np.zeros_like(i)
+    else:
+        hi = np.minimum(s, i + window) if window else np.full_like(i, s)
+        lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def flash_cost(b: int, hq: int, hkv: int, t: int, s: int, d: int, dtype: torch.dtype, *,
+               causal: bool = True, window: int | None = None, lse: bool = False) -> LaunchCost:
+    """One launch of the forward, as PERF.md's rows 11-11k bound it: Q read
+    and O written, K and V read, in their dtype (and each row's f32
+    log-sum-exp written where ``lse``); 4 D operations a visible pair and
+    query head (Q K^T and P V), of the dtype's class."""
+    item = dtype.itemsize
+    nbytes = item * (2 * b * hq * t * d + 2 * b * hkv * s * d) + (b * hq * t * 4 if lse else 0)
+    flops = 4 * d * hq * b * visible_pairs(t, s, causal, window)
+    return LaunchCost.of(flops, flop_class(dtype), nbytes)
+
+
+def flash_bwd_cost(b: int, hq: int, hkv: int, t: int, s: int, d: int, dtype: torch.dtype, *,
+                   causal: bool = True, window: int | None = None) -> LaunchCost:
+    """One launch of the backward (its three kernels), as PERF.md's row B1
+    bounds it: Q, O and dO read and dQ written, K and V read and dK and dV
+    written, in their dtype, and the f32 log-sum-exp read; 10 D operations a
+    visible pair and query head (S, dP, dV, dK, dQ)."""
+    item = dtype.itemsize
+    nbytes = item * (4 * b * hq * t * d + 4 * b * hkv * s * d) + b * hq * t * 4
+    flops = 10 * d * hq * b * visible_pairs(t, s, causal, window)
+    return LaunchCost.of(flops, flop_class(dtype), nbytes)
+
+
 def _check_qkv(name, q, k, v, window):
     """One dtype (f32 or bf16), (B,Hq,T,D) and (B,Hkv,S,D) with Hkv | Hq,
     a compiled head width, a window None or >= 1, 16-byte aligned."""
@@ -245,8 +293,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_cuda.launches = 0
 
 
-def _check_bwd_args(name, q, k, v, o, lse, do, window):
-    check_kernel_tensors(name, q=q, k=k, v=v, o=o, lse=lse, do=do)
+def _check_bwd_args(name, q, k, v, o, lse, do, window, device_type="cuda"):
+    check_kernel_tensors(name, device_type=device_type, q=q, k=k, v=v, o=o, lse=lse, do=do)
     _check_qkv(name, q, k, v, window)
     b, hq, t, _ = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
@@ -305,6 +353,48 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd_cuda.launches = 0
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, window: int | None = None,
+                         scale: float | None = None, lse: bool = False):
+    """:func:`flash_attention_cuda` on meta tensors: the same checks, empty
+    outputs of the kernel's shapes (the f32 log-sum-exp with ``lse``), and
+    the launch recorded (``core.lowering``)."""
+    check_kernel_tensors("flash_attention_cuda", device_type="meta", q=q, k=k, v=v)
+    _check_qkv("flash_attention_cuda", q, k, v, window)
+    b, hq, t, d = q.shape
+    _, hkv, s, _ = k.shape
+    with kernel_scope():
+        out = torch.empty_like(q)
+        rows = torch.empty((b, hq, t), dtype=torch.float32, device="meta") if lse else None
+    record_launch("flash_attention_cuda", flash_cost(b, hq, hkv, t, s, d, q.dtype, causal=causal,
+                                                     window=window, lse=lse),
+                  plan=(("causal", causal), ("window", window)))
+    return (out, rows) if lse else out
+
+
+def flash_attention_bwd_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int | None = None,
+                             scale: float | None = None):
+    """:func:`flash_attention_bwd_cuda` on meta tensors: the same checks and
+    plan, empty gradients and the kernels' f32 scratch, and the launch
+    recorded."""
+    _check_bwd_args("flash_attention_bwd_cuda", q, k, v, o, lse, do, window, device_type="meta")
+    b, hq, t, d = q.shape
+    _, hkv, s, _ = k.shape
+    bf16 = q.dtype == torch.bfloat16
+    plan = plan_flash_bwd(b, hq, hkv, t, s, d, H100_SMS) if bf16 else None
+    rows = b * hq * (_up(t, BWD_DQ_ROWS) if bf16 else t)
+    with kernel_scope():
+        grads = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        scratch = torch.empty(((2 if bf16 else 1) * rows,), dtype=torch.float32, device="meta")
+        del scratch
+    record_launch("flash_attention_bwd_cuda",
+                  flash_bwd_cost(b, hq, hkv, t, s, d, q.dtype, causal=causal, window=window),
+                  plan)
+    return grads
 
 
 def launch_bwd_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,

@@ -7,14 +7,16 @@ blocks) above, as the reference's CPU dispatch does.  Under autograd (grad
 enabled and q, k or v requiring grad) the call runs through
 :class:`~repro_torch.kernels.local_attention.vjp.FlashAttentionFunction`:
 the forward and backward kernels on the card, their plain versions (the
-exact masked softmax) on the CPU.
+exact masked softmax) on the CPU.  Meta tensors take the kernels' meta
+twins (:mod:`repro_torch.core.lowering`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.local_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.common import by_device, on_kernel_device
+from repro_torch.kernels.local_attention.kernel import flash_attention_cuda, flash_attention_meta
 from repro_torch.kernels.local_attention.ref import attention_blockwise, attention_ref
 from repro_torch.kernels.local_attention.vjp import FlashAttentionFunction
 
@@ -28,8 +30,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention over (B, Hq, T, D) queries and (B, Hkv, S, D) keys/values."""
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, window, scale)
-    if q.is_cuda:
-        return flash_attention_cuda(q, k, v, causal=causal, window=window, scale=scale)
+    if on_kernel_device(q):
+        fn = by_device(q, flash_attention_cuda, flash_attention_meta)
+        return fn(q, k, v, causal=causal, window=window, scale=scale)
     if q.shape[2] > BLOCKWISE_ABOVE or k.shape[2] > BLOCKWISE_ABOVE:
         return attention_blockwise(q, k, v, causal=causal, window=window,
                                    scale=scale, block=512)

@@ -15,16 +15,20 @@ the card through ``csrc/flash_attention_bwd.cu``:
 CPU tensors run the same structure through the plain versions
 (:func:`~repro_torch.kernels.local_attention.ref.attention_ref_lse`,
 :func:`~repro_torch.kernels.local_attention.ref.attention_bwd_ref`); on
-CUDA tensors the kernels launch or raise.
+CUDA tensors the kernels launch or raise; meta tensors take their meta
+twins.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import by_device
 from repro_torch.kernels.local_attention.kernel import (
     flash_attention_bwd_cuda,
+    flash_attention_bwd_meta,
     flash_attention_cuda,
+    flash_attention_meta,
 )
 
 __all__ = ["FlashAttentionFunction"]
@@ -37,8 +41,9 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         q, k, v = (x.detach().contiguous() for x in (q, k, v))
-        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window,
-                                        scale=scale, lse=True)
+        # The wrappers take CPU tensors through their plain versions.
+        fwd = by_device(q, flash_attention_cuda, flash_attention_meta)
+        out, lse = fwd(q, k, v, causal=causal, window=window, scale=scale, lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mask = dict(causal=causal, window=window, scale=scale)
         return out
@@ -48,6 +53,6 @@ class FlashAttentionFunction(torch.autograd.Function):
         # The saved output comes back attached to this node: detach it, as
         # the kernel wrappers take no autograd.
         q, k, v, out, lse = (x.detach() for x in ctx.saved_tensors)
-        dq, dk, dv = flash_attention_bwd_cuda(
-            q, k, v, out, lse, d_out.to(q.dtype).contiguous(), **ctx.mask)
+        bwd = by_device(q, flash_attention_bwd_cuda, flash_attention_bwd_meta)
+        dq, dk, dv = bwd(q, k, v, out, lse, d_out.to(q.dtype).contiguous(), **ctx.mask)
         return dq, dk, dv, None, None, None

@@ -23,8 +23,15 @@ import math
 
 import torch
 
+from repro_torch.core.lowering import (
+    LaunchCost,
+    flop_class,
+    kernel_scope,
+    record_launch,
+)
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    H100_SMS,
     KernelLaunch,
     check_kernel_tensors,
     launch_stream,
@@ -35,7 +42,7 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.matmul_fwd.ref import matmul_ref
 
 __all__ = ["VARIANTS", "MAX_SPLIT", "FILL", "plan", "launch_plan", "matmul_fwd_cuda",
-           "matmul_ref", "smem_bytes", "matmul_launches"]
+           "matmul_ref", "smem_bytes", "matmul_launches", "matmul_cost", "matmul_fwd_meta"]
 
 #: variant -> (its code in the C entry point, the K extent of one k-tile,
 #: the fewest k-tiles a split leaves each K range, the output tiles it is
@@ -94,11 +101,7 @@ def plan(m: int, n: int, k: int, dtype: torch.dtype, sms: int, *,
     return variant, *tiles[-1], splits[-1]
 
 
-def matmul_fwd_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
-                    block_n: int = 256, block_k: int = 256) -> torch.Tensor:
-    """C = A @ B.  A: (M, K), B: (K, N), one dtype (f32 or bf16) on the
-    card.  Returns (M, N) in a.dtype, summed in f32.  CPU tensors take the
-    plain version."""
+def _check_blocks(a, b, block_m, block_n, block_k):
     m, k = a.shape
     k2, n = b.shape
     if k != k2:
@@ -110,6 +113,15 @@ def matmul_fwd_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
         raise ValueError(
             f"shape ({m},{k})x({k},{n}) not divisible by blocks "
             f"({block_m},{block_n},{block_k})")
+    return m, n, k
+
+
+def matmul_fwd_cuda(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
+                    block_n: int = 256, block_k: int = 256) -> torch.Tensor:
+    """C = A @ B.  A: (M, K), B: (K, N), one dtype (f32 or bf16) on the
+    card.  Returns (M, N) in a.dtype, summed in f32.  CPU tensors take the
+    plain version."""
+    m, n, k = _check_blocks(a, b, block_m, block_n, block_k)
     if a.device.type == "cpu":
         return matmul_ref(a, b)
     _check_operands(a, b)
@@ -123,8 +135,8 @@ def _aligned(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
 
 
-def _check_operands(a: torch.Tensor, b: torch.Tensor) -> None:
-    check_kernel_tensors("matmul_fwd_cuda", a=a, b=b)
+def _check_operands(a: torch.Tensor, b: torch.Tensor, device_type: str = "cuda") -> None:
+    check_kernel_tensors("matmul_fwd_cuda", device_type=device_type, a=a, b=b)
     if a.dtype not in DTYPE_CODE or b.dtype != a.dtype:
         raise ValueError(f"matmul_fwd_cuda: a {a.dtype} and b {b.dtype} must be one "
                          "dtype, float32 or bfloat16 (the plain version takes mixed "
@@ -154,6 +166,32 @@ def launch_plan(a: torch.Tensor, b: torch.Tensor, variant: str, tile_m: int, til
 
 
 matmul_fwd_cuda.launches = 0
+
+
+def matmul_cost(m: int, n: int, k: int, dtype: torch.dtype, split: int = 1) -> LaunchCost:
+    """One launch, as PERF.md's row 12 bounds it: A and B read and C written
+    in their dtype, 2 M N K operations of the dtype's class.  A split of K
+    also writes each K range's f32 partial plane and reads it back, which
+    the launch moves beyond the function's bytes (``scratch_bytes``)."""
+    item = dtype.itemsize
+    scratch = 2 * split * m * n * 4 if split > 1 else 0
+    return LaunchCost.of(2 * m * n * k, flop_class(dtype), (m * k + k * n + m * n) * item,
+                         scratch)
+
+
+def matmul_fwd_meta(a: torch.Tensor, b: torch.Tensor, *, block_m: int = 256,
+                    block_n: int = 256, block_k: int = 256) -> torch.Tensor:
+    """:func:`matmul_fwd_cuda` on meta tensors: the same checks and plan, an
+    empty C (and the split's workspace), and the launch recorded."""
+    m, n, k = _check_blocks(a, b, block_m, block_n, block_k)
+    _check_operands(a, b, device_type="meta")
+    p = plan(m, n, k, a.dtype, H100_SMS, aligned=_aligned(a, b))
+    with kernel_scope():
+        out = torch.empty((m, n), dtype=a.dtype, device="meta")
+        ws = torch.empty((p[3], m, n), dtype=torch.float32, device="meta") if p[3] > 1 else None
+        del ws
+    record_launch("matmul_fwd_cuda", matmul_cost(m, n, k, a.dtype, p[3]), plan=p)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Public op: tiled matmul with operand-forwarding reuse accounting
 (counterpart of ``repro.kernels.matmul_fwd.ops``).
 
-CUDA tensors take the CUDA kernel; CPU tensors take the plain version.
+CUDA tensors take the CUDA kernel; CPU tensors take the plain version;
+meta tensors take the kernel's meta twin (:mod:`repro_torch.core.lowering`).
 The reference's ``use_kernel`` knob is not kept: the tensor's device alone
 decides, as in the port's other ops.
 """
@@ -11,14 +12,16 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.cost_model import Traffic
-from repro_torch.kernels.matmul_fwd.kernel import matmul_fwd_cuda
+from repro_torch.kernels.common import by_device
+from repro_torch.kernels.matmul_fwd.kernel import matmul_fwd_cuda, matmul_fwd_meta
 
 
 def matmul_fwd(a: torch.Tensor, b: torch.Tensor, *, block_m=256, block_n=256,
                block_k=256) -> torch.Tensor:
     """C = A @ B in a.dtype, summed in f32, under the reference's block
     contract (see :func:`matmul_fwd_cuda`)."""
-    return matmul_fwd_cuda(a, b, block_m=block_m, block_n=block_n, block_k=block_k)
+    fn = by_device(a, matmul_fwd_cuda, matmul_fwd_meta)
+    return fn(a, b, block_m=block_m, block_n=block_n, block_k=block_k)
 
 
 def tile_traffic(m, n, k, block_m, block_n, block_k, itemsize=2) -> Traffic:

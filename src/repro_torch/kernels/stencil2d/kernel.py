@@ -26,8 +26,10 @@ import math
 
 import torch
 
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    H100_SMS,
     KernelLaunch,
     check_kernel_tensors,
     launch_stream,
@@ -38,7 +40,7 @@ from repro_torch.kernels.common import (
 from repro_torch.kernels.stencil2d.ref import stencil2d_ref
 
 __all__ = ["ROW_TILES", "STRIP_COLS", "THREADS", "plan_stencil", "stencil_grid",
-           "launch_plan", "stencil2d_cuda", "stencil2d_ref"]
+           "launch_plan", "stencil2d_cuda", "stencil2d_ref", "stencil_cost", "stencil2d_meta"]
 
 #: The rows a thread may walk, most first (the source's instantiations).
 ROW_TILES = (16, 8, 4, 2, 1)
@@ -129,6 +131,29 @@ def stencil2d_cuda(x: torch.Tensor, coeffs: torch.Tensor, *, block_h: int | None
 
 
 stencil2d_cuda.launches = 0
+
+
+def stencil_cost(h: int, w: int, dtype: torch.dtype) -> LaunchCost:
+    """One launch, as PERF.md's row 13 bounds it: x read and out written in
+    their dtype, the five f32 coefficients read; 9 f32 operations a point."""
+    return LaunchCost.of(9 * h * w, "f32", 2 * h * w * dtype.itemsize + 5 * 4)
+
+
+def stencil2d_meta(x: torch.Tensor, coeffs: torch.Tensor, *, block_h: int | None = None,
+                   boundary: float = 0.0) -> torch.Tensor:
+    """:func:`stencil2d_cuda` on meta tensors: the same checks and plan, an
+    empty output, and the launch recorded."""
+    _check("stencil2d_cuda", x, coeffs, block_h)
+    h, w = x.shape
+    c32 = coeffs.to(torch.float32).contiguous()
+    check_kernel_tensors("stencil2d_cuda", device_type="meta", x=x, coeffs=c32)
+    if x.dtype not in DTYPE_CODE:
+        raise ValueError(f"stencil2d_cuda: x {x.dtype} must be one of float32, bfloat16")
+    rows = plan_stencil(h, w, x.dtype, H100_SMS)
+    with kernel_scope():
+        out = torch.empty_like(x)
+    record_launch("stencil2d_cuda", stencil_cost(h, w, x.dtype), plan=(("rows", rows),))
+    return out
 
 
 # --------------------------------------------------------------------------

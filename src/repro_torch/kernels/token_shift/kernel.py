@@ -30,9 +30,11 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
     DECODE_WINDOWS,
     DTYPE_CODE,
+    H100_SMS,
     SERVE_BATCH,
     SERVE_PROMPT,
     KernelLaunch,
@@ -51,7 +53,8 @@ __all__ = ["MAX_TAPS", "BWD_THREADS", "BWD_MAX_COLS", "BWD_MAX_CLUSTER", "BWD_ST
            "BWD_GROUPS", "BWD_IN_FLIGHT", "ShiftBwdPlan", "slot_channels",
            "bwd_sub", "bwd_smem_bytes", "plan_shift_bwd", "shift_bwd_plans", "launch_bwd_plan",
            "token_shift_cuda", "token_shift_ref", "token_shift_bwd_cuda",
-           "token_shift_bwd_ref", "FWD_THREADS", "FWD_FILL", "fwd_rows"]
+           "token_shift_bwd_ref", "FWD_THREADS", "FWD_FILL", "fwd_rows", "shift_cost",
+           "shift_bwd_cost", "token_shift_meta", "token_shift_bwd_meta"]
 
 #: Largest tap count the kernel takes (the reference's token-buffer budget).
 MAX_TAPS = 8
@@ -200,8 +203,8 @@ def plan_shift_bwd(b: int, t: int, d: int, taps: int, dtype: torch.dtype, sms: i
     return _plan(b, t, d, dtype, align, lanes // cluster, cluster)
 
 
-def _check_bwd(name, x, w, dout):
-    check_kernel_tensors(name, x=x, w=w, dout=dout)
+def _check_bwd(name, x, w, dout, device_type="cuda"):
+    check_kernel_tensors(name, device_type=device_type, x=x, w=w, dout=dout)
     _check(name, x, w)
     if dout.shape != x.shape or dout.dtype != x.dtype:
         raise ValueError(f"{name}: dout {dout.dtype} {tuple(dout.shape)} must "
@@ -250,6 +253,52 @@ def launch_bwd_plan(x: torch.Tensor, w: torch.Tensor, dout: torch.Tensor, *,
                                    pointer_alignment(x, w, dout)):
         raise ValueError(f"launch_bwd_plan: {plan} is not a plan of these inputs")
     return _launch_bwd(x, w, dout, plan)
+
+
+# --------------------------------------------------------------------------
+# The meta branch (``core.lowering``)
+# --------------------------------------------------------------------------
+
+def shift_cost(b: int, t: int, d: int, taps: int, dtype: torch.dtype) -> LaunchCost:
+    """One launch of the forward, as PERF.md's row 10 bounds it: x read and
+    out written, w read, in their dtype; 2 f32 operations a tap and
+    element."""
+    item = dtype.itemsize
+    return LaunchCost.of(2 * taps * b * t * d, "f32", 2 * b * t * d * item + taps * d * item)
+
+
+def shift_bwd_cost(b: int, t: int, d: int, taps: int, dtype: torch.dtype) -> LaunchCost:
+    """One launch of the backward, as PERF.md's row B3 bounds it: x and dout
+    read and dx written, w read and dw written, in their dtype; 4 f32
+    operations a tap and element (dx and dw)."""
+    item = dtype.itemsize
+    return LaunchCost.of(4 * taps * b * t * d, "f32", 3 * b * t * d * item + 2 * taps * d * item)
+
+
+def token_shift_meta(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`token_shift_cuda` on meta tensors: the same checks and rows a
+    thread, an empty output, and the launch recorded."""
+    b, t, d = x.shape
+    check_kernel_tensors("token_shift_cuda", device_type="meta", x=x, w=w)
+    _check("token_shift_cuda", x, w)
+    rows = fwd_rows(b, t, d, x.dtype, H100_SMS)
+    with kernel_scope():
+        out = torch.empty_like(x)
+    record_launch("token_shift_cuda", shift_cost(b, t, d, w.shape[0], x.dtype),
+                  plan=(("rows", rows),))
+    return out
+
+
+def token_shift_bwd_meta(x: torch.Tensor, w: torch.Tensor, dout: torch.Tensor):
+    """:func:`token_shift_bwd_cuda` on meta tensors."""
+    _check_bwd("token_shift_bwd_cuda", x, w, dout, device_type="meta")
+    b, t, d = x.shape
+    plan = plan_shift_bwd(b, t, d, w.shape[0], x.dtype, H100_SMS,
+                          pointer_alignment(x, w, dout))
+    with kernel_scope():
+        out = torch.empty_like(x), torch.empty_like(w)
+    record_launch("token_shift_bwd_cuda", shift_bwd_cost(b, t, d, w.shape[0], x.dtype), plan)
+    return out
 
 
 # --------------------------------------------------------------------------

@@ -25,7 +25,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
+    H100_SMS,
     SEQ_GRAD,
     SEQ_SHARDS,
     KernelLaunch,
@@ -48,7 +50,7 @@ from repro_torch.kernels.wkv.kernel import (
 )
 
 __all__ = ["BWD_MAX_CHUNK", "CLUSTERS", "bwd_smem_bytes", "plan_cluster",
-           "launch_plan", "wkv_bwd_cuda", "wkv_bwd_plain"]
+           "launch_plan", "wkv_bwd_cuda", "wkv_bwd_plain", "bwd_cost", "wkv_bwd_meta"]
 
 #: Largest chunk the backward kernel takes (its shared-memory tiles).
 BWD_MAX_CHUNK = 32
@@ -161,13 +163,14 @@ def wkv_bwd_plain(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
     return (*grads, du, dS)
 
 
-def _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk):
+def _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk, device_type="cuda"):
     """Validate the inputs; returns the token count between consecutive
     (b, h) rows of r/k/v/w (T when they are contiguous)."""
     b, h, t, dh = r.shape
     tensors = {"r": r, "k": k, "v": v, "w": w, "u": u, "s_hist": s_hist,
                "d_out": d_out, "d_s_out": d_s_out}
-    check_kernel_tensors("wkv_bwd_cuda", strided=("r", "k", "v", "w"), **tensors)
+    check_kernel_tensors("wkv_bwd_cuda", strided=("r", "k", "v", "w"),
+                         device_type=device_type, **tensors)
     if r.dtype not in DTYPE_CODE:
         raise ValueError(f"wkv_bwd_cuda: dtype {r.dtype} not supported (float32, bfloat16)")
     for key in ("k", "v", "w", "u", "d_out"):
@@ -234,6 +237,44 @@ def launch_plan(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int, cluster=No
 
 
 wkv_bwd_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The meta branch (``core.lowering``)
+# --------------------------------------------------------------------------
+
+def bwd_cost(b: int, h: int, t: int, chunk: int, dtype: torch.dtype) -> LaunchCost:
+    """One launch of the backward, as PERF.md's rows 5 and 5b bound it.
+    Bytes: r, k, v, w, d_out read and dr, dk, dv, dw written in the inputs'
+    dtype, u read in it; s_hist, d_s_out read and du's partials and dh0
+    written in f32.  Operations in f32, a multiply-add as two, per chunk of
+    L: five triangles of L(L-1)/2 Dh (scores, dscores, the dscores products
+    for d_rdec and d_kinv, scores^T do), four L Dh^2 products (do S^T,
+    V G^T, k_rem G, r_dec^T do), the S.G row sums (Dh^2) and about 40
+    elementwise operations per (token, column)."""
+    item, dh, n, L = dtype.itemsize, WKV_DH, t // chunk, chunk
+    state = b * h * dh * dh * 4
+    nbytes = (9 * b * h * t * dh * item + h * dh * item + n * state + 2 * state
+              + b * h * dh * 4)
+    per_chunk = 2 * (5 * L * (L - 1) // 2 * dh + 4 * L * dh * dh + dh * dh) + 40 * L * dh
+    return LaunchCost.of(b * h * n * per_chunk, "f32", nbytes)
+
+
+def wkv_bwd_meta(r, k, v, w, u, s_hist, d_out, d_s_out, *, chunk: int):
+    """:func:`wkv_bwd_cuda` on meta tensors: the same checks and plan,
+    empty gradients of the kernel's shapes, and the launch recorded."""
+    b, h, t, dh = r.shape
+    validate_divisible("T", t, chunk)
+    if chunk > BWD_MAX_CHUNK:
+        raise ValueError(f"wkv_bwd_cuda: chunk={chunk} > {BWD_MAX_CHUNK}")
+    _check_bwd_args(r, k, v, w, u, s_hist, d_out, d_s_out, chunk, device_type="meta")
+    cluster = plan_cluster(b, h, t, chunk, r.dtype, H100_SMS)
+    with kernel_scope():
+        grads = [torch.empty(r.shape, dtype=r.dtype, device="meta") for _ in range(4)]
+        du_part = torch.empty((b, h, dh), dtype=torch.float32, device="meta")
+        dh0 = torch.empty((b, h, dh, dh), dtype=torch.float32, device="meta")
+    record_launch("wkv_bwd_cuda", bwd_cost(b, h, t, chunk, r.dtype), plan=(("cluster", cluster),))
+    return (*grads, du_part, dh0)
 
 
 # --------------------------------------------------------------------------

@@ -21,9 +21,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.cost_model import wkv_decode_token_io
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
     DECODE_WINDOWS,
     DTYPE_CODE,
+    H100_SMS,
     SERVE_BATCH,
     KernelLaunch,
     launch_stream,
@@ -55,6 +58,9 @@ __all__ = [
     "wkv_decode_cuda",
     "wkv_decode_window_cuda",
     "wkv_decode_plain",
+    "decode_cost",
+    "wkv_decode_meta",
+    "wkv_decode_window_meta",
 ]
 
 
@@ -164,6 +170,45 @@ def wkv_decode_window_cuda(r, k, v, w, u, h0):
 
 wkv_decode_cuda.launches = 0
 wkv_decode_window_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The meta branch (``core.lowering``)
+# --------------------------------------------------------------------------
+
+def decode_cost(b: int, h: int, k: int, dtype: torch.dtype) -> LaunchCost:
+    """One launch of the decode kernel over a ``k``-token window, as PERF.md's
+    rows 2 and 3 bound it: the token I/O of the cost model
+    (:func:`~repro_torch.core.cost_model.wkv_decode_token_io`: r, k, v, w
+    read and out written, u once, in the inputs' dtype) and S read and
+    written once in f32; 5 Dh^2 f32 operations a token and head."""
+    nbytes = wkv_decode_token_io(b, h, WKV_DH, k, dtype.itemsize) + 2 * b * h * WKV_DH ** 2 * 4
+    return LaunchCost.of(b * h * k * 5 * WKV_DH * WKV_DH, "f32", nbytes)
+
+
+def _meta(name, r, k, v, w, u, h0):
+    b, h, t, dh = r.shape
+    if not 1 <= t <= DECODE_WINDOW_MAX:
+        raise ValueError(f"{name}: window of {t} tokens outside 1..{DECODE_WINDOW_MAX}")
+    check_wkv_args(name, r, k, v, w, u, h0, device_type="meta")
+    col = plan_decode_columns(b, h, t, r.dtype, H100_SMS)
+    with kernel_scope():
+        out = torch.empty_like(r)
+        s_out = torch.empty((b, h, dh, dh), dtype=torch.float32, device="meta")
+    record_launch(name, decode_cost(b, h, t, r.dtype), plan=(("col_tile", col),))
+    return out, s_out
+
+
+def wkv_decode_meta(r, k, v, w, u, h0):
+    """:func:`wkv_decode_cuda` on meta tensors."""
+    if r.shape[2] != 1:
+        raise ValueError(f"wkv_decode_cuda is single-step; got T={r.shape[2]}")
+    return _meta("wkv_decode_cuda", r, k, v, w, u, h0)
+
+
+def wkv_decode_window_meta(r, k, v, w, u, h0):
+    """:func:`wkv_decode_window_cuda` on meta tensors."""
+    return _meta("wkv_decode_window_cuda", r, k, v, w, u, h0)
 
 
 # --------------------------------------------------------------------------

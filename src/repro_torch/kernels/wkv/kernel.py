@@ -37,8 +37,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
 from repro_torch.kernels.common import (
     DTYPE_CODE,
+    H100_SMS,
     SEQ_GRAD,
     SEQ_PROMPT,
     SEQ_SHARDS,
@@ -65,7 +67,8 @@ __all__ = ["WKV_DH", "MAX_CHUNK", "COL_TILES", "SMEM_LIMIT", "padded_chunk",
            "fwd_smem_bytes", "plan_columns", "launch_plan", "wkv_cuda",
            "wkv_plain", "wkv_train_cuda", "wkv_train_plain", "wkv_summary_cuda",
            "wkv_summary_plain", "wkv_train_summary_cuda", "wkv_train_summary_plain",
-           "check_wkv_args", "row_stride"]
+           "check_wkv_args", "row_stride", "chunked_cost", "wkv_meta", "wkv_train_meta",
+           "wkv_summary_meta", "wkv_train_summary_meta"]
 
 #: Head width the CUDA kernels are written for (the model's RWKV head dim).
 WKV_DH = 64
@@ -131,16 +134,17 @@ def plan_columns(b: int, h: int, t: int, chunk: int, dtype: torch.dtype, sms: in
     return fits[-1]
 
 
-def check_wkv_args(name, r, k, v, w, u, h0, *, t_window=False):
-    """Validate kernel inputs: one CUDA device, f32/bf16 r/k/v/w/u of one
-    dtype, f32 h0, the (B,H,T,64) layout, contiguity, and no autograd.
-    With ``t_window`` r/k/v/w may instead be T-windows of longer
-    contiguous tensors, all four alike.  Returns the token count between
-    consecutive (b, h) rows of r/k/v/w (T when they are contiguous)."""
+def check_wkv_args(name, r, k, v, w, u, h0, *, t_window=False, device_type="cuda"):
+    """Validate kernel inputs: one CUDA device (the meta device for the
+    meta twins), f32/bf16 r/k/v/w/u of one dtype, f32 h0, the (B,H,T,64)
+    layout, contiguity, and no autograd.  With ``t_window`` r/k/v/w may
+    instead be T-windows of longer contiguous tensors, all four alike.
+    Returns the token count between consecutive (b, h) rows of r/k/v/w (T
+    when they are contiguous)."""
     b, h, t, dh = r.shape
     tensors = {"r": r, "k": k, "v": v, "w": w, "u": u, "h0": h0}
     check_kernel_tensors(name, strided=("r", "k", "v", "w") if t_window else (),
-                         **tensors)
+                         device_type=device_type, **tensors)
     if r.dtype not in DTYPE_CODE:
         raise ValueError(f"{name}: dtype {r.dtype} not supported (float32, bfloat16)")
     for key in ("k", "v", "w", "u"):
@@ -316,6 +320,70 @@ def wkv_train_summary_cuda(r, k, v, w, u, h0, *, chunk: int):
 
 
 wkv_train_summary_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------
+# The meta branch: each wrapper's twin on meta tensors (``core.lowering``)
+# --------------------------------------------------------------------------
+
+def chunked_cost(b: int, h: int, t: int, chunk: int, dtype: torch.dtype, *,
+                 hist: bool = False, summary: bool = False) -> LaunchCost:
+    """One launch of the chunked forward, as PERF.md's rows 1, 4, 6 and 7
+    bound it.  Bytes: r, k, v, w read and out written in the inputs' dtype,
+    u in it too, h0 read and S written in f32, and ``s_hist`` (a state a
+    chunk) and ``a_seg`` written in f32 where they are on.  Operations in f32
+    (the CUDA cores), a multiply-add as two, per chunk of L: L(L-1) Dh
+    (scores), 2 L^2 Dh (intra) and 4 L Dh^2 (inter and the state update)."""
+    item, dh, n = dtype.itemsize, WKV_DH, t // chunk
+    state = b * h * dh * dh * 4
+    nbytes = 5 * b * h * t * dh * item + h * dh * item + 2 * state
+    nbytes += n * state if hist else 0
+    nbytes += b * h * dh * 4 if summary else 0
+    flops = b * h * n * (chunk * (chunk - 1) * dh + 2 * chunk * chunk * dh
+                         + 4 * chunk * dh * dh)
+    return LaunchCost.of(flops, "f32", nbytes)
+
+
+def _chunked_meta(name, r, k, v, w, u, h0, chunk, hist, summary):
+    """The meta twin of :func:`_launch_chunked`: the same checks and plan,
+    empty outputs of the kernel's shapes, and the launch recorded."""
+    b, h, t, dh = r.shape
+    validate_divisible("T", t, chunk)
+    if chunk > MAX_CHUNK:
+        raise ValueError(f"{name}: chunk={chunk} > {MAX_CHUNK}")
+    check_wkv_args(name, r, k, v, w, u, h0, t_window=summary, device_type="meta")
+    col = plan_columns(b, h, t, chunk, r.dtype, H100_SMS)
+    f32 = torch.float32
+    with kernel_scope():
+        outs = [torch.empty(r.shape, dtype=r.dtype, device="meta"),
+                torch.empty((b, h, dh, dh), dtype=f32, device="meta")]
+        if hist:
+            outs.append(torch.empty((b, h, t // chunk, dh, dh), dtype=f32, device="meta"))
+        if summary:
+            outs.append(torch.empty((b, h, dh), dtype=f32, device="meta"))
+    record_launch(name, chunked_cost(b, h, t, chunk, r.dtype, hist=hist, summary=summary),
+                  plan=(("col_tile", col),))
+    return tuple(outs)
+
+
+def wkv_meta(r, k, v, w, u, h0, *, chunk: int):
+    """:func:`wkv_cuda` on meta tensors."""
+    return _chunked_meta("wkv_cuda", r, k, v, w, u, h0, chunk, False, False)
+
+
+def wkv_train_meta(r, k, v, w, u, h0, *, chunk: int):
+    """:func:`wkv_train_cuda` on meta tensors."""
+    return _chunked_meta("wkv_train_cuda", r, k, v, w, u, h0, chunk, True, False)
+
+
+def wkv_summary_meta(r, k, v, w, u, h0, *, chunk: int):
+    """:func:`wkv_summary_cuda` on meta tensors."""
+    return _chunked_meta("wkv_summary_cuda", r, k, v, w, u, h0, chunk, False, True)
+
+
+def wkv_train_summary_meta(r, k, v, w, u, h0, *, chunk: int):
+    """:func:`wkv_train_summary_cuda` on meta tensors."""
+    return _chunked_meta("wkv_train_summary_cuda", r, k, v, w, u, h0, chunk, True, True)
 
 
 # --------------------------------------------------------------------------

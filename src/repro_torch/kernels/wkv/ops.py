@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.wkv.ops.wkv_fused``, with the same contract:
 
 * ``use_kernel=None`` takes the CUDA kernels for CUDA tensors and the
   plain PyTorch versions for CPU tensors; ``True`` forces the kernels and
-  raises on CPU tensors; ``False`` forces the plain versions.
+  raises on CPU tensors; ``False`` forces the plain versions.  Meta
+  tensors take the kernels' meta twins (shapes and costs for
+  :mod:`repro_torch.core.lowering`, nothing launched) where CUDA tensors
+  would take the kernels.
 * ``decode=True`` marks a stateful serving call: windows of at most
   :data:`~repro_torch.kernels.wkv.decode.DECODE_WINDOW_MAX` tokens take the
   decode kernels (the single step at T == 1, the window otherwise); longer
@@ -35,14 +38,22 @@ import warnings
 
 import torch
 
-from repro_torch.kernels.common import largest_divisor_chunk
+from repro_torch.kernels.common import by_device, largest_divisor_chunk, on_kernel_device
 from repro_torch.kernels.wkv.decode import (
     DECODE_WINDOW_MAX,
     wkv_decode_cuda,
+    wkv_decode_meta,
     wkv_decode_plain,
     wkv_decode_window_cuda,
+    wkv_decode_window_meta,
 )
-from repro_torch.kernels.wkv.kernel import wkv_cuda, wkv_plain, wkv_summary_cuda
+from repro_torch.kernels.wkv.kernel import (
+    wkv_cuda,
+    wkv_meta,
+    wkv_plain,
+    wkv_summary_cuda,
+    wkv_summary_meta,
+)
 from repro_torch.kernels.wkv.vjp import WKVDecodeFunction, WKVFunction, WKVSummaryFunction
 
 # (T, chunk) pairs already warned about, keyed by warn scope.
@@ -83,8 +94,9 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
     b, h, t, dh = r.shape
     if h0 is None:
         h0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
-    kernel = r.is_cuda if use_kernel is None else use_kernel
-    if kernel and not r.is_cuda:
+    on_card = on_kernel_device(r)
+    kernel = on_card if use_kernel is None else use_kernel
+    if kernel and not on_card:
         raise ValueError(
             "wkv_fused(use_kernel=True) needs CUDA tensors; the CUDA kernels "
             f"cannot run on {r.device}")
@@ -94,7 +106,7 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
         x.requires_grad for x in (r, k, v, w, u, h0))
     if decode and t <= DECODE_WINDOW_MAX:
         if grad:
-            if r.is_cuda != bool(kernel):
+            if on_card != bool(kernel):
                 raise ValueError(
                     "wkv_fused: under autograd the kernels run on CUDA tensors and "
                     "the plain versions on CPU tensors")
@@ -102,11 +114,11 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
         if not kernel:
             return wkv_decode_plain(r, k, v, w, u, h0)
         if t == 1:
-            return wkv_decode_cuda(r, k, v, w, u, h0)
-        return wkv_decode_window_cuda(r, k, v, w, u, h0)
+            return by_device(r, wkv_decode_cuda, wkv_decode_meta)(r, k, v, w, u, h0)
+        return by_device(r, wkv_decode_window_cuda, wkv_decode_window_meta)(r, k, v, w, u, h0)
     c = resolve_chunk(t, chunk, scope=warn_scope)
     if grad:
-        if r.is_cuda != bool(kernel):
+        if on_card != bool(kernel):
             raise ValueError(
                 "wkv_fused: under autograd the kernels run on CUDA tensors and "
                 "the plain versions on CPU tensors; use_kernel=False on the card "
@@ -114,7 +126,7 @@ def wkv_fused(r, k, v, w, u, h0=None, *, chunk: int = 64,
         return WKVFunction.apply(r, k, v, w, u, h0, c)
     if not kernel:
         return wkv_plain(r, k, v, w, u, h0, chunk=c)
-    return wkv_cuda(r, k, v, w, u, h0, chunk=c)
+    return by_device(r, wkv_cuda, wkv_meta)(r, k, v, w, u, h0, chunk=c)
 
 
 def wkv_fused_summary(r, k, v, w, u, h0=None, *, chunk: int = 64):
@@ -132,4 +144,4 @@ def wkv_fused_summary(r, k, v, w, u, h0=None, *, chunk: int = 64):
     c = resolve_chunk(r.shape[2], chunk)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, w, u, h0)):
         return WKVSummaryFunction.apply(r, k, v, w, u, h0, c)
-    return wkv_summary_cuda(r, k, v, w, u, h0, chunk=c)
+    return by_device(r, wkv_summary_cuda, wkv_summary_meta)(r, k, v, w, u, h0, chunk=c)

@@ -14,7 +14,8 @@ one ``torch.autograd.Function`` (counterpart of
 
 CPU tensors run the same structure through the plain versions
 (``wkv_train_plain``, ``wkv_bwd_plain``), so the CPU tests exercise the
-``s_hist`` wiring.  On CUDA tensors the kernels launch or raise.  On the
+``s_hist`` wiring.  On CUDA tensors the kernels launch or raise; meta
+tensors take their meta twins, as the card would.  On the
 card a chunk above the backward kernel's limit
 (:data:`~repro_torch.kernels.wkv.bwd.BWD_MAX_CHUNK`) runs at the largest
 divisor of T below it, the same function in another grouping.
@@ -39,17 +40,21 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import largest_divisor_chunk
-from repro_torch.kernels.wkv.bwd import BWD_MAX_CHUNK, wkv_bwd_cuda, wkv_bwd_plain
+from repro_torch.kernels.common import by_device, largest_divisor_chunk, on_kernel_device
+from repro_torch.kernels.wkv.bwd import BWD_MAX_CHUNK, wkv_bwd_cuda, wkv_bwd_meta, wkv_bwd_plain
 from repro_torch.kernels.wkv.decode import (
     wkv_decode_cuda,
+    wkv_decode_meta,
     wkv_decode_plain,
     wkv_decode_window_cuda,
+    wkv_decode_window_meta,
 )
 from repro_torch.kernels.wkv.kernel import (
     wkv_train_cuda,
+    wkv_train_meta,
     wkv_train_plain,
     wkv_train_summary_cuda,
+    wkv_train_summary_meta,
     wkv_train_summary_plain,
 )
 
@@ -68,11 +73,13 @@ def _train_forward(ctx, r, k, v, w, u, h0, chunk, summary):
     sequence-parallel path is saved as a view, never copied."""
     prims = [x.detach() if summary and i < 4 else x.detach().contiguous()
              for i, x in enumerate((r, k, v, w, u, h0))]
-    if r.is_cuda:
+    if on_kernel_device(r):
         chunk = largest_divisor_chunk(r.shape[2], min(chunk, BWD_MAX_CHUNK))
-        fwd = wkv_train_summary_cuda if summary else wkv_train_cuda
+    if summary:
+        fwd = by_device(r, wkv_train_summary_cuda, wkv_train_summary_meta,
+                        wkv_train_summary_plain)
     else:
-        fwd = wkv_train_summary_plain if summary else wkv_train_plain
+        fwd = by_device(r, wkv_train_cuda, wkv_train_meta, wkv_train_plain)
     outs = fwd(*prims, chunk=chunk)
     ctx.save_for_backward(*prims, *outs[2:])
     ctx.chunk = chunk
@@ -91,7 +98,7 @@ def _reverse_sweep(ctx, saved, d_out, d_s_out):
     # cotangent; a bf16 shard's arrives contiguous from its cast).
     d_out = d_out.to(r.dtype).contiguous()
     d_s_out = d_s_out.float().contiguous()
-    bwd = wkv_bwd_cuda if r.is_cuda else wkv_bwd_plain
+    bwd = by_device(r, wkv_bwd_cuda, wkv_bwd_meta, wkv_bwd_plain)
     dr, dk, dv, dw, du_part, dh0 = bwd(
         r, k, v, w, u, s_hist, d_out, d_s_out, chunk=ctx.chunk)
     return (r, k, v, w, u, h0), [dr, dk, dv, dw, du_part.sum(0), dh0]
@@ -149,14 +156,15 @@ class WKVDecodeFunction(torch.autograd.Function):
     def forward(ctx, r, k, v, w, u, h0):
         prims = [x.detach().contiguous() for x in (r, k, v, w, u, h0)]
         ctx.save_for_backward(*prims)
-        if not r.is_cuda:
-            return wkv_decode_plain(*prims)
-        return (wkv_decode_cuda if r.shape[2] == 1 else wkv_decode_window_cuda)(*prims)
+        if r.shape[2] == 1:
+            return by_device(r, wkv_decode_cuda, wkv_decode_meta, wkv_decode_plain)(*prims)
+        return by_device(r, wkv_decode_window_cuda, wkv_decode_window_meta,
+                         wkv_decode_plain)(*prims)
 
     @staticmethod
     def backward(ctx, d_out, d_s_out):
         prims = ctx.saved_tensors
-        fwd = wkv_train_cuda if prims[0].is_cuda else wkv_train_plain
+        fwd = by_device(prims[0], wkv_train_cuda, wkv_train_meta, wkv_train_plain)
         s_hist = fwd(*prims, chunk=DECODE_GRAD_CHUNK)[2]
         ctx.chunk = DECODE_GRAD_CHUNK
         return _cast(*_reverse_sweep(ctx, (*prims, s_hist), d_out, d_s_out))[:6]

@@ -12,8 +12,10 @@ no-op.  A list of devices spreads the shards over several cards, where a
 hop is a peer copy.
 
 ``device=None`` means the card (and raises without one); ``"cpu"`` is
-for the tests.  The reference's production meshes (TPU pods) and its
-roofline constants are not ported.
+for the tests.  The reference's production meshes (TPU pods) wait for the
+multi-card slice.  The roofline constants are the H100 SXM's in place of
+the TPU's: on one card the collective term is 0, since the seq path's hops
+between shards of one card are no-ops.
 """
 
 from __future__ import annotations
@@ -23,9 +25,23 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.h100 import (  # noqa: F401 — re-exported
+    HBM_BW,
+    HBM_BYTES,
+    PEAK_FLOPS,
+    PEAK_FLOPS_BF16,
+    PEAK_FLOPS_F32,
+)
 from repro_torch.kernels.common import resolve_device
 
-__all__ = ["Mesh", "make_seq_mesh", "make_debug_mesh"]
+__all__ = ["Mesh", "make_seq_mesh", "make_debug_mesh", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
+           "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "ICI_BW_PER_LINK", "ICI_LINKS"]
+
+# The roofline's per-card constants are the H100 SXM's, from
+# :mod:`repro_torch.core.h100`.  One card has no interconnect term: the seq path's hops between shards of
+# one card are no-ops.  Kept so the reference's collective term reads 0.
+ICI_BW_PER_LINK = float("inf")
+ICI_LINKS = 1
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -47,7 +47,11 @@ def init_mk(gen: torch.Generator, dtype: torch.dtype, device: torch.device):
     """Real-tensor constructor with the reference's distributions
     (``repro.model.sharding.init_mk``): ``normal`` draws N(0, 1) times
     ``scale`` (default ``shape[0] ** -0.5`` for matrices, 0.02 for
-    vectors); ``ones`` and ``zeros`` are constant."""
+    vectors); ``ones`` and ``zeros`` are constant.  The meta device draws
+    nothing: its constructor is :func:`abstract_mk`."""
+    if device.type == "meta":
+        raise ValueError("init_mk draws random numbers, which the meta device cannot "
+                         "hold: build meta params with abstract_params(cfg)")
 
     def mk(name, shape, init="normal", scale=None):
         if init == "ones":
@@ -95,15 +99,38 @@ def _encoder_cfg(cfg):
     return dataclasses.replace(cfg, pattern=("attn",), num_experts=0)
 
 
+def abstract_mk(dtype: torch.dtype):
+    """Meta-tensor constructor: the shape and dtype of every parameter,
+    nothing allocated (``repro.model.sharding.abstract_mk``)."""
+
+    def mk(name, shape, init="normal", scale=None):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return mk
+
+
 def init_params(cfg, seed: int = 0, *, device=None):
     """Random parameters from a seeded ``torch.Generator`` on ``device``
     (``None``: the card).  The reference draws from JAX keys, so the two
     frameworks' numbers differ; tests convert the reference's params
-    instead (:func:`repro_torch.model.convert.params_from_jax`)."""
+    instead (:func:`repro_torch.model.convert.params_from_jax`).
+    ``device="meta"`` gives :func:`abstract_params`."""
     device = resolve_device(device)
+    if device.type == "meta":
+        return abstract_params(cfg)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    mk = init_mk(gen, dtype_of(cfg), device)
+    return _build_params(cfg, init_mk(gen, dtype_of(cfg), device))
+
+
+def abstract_params(cfg):
+    """The parameter tree on the meta device: every leaf's shape and dtype,
+    nothing allocated or drawn (the dry run's parameters; the counterpart
+    of the reference's ``ShapeDtypeStruct`` tree)."""
+    return _build_params(cfg, abstract_mk(dtype_of(cfg)))
+
+
+def _build_params(cfg, mk):
     decoder = _init_stack(mk, cfg, cross=cfg.is_enc_dec)
     p = {
         "tok": init_embeddings(mk, cfg),
@@ -258,6 +285,13 @@ def init_decode_state(cfg, batch: int, max_len: int, insert_window: int = 1,
     rem = [_layer_state(cfg, k, batch, max_len, insert_window, (), device, paged)
            for k in remainder]
     return {"scanned": scanned, "remainder": rem}
+
+
+def abstract_decode_state(cfg, batch: int, max_len: int, insert_window: int = 1,
+                          paged: PageSpec | None = None):
+    """:func:`init_decode_state` on the meta device: the dry run's decode
+    state, every leaf's shape and dtype and nothing allocated."""
+    return init_decode_state(cfg, batch, max_len, insert_window, paged, device="meta")
 
 
 def state_nodes(state):

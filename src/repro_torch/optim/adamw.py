@@ -52,6 +52,17 @@ def init_state(params) -> AdamWState:
     )
 
 
+def abstract_state(params) -> AdamWState:
+    """:func:`init_state` on the meta device: the moments' shapes and
+    dtypes (f32, shaped like the parameters), nothing allocated."""
+
+    def meta(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=tree_map(meta, params), nu=tree_map(meta, params))
+
+
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup + cosine decay to ``min_lr_ratio``, in f32."""
     s = torch.as_tensor(step).float()

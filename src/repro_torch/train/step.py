@@ -23,7 +23,7 @@ from repro_torch.optim.compression import (
     compressed_gradients,
     init_error_feedback,
 )
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class TrainState(NamedTuple):
@@ -44,6 +44,20 @@ def init_train_state(cfg, seed: int = 0, *, device=None, compress: bool = False)
         opt=adamw.init_state(params),
         ef=init_error_feedback(params) if compress else None,
     )
+
+
+def abstract_train_state(cfg, *, compress: bool = False) -> TrainState:
+    """The train state on the meta device (the dry run's): the parameters
+    of :func:`~repro_torch.model.model.abstract_params`, requiring grad, f32
+    moments and, with ``compress``, f32 residuals; nothing allocated."""
+    params = M.abstract_params(cfg)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    ef = None
+    if compress:
+        ef = ErrorFeedbackState(residual=tree_map(
+            lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), params))
+    return TrainState(params=params, opt=adamw.abstract_state(params), ef=ef)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1933,3 +1933,56 @@ def test_every_declared_launch_fits_the_card(cuda):
                 seen[key] = getattr(lib, common.occupancy_entry(launch.library))(*args)
             assert seen[key] >= 1, (arch, launch.kernel, launch.shape, seen[key])
     assert len(seen) >= 30
+
+
+# --------------------------------------------------------------------------
+# The one-card dry run held against the card (chip_smoke.py phase 3o, at
+# the reduced archs' widths): what a meta trace records is what the card
+# launches and counts.
+# --------------------------------------------------------------------------
+
+def _all_counters():
+    from repro_torch.kernels.elevator_scan import decode as ED
+    from repro_torch.kernels.elevator_scan import kernel as EK
+    from repro_torch.kernels.local_attention import kernel as FA
+    from repro_torch.kernels.token_shift import kernel as TSK
+
+    fns = (K.wkv_cuda, D.wkv_decode_cuda, D.wkv_decode_window_cuda, K.wkv_train_cuda,
+           BW.wkv_bwd_cuda, K.wkv_summary_cuda, K.wkv_train_summary_cuda,
+           EK.elevator_scan_cuda, ED.elevator_decode_window_cuda, EK.elevator_scan_bwd_cuda,
+           TSK.token_shift_cuda, TSK.token_shift_bwd_cuda, FA.flash_attention_cuda,
+           FA.flash_attention_bwd_cuda)
+    return {fn.__name__: fn for fn in fns}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b", "gemma3-1b",
+                                  "qwen2-0.5b", "qwen3-moe-235b-a22b",
+                                  "seamless-m4t-large-v2"])
+def test_dry_run_trace_matches_the_card(cuda, arch, kind):
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.lowering import cost_counting
+    from repro_torch.launch import dryrun
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16")
+    n = max(1, cfg.microbatch)
+    shape = {"prefill": ShapeConfig("p", 96, max(2, cfg.prefill_chunks), "prefill"),
+             "decode": ShapeConfig("d", 96, 4, "decode"),
+             "train": ShapeConfig("t", 96, n, "train")}[kind]
+    with cost_counting() as c:
+        meta_out = dryrun.make_cell(cfg, shape, device="meta").run()
+    cell = dryrun.make_cell(cfg, shape, device=cuda, seed=3)
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with FlopCounterMode(display=False) as fc:
+        out = cell.run()
+    torch.cuda.synchronize()
+    assert {k: fn.launches for k, fn in counters.items() if fn.launches} == c.launches()
+    assert fc.get_total_flops() == sum(c.aten_flops.values())
+    first = (lambda o: o[1]["loss"]) if kind == "train" else (
+        lambda o: o[0] if kind == "decode" else o)
+    assert first(out).shape == first(meta_out).shape and first(out).dtype == first(meta_out).dtype
+    assert bool(torch.isfinite(first(out)).all())

@@ -177,8 +177,10 @@ def test_paper_demo_entry_points_need_the_card_by_default(no_card):
 
 def test_paper_demo_ops_need_the_card_for_their_kernels(monkeypatch):
     # CPU tensors never reach a kernel: no library is loaded, nothing is
-    # counted.  A tensor on any other device than the CPU is refused, not
-    # sent to the plain version.
+    # counted.  Meta tensors take the kernels' meta twins (shapes and
+    # costs, nothing launched or counted); the wrappers themselves refuse a
+    # tensor on any other device than the CPU, not sending it to the plain
+    # version.
     def refuse(name):
         raise AssertionError(f"the {name} library was loaded for CPU tensors")
 
@@ -191,10 +193,14 @@ def test_paper_demo_ops_need_the_card_for_their_kernels(monkeypatch):
     assert (stencil_kernel.stencil2d_cuda.launches,
             matmul_kernel.matmul_fwd_cuda.launches) == counts
     x = torch.ones(8, 8, device="meta")
+    assert stencil_ops.stencil2d(x, torch.zeros(5)).is_meta
+    assert matmul_ops.matmul_fwd(x, x).shape == (8, 8)
+    assert (stencil_kernel.stencil2d_cuda.launches,
+            matmul_kernel.matmul_fwd_cuda.launches) == counts
     with pytest.raises(ValueError, match="CUDA"):
-        stencil_ops.stencil2d(x, torch.zeros(5))
+        stencil_kernel.stencil2d_cuda(x, torch.zeros(5, device="meta"))
     with pytest.raises(ValueError, match="CUDA"):
-        matmul_ops.matmul_fwd(x, x)
+        matmul_kernel.matmul_fwd_cuda(x, x)
 
 
 def test_entry_points_need_the_card_by_default(no_card):
