@@ -242,6 +242,29 @@ Phases (any failure raises and exits non-zero, with no result line):
    train step (B=8, T=256) held to those phases' counts on the card in
    this run: 22 windowed + 4 causal flash launches; 96 ``wkv_train_cuda``
    and 48 ``wkv_bwd_cuda`` a step;
+3p. expert parallelism on the one card: full-width dbrx-132b (B=8) and
+   qwen3-moe (B=16: two sequences in each of its 8 prefill chunks),
+   T=1024, ``MOE_DEPTH`` layers, bf16, scored through
+   ``make_prefill_step`` with ``moe_impl="a2a"`` under the ``prefill``
+   rules of a (data=2, model=4) mesh of the card and on the gather path:
+   at a capacity factor of E / k nothing drops on either path; on the
+   a2a's own inputs of each MoE call its expert sets are
+   ``_topk_routing``'s (but at f32 router near-ties) and its outputs the
+   gather path's within an ulp and 2**-6 of the token's output RMS; every
+   token the two scorings route otherwise is a router near-tie within
+   twice the drift of its router logits, and the positions before their
+   sequence's first such token agree within 2**-3 of their logits' RMS
+   (the rest and the argmax agreement printed); at the configs' 1.25 each
+   path's dropped share, two a2a runs bit-identical; the exchanges (2 a
+   layer and a chunk, each logged once a data row) and the elements
+   leaving each shard equal their closed form; flash launches one a layer
+   and a chunk on both paths; the wall time of each path and a profiled
+   scoring of each (device time, busy share); then the reduced f32 dbrx
+   and qwen3-moe through the a2a on a (2, 4) mesh of the card against one
+   of "cpu" shards (forward logits, one ``make_train_step`` step under the
+   ``train`` rules: loss, grad norm, gradient leaves, parameters, the
+   exchanges), and the ``collectives`` pass over a seq mesh of 4 shards of
+   the card (the sequence-parallel WKV forward and backward there, clean);
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -631,6 +654,10 @@ def main():
     # ---- 3o. the one-card dry run held against the card ------------------
     _free(torch, "phase 3o")
     _dry_run_holds(torch, g3_split, train_launches, train_steps=6)
+
+    # ---- 3p. expert parallelism on a (data, model) mesh, the collectives pass
+    _free(torch, "phase 3p")
+    _moe_a2a(torch, np)
 
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
@@ -4715,6 +4742,382 @@ def _dry_run_holds(torch, g3_split, train_launches, train_steps):
     if c.launches() != per_step or any(n % train_steps for n in train_launches.values()):
         raise SystemExit(f"dry run: rwkv6 train step {c.launches()} != the card's {per_step}")
     print(f"[time] phase 3o wall: {time.perf_counter() - t0:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism on a (data, model) mesh of the one card and the
+# collectives pass on the card (phase 3p).
+# ---------------------------------------------------------------------------
+
+#: (B, T) of phase 3p's scoring: dbrx-132b's 4 prefill chunks of 2
+#: sequences; qwen3-moe's 8 chunks take B=16, so that each chunk holds the
+#: 2 sequences a data extent of 2 splits (at phase 3l's B=8 a chunk is one
+#: sequence and the exchange would fall back to the gather path).
+A2A_SCORE = {"dbrx-132b": (8, 1024), "qwen3-moe-235b-a22b": (16, 1024)}
+#: The a2a against the gather path, both bf16 at a capacity of E / k
+#: (nothing drops on either path), on the a2a's own inputs of every MoE
+#: call: its routing is ``_topk_routing``'s of those inputs but where the
+#: k-th and (k+1)-th router logits lie within the most two f32 summation
+#: orders can part them (2 D 2**-24 sum_d |h_d w_de|: the a2a routes a
+#: shard's rows, a matmul of another shape), and at every token routed
+#: alike |a2a - gather| <= A2A_RTOL |gather| + A2A_ATOL rms(token's
+#: gather row): the same products on buffers of other shapes (cuBLAS
+#: picks its kernel by shape) round to bf16 an ulp (2**-8..2**-7 of the
+#: element) apart, and a sum over F or k that cancels keeps an error of
+#: its terms' size, about 2**-8 of the row's RMS.
+A2A_RTOL = 2 ** -7
+A2A_ATOL = 2 ** -6
+#: End to end those ulps drift each layer's inputs, and a router whose
+#: k-th and (k+1)-th logits lie closer than twice the drift routes a token
+#: otherwise (O(1) on its logits and, through attention, on later
+#: positions of its sequence).  Every token routed otherwise must be such
+#: a near-tie (its gather logit gap <= 2 x the drift of its logits + the
+#: f32 term above), and the positions before the first token routed
+#: otherwise in their sequence, whose whole causal history is ulp drift,
+#: agree within A2A_CLEAN_TOL x rms(their gather logits): a few 2**-8 a
+#: layer over 4 layers, the tail of 100k-150k logits a position.
+A2A_CLEAN_TOL = 2 ** -3
+A2A_MESH = (2, 4)
+
+
+def _a2a_scoring(torch, np, name):
+    """One MoE arch at full width and MOE_DEPTH layers (bf16, seed 0):
+    scoring through ``make_prefill_step`` on the gather path and with
+    ``moe_impl="a2a"`` under the ``prefill`` rules of a (data=2, model=4)
+    mesh of the one card.  At a capacity factor of E / k nothing drops and,
+    on each MoE call's own inputs and end to end, the a2a agrees with the
+    gather path as A2A_RTOL, A2A_ATOL and A2A_CLEAN_TOL say; at the config's own factor each
+    path's dropped share is printed, two a2a runs are bit-identical, and
+    the exchanges equal their closed form: 2 a layer and a chunk, each
+    logged once a data row, (tp - 1) / tp of a shard's (E, cap, D) buffer
+    leaving each shard.  Flash launches are held to one a layer and a chunk
+    on both paths.  Wall time of each, and the profiler's device time."""
+    import contextlib
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.device_comm import record_hops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model import moe as MOE
+    from repro_torch.model import moe_a2a as A2A
+    from repro_torch.model.moe_a2a import a2a_capacity
+    from repro_torch.model.sharding import make_rules, sharding_context
+    from repro_torch.serve.engine import make_prefill_step
+
+    cfg = dataclasses.replace(get_config(name), num_layers=MOE_DEPTH)
+    tag = f"[a2a {cfg.name}]"
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    dp, tp = A2A_MESH
+    mesh = make_debug_mesh(dp, tp)
+    rules = make_rules(mesh, "prefill")
+    sb, st = A2A_SCORE[name]
+    chunks = cfg.prefill_chunks
+    n_loc = sb // chunks // dp * (st // tp)
+    params = M.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                                (sb, st))).cuda()
+    counters = _counters()
+    routes = []
+    real_dispatch = MOE.dispatch
+
+    def recording_dispatch(*a, **kw):
+        r = real_dispatch(*a, **kw)
+        routes.append(((r.slot == e * r.cap).sum(), r.expert))
+        return r
+
+    def step_of(impl, cf):
+        c = dataclasses.replace(cfg, moe_impl=impl, moe_capacity_factor=cf)
+        ctx = sharding_context(mesh, rules) if impl == "a2a" else contextlib.nullcontext()
+        return make_prefill_step(c), ctx
+
+    def score(impl, cf):
+        step, ctx = step_of(impl, cf)
+        routes.clear()
+        MOE.dispatch = recording_dispatch
+        try:
+            with torch.inference_mode(), ctx, record_hops() as hops:
+                out, dt, got = _counted(torch, counters, lambda: step(params, tokens))
+        finally:
+            MOE.dispatch = real_dispatch
+        want = {**dict.fromkeys(counters, 0), "flash_attention_cuda": cfg.num_layers * chunks}
+        if got != want:
+            raise SystemExit(f"{tag} {impl} cf {cf}: launches {got} != {want}")
+        fin = bool(torch.isfinite(out[..., :cfg.vocab_size]).all())
+        if out.shape != (sb, st, cfg.padded_vocab) or not fin:
+            raise SystemExit(f"{tag} {impl} cf {cf}: bad logits {tuple(out.shape)}")
+        dropped = int(sum(int(d) for d, _ in routes))
+        return out, dt, list(hops), dropped, sb * st * k
+
+    def hold_hops(hops, cf):
+        cap = a2a_capacity(n_loc, dataclasses.replace(cfg, moe_capacity_factor=cf))
+        each = (tp - 1) * (e * cap * cfg.d_model) // tp
+        want = [("all_to_all", each)] * (2 * dp * cfg.num_layers * chunks)
+        got = [(h.kind, h.elements) for h in hops]
+        print(f"{tag} cf {cf:g}: {len(hops)} exchanges logged (2 a layer and a chunk x {dp} "
+              f"data rows x {cfg.num_layers} layers x {chunks} chunks), {each} elements "
+              f"leaving each of the {tp} shards in each (E={e} x cap {cap} x D={cfg.d_model} "
+              f"x {tp - 1}/{tp}); closed form held: {got == want}")
+        if got != want:
+            raise SystemExit(f"{tag} cf {cf}: exchanges {got[:4]}... != closed form")
+
+    # 1. No drop on either path: a capacity factor of E / k.  Each scoring
+    # keeps every MoE call's input, output and expert sets (at the tokens'
+    # places: the a2a's routes come a shard at a time, data row major).
+    cf_all = e / k
+    c_all = dataclasses.replace(cfg, moe_impl="a2a", moe_capacity_factor=cf_all)
+    kept = {"gather": [], "a2a": []}
+    real_apply, real_sharded = MOE.apply_moe, A2A.apply_moe_sharded
+
+    def keeping(impl, real):
+        def run(p, h, c, **kw):
+            start = len(routes)
+            out = real(p, h, c, **kw)
+            ex = [r for _, r in routes[start:]]
+            b, t = h.shape[:2]
+            if len(ex) == 1:
+                placed = ex[0].reshape(b, t, k)
+            else:
+                placed = torch.stack([r.reshape(b // dp, t // tp, k) for r in ex])
+                placed = placed.reshape(dp, tp, b // dp, t // tp, k).permute(
+                    0, 2, 1, 3, 4).reshape(b, t, k)
+            kept[impl].append((p, h.clone(), out.clone(), placed.sort(-1).values))
+            return out
+        return run
+
+    MOE.apply_moe = keeping("gather", real_apply)
+    try:
+        ref, _, hops, dr_g, tot = score("gather", cf_all)
+    finally:
+        MOE.apply_moe = real_apply
+    if hops:
+        raise SystemExit(f"{tag}: the gather path made {len(hops)} hops")
+    A2A.apply_moe_sharded = keeping("a2a", real_sharded)
+    try:
+        got, _, hops, dr_a, _ = score("a2a", cf_all)
+    finally:
+        A2A.apply_moe_sharded = real_sharded
+    hold_hops(hops, cf_all)
+    w = _a2a_witness(torch, kept, ref, got, cfg, c_all, real_apply)
+    del kept
+    print(f"{tag} scoring B={sb} T={st} in {chunks} chunks at cf E/k = {cf_all:g}: dropped "
+          f"{dr_g} (gather) and {dr_a} (a2a) of {tot} assignments")
+    print(f"{tag} on the a2a's own inputs of its {w['calls']} MoE calls: {w['own_off']} "
+          f"tokens routed otherwise than _topk_routing routes them ({w['own_ties']} at an f32 "
+          f"near-tie); outputs at tokens routed alike at {w['own_ratio']:.4f} of the "
+          f"tolerance {A2A_RTOL:g} |gather| + {A2A_ATOL:g} rms(row) (max_abs_err "
+          f"{w['own_err']:.4f}, row rms median {w['rms_med']:.4f}, largest output "
+          f"{w['own_scale']:.2f})")
+    print(f"{tag} the two scorings routed {w['moved']} (token, layer) pairs otherwise "
+          f"({w['by_layer']} a layer), {w['explained']} of them near-ties "
+          f"(the gather's k-th to (k+1)-th logit gap <= 2 x the drift of the token's router "
+          f"logits + the f32 term; largest gap / that bound {w['gap_ratio']:.3f}, median drift "
+          f"{w['drift_med']:.2e}); {w['positions']} of {sb * st} positions routed otherwise "
+          f"in some layer")
+    print(f"{tag} logits end to end: {w['clean']} positions before their sequence's first "
+          f"token routed otherwise agree at {w['clean_ratio']:.4f} of {A2A_CLEAN_TOL:g} x "
+          f"rms(their logits) (max_abs_err {w['clean_err']:.4f}); after it: max_abs_err "
+          f"{w['after_err']:.4f}, mean {w['after_mean']:.5f}; argmax equal at "
+          f"{100 * w['agree']:.3f}% of positions, {w['x_clean']} of the {w['x']} that differ "
+          f"before a first token routed otherwise")
+    if (dr_g or dr_a or w["own_off"] != w["own_ties"] or w["own_ratio"] > 1
+            or w["moved"] != w["explained"] or w["clean"] == 0 or w["clean_ratio"] > 1):
+        raise SystemExit(f"{tag}: a2a and gather disagree without drops")
+    del ref, got
+
+    # 2. The config's own capacity factor: drops, repeats, times.
+    cf = cfg.moe_capacity_factor
+    g1, dt_g, _, dr_g, _ = score("gather", cf)
+    a1, dt_a, hops, dr_a, _ = score("a2a", cf)
+    hold_hops(hops, cf)
+    a2, dt_a2, _, _, _ = score("a2a", cf)
+    same = torch.equal(a1, a2)
+    print(f"{tag} cf {cf:g}: dropped share gather {100 * dr_g / tot:.3f}% ({dr_g} of {tot}, "
+          f"the capacity counts a chunk's tokens), a2a {100 * dr_a / tot:.3f}% ({dr_a}, "
+          f"a shard's {n_loc} tokens: {a2a_capacity(n_loc, dataclasses.replace(cfg, moe_capacity_factor=cf))} rows an expert); two "
+          f"a2a runs bit-identical: {same}")
+    print(f"{tag} wall: gather {dt_g * 1e3:.1f} ms, a2a {dt_a * 1e3:.1f} / {dt_a2 * 1e3:.1f} ms "
+          f"(the {dp * tp} shards of one card take turns: a baseline)")
+    del g1, a1, a2
+    if not same:
+        raise SystemExit(f"{tag}: two a2a scorings of the same tokens differ")
+    for impl in ("gather", "a2a"):
+        step, ctx = step_of(impl, cf)
+        with torch.inference_mode(), ctx:
+            _profile(torch, lambda: step(params, tokens),
+                     f"{cfg.name} {impl} scoring B={sb} T={st} cf {cf:g}", top=6)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _a2a_witness(torch, kept, ref, got, cfg, c_all, apply_moe):
+    """Phase 3p's a2a against the gather path at a capacity of E / k, from
+    each scoring's kept MoE calls ((params, input, output, sorted expert
+    sets (b, t, k)), chunk major) and its logits: (1) on the a2a's own
+    inputs, its routing against ``_topk_routing``'s and its outputs
+    against the gather path's (``apply_moe``); (2) each (token, layer) the
+    two scorings route otherwise against its router's near-tie bound; (3)
+    the logits of the positions before their sequence's first token routed
+    otherwise, and of those after."""
+    from repro_torch.model import moe as MOE
+
+    k, layers = cfg.num_experts_per_tok, cfg.num_layers
+    sb, st = ref.shape[:2]
+    n_calls = len(kept["a2a"])
+    if n_calls != len(kept["gather"]) or n_calls != layers * cfg.prefill_chunks:
+        raise SystemExit(f"[a2a {cfg.name}] kept {len(kept['gather'])} / {n_calls} MoE calls, "
+                         f"want {layers * cfg.prefill_chunks}")
+    w = dict(calls=n_calls, own_off=0, own_ties=0, own_ratio=0.0, own_err=0.0,
+             own_scale=0.0, moved=0, explained=0, gap_ratio=0.0, by_layer=[0] * layers)
+    rms_all, drifts = [], []
+    rerouted = torch.zeros(sb, st, dtype=torch.bool, device=ref.device)
+    tiny = torch.finfo(torch.float32).tiny
+    with torch.inference_mode():
+        for i, ((p, h_g, _, ex_g), (_, h_a, y_a, ex_a)) in enumerate(
+                zip(kept["gather"], kept["a2a"])):
+            b, t, d = h_a.shape
+            w_r = p["router"].float()
+            ha = h_a.reshape(b * t, d).float()
+            s_a = ha @ w_r
+            # The most two f32 summation orders of one router logit part.
+            eps = 2 * d * 2 ** -24 * (ha.abs() @ w_r.abs()).amax(-1)
+            top_a = s_a.sort(-1, descending=True).values
+            off = (ex_a.reshape(b * t, k) != MOE._topk_routing(s_a, k)[1].sort(-1).values
+                   ).any(-1)
+            w["own_off"] += int(off.sum())
+            w["own_ties"] += int((off & (top_a[:, k - 1] - top_a[:, k] <= 2 * eps)).sum())
+            y_g = apply_moe(p, h_a, c_all).float().reshape(b * t, d)
+            rms = y_g.pow(2).mean(-1, keepdim=True).sqrt()
+            err = (y_a.float().reshape(b * t, d) - y_g).abs()[~off]
+            tol = (A2A_RTOL * y_g.abs() + A2A_ATOL * rms)[~off]
+            w["own_ratio"] = max(w["own_ratio"], float((err / tol.clamp_min(tiny)).max()))
+            w["own_err"] = max(w["own_err"], float(err.max()))
+            w["own_scale"] = max(w["own_scale"], float(y_g.abs().max()))
+            rms_all.append(rms.flatten())
+            del y_g, err, tol
+            moved = (ex_a != ex_g).any(-1).reshape(b * t)
+            if bool(moved.any()):
+                s_g = h_g.reshape(b * t, d).float() @ w_r
+                top_g = s_g.sort(-1, descending=True).values
+                gap = (top_g[:, k - 1] - top_g[:, k])[moved]
+                drift = (s_a - s_g).abs().amax(-1)[moved]
+                bound = 2 * (drift + eps[moved])
+                w["moved"] += int(moved.sum())
+                w["explained"] += int((gap <= bound).sum())
+                w["gap_ratio"] = max(w["gap_ratio"], float((gap / bound).max()))
+                w["by_layer"][i % layers] += int(moved.sum())
+                drifts.append(drift)
+                c = i // layers
+                rerouted[c * b:(c + 1) * b] |= moved.reshape(b, t)
+    w["rms_med"] = float(torch.cat(rms_all).median())
+    w["drift_med"] = float(torch.cat(drifts).median()) if drifts else 0.0
+    w["positions"] = int(rerouted.sum())
+    pos = torch.arange(st, device=ref.device)
+    first = torch.where(rerouted.any(-1), rerouted.float().argmax(-1), st)
+    clean = pos[None, :] < first[:, None]
+    w.update(clean=int(clean.sum()), clean_ratio=0.0, clean_err=0.0, after_err=0.0, x=0,
+             x_clean=0)
+    after_sum, after_n, v = 0.0, 0, cfg.vocab_size
+    for i in range(sb):
+        r, g, c = ref[i, :, :v].float(), got[i, :, :v].float(), clean[i]
+        diff = (g - r).abs()
+        per = diff.amax(-1)
+        if bool(c.any()):
+            rms = r.pow(2).mean(-1).sqrt()
+            w["clean_ratio"] = max(w["clean_ratio"],
+                                   float((per[c] / (A2A_CLEAN_TOL * rms[c])).max()))
+            w["clean_err"] = max(w["clean_err"], float(per[c].max()))
+        if not bool(c.all()):
+            w["after_err"] = max(w["after_err"], float(per[~c].max()))
+            after_sum += float(diff[~c].sum())
+            after_n += int((~c).sum()) * v
+        xd = r.argmax(-1) != g.argmax(-1)
+        w["x"] += int(xd.sum())
+        w["x_clean"] += int((xd & c).sum())
+        del r, g, diff
+    w["after_mean"] = after_sum / max(after_n, 1)
+    w["agree"] = 1 - w["x"] / (sb * st)
+    return w
+
+
+def _a2a_reference_check(torch, np):
+    """The reduced f32 dbrx and qwen3-moe with ``moe_impl="a2a"`` on a
+    (2, 4) mesh of the card against the same on a (2, 4) mesh of "cpu"
+    shards, from the same weights: forward logits at (2, 64) within 1e-4
+    under the ``prefill`` rules, and one ``make_train_step`` step under the
+    ``train`` rules with the loss, grad norm, gradient leaves (AdamW's
+    first moments) and parameters held as ``_train_archs_reference_check``
+    holds them; the exchanges of both runs logged and equal."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.device_comm import record_hops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model.sharding import make_rules, sharding_context
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS_
+    from repro_torch.tree import tree_leaves, tree_map
+
+    for name in A2A_SCORE:
+        cfg = dataclasses.replace(get_config(name).reduced(), moe_impl="a2a")
+        params = TS_.init_train_state(cfg, 1, device="cpu").params
+        toks = torch.from_numpy(np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 64)))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            mesh = make_debug_mesh(*A2A_MESH, device=dev)
+            moved = tree_map(lambda p: p.detach().to(dev, copy=True).requires_grad_(True),
+                             params)
+            with (torch.inference_mode(), sharding_context(mesh, make_rules(mesh, "prefill")),
+                  record_hops() as fwd_hops):
+                logits = M.forward(moved, cfg, toks.to(dev)).cpu()
+            state = TS_.TrainState(moved, adamw.init_state(moved), None)
+            with sharding_context(mesh, make_rules(mesh, "train")), record_hops() as hops:
+                state, m = TS_.make_train_step(cfg)(state, _reduced_train_batch(cfg, dev))
+            out[dev] = (logits, float(m["loss"]), float(m["grad_norm"]),
+                        [p.detach().cpu() for p in tree_leaves(state.params)],
+                        [mu.cpu() for mu in tree_leaves(state.opt.mu)],
+                        [(h.kind, h.elements) for h in fwd_hops + hops])
+        (x_c, l_c, g_c, p_c, m_c, h_c), (x_g, l_g, g_g, p_g, m_g, h_g) = out["cpu"], out["cuda"]
+        ferr = float((x_c - x_g).abs().max())
+        perr = max(float((a - b).abs().max()) for a, b in zip(p_g, p_c))
+        mratio = _first_moment_ratio(m_g, m_c)
+        ok = (ferr <= 1e-4 and abs(l_g - l_c) <= 1e-5 * abs(l_c)
+              and abs(g_g - g_c) <= 1e-4 * abs(g_c) and mratio <= 1.0 and perr <= 1e-5
+              and h_g == h_c and len(h_g) > 0)
+        print(f"[reference] reduced f32 {name} a2a on a {A2A_MESH} mesh, card vs CPU: "
+              f"forward max_abs_err {ferr:.2e} (tol 1e-4); train step loss {l_g:.6f} vs "
+              f"{l_c:.6f}, grad norm {g_g:.6f} vs {g_c:.6f}, gradient leaves at {mratio:.3f} "
+              f"of their tolerance, params max_abs_err {perr:.2e} (tol 1e-5); {len(h_g)} "
+              f"exchanges, equal on both: {h_g == h_c} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"card and CPU disagree on the reduced {name} a2a path")
+
+
+def _collectives_on_card(torch):
+    """The ``collectives`` pass over phase 3g's seq mesh of 4 shards of the
+    card: the sequence-parallel WKV forward and backward on real tensors
+    there, at the pass's size, its hop log clean."""
+    from repro_torch.analysis import collectives as C
+    from repro_torch.analysis.findings import errors, format_table
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_seq_mesh
+
+    found = C.run(get_config("rwkv6-1.6b"), mesh=make_seq_mesh(4))
+    print(format_table(found, title="[collectives] rwkv6-1.6b on a seq mesh of 4 shards "
+                                    "of the card"))
+    if errors(found) or not any(f.location == C.COST_LOCATION for f in found):
+        raise SystemExit("collectives pass on the card: not clean")
+
+
+def _moe_a2a(torch, np):
+    """Phase 3p."""
+    t0 = time.perf_counter()
+    for name in A2A_SCORE:
+        _a2a_scoring(torch, np, name)
+        _free(torch, f"phase 3p after {name}")
+    t1 = time.perf_counter()
+    _a2a_reference_check(torch, np)
+    _collectives_on_card(torch)
+    print(f"[time] phase 3p wall: {t1 - t0:.1f}s full-width scoring, "
+          f"{time.perf_counter() - t1:.1f}s reduced f32 card vs CPU and the collectives pass")
 
 
 # ---------------------------------------------------------------------------

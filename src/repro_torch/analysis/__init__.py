@@ -13,7 +13,11 @@ Passes (each ``repro_torch.analysis.<name>.run(cfg) -> list[Finding]``):
   its own planner at the arch's full-width shapes, against the card's
   limits;
 * ``ringslack`` — local-attention ring slack for windowed decode;
-* ``paging`` — page-table well-formedness, audit liveness and pool bytes.
+* ``paging`` — page-table well-formedness, audit liveness and pool bytes;
+* ``collectives`` — what crosses the seq axis: the sequence-parallel WKV
+  run forward and backward on ``meta`` shards, its hop log held to the
+  summary budget, no gather-class hop, reverse hops in the backward, and
+  the counted bytes against the cost model.
 
 CLI: ``python -m repro_torch.analysis --arch rwkv6-1.6b [--strict]
 [--json] [--sms N]``; ``--passes hostsafety --strict`` imports no torch.

@@ -4,6 +4,7 @@
   PYTHONPATH=src python -m repro_torch.analysis --arch gemma3-1b --strict
   PYTHONPATH=src python -m repro_torch.analysis --passes hostsafety --strict
   PYTHONPATH=src python -m repro_torch.analysis --sms 114         # an H100 PCIe
+  PYTHONPATH=src python -m repro_torch.analysis --passes collectives --strict
 
 Exit status: nonzero iff any ERROR finding (``--strict``: WARN too).
 ``--json`` emits the findings as a machine-readable JSON array instead of

@@ -2,8 +2,10 @@
 :func:`run_passes` over a config.
 
 The reference's registry also aggregates its jitted entry points for the
-passes that audit jaxprs and HLO; the port has no jits, and none of those
-passes (ROADMAP, Queue 1 item 8), so there is nothing to aggregate.
+passes that audit jaxprs and HLO; the port has no jits.  Its one such
+pass, ``collectives``, runs its entry point (the sequence-parallel WKV)
+itself and reads the hop log; the others (``dtype_flow``, ``donation``,
+``fleet``, ``retrace``) are not ported (ROADMAP, Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -19,12 +21,14 @@ DEFAULT_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b", "gemma3-1b")
 #: pass name -> module (each exposes ``run(cfg) -> list[Finding]`` and a
 #: ``PASS`` constant matching its key here), in the reference's order: the
 #: torch-free host-tier AST audit first, the launch geometry's integer math
-#: next, then the passes that build states on the ``meta`` device.
+#: next, then the passes that build states on the ``meta`` device, then the
+#: one that runs a program on ``meta`` shards.
 PASS_MODULES = {
     "hostsafety": "repro_torch.analysis.hostsafety",
     "resources": "repro_torch.analysis.resources",
     "ringslack": "repro_torch.analysis.ringslack",
     "paging": "repro_torch.analysis.paging",
+    "collectives": "repro_torch.analysis.collectives",
 }
 
 

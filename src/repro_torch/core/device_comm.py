@@ -13,11 +13,14 @@ device, see :mod:`repro_torch.launch.mesh`) and returns such a list.
 A hop is a ``.to(dest)`` of one shard's tensor: a no-op where the two
 shards share a device (n shards on one card), a peer copy between cards.
 :func:`device_shift` and :func:`ring_pass` are the only places a value
-crosses shards.  Both are differentiable, and the backward of a hop is the
-opposite hop (the transpose of a ppermute), so autograd through a sweep
-runs the device-space reverse elevator, as ``jax.grad`` does in the
-reference.  :func:`record_hops` logs every hop, forward and backward, with
-the elements each shard sends: what the collective-budget check reads.
+crosses shards, and :func:`all_to_all` the one place every shard sends to
+every other (the expert-parallel MoE's exchange).  All are differentiable:
+the backward of a hop is the opposite hop (the transpose of a ppermute),
+so autograd through a sweep runs the device-space reverse elevator, as
+``jax.grad`` does in the reference, and the backward of an exchange is the
+inverse exchange.  :func:`record_hops` logs every hop and exchange,
+forward and backward, with the elements that leave each shard: what the
+collective-budget check (:mod:`repro_torch.analysis.collectives`) reads.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ __all__ = [
     "Hop",
     "record_hops",
     "axis_size",
+    "all_to_all",
     "device_shift",
     "halo_exchange",
     "ring_pass",
@@ -43,16 +47,23 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Hop:
-    """One hop over a mesh axis: shard i received shard ``src[i]``'s value
-    (``None``: the fill); ``elements`` is what each sender moved."""
+    """One collective over a mesh axis.
+
+    ``kind="permute"`` (a ppermute): shard i received shard ``src[i]``'s
+    value (``None``: the fill), and ``elements`` is what each sender moved.
+    ``kind="all_to_all"``: every shard sent a piece to every other, ``src``
+    is ``range(n)`` (shard i's own piece stays put), and ``elements`` is
+    what leaves each shard: (n - 1) / n of its send."""
 
     elements: int
     src: tuple[int | None, ...]
+    kind: str = "permute"
 
     @property
     def reverse(self) -> bool:
-        """True when values run from high to low shard index."""
-        return any(s is not None and s > i for i, s in enumerate(self.src))
+        """True when a permute's values run from high to low shard index."""
+        return self.kind == "permute" and any(
+            s is not None and s > i for i, s in enumerate(self.src))
 
 
 # The recorders are process-wide, not per thread: the backward of CUDA
@@ -115,6 +126,50 @@ def _permute(xs, src, fill):
         raise ValueError(f"shards of one hop must share a shape, got {sorted(shapes)}")
     _record(Hop(xs[0].numel(), src))
     return list(_Permute.apply(src, fill, *xs))
+
+
+def _exchange(xs, split_dim, concat_dim):
+    n = len(xs)
+    pieces = [x.chunk(n, dim=split_dim) for x in xs]
+    return [torch.cat([pieces[i][j].to(x.device) for i in range(n)], dim=concat_dim)
+            for j, x in enumerate(xs)]
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled exchange; the backward is the inverse exchange (split and
+    concat dims swapped).  The context holds the dims: the backward of
+    CUDA tensors runs on autograd's own thread."""
+
+    @staticmethod
+    def forward(ctx, split_dim, concat_dim, *xs):
+        ctx.dims = (split_dim, concat_dim)
+        return tuple(_exchange(xs, split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_dim, concat_dim = ctx.dims
+        return (None, None, *all_to_all(list(grads), concat_dim, split_dim))
+
+
+def all_to_all(xs, split_dim: int, concat_dim: int):
+    """Tiled all-to-all over the shards of one mesh axis (the reference's
+    ``jax.lax.all_to_all(..., tiled=True)``): shard j receives, from every
+    sender i, the j-th of the ``n`` equal chunks of ``xs[i]`` along
+    ``split_dim``, and concatenates them in sender order along
+    ``concat_dim``, on its own device.  Each piece is a ``.to(dest)``; the
+    one a shard keeps crosses nothing, so (n - 1) / n of each send leaves
+    its shard.  Differentiable; logged as one :class:`Hop` of kind
+    ``"all_to_all"``, forward and backward."""
+    xs = list(xs)
+    n = len(xs)
+    shapes = {tuple(x.shape) for x in xs}
+    if len(shapes) != 1:
+        raise ValueError(f"shards of one exchange must share a shape, got {sorted(shapes)}")
+    if xs[0].shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(xs[0].shape)} does not split "
+                         f"into {n} pieces")
+    _record(Hop(xs[0].numel() // n * (n - 1), tuple(range(n)), "all_to_all"))
+    return list(_AllToAll.apply(split_dim, concat_dim, *xs))
 
 
 def device_shift(xs, delta: int = 1, fill=0.0):

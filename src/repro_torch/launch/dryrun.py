@@ -33,9 +33,21 @@ Usage::
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --table [--out DIR]
 
-Exit status 1 if any cell failed, else 0.  ``--multi-pod`` and
-``--both-meshes`` need the production mesh across cards, which waits for
-the multi-card slice (ROADMAP Queue 1 item 7): they refuse.
+Exit status 1 if any cell failed, else 0.
+
+``--mesh production`` reads every cell on the H100 production mesh
+(:func:`~repro_torch.launch.mesh.make_production_mesh`, 256 cards as
+(data=32, model=8); ``--multi-pod`` the 512 of (pod=2, data=32, model=8);
+``--both-meshes`` both) instead of tracing it on one card: each card's
+share of the state (parameters, the optimizer moments of a train cell,
+the decode state of a decode cell, and the inputs) from the spec trees
+under the cell's rules, every dimension divided by its mesh axes' extent
+and rounded up, as XLA pads, and whether that share fits the card's
+:data:`~repro_torch.core.h100.HBM_BYTES`.  The per-card peak (the
+activations) is not known until the dense layers run sharded: the row
+says so.  Nothing is traced and no card is touched::
+
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh production --all
 """
 
 from __future__ import annotations
@@ -58,12 +70,14 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import roofline as R
 from repro_torch.model import model as M
 from repro_torch.model.layers import dtype_of
+from repro_torch.model.sharding import axes_size, make_rules, to_pspec
 from repro_torch.serve import engine
 from repro_torch.train import step as train_mod
 from repro_torch.tree import tree_leaves
 
 __all__ = ["MESH_TAG", "MEMORY_RESERVE", "ALLOC_ROUND", "DEFAULT_OUT", "SkipCell", "Cell",
-           "make_cell", "trace_cell", "run_cell", "tree_bytes", "main"]
+           "make_cell", "trace_cell", "run_cell", "tree_bytes", "production_mesh_tag",
+           "per_card_bytes", "production_state", "run_production_cell", "main"]
 
 #: Where ``--out`` defaults to: ``build/`` at the root of the checkout,
 #: which ``.gitignore`` lists.
@@ -265,12 +279,18 @@ def run_cell(arch: str, shape_name: str, *, out_dir: Path | None = None,
         result["ok"] = False
         result["error"] = f"{type(e).__name__}: {e}"
         result["traceback"] = traceback.format_exc()[-4000:]
+    return _finish(tag, result, t0, out_dir, cell_line if verbose else None)
+
+
+def _finish(tag: str, result: dict, t0: float, out_dir: Path | None, line) -> dict:
+    """Time a cell's row, write it to ``out_dir`` (if given) as
+    ``<tag>.json`` and print ``line(tag, result)`` (if given)."""
     result["total_s"] = round(time.time() - t0, 1)
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
         (out_dir / f"{tag}.json").write_text(json.dumps(result, indent=1))
-    if verbose:
-        print(cell_line(tag, result), flush=True)
+    if line is not None:
+        print(line(tag, result), flush=True)
     return result
 
 
@@ -323,6 +343,111 @@ def summary_table(out_dir: Path) -> str:
     return "\n".join(lines)
 
 
+# --------------------------------------------------------------------------
+# The production mesh: each card's share of the state, from the specs
+# --------------------------------------------------------------------------
+
+def production_mesh_tag(multi_pod: bool) -> str:
+    """``32x8`` or ``2x32x8``: the production mesh's shape."""
+    return "x".join(map(str, mesh_mod.PRODUCTION_SHAPE[multi_pod].values()))
+
+
+def per_card_bytes(tree, specs, mesh) -> int:
+    """Bytes one card holds of ``tree`` (meta tensors) split by ``specs``
+    (a tree of :class:`~repro_torch.model.sharding.PartitionSpec` of the
+    same structure) over ``mesh``: every dimension divided by the extent
+    of its mesh axes and rounded up, as XLA pads an uneven split."""
+    total = 0
+    for x, spec in zip(tree_leaves(tree), tree_leaves(specs), strict=True):
+        n = 1
+        for i, size in enumerate(x.shape):
+            n *= -(-size // axes_size(mesh, spec[i] if i < len(spec) else None))
+        total += n * x.element_size()
+    return total
+
+
+def production_state(cfg, shape, mesh) -> dict:
+    """``{part: (meta tree, spec tree)}`` of one cell on ``mesh``, built as
+    the reference's ``lower_cell`` builds its shardings: the train state's
+    specs and the batch's; the parameters' and the batch's for prefill;
+    for decode (``remat="none"``, ``microbatch=1``) the parameters', the
+    decode state's, the (B, 1) tokens', the replicated length's and
+    ``enc_out``'s."""
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    rules = make_rules(mesh, _mode_for(shape.name, shape.kind))
+    if shape.kind == "train":
+        state = train_mod.abstract_train_state(cfg)
+        specs = train_mod.train_state_pspecs(cfg, rules)
+        batch, axes = I.batch_specs(cfg, shape)
+        return {"params": (state.params, specs.params), "opt": (state.opt, specs.opt),
+                "inputs": (batch, I.resolve_pspecs(axes, rules))}
+    if shape.kind == "prefill":
+        batch, axes = I.batch_specs(cfg, shape)
+        return {"params": (M.abstract_params(cfg), M.param_pspecs(cfg, rules)),
+                "inputs": (batch, I.resolve_pspecs(axes, rules))}
+    dcfg = dataclasses.replace(cfg, remat="none", microbatch=1)
+    state, tokens, length, extras, extras_axes = I.decode_specs(dcfg, shape)
+    inputs = {"tokens": tokens, "length": length, **extras}
+    in_specs = {"tokens": to_pspec(("batch", None), rules), "length": to_pspec((), rules),
+                **I.resolve_pspecs(extras_axes, rules)}
+    return {"params": (M.abstract_params(dcfg), M.param_pspecs(dcfg, rules)),
+            "decode_state": (state, M.decode_state_pspecs(
+                dcfg, shape.global_batch, shape.seq_len, rules)),
+            "inputs": (inputs, in_specs)}
+
+
+def run_production_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
+                        out_dir: Path | None = None, verbose: bool = True) -> dict:
+    """One cell's per-card state on the production mesh: its JSON row."""
+    mesh_tag = production_mesh_tag(multi_pod)
+    tag = f"{arch}__{shape_name}__{mesh_tag}"
+    result = {"arch": arch, "shape": shape_name, "mesh": mesh_tag}
+    t0 = time.time()
+    try:
+        cfg = get_config(arch)
+        ok, why = I.cell_is_applicable(cfg, shape_name)
+        if not ok:
+            raise SkipCell(why)
+        mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod)
+        parts = production_state(cfg, shape_name, mesh)
+        by_part = {k: per_card_bytes(t, sp, mesh) for k, (t, sp) in parts.items()}
+        per_card = sum(by_part.values())
+        result["memory"] = {
+            "cards": int(mesh.devices.size),
+            "state_bytes": sum(tree_bytes(t)[0] for t, _ in parts.values()),
+            "state_bytes_per_card": per_card,
+            "state_per_card_by_part": by_part,
+            "capacity_bytes": mesh_mod.HBM_BYTES,
+            "state_fits": per_card <= mesh_mod.HBM_BYTES,
+            "peak_estimate_bytes": None,
+            "peak_note": "the per-card peak (activations) is not known until the "
+                         "dense layers run sharded",
+        }
+        result["ok"] = True
+    except SkipCell as e:
+        result["ok"] = True
+        result["skipped"] = str(e)
+    except Exception as e:  # noqa: BLE001 — reported as a failed cell
+        result["ok"] = False
+        result["error"] = f"{type(e).__name__}: {e}"
+        result["traceback"] = traceback.format_exc()[-4000:]
+    return _finish(tag, result, t0, out_dir, production_line if verbose else None)
+
+
+def production_line(tag: str, result: dict) -> str:
+    """One production-mesh cell's printed line."""
+    status = "SKIP" if result.get("skipped") else ("OK" if result["ok"] else "FAIL")
+    extra = ""
+    if "memory" in result:
+        m = result["memory"]
+        parts = " ".join(f"{k}={v / 2**30:.2f}" for k, v in m["state_per_card_by_part"].items())
+        extra = (f" state/card={m['state_bytes_per_card'] / 2**30:.2f}GiB ({parts}) "
+                 f"of {m['cards']} cards, fits={m['state_fits']}, peak not known")
+    if "error" in result:
+        extra += f" {result['error']}"
+    return f"[{status}] {tag} ({result['total_s']}s){extra}"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default=None)
@@ -335,12 +460,10 @@ def main(argv=None):
     ap.add_argument("--no-roofline", action="store_true")
     ap.add_argument("--table", action="store_true",
                     help="only print the markdown table of the rows in --out")
+    ap.add_argument("--mesh", choices=("one", "production"), default="one",
+                    help="trace each cell on one card (default), or read each card's "
+                         "share of its state on the production mesh")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        raise SystemExit(
-            "dryrun: --multi-pod and --both-meshes need the production mesh across "
-            "cards, which waits for the multi-card slice (ROADMAP Queue 1 item 7); "
-            "this dry run is of one card")
 
     out_dir = Path(args.out)
     if args.table:
@@ -349,6 +472,16 @@ def main(argv=None):
     archs = [args.arch] if args.arch else list(list_archs())
     shapes = [args.shape] if args.shape else list(SHAPES)
     failures = 0
+    if args.mesh == "production" or args.multi_pod or args.both_meshes:
+        meshes = [False, True] if args.both_meshes else [args.multi_pod]
+        for multi_pod in meshes:
+            for arch in archs:
+                for shape in shapes:
+                    res = run_production_cell(arch, shape, multi_pod=multi_pod,
+                                              out_dir=out_dir)
+                    failures += 0 if res["ok"] else 1
+        print(f"done; failures={failures}", flush=True)
+        raise SystemExit(1 if failures else 0)
     for arch in archs:
         for shape in shapes:
             tag = f"{arch}__{shape}__{MESH_TAG}"

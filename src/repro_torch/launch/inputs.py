@@ -2,9 +2,9 @@
 ``repro.launch.inputs``): the dry run traces ``train_step`` /
 ``prefill_step`` / ``decode_step`` against these, with nothing allocated.
 
-Each spec comes with its tree of logical axes, as the reference's does,
-for the multi-card slice to resolve into shardings (the reference's
-``resolve_pspecs``, which waits for it).
+Each spec comes with its tree of logical axes, as the reference's does;
+:func:`resolve_pspecs` turns such a tree into partition specs under a
+rules table.
 
 Family conventions (the reference's):
   * vlm: the first seq_len // 4 positions are precomputed patch embeddings
@@ -26,8 +26,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.model import model as M
 from repro_torch.model.layers import dtype_of
+from repro_torch.model.sharding import P, to_pspec
 
-__all__ = ["batch_specs", "decode_specs", "cell_is_applicable"]
+__all__ = ["batch_specs", "decode_specs", "resolve_pspecs", "cell_is_applicable"]
 
 
 def _meta(shape, dtype):
@@ -68,6 +69,16 @@ def decode_specs(cfg: ArchConfig, shape: ShapeConfig):
         extras["enc_out"] = _meta((b, s, cfg.d_model), dtype_of(cfg))
         extras_axes["enc_out"] = ("batch", "kv_seq", "act_embed")
     return state, tokens, length, extras, extras_axes
+
+
+def resolve_pspecs(axes_tree, rules):
+    """Logical-axes tuples -> :class:`~repro_torch.model.sharding.PartitionSpec`
+    via ``rules``, through dicts and lists; a ``None`` leaf is replicated."""
+    if isinstance(axes_tree, dict):
+        return {k: resolve_pspecs(v, rules) for k, v in axes_tree.items()}
+    if isinstance(axes_tree, list):
+        return [resolve_pspecs(v, rules) for v in axes_tree]
+    return to_pspec(axes_tree, rules) if isinstance(axes_tree, tuple) else P()
 
 
 def cell_is_applicable(cfg: ArchConfig, shape_name: str) -> tuple[bool, str]:

@@ -12,8 +12,10 @@ no-op.  A list of devices spreads the shards over several cards, where a
 hop is a peer copy.
 
 ``device=None`` means the card (and raises without one); ``"cpu"`` is
-for the tests.  The reference's production meshes (TPU pods) wait for the
-multi-card slice.  The roofline constants are the H100 SXM's in place of
+for the tests.  :func:`make_production_mesh` is the H100 counterpart of
+the reference's TPU pods, on the ``meta`` device: the dry run reads each
+card's share of the state from it, and building it touches no card.  The
+roofline constants are the H100 SXM's in place of
 the TPU's: on one card the collective term is 0, since the seq path's hops
 between shards of one card are no-ops.
 """
@@ -34,7 +36,8 @@ from repro_torch.core.h100 import (  # noqa: F401 — re-exported
 )
 from repro_torch.kernels.common import resolve_device
 
-__all__ = ["Mesh", "make_seq_mesh", "make_debug_mesh", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
+__all__ = ["Mesh", "make_seq_mesh", "make_debug_mesh", "make_production_mesh",
+           "PRODUCTION_SHAPE", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
            "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "ICI_BW_PER_LINK", "ICI_LINKS"]
 
 # The roofline's per-card constants are the H100 SXM's, from
@@ -106,3 +109,29 @@ def make_debug_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     if data < 1 or model < 1:
         raise ValueError(f"a mesh needs at least one shard per axis, got {(data, model)}")
     return Mesh(_grid((data, model), device), ("data", "model"))
+
+
+#: The production meshes' shapes by axis: 256 cards as (data=32,
+#: model=8), 512 as (pod=2, data=32, model=8).
+PRODUCTION_SHAPE = {False: {"data": 32, "model": 8},
+                    True: {"pod": 2, "data": 32, "model": 8}}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The H100 production mesh, the counterpart of the reference's TPU v5e
+    pods ((data=16, model=16) and (pod=2, data=16, model=16)), with its axis
+    names: 256 cards as (data=32, model=8), or 512 as (pod=2, data=32,
+    model=8).
+
+    The ``model`` axis carries tensor- and expert-parallel traffic in every
+    layer, so it is 8 wide: one HGX H100 node, whose eight cards share an
+    NVLink domain (NVLink 4 through NVSwitch, 900 GB/s a card in both
+    directions together).  ``data`` (FSDP /
+    ZeRO and the batch) crosses nodes over the network, once per step for
+    the gradients, and ``pod`` is the slower link between two such
+    clusters, which gradient compression targets.
+
+    Every shard is on the ``meta`` device: the mesh carries the shape and
+    axis names the spec trees are read against, and touches no card."""
+    shape = PRODUCTION_SHAPE[multi_pod]
+    return Mesh(_grid(tuple(shape.values()), "meta"), tuple(shape))

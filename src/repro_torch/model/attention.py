@@ -86,15 +86,15 @@ def init_attention(mk, cfg, name: str, *, cross: bool = False):
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads
     p = {
-        "wq": mk(f"{name}.wq", (d, nq * hd)),
-        "wk": mk(f"{name}.wk", (d, nkv * hd)),
-        "wv": mk(f"{name}.wv", (d, nkv * hd)),
-        "wo": mk(f"{name}.wo", (nq * hd, d)),
+        "wq": mk(f"{name}.wq", (d, nq * hd), ("embed", "heads_out")),
+        "wk": mk(f"{name}.wk", (d, nkv * hd), ("embed", "kv_out")),
+        "wv": mk(f"{name}.wv", (d, nkv * hd), ("embed", "kv_out")),
+        "wo": mk(f"{name}.wo", (nq * hd, d), ("heads_out", "embed")),
     }
     if cfg.qkv_bias:
-        p["bq"] = mk(f"{name}.bq", (nq * hd,), "zeros")
-        p["bk"] = mk(f"{name}.bk", (nkv * hd,), "zeros")
-        p["bv"] = mk(f"{name}.bv", (nkv * hd,), "zeros")
+        p["bq"] = mk(f"{name}.bq", (nq * hd,), ("heads_out",), "zeros")
+        p["bk"] = mk(f"{name}.bk", (nkv * hd,), ("kv_out",), "zeros")
+        p["bv"] = mk(f"{name}.bv", (nkv * hd,), ("kv_out",), "zeros")
     if cfg.qk_norm:
         p["q_norm"] = init_rmsnorm(mk, hd, f"{name}.q_norm")
         p["k_norm"] = init_rmsnorm(mk, hd, f"{name}.k_norm")

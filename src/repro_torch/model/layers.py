@@ -21,7 +21,7 @@ def dtype_of(cfg) -> torch.dtype:
 # --------------------------------------------------------------------------
 
 def init_rmsnorm(mk, d: int, name: str):
-    return {"scale": mk(f"{name}.scale", (d,), "ones")}
+    return {"scale": mk(f"{name}.scale", (d,), ("act_embed",), "ones")}
 
 
 def rms_norm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -39,9 +39,9 @@ def init_mlp(mk, cfg, name: str):
     d, f = cfg.d_model, cfg.d_ff
     p = {}
     if cfg.mlp_type in ("swiglu", "geglu"):
-        p["w_gate"] = mk(f"{name}.w_gate", (d, f))
-    p["w_up"] = mk(f"{name}.w_up", (d, f))              # relu2 (nemotron): no gate
-    p["w_down"] = mk(f"{name}.w_down", (f, d))
+        p["w_gate"] = mk(f"{name}.w_gate", (d, f), ("embed", "ff"))
+    p["w_up"] = mk(f"{name}.w_up", (d, f), ("embed", "ff"))  # relu2 (nemotron): no gate
+    p["w_down"] = mk(f"{name}.w_down", (f, d), ("ff", "embed"))
     return p
 
 
@@ -64,9 +64,10 @@ def apply_mlp(params, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def init_embeddings(mk, cfg, name: str = "tok"):
     v = cfg.padded_vocab
-    p = {"embedding": mk(f"{name}.embedding", (v, cfg.d_model), "normal", 0.02)}
+    p = {"embedding": mk(f"{name}.embedding", (v, cfg.d_model), ("vocab", "embed"),
+                         "normal", 0.02)}
     if not cfg.tie_embeddings:
-        p["unembed"] = mk(f"{name}.unembed", (cfg.d_model, v))
+        p["unembed"] = mk(f"{name}.unembed", (cfg.d_model, v), ("embed", "vocab"))
     return p
 
 

@@ -37,6 +37,7 @@ from repro_torch.model.layers import (
     rms_norm,
 )
 from repro_torch.model.recurrent import RWKV_HEAD_DIM, RecState
+from repro_torch.model.sharding import P, PartitionSpec, spec_mk, to_pspec
 
 
 # --------------------------------------------------------------------------
@@ -53,7 +54,7 @@ def init_mk(gen: torch.Generator, dtype: torch.dtype, device: torch.device):
         raise ValueError("init_mk draws random numbers, which the meta device cannot "
                          "hold: build meta params with abstract_params(cfg)")
 
-    def mk(name, shape, init="normal", scale=None):
+    def mk(name, shape, axes, init="normal", scale=None):
         if init == "ones":
             return torch.ones(shape, dtype=dtype, device=device)
         if init == "zeros":
@@ -72,6 +73,8 @@ def init_mk(gen: torch.Generator, dtype: torch.dtype, device: torch.device):
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], PartitionSpec):
+        return P(None, *trees[0])          # the (unsharded) layer axis
     return torch.stack(trees)
 
 
@@ -103,7 +106,7 @@ def abstract_mk(dtype: torch.dtype):
     """Meta-tensor constructor: the shape and dtype of every parameter,
     nothing allocated (``repro.model.sharding.abstract_mk``)."""
 
-    def mk(name, shape, init="normal", scale=None):
+    def mk(name, shape, axes, init="normal", scale=None):
         return torch.empty(shape, dtype=dtype, device="meta")
 
     return mk
@@ -128,6 +131,14 @@ def abstract_params(cfg):
     nothing allocated or drawn (the dry run's parameters; the counterpart
     of the reference's ``ShapeDtypeStruct`` tree)."""
     return _build_params(cfg, abstract_mk(dtype_of(cfg)))
+
+
+def param_pspecs(cfg, rules: dict):
+    """The :class:`~repro_torch.model.sharding.PartitionSpec` of every
+    parameter under ``rules``: the parameter tree built through
+    :func:`~repro_torch.model.sharding.spec_mk` (the reference's
+    ``param_pspecs``).  A stacked leaf's layer axis is replicated."""
+    return _build_params(cfg, spec_mk(rules))
 
 
 def _build_params(cfg, mk):
@@ -292,6 +303,40 @@ def abstract_decode_state(cfg, batch: int, max_len: int, insert_window: int = 1,
     """:func:`init_decode_state` on the meta device: the dry run's decode
     state, every leaf's shape and dtype and nothing allocated."""
     return init_decode_state(cfg, batch, max_len, insert_window, paged, device="meta")
+
+
+def decode_state_pspecs(cfg, batch: int, max_len: int, rules: dict,
+                        insert_window: int = 1, paged: PageSpec | None = None):
+    """The decode state's partition specs under ``rules`` (the reference's
+    ``decode_state_pspecs``), built by walking :func:`abstract_decode_state`
+    so that stacked (leading ``layers``) axes come from the leaves' ranks:
+    KV caches shard (batch, ., kv_seq, .), recurrent states (batch, ...)
+    with the conv tail's channels on ``rnn``; paged pools stay replicated
+    (any slot's table may map any page), their tables and lengths shard
+    along the batch."""
+    abstract = abstract_decode_state(cfg, batch, max_len, insert_window, paged)
+
+    def node_spec(node):
+        if isinstance(node, KVCache):
+            prefix = ("layers",) * (node.k.ndim - 4)
+            kv = to_pspec(prefix + ("batch", None, "kv_seq", None), rules)
+            return KVCache(k=kv, v=kv, length=to_pspec(prefix + ("batch",), rules))
+        if isinstance(node, PagedKVCache):
+            prefix = ("layers",) * (node.k.ndim - 4)
+            pool = to_pspec(prefix + (None, None, None, None), rules)
+            return PagedKVCache(k=pool, v=pool,
+                                page_table=to_pspec(prefix + ("batch", None), rules),
+                                length=to_pspec(prefix + ("batch",), rules),
+                                s_view=node.s_view, page_size=node.page_size)
+        extra = node.conv.ndim - 3
+        prefix = ("layers",) * extra
+        h_axes = prefix + ("batch",) + (None,) * (node.h.ndim - extra - 1)
+        return RecState(h=to_pspec(h_axes, rules),
+                        conv=to_pspec(prefix + ("batch", None, "rnn"), rules))
+
+    return {"scanned": None if abstract["scanned"] is None
+            else [node_spec(n) for n in abstract["scanned"]],
+            "remainder": [node_spec(n) for n in abstract["remainder"]]}
 
 
 def state_nodes(state):

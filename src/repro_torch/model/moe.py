@@ -35,10 +35,10 @@ import torch.nn.functional as F
 def init_moe(mk, cfg, name: str):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     return {
-        "router": mk(f"{name}.router", (d, e)),
-        "w_gate": mk(f"{name}.w_gate", (e, d, f)),
-        "w_up": mk(f"{name}.w_up", (e, d, f)),
-        "w_down": mk(f"{name}.w_down", (e, f, d)),
+        "router": mk(f"{name}.router", (d, e), ("embed", "experts")),
+        "w_gate": mk(f"{name}.w_gate", (e, d, f), ("experts", "embed", None)),
+        "w_up": mk(f"{name}.w_up", (e, d, f), ("experts", "embed", None)),
+        "w_down": mk(f"{name}.w_down", (e, f, d), ("experts", None, "embed")),
     }
 
 
@@ -72,11 +72,14 @@ class Dispatch(NamedTuple):
     cap: int
 
 
-def dispatch(params, xf: torch.Tensor, cfg, capacity_factor: float | None = None):
-    """Route ``xf`` (n, D) and place each assignment in its expert's buffer."""
+def dispatch(params, xf: torch.Tensor, cfg, capacity_factor: float | None = None,
+             *, cap: int | None = None):
+    """Route ``xf`` (n, D) and place each assignment in its expert's buffer
+    of ``cap`` rows (default :func:`capacity`)."""
     n = xf.shape[0]
     e, k = cfg.num_experts, cfg.num_experts_per_tok
-    cap = capacity(n, cfg, capacity_factor)
+    if cap is None:
+        cap = capacity(n, cfg, capacity_factor)
     logits = xf.float() @ params["router"].float()
     weights, experts = _topk_routing(logits, k)                       # (n, k)
     flat_expert = experts.reshape(-1)                                 # (n*k,)
@@ -100,28 +103,35 @@ def _act(cfg):
     return F.silu
 
 
-def apply_moe(params, x: torch.Tensor, cfg, *,
-              capacity_factor: float | None = None) -> torch.Tensor:
-    """x: (B, T, D) -> (B, T, D).  Capacity-dropped top-k MoE."""
-    b, t, d = x.shape
-    e, k = cfg.num_experts, cfg.num_experts_per_tok
-    n = b * t
-    xf = x.reshape(n, d)
-    route = dispatch(params, xf, cfg, capacity_factor)
+def fill(xf: torch.Tensor, route: Dispatch, e: int) -> torch.Tensor:
+    """The (E, cap, D) expert buffers of ``route``: each row holds its
+    assignment's token, in the sorted expert-major order; an empty row
+    holds 0."""
+    n, d = xf.shape
+    k = route.slot.shape[1]
     cap = route.cap
     # The token in each buffer row; n marks an empty row, whose input is 0.
-    flat_slot = route.slot.reshape(-1)
-    tok = torch.full((e * cap + 1,), n, dtype=torch.int64, device=x.device)
-    tok[flat_slot] = torch.arange(n, device=x.device).repeat_interleave(k)
-    tok = tok[: e * cap]
+    tok = torch.full((e * cap + 1,), n, dtype=torch.int64, device=xf.device)
+    tok[route.slot.reshape(-1)] = torch.arange(n, device=xf.device).repeat_interleave(k)
     xpad = torch.cat([xf, xf.new_zeros(1, d)])
-    xe = xpad[tok].reshape(e, cap, d)
+    return xpad[tok[: e * cap]].reshape(e, cap, d)
 
-    h = _act(cfg)(torch.bmm(xe, params["w_gate"])) * torch.bmm(xe, params["w_up"])
-    ye = torch.bmm(h, params["w_down"]).reshape(e * cap, d)
-    # Each assignment's row weighted in f32 (bf16 rows times f32 weights,
-    # as the reference promotes), a dropped one's 0; each token sums its
-    # rows in ascending expert order.
+
+def experts(w_gate, w_up, w_down, xe: torch.Tensor, cfg) -> torch.Tensor:
+    """The expert FFN over buffers ``xe`` (E', C, D) with weights of E'
+    experts: (E', C, D)."""
+    h = _act(cfg)(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    return torch.bmm(h, w_down)
+
+
+def combine(ye: torch.Tensor, route: Dispatch) -> torch.Tensor:
+    """(n, D) f32 outputs from the experts' (E, cap, D) rows: each
+    assignment's row weighted in f32 (bf16 rows times f32 weights, as the
+    reference promotes), a dropped one's 0, and each token sums its rows
+    in ascending expert order."""
+    e, cap, d = ye.shape
+    n, k = route.slot.shape
+    ye = ye.reshape(e * cap, d)
     rows = torch.cat([ye, ye.new_zeros(1, d)])[route.slot]           # (n, k, D)
     rows = rows * route.weight[..., None]
     rows = torch.where((route.slot < e * cap)[..., None], rows, 0.0)
@@ -130,7 +140,18 @@ def apply_moe(params, x: torch.Tensor, cfg, *,
     out = rows[:, 0]
     for j in range(1, k):
         out = out + rows[:, j]
-    return out.reshape(b, t, d).to(x.dtype)
+    return out
+
+
+def apply_moe(params, x: torch.Tensor, cfg, *,
+              capacity_factor: float | None = None) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D).  Capacity-dropped top-k MoE."""
+    b, t, d = x.shape
+    xf = x.reshape(b * t, d)
+    route = dispatch(params, xf, cfg, capacity_factor)
+    xe = fill(xf, route, cfg.num_experts)
+    ye = experts(params["w_gate"], params["w_up"], params["w_down"], xe, cfg)
+    return combine(ye, route).reshape(b, t, d).to(x.dtype)
 
 
 def load_balance_loss(router_logits: torch.Tensor, experts: torch.Tensor, e: int):

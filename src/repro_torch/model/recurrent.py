@@ -46,13 +46,13 @@ class RecState(NamedTuple):
 def init_rglru_block(mk, cfg, name: str):
     d, dr, w = cfg.d_model, cfg.d_rnn, cfg.conv_width
     return {
-        "w_y": mk(f"{name}.w_y", (d, dr)),
-        "w_x": mk(f"{name}.w_x", (d, dr)),
-        "conv_w": mk(f"{name}.conv_w", (w, dr), "normal", 0.1),
-        "gate_a": mk(f"{name}.gate_a", (dr, dr)),
-        "gate_x": mk(f"{name}.gate_x", (dr, dr)),
-        "log_lambda": mk(f"{name}.log_lambda", (dr,), "normal", 0.5),
-        "w_out": mk(f"{name}.w_out", (dr, d)),
+        "w_y": mk(f"{name}.w_y", (d, dr), ("embed", "rnn")),
+        "w_x": mk(f"{name}.w_x", (d, dr), ("embed", "rnn")),
+        "conv_w": mk(f"{name}.conv_w", (w, dr), ("taps", "rnn"), "normal", 0.1),
+        "gate_a": mk(f"{name}.gate_a", (dr, dr), ("embed", "rnn")),
+        "gate_x": mk(f"{name}.gate_x", (dr, dr), ("embed", "rnn")),
+        "log_lambda": mk(f"{name}.log_lambda", (dr,), ("rnn",), "normal", 0.5),
+        "w_out": mk(f"{name}.w_out", (dr, d), ("rnn", "embed")),
     }
 
 
@@ -132,17 +132,17 @@ WKV_CHUNK = 16
 def init_rwkv_block(mk, cfg, name: str):
     d = cfg.d_model
     return {
-        "mu": mk(f"{name}.mu", (5, d), "normal", 0.2),
-        "w_r": mk(f"{name}.w_r", (d, d)),
-        "w_k": mk(f"{name}.w_k", (d, d)),
-        "w_v": mk(f"{name}.w_v", (d, d)),
-        "w_g": mk(f"{name}.w_g", (d, d)),
+        "mu": mk(f"{name}.mu", (5, d), ("taps", "embed"), "normal", 0.2),
+        "w_r": mk(f"{name}.w_r", (d, d), ("embed", "heads_out")),
+        "w_k": mk(f"{name}.w_k", (d, d), ("embed", "heads_out")),
+        "w_v": mk(f"{name}.w_v", (d, d), ("embed", "heads_out")),
+        "w_g": mk(f"{name}.w_g", (d, d), ("embed", "heads_out")),
         # Data-dependent decay (the Finch signature): base + low-rank delta.
-        "w_decay_base": mk(f"{name}.w_decay_base", (d,), "normal", 0.5),
-        "w_decay_lora_a": mk(f"{name}.w_decay_a", (d, 64)),
-        "w_decay_lora_b": mk(f"{name}.w_decay_b", (64, d)),
-        "u_bonus": mk(f"{name}.u_bonus", (d,), "normal", 0.3),
-        "w_o": mk(f"{name}.w_o", (d, d)),
+        "w_decay_base": mk(f"{name}.w_decay_base", (d,), ("heads_out",), "normal", 0.5),
+        "w_decay_lora_a": mk(f"{name}.w_decay_a", (d, 64), ("embed", None)),
+        "w_decay_lora_b": mk(f"{name}.w_decay_b", (64, d), (None, "heads_out")),
+        "u_bonus": mk(f"{name}.u_bonus", (d,), ("heads_out",), "normal", 0.3),
+        "w_o": mk(f"{name}.w_o", (d, d), ("heads_out", "embed")),
         "out_norm": init_rmsnorm(mk, d, f"{name}.out_norm"),
     }
 

@@ -1,20 +1,25 @@
-"""Logical-axis sharding rules, as far as the sequence-parallel path reads
-them (counterpart of part of ``repro.model.sharding``).
+"""Logical-axis sharding rules and partition specs (counterpart of
+``repro.model.sharding``).
 
-Every activation dimension carries a *logical* name; a rules table maps
-logical names to mesh axes per execution mode (train / prefill / decode).
-The serve engine installs a (mesh, rules) context for long prompts; the
-RWKV block reads it (:func:`seq_shard_info`) and takes the
-sequence-parallel WKV path when ``seq`` maps to a mesh axis of more than
-one shard.  Outside a context nothing changes.
+Every parameter, state and activation dimension carries a *logical* name;
+a rules table maps logical names to mesh axes per execution mode (train /
+prefill / decode).  The serve engine installs a (mesh, rules) context for
+long prompts; the RWKV block reads it (:func:`seq_shard_info`) and takes
+the sequence-parallel WKV path when ``seq`` maps to a mesh axis of more
+than one shard, and the expert-parallel MoE
+(:mod:`repro_torch.model.moe_a2a`) splits its tokens by it.  Outside a
+context nothing changes.
 
 Ported: :func:`make_rules` (the reference's table, pure Python),
-:func:`sharding_context`, :func:`axes_size`, :func:`seq_shard_info`, and
-:func:`remat_context`, which a recomputed period runs under.
-``constrain``, ``to_pspec``, ``gather_for_use`` and the ``mk`` protocol's
-parameter specs (FSDP/TP placement of weights and activations) wait for
-the port's multi-card slice: here the rest of a block runs unsharded on
-the device of its input.
+:func:`sharding_context`, :func:`axes_size`, :func:`seq_shard_info`,
+:func:`remat_context`, which a recomputed period runs under, and the spec
+half of the reference's sharding: :class:`PartitionSpec` (``P``),
+:func:`to_pspec` and :func:`spec_mk`, the ``mk`` constructor that turns
+the parameter init functions into spec trees (``model.param_pspecs``).  The
+specs are data: the dry run reads each card's share of the state from
+them.  ``constrain`` and ``gather_for_use`` (GSPMD placement hints for the
+dense layers) wait for a sharded tensor type: here the rest of a block
+runs unsharded on the device of its input.
 
 One rule differs: under ``prefill_seq`` the reference maps ``seq`` to the
 ``model`` axis, so a mesh without one (``make_seq_mesh``'s 1-D ``seq``
@@ -30,7 +35,29 @@ import contextlib
 import threading
 
 __all__ = ["make_rules", "sharding_context", "axes_size", "seq_shard_info",
-           "remat_context"]
+           "remat_context", "PartitionSpec", "P", "to_pspec", "spec_mk"]
+
+
+class PartitionSpec(tuple):
+    """Which mesh axes each dimension of a tensor is split over: one entry a
+    dimension, a mesh axis name, a tuple of names, or ``None``
+    (replicated); trailing dimensions left out are replicated.  A tuple, so
+    it compares equal to the reference's ``jax.sharding.PartitionSpec``
+    turned into a tuple, and prints as the reference's does.  A leaf of
+    :mod:`repro_torch.tree`."""
+
+    __slots__ = ()
+    _tree_leaf = True
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, parts)
+
+    def __repr__(self) -> str:
+        inner = ", ".join(map(repr, self))
+        return f"PartitionSpec({inner}{',' if len(self) == 1 else ''})"
+
+
+P = PartitionSpec
 
 
 def make_rules(mesh, mode: str) -> dict:
@@ -138,3 +165,37 @@ def seq_shard_info():
     if not seq:
         return None
     return _CTX.mesh, seq, _CTX.rules.get("batch")
+
+
+def to_pspec(axes: tuple, rules: dict) -> PartitionSpec:
+    """The spec of a tensor whose dimensions carry the logical ``axes``
+    under ``rules``.  A spec maps each mesh axis to at most one dimension:
+    where a mode aliases two logical axes onto one mesh axis (``prefill_seq``
+    maps ``seq`` to the model axis, which ``vocab`` also names), the
+    earlier dimension keeps it and the later ones are replicated.  Trailing
+    ``None``s are trimmed."""
+    parts = []
+    used: set = set()
+    for ax in axes:
+        r = rules.get(ax) if ax is not None else None
+        vals = r if isinstance(r, tuple) else (r,)
+        if any(v in used for v in vals if v is not None):
+            r = None
+        else:
+            used.update(v for v in vals if v is not None)
+        parts.append(r)
+    while parts and parts[-1] is None:
+        parts.pop()
+    return P(*parts)
+
+
+def spec_mk(rules: dict):
+    """The ``mk(name, shape, axes, init, scale)`` constructor that returns
+    each parameter's :class:`PartitionSpec`: the parameter init functions run
+    through it give the spec tree, from the same code path as the
+    parameters, so specs cannot drift from shapes."""
+
+    def mk(name, shape, axes, init="normal", scale=None):
+        return to_pspec(axes, rules)
+
+    return mk

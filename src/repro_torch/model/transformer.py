@@ -6,7 +6,8 @@ port walks the same ``{"scanned": [...], "remainder": [...]}`` layout in a
 Python loop.  Ported kinds: ``rwkv``, ``rec`` (RG-LRU) and the attention
 kinds ``attn``/``global`` (no window) and ``local`` (``cfg.attn_window``);
 the feed-forward is the dense MLP or, where ``cfg.num_experts`` is set,
-the MoE layer (:mod:`repro_torch.model.moe`).  A block built with
+the MoE layer (:mod:`repro_torch.model.moe`, or with ``cfg.moe_impl ==
+"a2a"`` the expert-parallel :mod:`repro_torch.model.moe_a2a`).  A block built with
 ``cross`` (the encoder-decoder arch's decoder) runs cross-attention over
 the encoder's output between its self-attention and its feed-forward.
 
@@ -37,6 +38,7 @@ from torch.utils.checkpoint import (
 
 from repro_torch.model import attention as attn_mod
 from repro_torch.model import moe as moe_mod
+from repro_torch.model import moe_a2a
 from repro_torch.model import recurrent as rec_mod
 from repro_torch.model.layers import apply_mlp, init_mlp, init_rmsnorm, rms_norm
 from repro_torch.model.sharding import remat_context
@@ -76,9 +78,7 @@ def apply_ffn(params, h, cfg):
     if not cfg.num_experts:
         return apply_mlp(params, h, cfg)
     if cfg.moe_impl == "a2a":
-        raise NotImplementedError(
-            'moe_impl="a2a" (the all-to-all expert-parallel MoE) is not ported: '
-            "it needs the multi-card slice (ROADMAP Queue 1 item 7)")
+        return moe_a2a.apply_moe_sharded(params, h, cfg)
     return moe_mod.apply_moe(params, h, cfg)
 
 

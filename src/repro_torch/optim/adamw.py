@@ -63,6 +63,15 @@ def abstract_state(params) -> AdamWState:
                       mu=tree_map(meta, params), nu=tree_map(meta, params))
 
 
+def state_pspecs(param_specs) -> AdamWState:
+    """The moments' partition specs: the parameters' (ZeRO for free, since
+    the parameter specs already shard every tensor over the mesh), the
+    step replicated."""
+    from repro_torch.model.sharding import P
+
+    return AdamWState(step=P(), mu=param_specs, nu=param_specs)
+
+
 def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Linear warmup + cosine decay to ``min_lr_ratio``, in f32."""
     s = torch.as_tensor(step).float()

@@ -60,6 +60,15 @@ def abstract_train_state(cfg, *, compress: bool = False) -> TrainState:
     return TrainState(params=params, opt=adamw.abstract_state(params), ef=ef)
 
 
+def train_state_pspecs(cfg, rules) -> TrainState:
+    """The train state's partition specs under ``rules``: the parameters'
+    (:func:`~repro_torch.model.model.param_pspecs`) and the moments'
+    (:func:`~repro_torch.optim.adamw.state_pspecs`), with no
+    error-feedback specs, as the reference's."""
+    pspecs = M.param_pspecs(cfg, rules)
+    return TrainState(params=pspecs, opt=adamw.state_pspecs(pspecs), ef=None)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels[..., None].long())[..., 0].mean()

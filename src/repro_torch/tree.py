@@ -3,6 +3,8 @@ tensor leaves (the port's stand-in for JAX pytrees).  A node class that is
 not a tuple joins by naming its tensor children in ``_fields`` and
 rebuilding itself with ``_replace`` (its other attributes are static, as
 a JAX pytree's aux data): :class:`repro_torch.model.attention.PagedKVCache`.
+A tuple class marked ``_tree_leaf`` is a leaf:
+:class:`repro_torch.model.sharding.PartitionSpec`.
 
 The order of leaves follows JAX's: dict keys sorted, sequences and
 NamedTuple fields in order, ``None`` an empty subtree.  Paths join the
@@ -20,6 +22,12 @@ def _is_node(x) -> bool:
     return hasattr(x, "_fields") and hasattr(x, "_replace")
 
 
+def _is_leaf(x) -> bool:
+    """A leaf that is a tuple: a class marked ``_tree_leaf`` (the port's
+    ``PartitionSpec``)."""
+    return getattr(type(x), "_tree_leaf", False)
+
+
 def _rebuild(node, children):
     return node._replace(**dict(zip(node._fields, children)))
 
@@ -29,6 +37,8 @@ def tree_paths(tree, prefix: str = "") -> list[tuple[str, Any]]:
     if tree is None:
         return []
     join = (lambda k: f"{prefix}/{k}") if prefix else str
+    if _is_leaf(tree):
+        return [(prefix, tree)]
     if isinstance(tree, dict):
         return [pl for k in sorted(tree) for pl in tree_paths(tree[k], join(k))]
     if _is_node(tree):
@@ -48,6 +58,8 @@ def tree_map(fn: Callable, tree, *rest):
     structure."""
     if tree is None:
         return None
+    if _is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
     if _is_node(tree):

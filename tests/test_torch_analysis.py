@@ -89,7 +89,8 @@ def test_format_table_matches_the_reference(title):
 
 
 def test_registry_order_and_defaults():
-    assert list(PASS_MODULES) == ["hostsafety", "resources", "ringslack", "paging"]
+    assert list(PASS_MODULES) == ["hostsafety", "resources", "ringslack", "paging",
+                                  "collectives"]
     from repro.analysis.registry import DEFAULT_ARCHS as REF_DEFAULT
     from repro.analysis.registry import PASS_MODULES as REF_PASSES
 

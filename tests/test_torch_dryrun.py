@@ -484,8 +484,15 @@ def test_cli_skip_existing_and_multi_pod(tmp_path, capsys):
     assert e.value.code == 0 and "[CACHED]" in capsys.readouterr().out
     dryrun.main(["--table", "--out", str(tmp_path)])
     assert "| rwkv6-1.6b long_500k | yes | 3.43 / 3.93 |" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="item 7"):
-        dryrun.main(["--multi-pod", "--out", str(tmp_path)])
+    # --multi-pod reads the 512-card production mesh (no longer refused);
+    # the one-card table is unchanged by its rows.
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(args + ["--multi-pod"])
+    out = capsys.readouterr().out
+    assert e.value.code == 0 and "rwkv6-1.6b__long_500k__2x32x8" in out and "512 cards" in out
+    dryrun.main(["--table", "--out", str(tmp_path)])
+    table = capsys.readouterr().out
+    assert "| rwkv6-1.6b long_500k | yes | 3.43 / 3.93 |" in table and "2x32x8" not in table
 
 
 def test_extrapolated_costs_are_the_full_cell_trace():

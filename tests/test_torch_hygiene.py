@@ -241,18 +241,23 @@ def test_training_entry_points_need_the_card_by_default(no_card):
     assert state.params["tok"]["embedding"].device.type == "cpu"
 
 
-def test_every_arch_has_a_train_step_and_a2a_moe_stays_refused():
+def test_every_arch_has_a_train_step_and_a2a_without_mesh_is_the_gather_path():
     from repro_torch.configs.registry import list_archs
     from repro_torch.train.step import make_train_step
 
     for name in list_archs():
         assert callable(make_train_step(get_config(name).reduced()))
-    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(), moe_impl="a2a")
-    state = init_train_state(cfg, device="cpu")
+    # moe_impl="a2a" is ported: without a mesh its train step is the gather
+    # path's, loss and grad norm bit for bit.
+    cfg = get_config("dbrx-132b").reduced()
     batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
                                   global_batch=cfg.microbatch), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="a2a"):
-        make_train_step(cfg)(state, batch)
+    metrics = []
+    for impl in ("gather", "a2a"):
+        c = dataclasses.replace(cfg, moe_impl=impl)
+        metrics.append(make_train_step(c)(init_train_state(c, device="cpu"), batch)[1])
+    for k in ("loss", "grad_norm"):
+        assert torch.equal(metrics[0][k], metrics[1][k])
 
 
 def test_kernel_sources_are_listed():

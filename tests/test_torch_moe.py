@@ -197,9 +197,13 @@ def test_combine_is_deterministic_and_bf16_follows_reference():
                                atol=2 ** -7 * float(np.abs(want).max()))
 
 
-def test_a2a_is_refused():
+def test_a2a_without_mesh_is_the_gather_path():
+    # moe_impl="a2a" is ported (tests/test_torch_moe_a2a.py): apply_ffn no
+    # longer refuses it, and without a mesh it is the gather path bit for bit.
     from repro_torch.model import transformer as tf
 
-    cfg = dataclasses.replace(get_config("dbrx-132b").reduced(), moe_impl="a2a")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tf.apply_ffn({}, torch.zeros(1, 1, 128), cfg)
+    cfg_j, cfg = _cfgs("dbrx-132b")
+    _, pt = _params(cfg_j)
+    x = torch.from_numpy(_x(3, 2, 16))
+    a2a = dataclasses.replace(cfg, moe_impl="a2a")
+    assert torch.equal(tf.apply_ffn(pt, x, a2a), MoE.apply_moe(pt, x, cfg))
