@@ -30,8 +30,11 @@ Phases (any failure raises and exits non-zero, with no result line):
    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` with the plan's
    dynamic shared memory, beside the blocks an SM shared memory allows, a
    line per (kernel, arch, shape); then ``python -m repro_torch.analysis
-   --strict --sms <the card's>`` over every arch in a process of its own;
-   fail on an ERROR, a mismatch or 0 blocks an SM;
+   --strict --json --sms <the card's>`` over every arch in a process of its
+   own, all nine passes, the executing ones (donation, fleet, retrace) on
+   the card, a line for each fleet and retrace finding and for each arch's
+   in-place audit; fail on an ERROR, a pass without findings, a mismatch
+   or 0 blocks an SM;
 2. kernels against their plain PyTorch versions on the card, at full
    RWKV6 widths (H=32, Dh=64), in f32 with TF32 off and in bf16: the
    chunked kernel (B=4, T=256, chunk 16, and T=100 -> chunk 10), the
@@ -265,6 +268,19 @@ Phases (any failure raises and exits non-zero, with no result line):
    ``train`` rules: loss, grad norm, gradient leaves, parameters, the
    exchanges), and the ``collectives`` pass over a seq mesh of 4 shards of
    the card (the sequence-parallel WKV forward and backward there, clean);
+3q. the executing analysis passes at full width, run right after 3g on
+   phase 3's rwkv6-1.6b weights (bf16): the in-place audit of every
+   registered serve dispatch, dense and paged (prefill, window, the
+   session's admission and window, the shadow checksum; B=4, max_len 512,
+   K=8, 48-token prompts) and of phase 3b's train step (B=8, T=256, its own
+   train state: parameters and AdamW moments), every leaf of the state
+   keeping its tensor and storage and the shadow checksum leaving every
+   bit; the fleet's checksum rows of a dense and a paged admission and
+   window equal to ``decode_state_checksum`` of the state on the card as
+   the dispatch found and left it; the retrace sentinel over phase 3's
+   ragged requests (4 slots, K=8) and its generate (B=4, P=256, +32): one
+   serve-window shape, admissions within their 32-token buckets, two
+   window shapes and one prefill, the planners' caches bounded;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -599,6 +615,9 @@ def main():
     launches.update(seq_launches)
     _seq_reference_check(torch, np)
 
+    # ---- 3q. the in-place, fleet and retrace audits at full width ----------
+    _analysis_full_width(torch, np, cfg, params, reqs, prompts)
+
     # ---- 3b. the training path ----------------------------------------------
     del params
     torch.cuda.empty_cache()
@@ -791,17 +810,94 @@ def _launch_resources(torch, common):
             if card[key] < 1:
                 raise SystemExit(f"{launch.kernel} [{arch} {launch.shape}]: the card fits "
                                  f"{card[key]} blocks an SM (a negative number is a cudaError)")
-    cmd = [sys.executable, "-m", "repro_torch.analysis", "--strict", "--sms", str(sms)]
+    from repro_torch.analysis.registry import PASS_MODULES
+
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--strict", "--json", "--sms", str(sms)]
     for arch in archs:
         cmd += ["--arch", arch]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    res = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    t1 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    dt = time.perf_counter() - t1
+    try:
+        rows = json.loads(res.stdout)
+    except ValueError:
+        rows = []
+    by_pass = {p: sum(r["pass"] == p for r in rows) for p in PASS_MODULES}
     print(f"[resources] python -m repro_torch.analysis --strict --sms {sms} over "
-          f"{len(archs)} archs: exit {res.returncode} ({len(res.stdout.splitlines())} lines)")
-    if res.returncode != 0:
-        raise SystemExit("the analysis CLI failed:\n" + res.stdout[-4000:] + res.stderr[-4000:])
+          f"{len(archs)} archs, the executing passes on the card: exit {res.returncode} in "
+          f"{dt:.1f}s; findings by pass {by_pass}")
+    for r in rows:
+        if r["pass"] in ("fleet", "retrace") or r["severity"] != "INFO":
+            print(f"[analysis] {r['severity']:5s} {r['pass']:8s} {r['arch']:22s} "
+                  f"{r['message'][:150]} {r['metrics'] or ''}")
+    for arch in archs:
+        held = [r for r in rows if r["arch"] == arch and r["pass"] == "donation"]
+        print(f"[analysis] INFO  donation {arch:22s} {len(held)} dispatches updated in place "
+              f"or read-only: " + ", ".join(r["message"].split(":")[0] for r in held))
+    missing = [(a, p) for a in archs for p in PASS_MODULES
+               if not any(r["arch"] == a and r["pass"] == p for r in rows)]
+    if res.returncode != 0 or missing:
+        raise SystemExit(f"the analysis CLI failed (passes without findings: {missing}):\n"
+                         + res.stdout[-4000:] + res.stderr[-4000:])
     print(f"[resources] {n} launches of {len(archs)} archs, {len(card)} instantiations "
           f"queried, in {time.perf_counter() - t0:.1f}s")
+
+
+def _analysis_full_width(torch, np, cfg, params, reqs, prompts):
+    """Phase 3q.  The executing analysis passes at full width on the card,
+    on phase 3's rwkv6-1.6b weights: the in-place audit of every registered
+    serve dispatch (dense and paged, B=4, max_len 512, K=8, 48-token
+    prompts) and of phase 3b's train step (B=8, T=256, its own train
+    state), each leaf of the state it names keeping its tensor and storage
+    (the shadow checksum leaving every bit); the fleet's checksum rows of a
+    dense and a paged admission and window recomputed from the state on the
+    card; the retrace sentinel over phase 3's ragged requests (4 slots) and
+    its generate (B=4, 256-token prompts, +32).  Fails on any ERROR."""
+    from repro_torch.analysis import donation, fleet, retrace
+    from repro_torch.analysis.findings import Severity, format_table
+    from repro_torch.serve import engine as E
+    from repro_torch.train import step as S
+
+    t0 = time.perf_counter()
+    findings = []
+    entries = E.audit_dispatch_entrypoints(cfg, device="cuda", params=params, batch=4,
+                                           max_len=512, decode_window=8, prompt=48)
+    entries += S.audit_dispatch_entrypoints(cfg, device="cuda", batch=8, seq=256)
+    for entry in entries:
+        t1 = time.perf_counter()
+        got = donation.check_entry(entry)
+        torch.cuda.synchronize()
+        findings += got
+        print(f"[analysis-full] donation {entry.name:22s} {got[0].severity} "
+              f"{got[0].message.split(': ', 1)[1]} ({time.perf_counter() - t1:.2f}s)")
+        torch.cuda.empty_cache()
+    for paged in (False, True):
+        eng = E.ServeEngine(cfg, params, max_len=512, decode_window=8, paged=paged)
+        kinds, rows = fleet.session_rows(eng, 4)
+        for kind in fleet.CHECKSUM_KINDS:
+            mode = "paged" if paged else "dense"
+            host, entry_sum, exit_sum = rows.get(kind, (None, None, None))
+            got = fleet.check_rows(f"the {mode} {kind}", fleet.SESSION, (host, entry_sum, exit_sum),
+                                    4, cfg.name)
+            findings += got
+            print(f"[analysis-full] fleet {mode} {kind}: host rows "
+                  f"{None if host is None else host.shape}, the last two "
+                  f"{None if host is None else host[-2:].tolist()} against the state's checksums "
+                  f"on entry {entry_sum} and exit {exit_sum}: {'equal' if not got else 'DIFFER'}; "
+                  f"kinds dispatched {sorted(kinds)}")
+        del eng
+    eng = E.ServeEngine(cfg, params, max_len=512, decode_window=8)
+    got = retrace.audit_serve(eng, reqs, prompts, 32, slots=4, what=cfg.name)
+    findings += got
+    print(f"[analysis-full] retrace {got[0].severity} {got[0].message} {got[0].metrics}")
+    del eng
+    torch.cuda.empty_cache()
+    bad = [f for f in findings if f.severity >= Severity.ERROR]
+    print(f"[time] phase 3q wall: {time.perf_counter() - t0:.1f}s ({len(findings)} findings, "
+          f"{len(bad)} errors)")
+    if bad:
+        raise SystemExit("phase 3q failed:\n" + format_table(bad, title=cfg.name))
 
 
 def _resource_usage(text):

@@ -1,7 +1,8 @@
-"""CLI: run the static-audit passes and print a findings table.
+"""CLI: run the analysis passes and print a findings table.
 
-  PYTHONPATH=src python -m repro_torch.analysis --strict          # default archs
-  PYTHONPATH=src python -m repro_torch.analysis --arch gemma3-1b --strict
+  PYTHONPATH=src python -m repro_torch.analysis --strict          # default archs, on the card
+  PYTHONPATH=src python -m repro_torch.analysis --strict --device cpu
+  PYTHONPATH=src python -m repro_torch.analysis --arch gemma3-1b --strict --device cpu
   PYTHONPATH=src python -m repro_torch.analysis --passes hostsafety --strict
   PYTHONPATH=src python -m repro_torch.analysis --sms 114         # an H100 PCIe
   PYTHONPATH=src python -m repro_torch.analysis --passes collectives --strict
@@ -11,7 +12,11 @@ Exit status: nonzero iff any ERROR finding (``--strict``: WARN too).
 tables (same exit-status contract), in the reference's row shape.
 
 ``--sms N`` is the SM count the kernels' planners plan for (default 132,
-the H100 SXM); ``chip_smoke.py`` passes the card's own.
+the H100 SXM); ``chip_smoke.py`` passes the card's own.  ``--device`` is
+where the executing passes (``donation``, ``fleet``, ``retrace``) run their
+dispatches: the card by default, as every entry point of the port, or
+``cpu``, where the kernels' plain versions run; ``dtype_flow`` traces on
+``meta`` wherever it runs.
 
 When every selected pass declares ``TORCH_FREE = True`` (``hostsafety``),
 the CLI imports neither torch nor a config and runs each pass once: an AST
@@ -65,6 +70,9 @@ def main(argv=None) -> int:
     ap.add_argument("--sms", type=int, default=None,
                     help="SM count the kernels' planners plan for "
                          "(default 132, the H100 SXM)")
+    ap.add_argument("--device", default=None,
+                    help="device the executing passes run their dispatches on "
+                         "(default: the card; 'cpu' runs the plain versions)")
     args = ap.parse_args(argv)
 
     from repro_torch.analysis.findings import Severity, worst
@@ -93,7 +101,7 @@ def main(argv=None) -> int:
     results = []
     for arch in archs:
         cfg = get_config(arch)
-        findings = run_passes(cfg, passes, sms=sms)
+        findings = run_passes(cfg, passes, sms=sms, device=args.device)
         results.append((arch, findings))
         top = worst(findings)
         if top >= Severity.ERROR or (args.strict and top >= Severity.WARN):

@@ -53,11 +53,18 @@ class Hop:
     value (``None``: the fill), and ``elements`` is what each sender moved.
     ``kind="all_to_all"``: every shard sent a piece to every other, ``src``
     is ``range(n)`` (shard i's own piece stays put), and ``elements`` is
-    what leaves each shard: (n - 1) / n of its send."""
+    what leaves each shard: (n - 1) / n of its send.  ``itemsize``: the
+    bytes of one element (the hop's dtype)."""
 
     elements: int
     src: tuple[int | None, ...]
     kind: str = "permute"
+    itemsize: int = dataclasses.field(default=4, compare=False)
+
+    @property
+    def bytes(self) -> int:
+        """What each sender moved, in bytes."""
+        return self.elements * self.itemsize
 
     @property
     def reverse(self) -> bool:
@@ -124,7 +131,7 @@ def _permute(xs, src, fill):
     shapes = {tuple(x.shape) for x in xs}
     if len(shapes) != 1:
         raise ValueError(f"shards of one hop must share a shape, got {sorted(shapes)}")
-    _record(Hop(xs[0].numel(), src))
+    _record(Hop(xs[0].numel(), src, itemsize=xs[0].element_size()))
     return list(_Permute.apply(src, fill, *xs))
 
 
@@ -168,7 +175,8 @@ def all_to_all(xs, split_dim: int, concat_dim: int):
     if xs[0].shape[split_dim] % n:
         raise ValueError(f"dim {split_dim} of {tuple(xs[0].shape)} does not split "
                          f"into {n} pieces")
-    _record(Hop(xs[0].numel() // n * (n - 1), tuple(range(n)), "all_to_all"))
+    _record(Hop(xs[0].numel() // n * (n - 1), tuple(range(n)), "all_to_all",
+                xs[0].element_size()))
     return list(_AllToAll.apply(split_dim, concat_dim, *xs))
 
 

@@ -31,6 +31,12 @@ counter's), the plan its planner chose and its :class:`LaunchCost`.  Their
 own output allocations count as live bytes but add no aten FLOPs or bytes
 (:func:`kernel_scope`): the launch's cost is the kernel's.
 
+Every dtype conversion (``aten._to_copy``, a ``copy_`` across dtypes) is
+logged as a :class:`Conversion`, with whether it ran inside a kernel's
+boundary: a meta twin's :func:`kernel_scope`, a plain version called as
+the kernel's backend (:func:`plain_version`), or an autograd Function of a
+``vjp.py``.  :mod:`repro_torch.analysis.dtype_flow` reads the log.
+
 Outside a counting context :func:`record_launch` does nothing, so a meta
 trace without one still runs.
 """
@@ -39,6 +45,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
+import sys
 import threading
 import weakref
 from collections import defaultdict
@@ -50,8 +59,8 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core.h100 import HBM_BW, PEAK_FLOPS
 
-__all__ = ["LaunchCost", "CostCounter", "cost_counting", "kernel_scope", "record_launch",
-           "flop_class"]
+__all__ = ["LaunchCost", "CostCounter", "Conversion", "cost_counting", "kernel_scope",
+           "plain_version", "record_launch", "flop_class"]
 
 #: Flop classes: the tensor cores' bf16 rate, and f32 with TF32 off.
 FLOP_CLASSES = ("bf16", "f32")
@@ -98,6 +107,21 @@ class LaunchCost:
         return "bytes" if self.bytes / HBM_BW >= ops else "operations"
 
 
+@dataclasses.dataclass(frozen=True)
+class Conversion:
+    """One dtype conversion an op made: its source and destination dtypes,
+    the source's shape, and whether it ran inside a kernel's boundary."""
+
+    src: torch.dtype
+    dst: torch.dtype
+    shape: tuple[int, ...]
+    interior: bool
+
+    @property
+    def elements(self) -> int:
+        return math.prod(self.shape)
+
+
 @dataclasses.dataclass
 class KernelTally:
     launches: int = 0
@@ -117,8 +141,10 @@ class CostCounter:
         self.kernels: dict[str, KernelTally] = defaultdict(KernelTally)
         self.live = 0
         self.peak_live = 0
+        self.conversions: list[Conversion] = []
         self._known: dict[int, int] = {}
         self._paused = 0
+        self._plain = 0
 
     # -- kernels -------------------------------------------------------------
     def record(self, name: str, cost: LaunchCost, plan=None) -> None:
@@ -187,6 +213,13 @@ class CostCounter:
             self._track(x.untyped_storage(), created=False)
         for x in outs:
             self._track(x.untyped_storage(), created=True)
+        conv = _CONVERSIONS.get(func)
+        if conv is not None:
+            src, dst = conv(args, out)
+            if src.dtype != dst.dtype:
+                self.conversions.append(Conversion(
+                    src.dtype, dst.dtype, tuple(src.shape),
+                    bool(self._paused or self._plain) or _in_autograd_function()))
         if self._paused:
             return
         self.aten_ops += 1
@@ -206,6 +239,24 @@ class CostCounter:
 
 
 _aten = torch.ops.aten
+#: The ops that convert dtypes -> (args, out) -> (source, destination).
+_CONVERSIONS = {
+    _aten._to_copy.default: lambda args, out: (args[0], out),
+    _aten.copy_.default: lambda args, out: (args[1], args[0]),
+}
+
+
+def _in_autograd_function() -> bool:
+    """Whether the op runs inside an autograd Function's forward or
+    backward: a frame up the stack holds its ``ctx``."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if isinstance(frame.f_locals.get("ctx"), torch.autograd.function.FunctionCtx):
+            return True
+        frame = frame.f_back
+    return False
+
+
 #: Ops that move no bytes: allocations that write nothing, and aliases.
 _NO_BYTES = {
     _aten.empty.memory_format, _aten.empty_strided.default, _aten.empty_like.default,
@@ -281,6 +332,26 @@ def kernel_scope():
     finally:
         if c is not None:
             c._paused -= 1
+
+
+def plain_version(fn):
+    """Mark ``fn`` a kernel's plain version: called as the kernel's
+    backend, its aten ops count as any others, and its conversions lie
+    inside the kernel's boundary (the f32 accumulation is the backend's
+    own)."""
+
+    @functools.wraps(fn)
+    def plain(*args, **kwargs):
+        c = _current()
+        if c is not None:
+            c._plain += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            if c is not None:
+                c._plain -= 1
+
+    return plain
 
 
 def record_launch(name: str, cost: LaunchCost, plan=None) -> None:

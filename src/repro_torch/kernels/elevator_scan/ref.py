@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.lowering import plain_version
+
 
 def elevator_scan_ref_f32(a: torch.Tensor, x: torch.Tensor,
                           h0: torch.Tensor | None = None) -> torch.Tensor:
@@ -28,6 +30,7 @@ def elevator_scan_ref_f32(a: torch.Tensor, x: torch.Tensor,
     return torch.stack(hs, dim=1)
 
 
+@plain_version
 def elevator_scan_ref(a: torch.Tensor, x: torch.Tensor,
                       h0: torch.Tensor | None = None) -> torch.Tensor:
     """O(T) sequential reference (f32 accumulation, x.dtype out)."""

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.cost_model import wkv_decode_token_io
-from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
+from repro_torch.core.lowering import LaunchCost, kernel_scope, plain_version, record_launch
 from repro_torch.kernels.common import (
     DECODE_WINDOWS,
     DTYPE_CODE,
@@ -109,6 +109,7 @@ def plan_decode_columns(b: int, h: int, k: int, dtype: torch.dtype, sms: int) ->
     return DECODE_TILES[-1]
 
 
+@plain_version
 def wkv_decode_plain(r, k, v, w, u, h0):
     """Plain version of both decode kernels: the sequential loop, ``out``
     in r.dtype."""

@@ -37,7 +37,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.lowering import LaunchCost, kernel_scope, record_launch
+from repro_torch.core.lowering import LaunchCost, kernel_scope, plain_version, record_launch
 from repro_torch.kernels.common import (
     DTYPE_CODE,
     H100_SMS,
@@ -181,6 +181,7 @@ def row_stride(name, r, k, v, w):
     return row // dh
 
 
+@plain_version
 def wkv_plain(r, k, v, w, u, h0, *, chunk: int):
     """Plain version: :func:`wkv_chunked_ref` with ``out`` in r.dtype."""
     out, s = wkv_chunked_ref(r, k, v, w, u, h0, chunk)

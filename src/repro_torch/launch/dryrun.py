@@ -64,6 +64,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import get_config, list_archs
+from repro_torch.core.device_comm import record_hops
 from repro_torch.core.lowering import CostCounter, cost_counting
 from repro_torch.launch import inputs as I
 from repro_torch.launch import mesh as mesh_mod
@@ -126,6 +127,8 @@ class Cell:
     shape: Any
     trees: dict
     run: Callable[[], Any]
+    #: The collectives the traced step made (:func:`trace_cell`).
+    hops: list = dataclasses.field(default_factory=list)
 
     def state_bytes(self) -> dict:
         parts = {k: tree_bytes(v) for k, v in self.trees.items()}
@@ -209,15 +212,18 @@ def make_cell(cfg, shape, *, device="meta", seed: int = 0) -> Cell:
 
 def trace_cell(arch: str, shape_name: str) -> tuple[Cell, CostCounter, Any]:
     """Trace one step of the cell on the meta device: (cell, counter,
-    the step's outputs).  Raises :class:`SkipCell` for an inapplicable
-    cell (the counterpart of the reference's ``lower_cell``)."""
+    the step's outputs), the hops the step made in ``cell.hops`` (under a
+    caller's sharding context; none without one).  Raises
+    :class:`SkipCell` for an inapplicable cell (the counterpart of the
+    reference's ``lower_cell``)."""
     cfg = get_config(arch)
     ok, why = I.cell_is_applicable(cfg, shape_name)
     if not ok:
         raise SkipCell(why)
     cell = make_cell(cfg, shape_name, device="meta")
-    with cost_counting() as counter:
+    with cost_counting() as counter, record_hops() as hops:
         out = cell.run()
+    cell.hops = hops
     return cell, counter, out
 
 
@@ -245,12 +251,13 @@ def run_cell(arch: str, shape_name: str, *, out_dir: Path | None = None,
         result["trace_s"] = round(time.time() - t0, 1)
         result["memory"] = _memory(cell, counter)
         result["cost"] = counter.as_dict()
+        result["collectives_raw"] = R.parse_collective_bytes(cell.hops)
         result["launches"] = counter.launches()
         result["kernel_plans"] = {n: k.plans for n, k in sorted(counter.kernels.items())}
         if roofline:
             from repro_torch.launch.roofline_run import extrapolated_costs
 
-            ex = extrapolated_costs(arch, shape_name, counter)
+            ex = extrapolated_costs(arch, shape_name, counter, cell.hops)
             tot = ex["extrapolated"]
             terms = R.roofline_terms(
                 {"flops": tot["flops"], "flops_by_class": tot["flops_by_class"],

@@ -5,15 +5,18 @@ Three terms per (arch x shape) cell, in seconds a step:
 
   compute    = sum over flop classes of FLOPs / that class's peak
   memory     = bytes accessed / HBM bandwidth
-  collective = collective bytes / link bandwidth (0 on one card)
+  collective = collective bytes / link bandwidth
 
 The FLOPs and bytes come from :func:`repro_torch.core.lowering.cost_counting`
-over a meta trace of the whole step.  Unlike the reference's one bf16
-peak, the compute term sums each class over its own peak: the port's f32
+over a meta trace of the whole step, read in the reference's keys by
+:func:`cost_analysis_dict`.  Unlike the reference's one bf16 peak, the
+compute term sums each class over its own peak: the port's f32
 unembedding and its WKV, scan and token-shift kernels run at 67 TFLOP/s,
-not 989.  The reference's ``cost_analysis_dict`` and
-``parse_collective_bytes`` have no counterpart: there is no HLO, and one
-card has no collectives.
+not 989.  The collective bytes come from the hops the step made
+(:func:`repro_torch.core.device_comm.record_hops`), read in the reference's
+keys by :func:`parse_collective_bytes`: where the reference parses the
+partitioned HLO, the port's single controller logs each hop as it makes
+it.  A step traced without a mesh makes none.
 
 ``model_flops``, ``_attention_flops``, ``_decode_attention_flops`` and
 ``analytic_hbm_bytes`` are the reference's, unchanged but for the model
@@ -26,7 +29,43 @@ import dataclasses
 
 from repro_torch.launch import mesh as mesh_mod
 
-__all__ = ["RooflineTerms", "roofline_terms", "model_flops", "analytic_hbm_bytes"]
+__all__ = ["RooflineTerms", "roofline_terms", "cost_analysis_dict", "parse_collective_bytes",
+           "model_flops", "analytic_hbm_bytes"]
+
+#: The reference's collective op names, in its order.
+_COLLECTIVES = (
+    "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute",
+)
+#: A hop's kind -> the collective it is.
+_HOP_OPS = {"permute": "collective-permute", "all_to_all": "all-to-all"}
+
+
+def cost_analysis_dict(counter) -> dict:
+    """A :class:`~repro_torch.core.lowering.CostCounter` in the keys of the
+    reference's ``compiled.cost_analysis()``: ``"flops"`` and ``"bytes
+    accessed"`` (the kernels' launches and the aten ops'), and the port's
+    ``"flops_by_class"``, which :func:`roofline_terms` reads."""
+    return {
+        "flops": counter.total_flops,
+        "bytes accessed": float(counter.total_bytes),
+        "flops_by_class": counter.flops_by_class(),
+    }
+
+
+def parse_collective_bytes(hops) -> dict:
+    """Per-collective-op byte totals and counts of a
+    :func:`~repro_torch.core.device_comm.record_hops` log, in the
+    reference's dict: each op name of its collectives ``{"bytes",
+    "count"}``, and ``"total_bytes"``.  A hop's bytes are what each shard
+    sends (per device, as the reference's per-device HLO)."""
+    out = {op: {"bytes": 0, "count": 0} for op in _COLLECTIVES}
+    for h in hops:
+        op = _HOP_OPS[h.kind]
+        out[op]["bytes"] += h.bytes
+        out[op]["count"] += 1
+    out["total_bytes"] = sum(v["bytes"] for v in out.values() if isinstance(v, dict))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,29 +14,32 @@ from __future__ import annotations
 
 from repro_torch.configs.base import SHAPES
 from repro_torch.configs.registry import get_config
+from repro_torch.launch import roofline as R
 from repro_torch.model.transformer import plan_groups
 
 __all__ = ["extrapolated_costs"]
 
 
-def _costs(counter) -> dict:
+def _costs(counter, hops=()) -> dict:
+    ca = R.cost_analysis_dict(counter)
+    coll = R.parse_collective_bytes(hops)
     return {
-        "flops": counter.total_flops,
-        "flops_by_class": counter.flops_by_class(),
-        "bytes": float(counter.total_bytes),
-        # One card: no collectives (the seq path's hops are no-ops).
-        "coll": 0.0,
-        "coll_by_op": {},
+        "flops": ca["flops"],
+        "flops_by_class": ca["flops_by_class"],
+        "bytes": ca["bytes accessed"],
+        "coll": float(coll["total_bytes"]),
+        "coll_by_op": {k: v["bytes"] for k, v in coll.items() if isinstance(v, dict)},
     }
 
 
-def extrapolated_costs(arch: str, shape_name: str, counter) -> dict:
+def extrapolated_costs(arch: str, shape_name: str, counter, hops=()) -> dict:
     """The cost of the FULL cell, counted directly from its one meta trace
     (``counter``, the :class:`~repro_torch.core.lowering.CostCounter` of
-    :func:`repro_torch.launch.dryrun.trace_cell`)."""
+    :func:`repro_torch.launch.dryrun.trace_cell`, and ``hops``, the
+    collectives it logged: none without a mesh)."""
     cfg = get_config(arch)
     _, n_periods, _ = plan_groups(cfg)
-    total = _costs(counter)
+    total = _costs(counter, hops)
     return {
         "extrapolated": total,
         "n_periods": n_periods,

@@ -1406,3 +1406,92 @@ class ServeSession:
                 self._resolve(i)
         return [RequestResult(tokens=np.asarray(o, np.int32), outcome=oc, recoveries=r)
                 for o, oc, r in zip(self.outputs, self.outcomes, self.recoveries)]
+
+
+def audit_dispatch_entrypoints(cfg, *, device=None, batch: int = 2, max_len: int = 64,
+                               decode_window: int = 4, prompt: int = 5, params=None):
+    """Registration hook for :mod:`repro_torch.analysis.donation`: every
+    dispatch of the engine that updates a decode state, with a closure
+    that builds a tiny engine and state of ``cfg`` on ``device`` (``None``:
+    the card; ``params``, or random parameters from seed 0, and ``batch``
+    requests of ``prompt`` tokens) and runs the dispatch once.
+
+    Adding a dispatch to the engine means adding it here: the donation
+    pass audits exactly this list, and the fleet pass errs on a dispatch
+    kind a replica issues that no entry covers.  An encoder-decoder arch
+    has none (:class:`ServeEngine` refuses it)."""
+    from repro_torch.analysis.donation import DispatchEntry
+
+    if cfg.is_enc_dec:
+        return []
+    here = "src/repro_torch/serve/engine.py"
+    k = max(1, decode_window)
+    built: dict = {} if params is None else {"params": params}
+
+    def engine(paged: bool) -> ServeEngine:
+        if "params" not in built:
+            built["params"] = M.init_params(cfg, 0, device=resolve_device(device))
+        if paged not in built:
+            built[paged] = ServeEngine(cfg, built["params"], max_len=max_len,
+                                       decode_window=decode_window, device=device,
+                                       paged=paged)
+        return built[paged]
+
+    def session(paged: bool, checksum_every: int = 0, admitted: bool = False):
+        rng = np.random.default_rng(0)
+        reqs = [Request(tokens=rng.integers(1, cfg.vocab_size, prompt), max_new_tokens=4)
+                for _ in range(batch)]
+        sess = ServeSession(engine(paged), reqs, slots=batch, checksum_every=checksum_every)
+        if admitted:
+            with torch.inference_mode():
+                sess._admit()
+        return sess
+
+    def in_inference(fn):
+        def run():
+            with torch.inference_mode():
+                return fn()
+        return run
+
+    def prefill():
+        eng = engine(False)
+        held = {"state": eng._new_state(batch, max(k, _bucket32(prompt)))}
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(1, cfg.vocab_size, (batch, prompt), generator=gen).to(eng.device)
+
+        def run():
+            held["state"] = eng._prefill(eng.params, held["state"], tokens,
+                                         torch.full((batch,), prompt))[1]
+        return in_inference(run), lambda: held["state"]
+
+    def window():
+        eng = engine(False)
+        state = eng._new_state(batch, max(k, _bucket32(prompt)))
+        tokens = torch.ones((batch, prompt), dtype=torch.int64, device=eng.device)
+        with torch.inference_mode():
+            logits, _ = eng._prefill(eng.params, state, tokens)
+        cur = logits[:, -1].argmax(dim=-1)[:, None]
+        pos = torch.tensor(prompt, device=eng.device)
+        return in_inference(lambda: eng._window(state, cur, pos, k, last=False)), lambda: state
+
+    def dispatch(paged: bool, step: str, checksum_every: int = 0):
+        def prepare():
+            sess = session(paged, checksum_every, admitted=step != "_admit")
+            return in_inference(getattr(sess, step)), lambda: sess.state
+        return prepare
+
+    sess_at = f"{here}:ServeSession"
+    return [
+        DispatchEntry("serve.prefill", prefill, f"{here}:make_cache_prefill_step"),
+        DispatchEntry("serve.window", window, f"{here}:ServeEngine._window"),
+        DispatchEntry("serve.serve_window", dispatch(False, "_decode_window"),
+                      f"{sess_at}._window", kind="window"),
+        DispatchEntry("serve.admit", dispatch(False, "_admit"), f"{sess_at}._admit",
+                      kind="admit"),
+        DispatchEntry("serve.shadow_checksum", dispatch(False, "_spot_check", 1),
+                      f"{sess_at}._spot_check", updated=None),
+        DispatchEntry("serve.paged_window", dispatch(True, "_decode_window"),
+                      f"{sess_at}._window", kind="window", paged=True),
+        DispatchEntry("serve.paged_admit", dispatch(True, "_admit"), f"{sess_at}._admit",
+                      kind="admit", paged=True),
+    ]

@@ -151,3 +151,38 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None, *,
         return TrainState(params, opt, ef), {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+def audit_dispatch_entrypoints(cfg, *, device=None, batch: int | None = None, seq: int = 16):
+    """Registration hook for :mod:`repro_torch.analysis.donation`: the train
+    step, with a closure that builds a train state of ``cfg`` on ``device``
+    (``None``: the card) from seed 0 and a random batch, and runs one
+    step.  Its contract: the parameters and the AdamW moments are updated
+    in place (:func:`repro_torch.optim.adamw.apply_updates`)."""
+    from repro_torch.analysis.donation import DispatchEntry
+    from repro_torch.kernels.common import resolve_device
+    from repro_torch.model.layers import dtype_of
+
+    def prepare():
+        dev = resolve_device(device)
+        b = batch if batch is not None else 2 * max(1, cfg.microbatch)
+        gen = torch.Generator().manual_seed(0)
+        tokens = torch.randint(0, cfg.vocab_size, (b, seq), generator=gen)
+        bt = {"tokens": tokens.to(dev), "labels": tokens.roll(-1, 1).to(dev)}
+        if cfg.is_enc_dec:
+            bt["enc_embeds"] = torch.randn((b, seq, cfg.d_model), generator=gen).to(
+                dev, dtype_of(cfg))
+        step = make_train_step(cfg)
+        held = {"state": init_train_state(cfg, 0, device=dev)}
+
+        def run():
+            held["state"] = step(held["state"], bt)[0]
+
+        def tree():
+            s = held["state"]
+            return {"params": s.params, "mu": s.opt.mu, "nu": s.opt.nu}
+
+        return run, tree
+
+    return [DispatchEntry("train.step", prepare, "src/repro_torch/train/step.py:make_train_step",
+                          updated="params and moments")]

@@ -90,16 +90,17 @@ def test_format_table_matches_the_reference(title):
 
 def test_registry_order_and_defaults():
     assert list(PASS_MODULES) == ["hostsafety", "resources", "ringslack", "paging",
-                                  "collectives"]
+                                  "dtype_flow", "collectives", "donation", "fleet",
+                                  "retrace"]
     from repro.analysis.registry import DEFAULT_ARCHS as REF_DEFAULT
     from repro.analysis.registry import PASS_MODULES as REF_PASSES
 
     assert DEFAULT_ARCHS == REF_DEFAULT
-    assert [p for p in REF_PASSES if p in PASS_MODULES] == list(PASS_MODULES)
+    assert list(REF_PASSES) == list(PASS_MODULES)
     for name in PASS_MODULES:
         assert get_pass(name).PASS == name
     with pytest.raises(KeyError):
-        get_pass("donation")
+        get_pass("nonesuch")
 
 
 # --------------------------------------------------------------------------
@@ -350,13 +351,13 @@ def test_cli_json_rows_in_the_references_shape():
 
 
 def test_cli_single_arch_strict():
-    r = _cli("--arch", "gemma3-1b", "--strict")
+    r = _cli("--arch", "gemma3-1b", "--strict", "--device", "cpu")
     assert r.returncode == 0, r.stdout + r.stderr
     assert "gemma3-1b" in r.stdout and "planned for 132 SMs" in r.stdout
 
 
 def test_cli_default_archs_strict_and_its_exit_contract():
-    r = _cli("--strict", "--sms", "114")
+    r = _cli("--strict", "--sms", "114", "--device", "cpu")
     assert r.returncode == 0, r.stdout + r.stderr
     assert all(a in r.stdout for a in DEFAULT_ARCHS)
     # An ERROR sets the exit status: a card of no SMs, which the stencil's
