@@ -281,6 +281,37 @@ Phases (any failure raises and exits non-zero, with no result line):
    ragged requests (4 slots, K=8) and its generate (B=4, P=256, +32): one
    serve-window shape, admissions within their 32-token buckets, two
    window shapes and one prefill, the planners' caches bounded;
+3r. the dense layers sharded on a (data=2, model=4) mesh of the card, the
+   layers' collectives explicit hops (``repro_torch.model.sharding``):
+   full-width rwkv6-1.6b (bf16) through phase 3b's train step (B=8,
+   T=256, microbatch 2, full remat, its first batch), sharded, against the
+   same step unsharded: the loss within 2**-7 of it, and each gradient
+   leaf's distance from the same weights' f32 gradient at most 1.5 times
+   the unsharded step's (phase 3g's rule), the WKV training kernels
+   launched once a shard (8 times the unsharded counts); full-width
+   qwen2-vl-7b cut to 4 layers scoring (B=2, T=1024, 256 patches) with
+   ``head_pad`` 0 and 4 on that mesh and on a (1, 8) mesh (where 28
+   heads replicate and 32 share their KV heads), and full-width qwen3-moe
+   cut to 4 layers at phase 3p's scoring shape with ``moe_impl`` gather and
+   a2a: each scoring's distance from the same weights' f32 scoring at most
+   1.5 times the unsharded bf16 scoring's (the a2a's baseline phase 3p's
+   a2a on unsharded parameters), qwen2-vl's also with rms(sharded -
+   unsharded) <= 2**-3 rms(logits), and every MoE call of a sharded
+   scoring rerun in f32 on its own inputs, sharded and unsharded: each
+   router logit within 2**-12 (|unsharded| + rms(its row)), a token
+   routed to other experts only at a near-tie, and in each call routed
+   alike each token's slots equal and its output within 2**-12; two faults
+   planted in the gather path's MoE layer (64 tokens of one sequence a
+   chunk losing a shard's expert rows; the output's all-reduce over the
+   model axis skipped), each one's end-to-end distance ratio printed and
+   the per-call hold required to catch the first; flash
+   launched once a layer, a chunk and a shard; every run's hops (kind,
+   axis, count, elements, dtype) equal to their closed forms
+   (``repro_torch.analysis.dense_hops``); the wall, the card's busy share
+   and the copy kernels' share of each sharded run; then a sharded train
+   state (rwkv6-1.6b at full width cut to 2 layers) saved after a step,
+   restored with ``restore(..., shardings=)`` onto the mesh, and its next
+   step bit-identical to the in-memory state's;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -335,6 +366,7 @@ Phases (any failure raises and exits non-zero, with no result line):
 from __future__ import annotations
 
 import atexit
+import contextlib
 import dataclasses
 import gc
 import json
@@ -345,6 +377,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -677,6 +710,10 @@ def main():
     # ---- 3p. expert parallelism on a (data, model) mesh, the collectives pass
     _free(torch, "phase 3p")
     _moe_a2a(torch, np)
+
+    # ---- 3r. the dense layers sharded on a (data, model) mesh of the card --
+    _free(torch, "phase 3r")
+    _dense_sharding(torch, np)
 
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
@@ -1257,28 +1294,38 @@ def _profile_generate(torch, engine, prompts):
     _profile(torch, lambda: engine.generate(prompts, 16), "generate B=4 P=256 +16 K=8")
 
 
-def _profile(torch, fn, what, top=8):
+def _profile(torch, fn, what, top=8, host_ops=True):
     """Wall time of ``fn()``, the card's busy and idle shares, and the
     kernels with the most device time, from the device-side kernel events
     of ``torch.profiler`` (whose own overhead lengthens the wall time, so
-    the busy share it gives is a lower bound)."""
+    the busy share it gives is a lower bound).  ``host_ops=False`` records
+    the device's kernels alone, not every host op, and reads the raw
+    device events: a run of hundreds of thousands of ops (a sharded
+    step's) is then not slowed by the recording and its processing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    if host_ops:
+        device = ((e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    else:                    # the raw device events: no host-side tree to build
+        device = ((e.name(), e.duration_ns() / 1e3)
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
     by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = by_name.setdefault(e.name, [0.0, 0])
-            acc[0] += e.time_range.elapsed_us()
-            acc[1] += 1
+    for name, us in device:
+        acc = by_name.setdefault(name, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
     if not by_name:
         print("[profile] the profiler recorded no kernels: device time not measured")
-        return
+        return {"out": out, "wall_us": wall_us}
     busy = sum(us for us, _ in by_name.values())
     print(f"[profile] {what} under the profiler: wall "
           f"{wall_us / 1e3:.1f} ms, kernels {busy / 1e3:.1f} ms, card busy "
@@ -1287,10 +1334,13 @@ def _profile(torch, fn, what, top=8):
         print(f"[profile]   {us / 1e3:8.2f} ms {n:6d}x  {name[:90]}")
     # Copies (casts, .contiguous(), concatenations) and fills, whatever
     # their rank: what a layout change adds or removes shows here.
+    shares = {"out": out, "wall_us": wall_us, "busy_us": busy}
     for kind in ("copy", "fill"):
         hits = [(us, n) for name, (us, n) in by_name.items() if kind in name.lower()]
+        shares[f"{kind}_us"] = sum(us for us, _ in hits)
         print(f"[profile]   kernels named *{kind}*: {sum(us for us, _ in hits) / 1e3:.2f} ms "
               f"over {sum(n for _, n in hits)} launches")
+    return shares
 
 
 def _flops(b, t, chunk, windowed):
@@ -5214,6 +5264,607 @@ def _moe_a2a(torch, np):
     _collectives_on_card(torch)
     print(f"[time] phase 3p wall: {t1 - t0:.1f}s full-width scoring, "
           f"{time.perf_counter() - t1:.1f}s reduced f32 card vs CPU and the collectives pass")
+
+
+# ---------------------------------------------------------------------------
+# The dense layers sharded on a (data, model) mesh of the card (phase 3r).
+# ---------------------------------------------------------------------------
+
+DENSE_MESH = (2, 4)
+#: The sharded step against the unsharded one, both bf16 on the card: the
+#: same products in other orders, and each product whose contraction is
+#: split over the mesh rounded to bf16 a shard at a time before the partial
+#: sums are added (as XLA's partitioned dots give bf16 partials).  The
+#: loss within DENSE_LOSS_RTOL; each gradient leaf held as phase 3g holds
+#: the seq path's: its distance from the gradient of the same weights in
+#: f32 over the unsharded bf16 step's, the worst leaf's ratio at most
+#: DENSE_BF16_ERROR_RATIO; each scoring the same way, from the f32 scoring.
+#: The extra rounding at every split contraction puts the sharded run a
+#: little further from f32; a shard's contribution lost or counted twice
+#: is an O(1) error.  The bound was set after the first card call, where
+#: the bound first written, rms(sharded - unsharded) <= DENSE_GRAD_RTOL
+#: rms(leaf) + 1e-6 a leaf, broke 3.35 times over on the worst leaf (two
+#: bf16 summation orders part that far on the leaves whose gradients
+#: cancel): that rms is printed, not held.
+DENSE_BF16_ERROR_RATIO = 1.5
+DENSE_LOSS_RTOL = 2 ** -7
+DENSE_GRAD_RTOL = 2 ** -4
+#: A scoring's rms(sharded - unsharded) over rms(logits): held for an arch
+#: without a router; for an MoE, a bf16 router near-tie sends a token
+#: elsewhere in either run (O(1) on its logits), so it is printed and each
+#: MoE call is held on its own inputs in f32 (DENSE_MOE_F32_TOL).
+DENSE_LOGIT_RTOL = 2 ** -3
+#: Each MoE call of a sharded scoring rerun in f32 on its own inputs,
+#: sharded and unsharded, the same weights: the router logits and the
+#: outputs differ by f32 summation orders only (~2**-17 of a row's rms),
+#: and a token may go to other experts only where its k-th and (k+1)-th
+#: logits lie within the two runs' drift (:func:`_moe_calls_held`).
+DENSE_MOE_F32_TOL = 2 ** -12
+#: qwen2-vl's scoring in phase 3r: B, T and its leading patches (16 x 16).
+DENSE_VL = (2, 1024, 256)
+
+
+def _hops_of(log):
+    return Counter((h.kind, h.axis, h.elements, h.itemsize) for h in log)
+
+
+def _hold_hops(tag, log, want):
+    got = _hops_of(log)
+    ok = got == want
+    print(f"{tag} {sum(got.values())} hops logged ({', '.join(f'{n} {k} over {a}' for (k, a), n in sorted(_kinds(got).items()))}); "
+          f"{sum(h.bytes for h in log) / 2**20:.1f} MiB sent a shard, summed; closed forms "
+          f"held: {ok}")
+    if not ok:
+        bad = {k: (got[k], want[k]) for k in set(got) | set(want) if got[k] != want[k]}
+        raise SystemExit(f"{tag}: hops differ from their closed forms: {list(bad.items())[:6]}")
+
+
+def _kinds(counter):
+    out = {}
+    for (kind, axis, _, _), n in counter.items():
+        out[kind, axis] = out.get((kind, axis), 0) + n
+    return out
+
+
+def _profiled(torch, counters, fn, what):
+    """``fn()`` once under the profiler, every launch count set to 0 just
+    before and read just after: (result, wall seconds, {kernel: launches}),
+    the card's busy share and the copy kernels' share printed.  The
+    profiler's own cost lengthens the wall, so the busy share is a lower
+    bound."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    sh = _profile(torch, fn, what, top=5, host_ops=False)
+    counts = {n: c.launches for n, c in counters.items()}
+    if "busy_us" in sh:
+        print(f"[dense] {what}: wall {sh['wall_us'] / 1e3:.1f} ms under the profiler, card busy "
+              f"{100 * sh['busy_us'] / sh['wall_us']:.1f}%, copies "
+              f"{100 * sh['copy_us'] / sh['busy_us']:.1f}% of the kernel time")
+    return sh["out"], sh["wall_us"] / 1e6, counts
+
+
+def _lap(tag, t0, what):
+    """Print the seconds since ``t0`` spent on ``what``; return now."""
+    t1 = time.perf_counter()
+    print(f"{tag} {what}: {t1 - t0:.1f}s")
+    return t1
+
+
+def _rms(x, y=None, block=1 << 26):
+    """rms(x), or rms(x - y), in f32, ``block`` elements at a time (the
+    full-width logits are 10 GB in f32)."""
+    x = x.reshape(-1)
+    y = None if y is None else y.reshape(-1)
+    total = 0.0
+    for i in range(0, x.numel(), block):
+        d = x[i:i + block].float()
+        if y is not None:
+            d = d - y[i:i + block].float()
+        total += float(d.square().sum())
+    return math.sqrt(total / x.numel())
+
+
+def _dense_train(torch, np):
+    """rwkv6-1.6b's train step sharded against unsharded (phase 3r)."""
+    from repro_torch.analysis.dense_hops import train_hops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.device_comm import record_hops
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.kernels.wkv import bwd as BW
+    from repro_torch.kernels.wkv import kernel as KC
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import sharding as S
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = get_config("rwkv6-1.6b")
+    tag = f"[dense {cfg.name} train]"
+    t0 = time.perf_counter()
+    b, t = 8, 256
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=t, global_batch=b,
+                                  seed=0), 0)
+    dp, tp = DENSE_MESH
+    mesh = make_debug_mesh(dp, tp)
+    rules = S.make_rules(mesh, "train")
+    state = TS.init_train_state(cfg, 0)
+    with S.sharding_context(mesh, rules):
+        sharded = TS.shard_train_state(state, cfg, mesh, rules)
+    t0 = _lap(tag, t0, "train state initialized and sharded")
+    grads = {}
+    real = adamw.apply_updates
+
+    def keeping(name):
+        def apply(params, g, opt, ocfg):
+            grads[name] = g
+            return real(params, g, opt, ocfg)
+        return apply
+
+    counters = {fn.__name__: fn for fn in (KC.wkv_train_cuda, BW.wkv_bwd_cuda, KC.wkv_cuda)}
+    step = TS.make_train_step(cfg)
+    p32 = tree_map(lambda p: p.detach().float(), state.params)
+    adamw.apply_updates = keeping("plain")
+    try:
+        (_, m_plain), dt_plain, n_plain = _counted(torch, counters, lambda: step(state, batch))
+    finally:
+        adamw.apply_updates = real
+    del state
+    adamw.apply_updates = keeping("sharded")
+    try:
+        with S.sharding_context(mesh, rules), record_hops() as hops:
+            (sharded, m_sh), dt_sh, n_sh = _profiled(torch, counters,
+                                                     lambda: step(sharded, batch),
+                                                     f"{cfg.name} sharded train step")
+    finally:
+        adamw.apply_updates = real
+    t0 = _lap(tag, t0, "the two steps")
+    cells = dp * tp
+    want = {k: v * cells for k, v in n_plain.items()}
+    print(f"{tag} B={b} T={t}, microbatch {cfg.microbatch}, remat {cfg.remat}, on a "
+          f"{dp} x {tp} mesh of the card: step {dt_sh * 1e3:.1f} ms (under the profiler) against "
+          f"{dt_plain * 1e3:.1f} ms unsharded; launches {n_sh} (unsharded {n_plain}, x{cells} "
+          f"shards)")
+    if n_sh != want or not n_sh["wkv_train_cuda"]:
+        raise SystemExit(f"{tag}: launches {n_sh} != {want}")
+    # The same weights in f32, unsharded: the gradient both bf16 steps
+    # approximate.
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    leaves32 = [p.requires_grad_(True) for p in tree_leaves(p32)]
+    g32 = [torch.zeros_like(p) for p in leaves32]
+    loss32 = 0.0
+    n_micro = cfg.microbatch
+    for i in range(n_micro):
+        mb = {k: v[i * b // n_micro:(i + 1) * b // n_micro] for k, v in batch.items()}
+        loss = TS.make_loss_fn(cfg32)(p32, mb)
+        for acc, g in zip(g32, torch.autograd.grad(loss, leaves32)):
+            acc.add_(g / n_micro)
+        loss32 += float(loss.detach()) / n_micro
+    del p32, leaves32
+    t0 = _lap(tag, t0, "the f32 gradient")
+    loss_p, loss_s = float(m_plain["loss"]), float(m_sh["loss"])
+    e_sh, e_pl, rms_ratio = [], [], 0.0
+    for g, w, c in zip(tree_leaves(grads["sharded"]), tree_leaves(grads["plain"]), g32,
+                       strict=True):
+        g = S.to_global(g).float()
+        norm = c.norm().clamp_min(1e-30)
+        e_sh.append(float((g - c).norm() / norm))
+        e_pl.append(float((w.float() - c).norm() / norm))
+        rms_ratio = max(rms_ratio, _rms(g - w) / (DENSE_GRAD_RTOL * _rms(w) + 1e-6))
+    ratio = max(x / max(y, 1e-30) for x, y in zip(e_sh, e_pl))
+    ok_loss = abs(loss_s - loss_p) <= DENSE_LOSS_RTOL * abs(loss_p)
+    ok = ok_loss and ratio <= DENSE_BF16_ERROR_RATIO and math.isfinite(loss_s)
+    print(f"{tag} loss {loss_s:.5f} against {loss_p:.5f} unsharded, {loss32:.5f} in f32 "
+          f"(|diff| {abs(loss_s - loss_p):.2e}, tol {DENSE_LOSS_RTOL * abs(loss_p):.2e}); "
+          f"grad norm {float(m_sh['grad_norm']):.4f} against {float(m_plain['grad_norm']):.4f}; "
+          f"per leaf against the f32 gradient, sharded median "
+          f"{sorted(e_sh)[len(e_sh) // 2]:.3e} max {max(e_sh):.3e}, unsharded median "
+          f"{sorted(e_pl)[len(e_pl) // 2]:.3e} max {max(e_pl):.3e}; worst leaf's ratio "
+          f"{ratio:.3f} (bound {DENSE_BF16_ERROR_RATIO}); rms(sharded - unsharded) at worst "
+          f"{rms_ratio:.3f} of {DENSE_GRAD_RTOL:g} rms(leaf) + 1e-6 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{tag}: the sharded step disagrees with the unsharded one")
+    del g32
+    leaves = [(p.shards.flat[0].numel(),
+               tuple(a for a in ("data", "model") if not any(a in d for d in p.dims)))
+              for p in tree_leaves(sharded.params)]
+    t0 = _lap(tag, t0, "the comparison")
+    _hold_hops(tag, hops, train_hops(cfg, dp, tp, *batch["tokens"].shape, 2, leaves))
+    _lap(tag, t0, "the hops' closed form")
+    del grads, sharded
+    torch.cuda.empty_cache()
+
+
+def _dense_scoring(torch, np, name, groups, shape, layers=MOE_DEPTH):
+    """Scoring of a full-width arch cut to ``layers`` layers, sharded
+    against unsharded (phase 3r).  ``groups``: ``[(weights' config change,
+    [(label, config change, mesh, baseline under the mesh's rules),
+    ...]), ...]``, one set of weights a group.  Both bf16 runs are held by
+    their distance from the same weights' scoring in f32 (the unsharded
+    path's): the sharded run's over the unsharded run's at most
+    DENSE_BF16_ERROR_RATIO.  Without a router, rms(sharded - unsharded) is
+    held to DENSE_LOGIT_RTOL of rms(logits) too; with one, each MoE call of
+    the sharded run is held on its own inputs (:func:`_moe_calls_held`).
+    The logits are kept in bf16 between the runs (the full-width MoE's are
+    10 GB in f32)."""
+    from repro_torch.analysis.dense_hops import forward_hops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.device_comm import record_hops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model import sharding as S
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.tree import tree_leaves
+
+    b, t, patches = shape
+    gen = np.random.default_rng(7)
+    counters = _counters()
+    for weights, variants in groups:
+        base = dataclasses.replace(get_config(name), num_layers=layers, **weights)
+        tokens = torch.from_numpy(gen.integers(0, base.vocab_size, (b, t))).cuda()
+        kw = _vision_extras(torch, b, t, base.d_model, patches, 3, dtype=torch.bfloat16) \
+            if patches else {}
+        v = base.vocab_size
+        runs = [(label, dataclasses.replace(base, **change), make_debug_mesh(*mesh_shape),
+                 mesh_shape, ruled) for label, change, mesh_shape, ruled in variants]
+
+        def plain(c, p, mesh, ruled):
+            rules = S.make_rules(mesh, "prefill")
+            with torch.inference_mode(), (S.sharding_context(mesh, rules) if ruled
+                                          else contextlib.nullcontext()):
+                out, dt, _ = _counted(torch, counters,
+                                      lambda: make_prefill_step(c)(p, tokens, **kw))
+            return out[..., :v].to(torch.bfloat16), dt
+
+        tag = f"[dense {base.name} {weights}]"
+        t0 = time.perf_counter()
+        # The f32 draw of the seed rounded to bf16 is the bf16 draw: the
+        # same weights in both dtypes, never both held whole in f32 and bf16.
+        params = M.init_params(dataclasses.replace(base, dtype="float32"), seed=0,
+                               device="cuda")
+        for x in tree_leaves(params):
+            x.copy_(x.to(torch.bfloat16))
+        t0 = _lap(tag, t0, "f32 weights drawn")
+        want32 = [plain(dataclasses.replace(cfg, dtype="float32"), params, mesh, ruled)[0]
+                  for _, cfg, mesh, _, ruled in runs]
+        t0 = _lap(tag, t0, "the f32 scorings")
+        params = _cast_tree(params, torch.bfloat16)
+        ref = [plain(cfg, params, mesh, ruled) for _, cfg, mesh, _, ruled in runs]
+        t0 = _lap(tag, t0, "the unsharded bf16 scorings")
+        meshes = list(dict.fromkeys(m for _, _, _, m, _ in runs))
+        for i, (label, cfg, mesh, mesh_shape, _) in enumerate(runs):
+            tag = f"[dense {cfg.name} {label} on {mesh_shape[0]}x{mesh_shape[1]}]"
+            rules = S.make_rules(mesh, "prefill")
+            if i == 0 or runs[i - 1][3] != mesh_shape:
+                with S.sharding_context(mesh, rules):
+                    sharded = S.device_put_tree(params, M.param_pspecs(cfg, rules), mesh)
+                if mesh_shape == meshes[-1]:
+                    del params                   # the last layout: the copy is not needed
+                t0 = _lap(tag, t0, "weights placed")
+            step = make_prefill_step(cfg)
+
+            def scoring(profiled):
+                """The sharded scoring: (its bf16 logits, its MoE calls kept,
+                hops, seconds, launches)."""
+                calls = []
+                with torch.inference_mode(), S.sharding_context(mesh, rules), \
+                        record_hops() as hops, _keeping_moe_calls(cfg, calls):
+                    run = lambda: step(sharded, tokens, **kw)  # noqa: E731
+                    out, dt, n = (_profiled(torch, counters, run,
+                                            f"{cfg.name} {label} sharded scoring on "
+                                            f"{mesh_shape[0]}x{mesh_shape[1]}")
+                                  if profiled else _counted(torch, counters, run))
+                half = S.smap(lambda z: z.to(torch.bfloat16), out)
+                del out
+                return S.to_global(half).reshape(b, t, -1)[..., :v], calls, hops, dt, n
+
+            got, calls, hops, dt, n = scoring(True)
+            (r, dt_ref), w32 = ref[i], want32[i]
+            chunks = cfg.prefill_chunks if b % max(1, cfg.prefill_chunks) == 0 else 1
+            flash = layers * chunks * mesh_shape[0] * mesh_shape[1]
+            scale = _rms(w32)
+            e_sh, e_pl = _rms(got, w32) / scale, _rms(r, w32) / scale
+            ratio = e_sh / max(e_pl, 1e-30)
+            apart = _rms(got, r) / _rms(r)
+            agree = float((got.argmax(-1) == r.argmax(-1)).float().mean())
+            ok = (ratio <= DENSE_BF16_ERROR_RATIO and n["flash_attention_cuda"] == flash
+                  and bool(torch.isfinite(got).all())
+                  and (cfg.num_experts > 0 or apart <= DENSE_LOGIT_RTOL))
+            held = "printed: routers" if cfg.num_experts else "held"
+            print(f"{tag} B={b} T={t}: {dt * 1e3:.1f} ms sharded (under the profiler) against "
+                  f"{dt_ref * 1e3:.1f} ms unsharded; from the f32 scoring, sharded {e_sh:.4f} "
+                  f"and unsharded {e_pl:.4f} of rms(logits) {scale:.3f} (ratio {ratio:.3f}, "
+                  f"bound {DENSE_BF16_ERROR_RATIO}); rms(sharded - unsharded) {apart:.4f} of "
+                  f"rms(logits) (bound {DENSE_LOGIT_RTOL:g}, {held}), argmax equal at "
+                  f"{100 * agree:.3f}%; flash launches {n['flash_attention_cuda']} (want "
+                  f"{flash}) {'ok' if ok else 'FAIL'}")
+            del got
+            if cfg.num_experts:
+                ok = _moe_calls_held(torch, tag, calls, cfg, mesh, rules) and ok
+            del calls
+            if ok and cfg.num_experts and cfg.moe_impl != "a2a":
+                ok = _planted_moe_faults(torch, tag, scoring, cfg, mesh, rules, w32,
+                                         scale * e_pl)
+            if i + 1 == len(runs) or runs[i + 1][3] != mesh_shape:
+                del sharded
+            if not ok:
+                raise SystemExit(f"{tag}: the sharded scoring disagrees")
+            want = Counter()
+            for _ in range(chunks):
+                want.update(forward_hops(cfg, *mesh_shape, b // chunks, t, 2))
+            _hold_hops(tag, hops, want)
+            t0 = _lap(tag, t0, "the sharded scoring, held")
+        del ref, want32
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _keeping_moe_calls(cfg, calls):
+    """Within it, each call of ``cfg``'s MoE path (the gather path's
+    ``apply_moe`` or the a2a's ``apply_moe_sharded``) appends its
+    (parameters, a copy of its input) to ``calls``."""
+    from repro_torch.model import moe as MOE
+    from repro_torch.model import moe_a2a as A2A
+    from repro_torch.model import sharding as S
+
+    if not cfg.num_experts:
+        yield
+        return
+    mod, name = (A2A, "apply_moe_sharded") if cfg.moe_impl == "a2a" else (MOE, "apply_moe")
+    real = getattr(mod, name)
+
+    def keeping(p, x, c, **kw):
+        calls.append((p, S.smap(lambda z: z.clone(), x)))
+        return real(p, x, c, **kw)
+
+    setattr(mod, name, keeping)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def _moe_calls_held(torch, tag, calls, cfg, mesh, rules) -> bool:
+    """Each kept MoE call of a sharded scoring (:func:`_keeping_moe_calls`)
+    rerun in f32 on its own input and weights, sharded and unsharded (the
+    a2a's unsharded side phase 3p's a2a on plain parameters), at the
+    config's capacity, each run's routing recorded where ``moe.place``
+    makes it.  Held: every router logit within DENSE_MOE_F32_TOL
+    (|unsharded| + rms(its row)); every token the two runs route to other
+    experts at a near-tie (its unsharded k-th to (k+1)-th logit gap within
+    twice its logits' drift); and in every call routed alike, the same
+    buffer slots for each token (the dropped set; a token's experts may
+    come in another order where two of its logits nearly tie, which the
+    combine's ascending expert order does not see) and every output within
+    DENSE_MOE_F32_TOL (|unsharded| + rms(its row)).  A call routed
+    otherwise is counted; its outputs are not held (a moved token shifts
+    its experts' queues).  Returns whether all held."""
+    from repro_torch.model import moe as MOE
+    from repro_torch.model import moe_a2a as A2A
+    from repro_torch.model import sharding as S
+
+    fn = A2A.apply_moe_sharded if cfg.moe_impl == "a2a" else MOE.apply_moe
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    d, k = cfg.d_model, cfg.num_experts_per_tok
+    real_place = MOE.place
+
+    def routed(run):
+        places = []
+
+        def place(logits, c, cap):
+            r = real_place(logits, c, cap)
+            places.append((logits, r))
+            return r
+
+        MOE.place = place
+        try:
+            return run().reshape(-1, d), places
+        finally:
+            MOE.place = real_place
+
+    def share(got, want):
+        rms = want.square().mean(-1, keepdim=True).sqrt()
+        return float(((got - want).abs() / (DENSE_MOE_F32_TOL * (want.abs() + rms))
+                      .clamp_min(1e-30)).max())
+
+    def slots(r):
+        return r.expert.sort(-1).values, r.slot.sort(-1).values
+
+    worst_logit = worst_out = err_max = 0.0
+    flips = flipped = 0
+    faults = set()
+    layers = {}
+    for p, x in calls:                   # one layer's weights cast once
+        layers.setdefault(id(p), (p, []))[1].append(x)
+    with torch.inference_mode(), S.sharding_context(mesh, rules):
+        for p, xs in layers.values():
+            p32 = {n: S.smap(lambda z: z.float(), v) for n, v in p.items()}
+            sharded = [routed(lambda: S.to_global(fn(p32, S.smap(lambda z: z.float(), x), c32)))
+                       for x in xs]
+            del p32
+            pg = {n: S.to_global(v).float() for n, v in p.items()}
+            for x, (got, sp) in zip(xs, sharded):
+                want, pp = routed(lambda: fn(pg, S.to_global(x).float(), c32))
+                if cfg.moe_impl != "a2a":        # every shard routes every token alike
+                    first = slots(sp[0][1])
+                    if not all(all(map(torch.equal, slots(r), first)) for _, r in sp):
+                        faults.add("shards routed otherwise")
+                    sp = sp[:1]
+                if len(sp) != len(pp):
+                    faults.add(f"{len(sp)} routings against {len(pp)}")
+                alike = True
+                for (ls, rs), (lp, rp) in zip(sp, pp):
+                    worst_logit = max(worst_logit, share(ls, lp))
+                    (es, ss), (ep, sq) = slots(rs), slots(rp)
+                    off = (es != ep).any(-1)
+                    if bool(off.any()):
+                        top = lp.topk(k + 1, dim=-1).values
+                        gap = (top[:, k - 1] - top[:, k])[off]
+                        drift = (ls - lp).abs().amax(-1)[off]
+                        if not bool((gap <= 2 * drift).all()):
+                            faults.add("routed otherwise off a near-tie")
+                        flips += int(off.sum())
+                        alike = False
+                    elif not torch.equal(ss, sq):
+                        faults.add("other slots")
+                if alike:
+                    worst_out = max(worst_out, share(got, want))
+                    err_max = max(err_max, float((got - want).abs().max()))
+                else:
+                    flipped += 1
+                if not bool(torch.isfinite(got).all()):
+                    faults.add("non-finite outputs")
+            del pg, sharded
+    if worst_logit > 1.0:
+        faults.add("router logits")
+    if worst_out > 1.0:
+        faults.add("outputs")
+    ok = not faults
+    print(f"{tag} its {len(calls)} MoE calls rerun in f32 on their own inputs, sharded "
+          f"against unsharded: router logits at worst {worst_logit:.4f} and outputs at worst "
+          f"{worst_out:.4f} of {DENSE_MOE_F32_TOL:g} (|unsharded| + rms(row)) (max_abs_err "
+          f"{err_max:.3e}); {flips} tokens routed otherwise, each at a near-tie, in "
+          f"{flipped} calls (their outputs not held); the same slots where routed alike "
+          f"{'ok' if ok else 'FAIL ' + ', '.join(sorted(faults))}")
+    return ok
+
+
+def _planted_moe_faults(torch, tag, scoring, cfg, mesh, rules, w32, dist_plain) -> bool:
+    """The sharded gather scoring again under two faults planted in its
+    MoE layer, each scoring's distance from the f32 scoring over the
+    unsharded bf16 scoring's (``dist_plain``) printed against
+    DENSE_BF16_ERROR_RATIO: (a) shard (1, 0)'s combine loses its experts'
+    rows at the first 64 tokens of its batch rows (64 tokens of one
+    sequence a chunk; 512 of 16384 positions at phase 3p's scoring shape),
+    which the per-call hold (:func:`_moe_calls_held`) must catch; (b) the
+    MoE output's all-reduce over the model axis skipped.  Returns whether
+    the hold caught (a)."""
+    from repro_torch.core import lowering as L
+    from repro_torch.model import moe as MOE
+
+    real_combine, real_constrain = MOE.combine, MOE.constrain
+
+    def short_combine(ye, route, lo=0):
+        out = real_combine(ye, route, lo)
+        if L._CELL.cell == (1, 0):
+            out[:64] = 0
+        return out
+
+    def no_all_reduce(x, *axes):
+        if getattr(x, "partial", None) == ("model",):
+            x.partial = ()
+        return real_constrain(x, *axes)
+
+    caught = False
+    for what, name, fault in (("(a) 64 tokens of one sequence a chunk lose shard (1, 0)'s "
+                               "expert rows", "combine", short_combine),
+                              ("(b) the MoE output's all-reduce over the model axis skipped",
+                               "constrain", no_all_reduce)):
+        real = getattr(MOE, name)
+        setattr(MOE, name, fault)
+        try:
+            got, calls, _, _, _ = scoring(False)
+            ratio = _rms(got, w32) / max(dist_plain, 1e-30)
+            del got
+            if name == "combine":
+                caught = not _moe_calls_held(torch, f"{tag} fault (a):", calls, cfg, mesh,
+                                             rules)
+            del calls
+        finally:
+            setattr(MOE, name, real)
+        inside = "inside" if ratio <= DENSE_BF16_ERROR_RATIO else "outside"
+        print(f"{tag} planted fault {what}: distance from the f32 scoring {ratio:.3f} times "
+              f"the unsharded run's ({inside} the {DENSE_BF16_ERROR_RATIO} bound)"
+              + (f"; the per-call hold {'caught it' if caught else 'MISSED it'}"
+                 if name == "combine" else ""))
+    return caught
+
+
+def _cast_tree(tree, dtype):
+    """``tree`` with every tensor leaf cast to ``dtype`` in its place, leaf
+    by leaf, so that no more than one leaf is held in both dtypes."""
+    if isinstance(tree, dict):
+        for k in list(tree):
+            tree[k] = _cast_tree(tree[k], dtype)
+        return tree
+    if isinstance(tree, list):
+        for i, x in enumerate(tree):
+            tree[i] = _cast_tree(x, dtype)
+        return tree
+    return None if tree is None else tree.to(dtype)
+
+
+def _dense_restore(torch, np):
+    """A sharded train state saved after a step, restored onto the mesh
+    with ``shardings=``, takes the same next step bit for bit (phase 3r)."""
+    from repro_torch.checkpoint import checkpoint as C
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import sharding as S
+    from repro_torch.train import step as TS
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), num_layers=2)
+    tag = f"[dense {cfg.name} restore]"
+    mesh = make_debug_mesh(*DENSE_MESH)
+    rules = S.make_rules(mesh, "train")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=8, seed=0)
+    step = TS.make_train_step(cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_restore_"))
+    try:
+        with S.sharding_context(mesh, rules):
+            state = TS.shard_train_state(TS.init_train_state(cfg, 0), cfg, mesh, rules)
+            state, _ = step(state, make_batch(data, 0))
+            t0 = time.perf_counter()
+            C.save(tmp, 1, state)
+            t_save = time.perf_counter() - t0
+            shardings = tree_map(lambda sp: S.NamedSharding(mesh, sp),
+                                 TS.train_state_pspecs(cfg, rules))
+            t0 = time.perf_counter()
+            restored, n = C.restore(tmp, state, shardings=shardings)
+            t_load = time.perf_counter() - t0
+            placed = all(x.mesh is mesh and all(t.device.type == "cuda" for t in x.shards.flat)
+                         for x in tree_leaves(restored))
+            nxt = make_batch(data, 1)
+            state, m1 = step(state, nxt)
+            restored, m2 = step(restored, nxt)
+        same = all(torch.equal(a.shards[c], b_.shards[c]) for a, b_ in
+                   zip(tree_leaves(state), tree_leaves(restored)) for c in a.cells())
+        same = same and float(m1["loss"]) == float(m2["loss"])
+        size = sum(f.stat().st_size for f in tmp.rglob("*") if f.is_file())
+        print(f"{tag} checkpoint of {size / 2**30:.2f} GiB saved in {t_save:.1f}s, restored "
+              f"onto the {DENSE_MESH} mesh in {t_load:.1f}s (step {n}, every leaf in place on "
+              f"the card: {placed}); the next step bit-identical to the in-memory state's: "
+              f"{same} (loss {float(m1['loss']):.5f})")
+        if not (same and placed and n == 1):
+            raise SystemExit(f"{tag}: the restored state does not take the same step")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _dense_sharding(torch, np):
+    """Phase 3r."""
+    walls = {}
+    t0 = time.perf_counter()
+    _dense_train(torch, np)
+    _free(torch, "phase 3r after rwkv6")
+    walls["rwkv6 train"] = time.perf_counter() - t0
+    vl = [({"head_pad": hp}, [(f"head_pad {hp}", {}, mesh, False)
+                               for mesh in (DENSE_MESH, (1, 8))]) for hp in (0, 4)]
+    _dense_scoring(torch, np, "qwen2-vl-7b", vl, DENSE_VL)
+    _free(torch, "phase 3r after qwen2-vl")
+    walls["qwen2-vl"] = time.perf_counter() - t0 - sum(walls.values())
+    moe = [({}, [("gather", {"moe_impl": "gather"}, DENSE_MESH, False),
+                 ("a2a", {"moe_impl": "a2a"}, DENSE_MESH, True)])]
+    _dense_scoring(torch, np, "qwen3-moe-235b-a22b", moe,
+                   (*A2A_SCORE["qwen3-moe-235b-a22b"], 0))
+    _free(torch, "phase 3r after qwen3-moe")
+    walls["qwen3-moe"] = time.perf_counter() - t0 - sum(walls.values())
+    _dense_restore(torch, np)
+    walls["restore"] = time.perf_counter() - t0 - sum(walls.values())
+    print(f"[time] phase 3r wall: {time.perf_counter() - t0:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()) + ")")
 
 
 # ---------------------------------------------------------------------------

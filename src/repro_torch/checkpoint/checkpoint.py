@@ -17,6 +17,12 @@
 
 Keys follow :func:`repro_torch.tree.tree_paths` (sorted dict keys,
 NamedTuple field names), the reference's own key scheme.
+
+A :class:`~repro_torch.model.sharding.Sharded` leaf is saved whole (its
+shards assembled, as the reference saves a sharded ``jax.Array``), and
+:func:`restore` with ``shardings=`` places each leaf straight into its
+layout on a mesh that may differ from the one it was saved from (the
+reference's elastic restore).
 """
 
 from __future__ import annotations
@@ -32,12 +38,17 @@ import numpy as np
 import torch
 
 from repro_torch.ft.watchdog import make_lock
-from repro_torch.tree import tree_map, tree_paths, tree_unflatten
+from repro_torch.model.sharding import device_put, is_sharded, to_global
+from repro_torch.tree import tree_leaves, tree_map, tree_paths, tree_unflatten
+
+
+def _whole(t) -> torch.Tensor:
+    return torch.as_tensor(to_global(t) if is_sharded(t) else t)
 
 
 def _to_numpy(t) -> tuple[np.ndarray, str]:
     """(array to store, dtype name for the manifest)."""
-    t = torch.as_tensor(t).detach().cpu()
+    t = _whole(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.numpy().dtype)
@@ -50,7 +61,7 @@ def _from_numpy(a: np.ndarray, dtype_name: str) -> torch.Tensor:
 
 
 def _host_copy(tree):
-    return tree_map(lambda t: torch.as_tensor(t).detach().to("cpu", copy=True), tree)
+    return tree_map(lambda t: _whole(t).detach().to("cpu", copy=True), tree)
 
 
 def save(directory: str | os.PathLike, step: int, tree: Any, *, mesh_shape=None):
@@ -170,10 +181,23 @@ def latest_step(directory) -> int | None:
     return int(latest.read_text().strip())
 
 
-def restore(directory, template: Any, *, step: int | None = None):
+class _Box:
+    """A tree leaf holding one leaf of ``shardings`` (which may be None)."""
+
+    def __init__(self, value):
+        self.value = value
+
+
+def restore(directory, template: Any, *, step: int | None = None,
+            shardings: Any = None):
     """Restore into the structure of ``template``: each leaf takes the
-    template leaf's dtype, device and ``requires_grad`` (values ignored).
-    Returns ``(tree, step)``."""
+    template leaf's dtype and ``requires_grad`` (values ignored), and its
+    device.  ``shardings``: a matching tree of
+    :class:`~repro_torch.model.sharding.NamedSharding` (a ``None`` leaf
+    keeps the template's placement) for elastic re-placement on a possibly
+    different mesh: each leaf is split straight into its new layout
+    (:func:`~repro_torch.model.sharding.device_put`).  Returns ``(tree,
+    step)``."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -183,12 +207,21 @@ def restore(directory, template: Any, *, step: int | None = None):
     dtypes = json.loads((path / "manifest.json").read_text())["dtypes"]
     with np.load(path / "arrays.npz") as data:
         flat = {k: data[k] for k in data.files}
+    boxes = tree_leaves(tree_map(lambda leaf, sd=None: _Box(sd), template,
+                                 *(() if shardings is None else (shardings,))))
     leaves = []
-    for key, leaf in tree_paths(template):
+    for (key, leaf), box in zip(tree_paths(template), boxes, strict=True):
         if key not in flat:
             raise KeyError(f"checkpoint missing {key}")
         t = _from_numpy(flat[key], dtypes[key])
-        want = torch.as_tensor(leaf)
-        leaves.append(t.to(device=want.device, dtype=want.dtype)
-                      .requires_grad_(want.requires_grad))
+        want = leaf.shards.flat[0] if is_sharded(leaf) else torch.as_tensor(leaf)
+        if box.value is not None:
+            leaves.append(device_put(t.to(want.dtype), box.value,
+                                     requires_grad=want.requires_grad))
+        elif is_sharded(leaf):
+            leaves.append(device_put(t.to(want.dtype), leaf.sharding,
+                                     requires_grad=want.requires_grad))
+        else:
+            leaves.append(t.to(device=want.device, dtype=want.dtype)
+                          .requires_grad_(want.requires_grad))
     return tree_unflatten(template, leaves), step

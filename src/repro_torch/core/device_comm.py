@@ -12,31 +12,48 @@ device, see :mod:`repro_torch.launch.mesh`) and returns such a list.
 
 A hop is a ``.to(dest)`` of one shard's tensor: a no-op where the two
 shards share a device (n shards on one card), a peer copy between cards.
-:func:`device_shift` and :func:`ring_pass` are the only places a value
-crosses shards, and :func:`all_to_all` the one place every shard sends to
-every other (the expert-parallel MoE's exchange).  All are differentiable:
-the backward of a hop is the opposite hop (the transpose of a ppermute),
-so autograd through a sweep runs the device-space reverse elevator, as
-``jax.grad`` does in the reference, and the backward of an exchange is the
-inverse exchange.  :func:`record_hops` logs every hop and exchange,
-forward and backward, with the elements that leave each shard: what the
-collective-budget check (:mod:`repro_torch.analysis.collectives`) reads.
+:func:`device_shift` and :func:`ring_pass` are the point-to-point hops,
+:func:`all_to_all` the exchange where every shard sends to every other
+(the expert-parallel MoE's), and :func:`all_gather`, :func:`all_reduce`
+and :func:`reduce_scatter` the collectives of the sharded dense layers
+(:mod:`repro_torch.model.sharding`).  All are differentiable, each
+backward the forward's transpose: the opposite hop for a ppermute (so
+autograd through a sweep runs the device-space reverse elevator, as
+``jax.grad`` does in the reference), the inverse exchange for an
+all-to-all, a reduce-scatter for an all-gather and the other way round,
+and an all-reduce for an all-reduce.  :func:`record_hops` logs every hop,
+forward and backward, with the elements each shard sends: what the
+collective-budget check (:mod:`repro_torch.analysis.collectives`) and the
+roofline's collective term read.
+
+Each collective takes the ``n`` shards of one group along a mesh axis, or,
+on a representative mesh (one shard standing for every card of a
+production mesh on ``meta``), the one shard and the axis's extent ``n``:
+then the output has the shape a real group's would and the hop logs the
+bytes of ``n`` shards.  The data movement counts as live bytes but adds no
+FLOPs or bytes to a cost trace (:func:`repro_torch.core.lowering.kernel_scope`):
+a collective's cost is its hop.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import threading
 
 import torch
 
+from repro_torch.core.lowering import cell_of, kernel_scope
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
     "Hop",
     "record_hops",
     "axis_size",
+    "all_gather",
+    "all_reduce",
+    "reduce_scatter",
     "all_to_all",
     "device_shift",
     "halo_exchange",
@@ -47,19 +64,30 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Hop:
-    """One collective over a mesh axis.
+    """One collective over a mesh axis: ``elements`` is what each shard
+    sends, in the closed form of a ring over the axis's ``n`` shards, for a
+    shard's input of ``E`` elements:
 
-    ``kind="permute"`` (a ppermute): shard i received shard ``src[i]``'s
-    value (``None``: the fill), and ``elements`` is what each sender moved.
-    ``kind="all_to_all"``: every shard sent a piece to every other, ``src``
-    is ``range(n)`` (shard i's own piece stays put), and ``elements`` is
-    what leaves each shard: (n - 1) / n of its send.  ``itemsize``: the
+    * ``"permute"`` (a ppermute): shard i received shard ``src[i]``'s value
+      (``None``: the fill); each sender moves ``E``;
+    * ``"all_to_all"``: every shard sends a piece to every other and keeps
+      its own: ``(n - 1) / n * E``;
+    * ``"all_gather"``: each shard's ``E`` reaches the other ``n - 1``,
+      forwarded round the ring: ``(n - 1) * E``;
+    * ``"reduce_scatter"``: each shard ends with the sum of one ``1 / n``
+      of the buffer: ``(n - 1) / n * E``;
+    * ``"all_reduce"``: a reduce-scatter then an all-gather of the sums:
+      ``2 (n - 1) / n * E``.
+
+    ``src`` is ``range(n)`` for every kind but a permute.  ``axis``: the
+    mesh axis (``None`` where the caller named none); ``itemsize``: the
     bytes of one element (the hop's dtype)."""
 
     elements: int
     src: tuple[int | None, ...]
     kind: str = "permute"
     itemsize: int = dataclasses.field(default=4, compare=False)
+    axis: str | None = dataclasses.field(default=None, compare=False)
 
     @property
     def bytes(self) -> int:
@@ -135,11 +163,34 @@ def _permute(xs, src, fill):
     return list(_Permute.apply(src, fill, *xs))
 
 
-def _exchange(xs, split_dim, concat_dim):
-    n = len(xs)
+def _exchange(xs, split_dim, concat_dim, n):
+    if len(xs) < n:                    # a representative shard: the shape only
+        x = xs[0].narrow(split_dim, 0, xs[0].shape[split_dim] // n)
+        return [torch.cat([x] * n, dim=concat_dim)]
     pieces = [x.chunk(n, dim=split_dim) for x in xs]
-    return [torch.cat([pieces[i][j].to(x.device) for i in range(n)], dim=concat_dim)
+    return [_on(x, lambda j=j, x=x: torch.cat([pieces[i][j].to(x.device) for i in range(n)],
+                                             dim=concat_dim))
             for j, x in enumerate(xs)]
+
+
+def _on(x, make):
+    """``make()``, the output that shard ``x``'s member receives, counted
+    as that member's (:func:`repro_torch.core.lowering.cell_of`)."""
+    with cell_of(x):
+        return make()
+
+
+def _group(xs, n):
+    """``(list of shards, n)``: ``n`` defaults to the shards given; a
+    representative call gives one shard and the axis's extent."""
+    xs = list(xs)
+    n = len(xs) if n is None else n
+    if len(xs) not in (1, n):
+        raise ValueError(f"{len(xs)} shards for a group of {n}")
+    shapes = {tuple(x.shape) for x in xs}
+    if len(shapes) != 1:
+        raise ValueError(f"shards of one collective must share a shape, got {sorted(shapes)}")
+    return xs, n
 
 
 class _AllToAll(torch.autograd.Function):
@@ -148,17 +199,20 @@ class _AllToAll(torch.autograd.Function):
     CUDA tensors runs on autograd's own thread."""
 
     @staticmethod
-    def forward(ctx, split_dim, concat_dim, *xs):
-        ctx.dims = (split_dim, concat_dim)
-        return tuple(_exchange(xs, split_dim, concat_dim))
+    def forward(ctx, split_dim, concat_dim, axis, n, *xs):
+        ctx.dims = (split_dim, concat_dim, axis, n)
+        with kernel_scope():
+            return tuple(_exchange(xs, split_dim, concat_dim, n))
 
     @staticmethod
     def backward(ctx, *grads):
-        split_dim, concat_dim = ctx.dims
-        return (None, None, *all_to_all(list(grads), concat_dim, split_dim))
+        split_dim, concat_dim, axis, n = ctx.dims
+        return (None, None, None, None,
+                *all_to_all(list(grads), concat_dim, split_dim, axis=axis, n=n))
 
 
-def all_to_all(xs, split_dim: int, concat_dim: int):
+def all_to_all(xs, split_dim: int, concat_dim: int, *, axis: str | None = None,
+               n: int | None = None):
     """Tiled all-to-all over the shards of one mesh axis (the reference's
     ``jax.lax.all_to_all(..., tiled=True)``): shard j receives, from every
     sender i, the j-th of the ``n`` equal chunks of ``xs[i]`` along
@@ -167,17 +221,122 @@ def all_to_all(xs, split_dim: int, concat_dim: int):
     one a shard keeps crosses nothing, so (n - 1) / n of each send leaves
     its shard.  Differentiable; logged as one :class:`Hop` of kind
     ``"all_to_all"``, forward and backward."""
-    xs = list(xs)
-    n = len(xs)
-    shapes = {tuple(x.shape) for x in xs}
-    if len(shapes) != 1:
-        raise ValueError(f"shards of one exchange must share a shape, got {sorted(shapes)}")
+    xs, n = _group(xs, n)
     if xs[0].shape[split_dim] % n:
         raise ValueError(f"dim {split_dim} of {tuple(xs[0].shape)} does not split "
                          f"into {n} pieces")
     _record(Hop(xs[0].numel() // n * (n - 1), tuple(range(n)), "all_to_all",
-                xs[0].element_size()))
-    return list(_AllToAll.apply(split_dim, concat_dim, *xs))
+                xs[0].element_size(), axis))
+    return list(_AllToAll.apply(split_dim, concat_dim, axis, n, *xs))
+
+
+def _sum_in_order(xs, device):
+    """``xs[0] + xs[1] + ...`` in shard order, on ``device``: every shard of
+    an all-reduce adds the same values in the same order, so all hold the
+    same bits."""
+    out = xs[0].to(device)
+    for x in xs[1:]:
+        out = out + x.to(device)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, axis, n, *xs):
+        ctx.args = (dim, axis, n)
+        with kernel_scope():
+            if len(xs) < n:
+                return (torch.cat([xs[0]] * n, dim=dim),)
+            return tuple(_on(x, lambda x=x: torch.cat([y.to(x.device) for y in xs], dim=dim))
+                         for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dim, axis, n = ctx.args
+        return (None, None, None, *reduce_scatter(list(grads), dim, axis=axis, n=n))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, axis, n, *xs):
+        ctx.args = (dim, axis, n)
+        size = xs[0].shape[dim] // n
+        with kernel_scope():
+            if len(xs) < n:
+                return (xs[0].narrow(dim, 0, size).clone(),)
+            return tuple(_on(x, lambda j=j, x=x: _sum_in_order(
+                [y.narrow(dim, j * size, size) for y in xs], x.device))
+                for j, x in enumerate(xs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        dim, axis, n = ctx.args
+        return (None, None, None, *all_gather(list(grads), dim, axis=axis, n=n))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, n, *xs):
+        ctx.args = (axis, n)
+        with kernel_scope():
+            if len(xs) < n:
+                return (xs[0].clone(),)
+            return tuple(_on(x, lambda x=x: _sum_in_order(xs, x.device)) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        axis, n = ctx.args
+        return (None, None, *all_reduce(list(grads), axis=axis, n=n))
+
+
+def all_gather(xs, dim: int, *, axis: str | None = None, n: int | None = None):
+    """Each shard receives every shard's tensor, concatenated in shard
+    order along ``dim`` on its own device (``jax.lax.all_gather(...,
+    tiled=True)``).  Its backward is a :func:`reduce_scatter`."""
+    xs, n = _group(xs, n)
+    if n == 1:
+        return xs
+    _record(Hop(xs[0].numel() * (n - 1), tuple(range(n)), "all_gather",
+                xs[0].element_size(), axis))
+    return list(_AllGather.apply(dim, axis, n, *xs))
+
+
+def reduce_scatter(xs, dim: int, *, axis: str | None = None, n: int | None = None):
+    """Shard j receives the sum over shards, in shard order, of the j-th of
+    the ``n`` equal chunks of each tensor along ``dim``
+    (``jax.lax.psum_scatter(..., tiled=True)``).  Its backward is an
+    :func:`all_gather`."""
+    xs, n = _group(xs, n)
+    if n == 1:
+        return xs
+    if xs[0].shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(xs[0].shape)} does not split into {n} pieces")
+    _record(Hop(xs[0].numel() // n * (n - 1), tuple(range(n)), "reduce_scatter",
+                xs[0].element_size(), axis))
+    return list(_ReduceScatter.apply(dim, axis, n, *xs))
+
+
+def all_reduce(xs, *, axis: str | None = None, n: int | None = None, op: str = "sum"):
+    """Every shard receives the sum of the shards' tensors, added in shard
+    order (``jax.lax.psum``; differentiable, its backward a psum of the
+    cotangents), or with ``op="max"`` their largest (``pmax``; not
+    differentiable: the loss takes it detached)."""
+    xs, n = _group(xs, n)
+    if n == 1:
+        return xs
+    _record(Hop(xs[0].numel() * 2 * (n - 1) // n, tuple(range(n)), "all_reduce",
+                xs[0].element_size(), axis))
+    if op == "max":
+        with torch.no_grad(), kernel_scope():
+            if len(xs) < n:
+                return [xs[0].clone()]
+            out = [_on(x, lambda x=x: functools.reduce(torch.maximum,
+                                                       [y.to(x.device) for y in xs]))
+                   for x in xs]
+        return out
+    if op != "sum":
+        raise ValueError(f"unknown all-reduce op {op!r}")
+    return list(_AllReduce.apply(axis, n, *xs))
 
 
 def device_shift(xs, delta: int = 1, fill=0.0):

@@ -12,7 +12,8 @@ run here), and the HBM3 bandwidth.
 from __future__ import annotations
 
 __all__ = ["H100_SMS", "SMEM_LIMIT", "SMEM_PER_SM", "SMEM_RESERVED", "PEAK_FLOPS_BF16",
-           "PEAK_FLOPS_F32", "PEAK_FLOPS", "HBM_BW", "HBM_BYTES"]
+           "PEAK_FLOPS_F32", "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "NVLINK_BW", "NDR_IB_BW",
+           "LINK_BW"]
 
 #: The SMs of the card the planners plan for (H100 SXM).
 H100_SMS = 132
@@ -31,3 +32,16 @@ PEAK_FLOPS = {"bf16": PEAK_FLOPS_BF16, "f32": PEAK_FLOPS_F32}
 HBM_BW = 3.35e12                # B/s
 #: The card's memory, 80 GiB (the "80GB" of its name).
 HBM_BYTES = 80 * 2**30
+
+#: What one card sends a second over a mesh axis's links, one direction
+#: (a hop's bytes are what each card sends, ``device_comm.Hop``):
+#: NVLink 4 gives an H100 SXM 900 GB/s in both directions together
+#: (NVIDIA H100 Tensor Core GPU datasheet, "NVLink: 900GB/s"), so 450 GB/s
+#: each way inside an HGX node through NVSwitch; across nodes each card has
+#: one 400 Gb/s NDR InfiniBand adapter (NVIDIA DGX H100 datasheet: eight
+#: ConnectX-7 400 Gb/s ports for eight cards), 50 GB/s each way.
+NVLINK_BW = 450e9               # B/s, one direction
+NDR_IB_BW = 400e9 / 8           # B/s, one direction
+#: The production mesh's axes -> their link rate: ``model`` is one HGX
+#: node's NVLink domain, ``data`` and ``pod`` cross the network.
+LINK_BW = {"model": NVLINK_BW, "data": NDR_IB_BW, "pod": NDR_IB_BW}

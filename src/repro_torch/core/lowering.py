@@ -39,6 +39,14 @@ the kernel's backend (:func:`plain_version`), or an autograd Function of a
 
 Outside a counting context :func:`record_launch` does nothing, so a meta
 trace without one still runs.
+
+A sharded step on a mesh (:mod:`repro_torch.model.sharding`) runs every
+shard's program in one process.  The counter also keeps one card's share,
+by shard (:attr:`CostCounter.cells`): an op run inside a
+:func:`cell_scope` belongs to that shard, and an op outside one (the
+backward, which autograd runs) to the shard of its first input that a
+shard made; its storages, FLOPs and bytes go to the shard's tally, and
+each shard's live bytes keep their own peak.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import sys
 import threading
 import weakref
 from collections import defaultdict
+from typing import Any
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -59,8 +68,9 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core.h100 import HBM_BW, PEAK_FLOPS
 
-__all__ = ["LaunchCost", "CostCounter", "Conversion", "cost_counting", "kernel_scope",
-           "plain_version", "record_launch", "flop_class"]
+__all__ = ["LaunchCost", "CostCounter", "CellTally", "Conversion", "cost_counting",
+           "kernel_scope", "cell_scope", "cell_of", "claim", "plain_version", "record_launch",
+           "flop_class"]
 
 #: Flop classes: the tensor cores' bf16 rate, and f32 with TF32 off.
 FLOP_CLASSES = ("bf16", "f32")
@@ -130,6 +140,24 @@ class KernelTally:
     plans: dict = dataclasses.field(default_factory=dict)
 
 
+@dataclasses.dataclass
+class CellTally:
+    """One shard's (one card's) share of a trace: FLOPs by class, bytes,
+    kernel launches, and the live bytes of the storages it made, with
+    their peak."""
+
+    flops: dict = dataclasses.field(default_factory=lambda: dict.fromkeys(FLOP_CLASSES, 0.0))
+    bytes: int = 0
+    launches: dict = dataclasses.field(default_factory=dict)
+    live: int = 0
+    peak_live: int = 0
+
+    def as_dict(self) -> dict:
+        return {"flops": sum(self.flops.values()), "flops_by_class": dict(self.flops),
+                "bytes_accessed": self.bytes, "launches": dict(sorted(self.launches.items())),
+                "peak_live_bytes": self.peak_live}
+
+
 class CostCounter:
     """The tallies of one :func:`cost_counting` context (see the module
     docstring)."""
@@ -145,9 +173,21 @@ class CostCounter:
         self._known: dict[int, int] = {}
         self._paused = 0
         self._plain = 0
+        #: shard -> its :class:`CellTally` (sharded steps only).
+        self.cells: dict = {}
+        self._cell_of: dict[int, Any] = {}     # storage -> its shard (attribution)
+        self._live_cell: dict[int, Any] = {}   # storage made in the trace -> its shard
+        self._last_cell = None
 
     # -- kernels -------------------------------------------------------------
     def record(self, name: str, cost: LaunchCost, plan=None) -> None:
+        cell = _CELL.cell if _CELL.cell is not None else self._last_cell
+        if cell is not None:
+            t = self._tally(cell)
+            t.launches[name] = t.launches.get(name, 0) + 1
+            for c, f in cost.flops:
+                t.flops[c] += f
+            t.bytes += cost.hbm_bytes
         k = self.kernels[name]
         k.launches += 1
         for c, f in cost.flops:
@@ -188,12 +228,28 @@ class CostCounter:
             "peak_live_bytes": self.peak_live,
         }
 
+    def _tally(self, cell) -> CellTally:
+        t = self.cells.get(cell)
+        if t is None:
+            t = self.cells[cell] = CellTally()
+        return t
+
+    def per_card(self, cell=None) -> dict:
+        """One shard's tally as a dict (default: the first shard's)."""
+        if not self.cells:
+            return {}
+        return self._tally(min(self.cells) if cell is None else cell).as_dict()
+
     # -- live storages ---------------------------------------------------------
     def _free(self, key: int, nbytes: int) -> None:
         if self._known.pop(key, None) is not None:
             self.live -= nbytes
+            self._cell_of.pop(key, None)
+            cell = self._live_cell.pop(key, None)
+            if cell is not None:
+                self.cells[cell].live -= nbytes
 
-    def _track(self, st, created: bool) -> None:
+    def _track(self, st, created: bool, cell=None) -> None:
         key = st._cdata
         if key in self._known:
             return
@@ -204,15 +260,32 @@ class CostCounter:
         if created:
             self.live += nbytes
             self.peak_live = max(self.peak_live, self.live)
+            if cell is not None:
+                self._cell_of[key] = self._live_cell[key] = cell
+                t = self._tally(cell)
+                t.live += nbytes
+                t.peak_live = max(t.peak_live, t.live)
         weakref.finalize(st, self._free, key, nbytes)
+
+    def _cell(self, ins):
+        if _CELL.cell is not None:
+            return _CELL.cell
+        for x in ins:
+            cell = self._cell_of.get(x.untyped_storage()._cdata)
+            if cell is not None:
+                return cell
+        return None
 
     def _account(self, func, out, args, kwargs) -> None:
         ins = [x for x in tree_flatten((args, kwargs))[0] if isinstance(x, torch.Tensor)]
         outs = [x for x in tree_flatten(out)[0] if isinstance(x, torch.Tensor)]
+        cell = self._cell(ins)
+        if cell is not None:
+            self._last_cell = cell
         for x in ins:
             self._track(x.untyped_storage(), created=False)
         for x in outs:
-            self._track(x.untyped_storage(), created=True)
+            self._track(x.untyped_storage(), created=True, cell=cell)
         conv = _CONVERSIONS.get(func)
         if conv is not None:
             src, dst = conv(args, out)
@@ -223,11 +296,14 @@ class CostCounter:
         if self._paused:
             return
         self.aten_ops += 1
+        tally = self._tally(cell) if cell is not None else None
         packet = func._overloadpacket
         if packet in flop_registry:
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
             cls = flop_class(outs[0].dtype) if outs else "f32"
             self.aten_flops[cls] += int(flops)
+            if tally is not None:
+                tally.flops[cls] += int(flops)
         if func.is_view or func in _NO_BYTES:
             return
         extent: dict[int, int] = {}
@@ -236,6 +312,8 @@ class CostCounter:
             n = min(x.numel() * x.element_size(), st.nbytes())
             extent[st._cdata] = max(extent.get(st._cdata, 0), n)
         self.aten_bytes += sum(extent.values())
+        if tally is not None:
+            tally.bytes += sum(extent.values())
 
 
 _aten = torch.ops.aten
@@ -318,6 +396,47 @@ def cost_counting():
 
 def _current() -> CostCounter | None:
     return _STACK.counters[-1] if _STACK.counters else None
+
+
+class _Cell(threading.local):
+    cell = None
+
+
+_CELL = _Cell()
+
+
+@contextlib.contextmanager
+def cell_scope(cell):
+    """The ops inside run for shard ``cell`` (an index into a mesh's
+    devices) of a sharded step; see :class:`CostCounter.cells`."""
+    prev = _CELL.cell
+    _CELL.cell = cell
+    try:
+        yield
+    finally:
+        _CELL.cell = prev
+
+
+def claim(t: torch.Tensor, cell) -> None:
+    """Name ``cell`` the shard of ``t``, a tensor made before the trace (a
+    parameter's shard), so the ops that read it count for that shard."""
+    c = _current()
+    if c is not None:
+        c._cell_of.setdefault(t.untyped_storage()._cdata, cell)
+
+
+@contextlib.contextmanager
+def cell_of(t: torch.Tensor):
+    """The ops inside run for the shard that made ``t`` (a collective's
+    output for a group member is that member's): a :func:`cell_scope` of
+    ``t``'s shard under a counting context, else nothing."""
+    c = _current()
+    cell = c._cell_of.get(t.untyped_storage()._cdata) if c is not None else None
+    if cell is None:
+        yield
+        return
+    with cell_scope(cell):
+        yield
 
 
 @contextlib.contextmanager

@@ -56,13 +56,37 @@ from repro_torch.kernels.wkv.kernel import (
 )
 from repro_torch.kernels.wkv.vjp import WKVDecodeFunction, WKVFunction, WKVSummaryFunction
 
-# (T, chunk) pairs already warned about, keyed by warn scope.
+# (T, chunk) pairs already warned about, keyed by warn scope: two configs
+# (or two test cases) hitting the same awkward (T, chunk) each warn once.
 _CHUNK_WARNED: dict[str | None, set[tuple[int, int]]] = {}
 
+# The active scope stack (chunk_warning_scope); empty -> the None scope.
+_WARN_SCOPE: list[str | None] = []
 
-def reset_chunk_warnings(scope: str | None = None):
-    """Forget the (T, chunk) pairs warned about in ``scope``."""
-    _CHUNK_WARNED.pop(scope, None)
+
+def reset_chunk_warnings(scope: str | None = None, *, all_scopes: bool = False):
+    """Forget the (T, chunk) pairs warned about in ``scope``, or in every
+    scope."""
+    if all_scopes:
+        _CHUNK_WARNED.clear()
+    else:
+        _CHUNK_WARNED.pop(scope, None)
+
+
+class chunk_warning_scope:  # noqa: N801 — the reference's context-manager name
+    """Scope the chunk-adjustment warnings of calls that name no scope to
+    ``tag`` while the context is open."""
+
+    def __init__(self, tag: str | None):
+        self.tag = tag
+
+    def __enter__(self):
+        _WARN_SCOPE.append(self.tag)
+        return self
+
+    def __exit__(self, *exc):
+        _WARN_SCOPE.pop()
+        return False
 
 
 def resolve_chunk(t: int, chunk: int, *, scope: str | None = None) -> int:
@@ -72,6 +96,8 @@ def resolve_chunk(t: int, chunk: int, *, scope: str | None = None) -> int:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     c = largest_divisor_chunk(t, chunk)
     if c != min(chunk, t):
+        if scope is None and _WARN_SCOPE:
+            scope = _WARN_SCOPE[-1]
         seen = _CHUNK_WARNED.setdefault(scope, set())
         if (t, chunk) not in seen:
             seen.add((t, chunk))

@@ -43,9 +43,16 @@ share of the state (parameters, the optimizer moments of a train cell,
 the decode state of a decode cell, and the inputs) from the spec trees
 under the cell's rules, every dimension divided by its mesh axes' extent
 and rounded up, as XLA pads, and whether that share fits the card's
-:data:`~repro_torch.core.h100.HBM_BYTES`.  The per-card peak (the
-activations) is not known until the dense layers run sharded: the row
-says so.  Nothing is traced and no card is touched::
+:data:`~repro_torch.core.h100.HBM_BYTES`.  A train or prefill cell of a
+decoder-only arch, whose dense layers run sharded, is also traced: one
+card's program of the sharded step on the mesh's representative form
+(:func:`~repro_torch.launch.mesh.representative`), on ``meta``, gives that
+card's FLOPs by class, bytes, launches and live-bytes peak
+(``peak_estimate_bytes`` is the state's share plus it), the collective
+bytes it sends by op and by mesh axis, and the roofline terms with the
+collective term over each axis's link rate.  Decode cells and the
+encoder-decoder arch keep the dense layers whole under a mesh (their
+rules are the next slice): their rows say so.  No card is touched::
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh production --all
 """
@@ -71,6 +78,7 @@ from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch import roofline as R
 from repro_torch.model import model as M
 from repro_torch.model.layers import dtype_of
+from repro_torch.model import sharding as sh
 from repro_torch.model.sharding import axes_size, make_rules, to_pspec
 from repro_torch.serve import engine
 from repro_torch.train import step as train_mod
@@ -78,7 +86,9 @@ from repro_torch.tree import tree_leaves
 
 __all__ = ["MESH_TAG", "MEMORY_RESERVE", "ALLOC_ROUND", "DEFAULT_OUT", "SkipCell", "Cell",
            "make_cell", "trace_cell", "run_cell", "tree_bytes", "production_mesh_tag",
-           "per_card_bytes", "production_state", "run_production_cell", "main"]
+           "per_card_bytes", "production_state", "runs_sharded", "trace_sharded_step",
+           "per_card_row", "production_memory", "production_row", "run_production_cell",
+           "main"]
 
 #: Where ``--out`` defaults to: ``build/`` at the root of the checkout,
 #: which ``.gitignore`` lists.
@@ -403,9 +413,101 @@ def production_state(cfg, shape, mesh) -> dict:
             "inputs": (inputs, in_specs)}
 
 
+def runs_sharded(cfg, shape) -> bool:
+    """Whether the cell's step runs its dense layers sharded on a mesh: a
+    train or prefill cell of a decoder-only arch."""
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    return shape.kind in ("train", "prefill") and not cfg.is_enc_dec
+
+
+def trace_sharded_step(cfg, shape, mesh) -> tuple[CostCounter, list]:
+    """Trace the cell's sharded step on ``mesh`` (a mesh of ``meta``
+    devices, or its representative form) under the cell's rules: the
+    train step from the abstract train state, or the prefill step from the
+    abstract parameters, their leaves split by the spec trees before the
+    trace (what each card holds), the global batch split inside it.
+    Returns the :class:`~repro_torch.core.lowering.CostCounter` (its
+    ``cells``: each card's tally) and the hops."""
+    shape = SHAPES[shape] if isinstance(shape, str) else shape
+    rules = make_rules(mesh, _mode_for(shape.name, shape.kind))
+    batch, _ = I.batch_specs(cfg, shape)
+    with sh.sharding_context(mesh, rules):
+        if shape.kind == "train":
+            state = train_mod.shard_train_state(train_mod.abstract_train_state(cfg), cfg,
+                                                mesh, rules)
+            step = train_mod.make_train_step(cfg)
+            with cost_counting() as counter, record_hops() as hops:
+                step(state, batch)
+        else:
+            params = sh.device_put_tree(M.abstract_params(cfg), M.param_pspecs(cfg, rules),
+                                        mesh)
+            kw = {k2: batch[k1] for k1, k2 in (("frontend_embeds", "frontend_embeds"),
+                                              ("positions", "positions")) if k1 in batch}
+            prefill = engine.make_prefill_step(cfg)
+            with torch.inference_mode(), cost_counting() as counter, record_hops() as hops:
+                prefill(params, batch["tokens"], **kw)
+    return counter, hops
+
+
+def per_card_row(counter: CostCounter, hops, state_per_card: int) -> dict:
+    """One card's costs, collectives, roofline terms and peak from a
+    representative trace (:func:`trace_sharded_step`)."""
+    card = counter.per_card()
+    coll = R.parse_collective_bytes(hops)
+    by_axis = R.collective_bytes_by_axis(hops)
+    terms = R.roofline_terms(
+        {"flops": card["flops"], "flops_by_class": card["flops_by_class"],
+         "bytes accessed": card["bytes_accessed"]},
+        {"total_bytes": coll["total_bytes"],
+         "by_axis": {a: sum(ops.values()) for a, ops in by_axis.items()}})
+    peak = state_per_card + card["peak_live_bytes"]
+    return {"cost": card, "collectives": coll,
+            "collectives_by_axis": {str(a): ops for a, ops in by_axis.items()},
+            "hop_count": len(hops), "roofline": terms.as_dict(),
+            "peak_live_bytes": card["peak_live_bytes"], "peak_estimate_bytes": peak}
+
+
+def production_memory(cfg, shape, mesh) -> dict:
+    """Each card's share of one cell's state on ``mesh``
+    (:func:`production_state` split by :func:`per_card_bytes`)."""
+    parts = production_state(cfg, shape, mesh)
+    by_part = {k: per_card_bytes(t, sp, mesh) for k, (t, sp) in parts.items()}
+    per_card = sum(by_part.values())
+    return {
+        "cards": int(mesh.devices.size),
+        "state_bytes": sum(tree_bytes(t)[0] for t, _ in parts.values()),
+        "state_bytes_per_card": per_card,
+        "state_per_card_by_part": by_part,
+        "capacity_bytes": mesh_mod.HBM_BYTES,
+        "state_fits": per_card <= mesh_mod.HBM_BYTES,
+    }
+
+
+def production_row(cfg, shape, mesh) -> dict:
+    """One cell on ``mesh``: ``memory`` (:func:`production_memory` and the
+    peak) and, for a cell that runs sharded, ``per_card``: one card's
+    program traced on the mesh's representative form
+    (:func:`per_card_row`)."""
+    memory = production_memory(cfg, shape, mesh)
+    if not runs_sharded(cfg, shape):
+        memory["peak_estimate_bytes"] = None
+        memory["peak_note"] = (
+            "not traced: decode cells and the encoder-decoder arch keep the dense "
+            "layers whole under a mesh (their rules are the next slice)")
+        return {"memory": memory}
+    t0 = time.time()
+    counter, hops = trace_sharded_step(cfg, shape, mesh_mod.representative(mesh))
+    per_card = per_card_row(counter, hops, memory["state_bytes_per_card"])
+    memory["peak_live_bytes_per_card"] = per_card.pop("peak_live_bytes")
+    memory["peak_estimate_bytes"] = per_card.pop("peak_estimate_bytes")
+    memory["fits"] = memory["peak_estimate_bytes"] <= mesh_mod.HBM_BYTES - MEMORY_RESERVE
+    return {"memory": memory, "per_card": per_card, "trace_s": round(time.time() - t0, 1)}
+
+
 def run_production_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                         out_dir: Path | None = None, verbose: bool = True) -> dict:
-    """One cell's per-card state on the production mesh: its JSON row."""
+    """One cell on the production mesh: its JSON row
+    (:func:`production_row`)."""
     mesh_tag = production_mesh_tag(multi_pod)
     tag = f"{arch}__{shape_name}__{mesh_tag}"
     result = {"arch": arch, "shape": shape_name, "mesh": mesh_tag}
@@ -415,21 +517,8 @@ def run_production_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         ok, why = I.cell_is_applicable(cfg, shape_name)
         if not ok:
             raise SkipCell(why)
-        mesh = mesh_mod.make_production_mesh(multi_pod=multi_pod)
-        parts = production_state(cfg, shape_name, mesh)
-        by_part = {k: per_card_bytes(t, sp, mesh) for k, (t, sp) in parts.items()}
-        per_card = sum(by_part.values())
-        result["memory"] = {
-            "cards": int(mesh.devices.size),
-            "state_bytes": sum(tree_bytes(t)[0] for t, _ in parts.values()),
-            "state_bytes_per_card": per_card,
-            "state_per_card_by_part": by_part,
-            "capacity_bytes": mesh_mod.HBM_BYTES,
-            "state_fits": per_card <= mesh_mod.HBM_BYTES,
-            "peak_estimate_bytes": None,
-            "peak_note": "the per-card peak (activations) is not known until the "
-                         "dense layers run sharded",
-        }
+        result.update(production_row(cfg, shape_name,
+                                     mesh_mod.make_production_mesh(multi_pod=multi_pod)))
         result["ok"] = True
     except SkipCell as e:
         result["ok"] = True
@@ -449,7 +538,14 @@ def production_line(tag: str, result: dict) -> str:
         m = result["memory"]
         parts = " ".join(f"{k}={v / 2**30:.2f}" for k, v in m["state_per_card_by_part"].items())
         extra = (f" state/card={m['state_bytes_per_card'] / 2**30:.2f}GiB ({parts}) "
-                 f"of {m['cards']} cards, fits={m['state_fits']}, peak not known")
+                 f"of {m['cards']} cards, fits={m['state_fits']}")
+        if m["peak_estimate_bytes"] is None:
+            extra += ", peak not traced"
+        else:
+            r = result["per_card"]["roofline"]
+            extra += (f", peak/card={m['peak_estimate_bytes'] / 2**30:.2f}GiB "
+                      f"fits={m['fits']} comp={r['compute_s']:.4f}s mem={r['memory_s']:.4f}s "
+                      f"coll={r['collective_s']:.4f}s dom={r['dominant']}")
     if "error" in result:
         extra += f" {result['error']}"
     return f"[{status}] {tag} ({result['total_s']}s){extra}"

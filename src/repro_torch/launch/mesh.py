@@ -14,10 +14,20 @@ hop is a peer copy.
 ``device=None`` means the card (and raises without one); ``"cpu"`` is
 for the tests.  :func:`make_production_mesh` is the H100 counterpart of
 the reference's TPU pods, on the ``meta`` device: the dry run reads each
-card's share of the state from it, and building it touches no card.  The
-roofline constants are the H100 SXM's in place of
-the TPU's: on one card the collective term is 0, since the seq path's hops
-between shards of one card are no-ops.
+card's share of the state from it, and traces one card's program of a
+sharded step on its representative form, and building it touches no
+card.  A *representative* mesh (``extent`` set) holds one shard that
+stands for every card: the sharded layers
+(:mod:`repro_torch.model.sharding`) run that one shard's program, and
+each collective is sized from its axis's extent, so tracing a 256-card
+step costs what tracing one card's costs.
+
+The roofline constants are the H100 SXM's in place of the TPU's, the
+link rates (:data:`LINK_BW`) per mesh axis: a collective over ``model``
+runs over NVLink inside one HGX node, one over ``data`` or ``pod`` over
+the network.  The hops of a mesh of one card's shards (the seq path, a
+mesh of repeated devices) cross no link: they name no axis of
+:data:`LINK_BW` and the collective term stays 0.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ import torch
 from repro_torch.core.h100 import (  # noqa: F401 — re-exported
     HBM_BW,
     HBM_BYTES,
+    LINK_BW,
     PEAK_FLOPS,
     PEAK_FLOPS_BF16,
     PEAK_FLOPS_F32,
@@ -37,23 +48,20 @@ from repro_torch.core.h100 import (  # noqa: F401 — re-exported
 from repro_torch.kernels.common import resolve_device
 
 __all__ = ["Mesh", "make_seq_mesh", "make_debug_mesh", "make_production_mesh",
-           "PRODUCTION_SHAPE", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
-           "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "ICI_BW_PER_LINK", "ICI_LINKS"]
-
-# The roofline's per-card constants are the H100 SXM's, from
-# :mod:`repro_torch.core.h100`.  One card has no interconnect term: the seq path's hops between shards of
-# one card are no-ops.  Kept so the reference's collective term reads 0.
-ICI_BW_PER_LINK = float("inf")
-ICI_LINKS = 1
+           "representative", "PRODUCTION_SHAPE", "PEAK_FLOPS_BF16", "PEAK_FLOPS_F32",
+           "PEAK_FLOPS", "HBM_BW", "HBM_BYTES", "LINK_BW"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
     """``devices``: an object array of ``torch.device``s, one per shard,
-    shaped like the mesh; ``axis_names``: one name per array axis."""
+    shaped like the mesh; ``axis_names``: one name per array axis.
+    ``extent``: set on a representative mesh (:func:`representative`),
+    whose ``devices`` hold one shard standing for a mesh of this shape."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    extent: tuple[int, ...] | None = None
 
     def __post_init__(self):
         if self.devices.ndim != len(self.axis_names):
@@ -65,7 +73,16 @@ class Mesh:
     @property
     def shape(self) -> dict[str, int]:
         """Axis name -> number of shards along it (as ``jax.sharding.Mesh``)."""
-        return dict(zip(self.axis_names, self.devices.shape))
+        return dict(zip(self.axis_names, self.extent or self.devices.shape))
+
+    @property
+    def is_representative(self) -> bool:
+        return self.extent is not None
+
+    @property
+    def size(self) -> int:
+        """The cards the mesh stands for."""
+        return int(np.prod(list(self.shape.values())))
 
     def device_grid(self, seq_axis: str, batch_axes=None) -> list[list[torch.device]]:
         """The devices of ``seq_axis`` for every batch group: a list of
@@ -115,6 +132,15 @@ def make_debug_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
 #: model=8), 512 as (pod=2, data=32, model=8).
 PRODUCTION_SHAPE = {False: {"data": 32, "model": 8},
                     True: {"pod": 2, "data": 32, "model": 8}}
+
+
+def representative(mesh: Mesh) -> Mesh:
+    """``mesh`` as one representative shard on its first device: the
+    sharded layers run one card's program and size every collective from
+    the axis's extent (the dry run's production meshes)."""
+    one = np.empty((1,) * mesh.devices.ndim, dtype=object)
+    one.flat[0] = mesh.devices.flat[0]
+    return Mesh(one, mesh.axis_names, tuple(mesh.shape.values()))
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -5,7 +5,9 @@ Three terms per (arch x shape) cell, in seconds a step:
 
   compute    = sum over flop classes of FLOPs / that class's peak
   memory     = bytes accessed / HBM bandwidth
-  collective = collective bytes / link bandwidth
+  collective = sum over mesh axes of the bytes each card sends over that
+               axis / the axis's link rate (NVLink for ``model``, the
+               network for ``data`` and ``pod``)
 
 The FLOPs and bytes come from :func:`repro_torch.core.lowering.cost_counting`
 over a meta trace of the whole step, read in the reference's keys by
@@ -30,7 +32,7 @@ import dataclasses
 from repro_torch.launch import mesh as mesh_mod
 
 __all__ = ["RooflineTerms", "roofline_terms", "cost_analysis_dict", "parse_collective_bytes",
-           "model_flops", "analytic_hbm_bytes"]
+           "collective_bytes_by_axis", "model_flops", "analytic_hbm_bytes"]
 
 #: The reference's collective op names, in its order.
 _COLLECTIVES = (
@@ -38,7 +40,9 @@ _COLLECTIVES = (
     "collective-permute",
 )
 #: A hop's kind -> the collective it is.
-_HOP_OPS = {"permute": "collective-permute", "all_to_all": "all-to-all"}
+_HOP_OPS = {"permute": "collective-permute", "all_to_all": "all-to-all",
+            "all_gather": "all-gather", "all_reduce": "all-reduce",
+            "reduce_scatter": "reduce-scatter"}
 
 
 def cost_analysis_dict(counter) -> dict:
@@ -65,6 +69,18 @@ def parse_collective_bytes(hops) -> dict:
         out[op]["bytes"] += h.bytes
         out[op]["count"] += 1
     out["total_bytes"] = sum(v["bytes"] for v in out.values() if isinstance(v, dict))
+    return out
+
+
+def collective_bytes_by_axis(hops) -> dict:
+    """``{axis: {op: bytes}}`` of a hop log: what each card sends over
+    each mesh axis, by the reference's op names (a hop that names no axis
+    under ``None``)."""
+    out: dict = {}
+    for h in hops:
+        by_op = out.setdefault(h.axis, {})
+        op = _HOP_OPS[h.kind]
+        by_op[op] = by_op.get(op, 0) + h.bytes
     return out
 
 
@@ -106,10 +122,17 @@ def roofline_terms(cost: dict, collectives: dict) -> RooflineTerms:
     """``cost``: ``flops`` and ``bytes accessed``, and ``flops_by_class``
     (class -> FLOPs, :data:`~repro_torch.launch.mesh.PEAK_FLOPS`'s keys)
     where the trace has it; without it every FLOP counts at the bf16 peak,
-    as the reference counts them.  ``collectives``: ``total_bytes``."""
+    as the reference counts them.  ``collectives``: ``total_bytes`` and,
+    where the hops name their axes, ``by_axis`` (axis -> bytes): the
+    collective term sums each axis's bytes over its link rate
+    (:data:`~repro_torch.launch.mesh.LINK_BW`).  Bytes over no axis of a
+    link (a mesh of one card's shards) take no time."""
     flops = float(cost.get("flops", 0.0))
     hbm = float(cost.get("bytes accessed", 0.0))
     coll = float(collectives.get("total_bytes", 0))
+    coll_s = sum(float(b) / mesh_mod.LINK_BW[a]
+                 for a, b in (collectives.get("by_axis") or {}).items()
+                 if a in mesh_mod.LINK_BW)
     by_class = cost.get("flops_by_class")
     if by_class:
         compute = sum(f / mesh_mod.PEAK_FLOPS[c] for c, f in by_class.items())
@@ -118,7 +141,7 @@ def roofline_terms(cost: dict, collectives: dict) -> RooflineTerms:
     return RooflineTerms(
         compute_s=compute,
         memory_s=hbm / mesh_mod.HBM_BW,
-        collective_s=coll / (mesh_mod.ICI_BW_PER_LINK * mesh_mod.ICI_LINKS),
+        collective_s=coll_s,
         flops=flops,
         hbm_bytes=hbm,
         collective_bytes=coll,

@@ -18,6 +18,22 @@ Cross-attention (the encoder-decoder arch's decoder blocks) takes q from
 the decoder and K/V from the encoder's output ``x_kv`` of its own length
 S, with no RoPE and no cache: every call projects K/V again and runs the
 flash kernel non-causally, as the reference does.
+
+On a (data, model) mesh (:mod:`repro_torch.model.sharding`; cache-free
+self-attention only) the projections are column-parallel over the heads
+and the output projection row-parallel, as the reference's
+``attention.py:103-112, 202-205`` place them, and the flash kernel runs
+once a shard on that shard's heads.  Where the heads do not divide the
+model axis (:func:`heads_plan`), the port replicates what GSPMD would:
+
+* ``"share_kv"``: the query heads divide it but the KV heads do not
+  (qwen2-vl's 4 KV heads, or qwen3-moe's, over 8): K and V are
+  all-gathered over the model axis and each shard keeps the KV heads its
+  query heads read (a GQA group shared across shards);
+* ``"replicate"``: the query heads do not divide it (qwen2-vl's 28 over
+  8, where ``head_pad=4`` makes 32): Q, K and V are all-gathered and every
+  shard computes every head, then keeps its slice of the output for the
+  row-parallel ``wo``.
 """
 
 from __future__ import annotations
@@ -30,6 +46,18 @@ import torch
 
 from repro_torch.kernels.local_attention.ops import flash_attention
 from repro_torch.model.layers import apply_rope, init_rmsnorm, rms_norm
+from repro_torch.model.sharding import (
+    along,
+    axes_size,
+    constrain,
+    dense,
+    gather_for_use,
+    is_sharded,
+    reshard,
+    rule_axes,
+    shard_index,
+    smap,
+)
 
 
 class KVCache(NamedTuple):
@@ -102,22 +130,37 @@ def init_attention(mk, cfg, name: str, *, cross: bool = False):
 
 
 def _project_qkv(params, x, x_kv, cfg):
-    """q (B, Hq, T, Dh) from ``x``; k and v (B, Hkv, S, Dh) from ``x_kv``."""
-    b, t, _ = x.shape
-    s = x_kv.shape[1]
-    nq, nkv, hd = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads, cfg.head_dim
-    q = x @ params["wq"]
-    k = x_kv @ params["wk"]
-    v = x_kv @ params["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(b, t, nq, hd).transpose(1, 2)
-    k = k.reshape(b, s, nkv, hd).transpose(1, 2)
-    v = v.reshape(b, s, nkv, hd).transpose(1, 2)
-    if cfg.qk_norm:
-        q = rms_norm(params["q_norm"], q, cfg.norm_eps)
-        k = rms_norm(params["k_norm"], k, cfg.norm_eps)
-    return q, k, v
+    """q (B, T, Hq*Dh) from ``x``; k and v (B, S, Hkv*Dh) from ``x_kv``:
+    column-parallel over the heads on a mesh."""
+    g = cfg.fsdp_gather_weights
+    out = []
+    for src, w, bias, axis in ((x, "wq", "bq", "heads_out"), (x_kv, "wk", "bk", "kv_out"),
+                               (x_kv, "wv", "bv", "kv_out")):
+        z = dense(src, gather_for_use(params[w], ("embed", axis), g))
+        z = constrain(z, "batch", "seq", "act_heads")
+        if cfg.qkv_bias:
+            z = smap(torch.add, z, along(params[bias], z))
+        out.append(z)
+    return tuple(out)
+
+
+def _heads(z, hd: int):
+    """(B, T, H*Dh) -> (B, H, T, Dh)."""
+    return z.reshape(z.shape[0], z.shape[1], -1, hd).transpose(1, 2)
+
+
+def heads_plan(nq: int, nkv: int, tp: int) -> str:
+    """How attention splits ``nq`` query and ``nkv`` KV heads over a model
+    axis of ``tp`` shards: ``"split"`` (both divide it), ``"share_kv"``
+    (the query heads divide it and each shard's query heads read whole KV
+    heads of one GQA grouping) or ``"replicate"``."""
+    if nq % tp == 0 and nkv % tp == 0:
+        return "split"
+    if nq % tp == 0:
+        nql, group = nq // tp, nq // nkv
+        if nql % group == 0 or group % nql == 0:
+            return "share_kv"
+    return "replicate"
 
 
 def _softcap(logits, cap):
@@ -140,39 +183,73 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
     non-causal, and ``kv_cache`` (with ``token_mask``) is ignored, as in
     the reference.
     """
-    b, t, _ = x.shape
     cross = x_kv is not None
+    if is_sharded(x) and (cross or kv_cache is not None):
+        raise NotImplementedError(
+            "sharded attention runs cache-free self-attention only: the "
+            "decode rules and cross-attention under a mesh are not ported")
+    nq, nkv, hd = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(params, x, x_kv if cross else x, cfg)
+    plan, heads_axes = "split", ()
+    if is_sharded(x):
+        heads_axes = rule_axes("act_heads")
+        tp = axes_size(x.mesh, heads_axes)
+        plan = heads_plan(nq, nkv, tp)
+        whole = q.dims[:-1] + ((),)
+        if plan == "replicate":
+            q = reshard(q, whole)
+        if plan != "split":
+            k, v = reshard(k, whole), reshard(v, whole)
+    norms = ((params["q_norm"]["scale"], params["k_norm"]["scale"]) if cfg.qk_norm
+             else (None, None))
     window = cfg.attn_window if kind == "local" else None
-    if not cross:
-        if positions is None:
-            positions = torch.arange(t, device=x.device)[None].expand(b, t)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-
     new_cache = None
-    if kv_cache is not None and not cross:
-        advance = (torch.full((), t, dtype=torch.int32, device=x.device)
-                   if token_mask is None else token_mask.sum(dim=1, dtype=torch.int32))
-        if isinstance(kv_cache, PagedKVCache):
-            # Write the window into the slots' mapped pages in place, gather
-            # the dense-shaped view back and run the same positional-mask
-            # attention: every valid slot holds the dense cache's value.
-            _paged_insert(kv_cache, k, v, token_mask)
-            new_cache = kv_cache._replace(length=kv_cache.length + advance)
-            k_cache = _paged_gather(kv_cache, kv_cache.k)
-            v_cache = _paged_gather(kv_cache, kv_cache.v)
+
+    def core(cell, ql, kl, vl, pos, qn, kn):
+        """One shard's heads (all of them off a mesh): qk-norm, RoPE, and
+        flash attention or the cache's decode attention."""
+        nonlocal new_cache
+        b, t = ql.shape[:2]
+        q, k, v = _heads(ql, hd), _heads(kl, hd), _heads(vl, hd)
+        if plan == "share_kv":      # the KV heads this shard's query heads read
+            m, nql = shard_index(x.mesh, cell, heads_axes), nq // tp
+            lo, hi = m * nql * nkv // nq, ((m + 1) * nql - 1) * nkv // nq + 1
+            k, v = k[:, lo:hi], v[:, lo:hi]
+        if cfg.qk_norm:
+            q = rms_norm({"scale": qn}, q, cfg.norm_eps)
+            k = rms_norm({"scale": kn}, k, cfg.norm_eps)
+        if not cross:
+            if pos is None:
+                pos = torch.arange(t, device=ql.device)[None].expand(b, t)
+            q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+        if kv_cache is not None and not cross:
+            advance = (torch.full((), t, dtype=torch.int32, device=ql.device)
+                       if token_mask is None else token_mask.sum(dim=1, dtype=torch.int32))
+            if isinstance(kv_cache, PagedKVCache):
+                # Write the window into the slots' mapped pages in place,
+                # gather the dense-shaped view back and run the same
+                # positional-mask attention: every valid slot holds the dense
+                # cache's value.
+                _paged_insert(kv_cache, k, v, token_mask)
+                new_cache = kv_cache._replace(length=kv_cache.length + advance)
+                k_cache = _paged_gather(kv_cache, kv_cache.k)
+                v_cache = _paged_gather(kv_cache, kv_cache.v)
+            else:
+                k_cache = _masked_insert(kv_cache.k, k, kv_cache.length, token_mask)
+                v_cache = _masked_insert(kv_cache.v, v, kv_cache.length, token_mask)
+                new_cache = KVCache(k_cache, v_cache, kv_cache.length + advance)
+            out = _decode_attention(q, k_cache, v_cache, kv_cache.length, cfg,
+                                    window=window)
         else:
-            k_cache = _masked_insert(kv_cache.k, k, kv_cache.length, token_mask)
-            v_cache = _masked_insert(kv_cache.v, v, kv_cache.length, token_mask)
-            new_cache = KVCache(k_cache, v_cache, kv_cache.length + advance)
-        out = _decode_attention(q, k_cache, v_cache, kv_cache.length, cfg,
-                                window=window)
-    else:
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal and not cross, window=window)
-    out = out.transpose(1, 2).reshape(b, t, (cfg.num_heads + cfg.head_pad) * cfg.head_dim)
-    return out @ params["wo"], new_cache
+            out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal and not cross, window=window)
+        return out.transpose(1, 2).reshape(b, t, -1)
+
+    out = constrain(smap(core, q, k, v, positions, *norms, cell=True),
+                    "batch", "seq", "act_heads")
+    wo = gather_for_use(params["wo"], ("heads_out", "embed"), cfg.fsdp_gather_weights)
+    return constrain(dense(out, wo), "batch", "seq", "act_embed"), new_cache
 
 
 def _lengths_2d(length: torch.Tensor, b: int) -> torch.Tensor:

@@ -37,6 +37,7 @@ from repro_torch.model.layers import (
     rms_norm,
 )
 from repro_torch.model.recurrent import RWKV_HEAD_DIM, RecState
+from repro_torch.model import sharding as sh
 from repro_torch.model.sharding import P, PartitionSpec, spec_mk, to_pspec
 
 
@@ -165,8 +166,18 @@ def _embed(params, cfg, tokens, frontend_embeds=None):
         # The stub frontend's patch embeddings take the first S_f
         # positions, before the sqrt(d) scale, as in the reference.
         s_f = frontend_embeds.shape[1]
-        x = torch.cat([frontend_embeds.to(x.dtype), x[:, s_f:]], dim=1)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        x = sh.smap(lambda f, e: torch.cat([f.to(e.dtype), e[:, s_f:]], dim=1),
+                    frontend_embeds, x)
+    return sh.smap(lambda t: t * torch.tensor(cfg.d_model ** 0.5, dtype=t.dtype,
+                                              device=t.device), x)
+
+
+def _place(x, *axes):
+    """A plain input split over the active mesh by its logical ``axes``."""
+    if x is None or sh.is_sharded(x):
+        return x
+    mesh = sh.active_mesh()
+    return sh.device_put(x, sh.NamedSharding(mesh, to_pspec(axes, sh._CTX.rules)))
 
 
 def encode(params, cfg, enc_tokens_embeds: torch.Tensor) -> torch.Tensor:
@@ -198,9 +209,26 @@ def forward(params, cfg, tokens: torch.Tensor, *,
     (the vision frontend is a stub, as in the reference) that replace the
     first S_f embedded tokens.  ``enc_tokens_embeds`` (B, S_enc, D): the
     encoder's frame embeddings, which an encoder-decoder arch needs (see
-    :func:`encode`)."""
+    :func:`encode`).
+
+    With :class:`~repro_torch.model.sharding.Sharded` parameters (under a
+    train or prefill sharding context) the inputs are split over the mesh
+    and the logits come back sharded, split over the vocabulary
+    (:func:`~repro_torch.model.sharding.to_global` reads them whole)."""
     enc_out = None
-    if cfg.is_enc_dec:
+    if sh.is_sharded(params["tok"]["embedding"]):
+        # The sharded forward (decoder-only archs, train and prefill rules):
+        # logits stay split over the vocabulary.
+        if cfg.is_enc_dec or sh.active_mesh() is None:
+            raise NotImplementedError(
+                "sharded parameters run the decoder-only archs' forward under a "
+                "train or prefill sharding context only")
+        tokens = _place(tokens, "batch", "seq")
+        if positions is not None:
+            positions = _place(positions, *((None,) if positions.ndim == 3 else ()),
+                               "batch", "seq")
+        frontend_embeds = _place(frontend_embeds, "batch", "seq", "act_embed")
+    elif cfg.is_enc_dec:
         _need_frames(cfg, enc_tokens_embeds, "forward needs enc_tokens_embeds")
         enc_out = encode(params, cfg, enc_tokens_embeds)
     x = _embed(params, cfg, tokens, frontend_embeds)

@@ -13,6 +13,22 @@ state (Dh × Dh per head) is carried by the WKV kernels
 (:mod:`repro_torch.kernels.wkv`).  Under sequence-parallel rules
 (``prefill_seq``, :mod:`repro_torch.model.sharding`) the RWKV block's WKV
 runs sharded over the sequence (:mod:`repro_torch.kernels.wkv.seqpar`).
+
+On a (data, model) mesh (cache-free train and prefill rules) both blocks
+run as the reference's ``gather_for_use`` / ``constrain`` place them
+(``recurrent.py:83-133, 199-291``): RWKV's ``w_r``, ``w_k``, ``w_v`` and
+``w_g`` column-parallel over ``heads_out``, the WKV kernels once a shard
+on its heads (heads are independent: no WKV state crosses shards), the
+output norm's sum of squares all-reduced over the heads' shards, and
+``w_o`` row-parallel; its token-shift weights ``mu`` are all-gathered,
+and the decay LoRA's first matrix (replicated over the model axis) and
+second (column-parallel) take no ``gather_for_use``, as in the reference.
+The RG-LRU's ``w_y`` and ``w_x`` are column-parallel over ``rnn``, the
+token shift and the scan run once a shard on its ``rnn`` channels, the
+gates gather the conv output over the model axis to contract against
+their (``embed``, ``rnn``) weights, and ``w_out`` is row-parallel.  Heads
+that do not divide the model axis (RWKV's 2 reduced heads over 4) are
+all-gathered and every shard runs every head, then keeps its slice.
 """
 
 from __future__ import annotations
@@ -27,7 +43,17 @@ from repro_torch.kernels.token_shift.ops import token_shift
 from repro_torch.kernels.wkv.ops import wkv_fused
 from repro_torch.kernels.wkv.seqpar import wkv_seqshard
 from repro_torch.model.layers import init_rmsnorm, rms_norm
-from repro_torch.model.sharding import axes_size, seq_shard_info
+from repro_torch.model.sharding import (
+    along,
+    axes_size,
+    constrain,
+    dense,
+    gather_for_use,
+    is_sharded,
+    reshard,
+    seq_shard_info,
+    smap,
+)
 
 _RGLRU_C = 8.0  # Griffin's fixed recurrence-sharpness constant
 
@@ -56,14 +82,21 @@ def init_rglru_block(mk, cfg, name: str):
     }
 
 
-def _rglru_gates(params, xb):
-    r = torch.sigmoid(xb @ params["gate_a"])
-    i = torch.sigmoid(xb @ params["gate_x"])
-    log_a = -_RGLRU_C * F.softplus(params["log_lambda"]) * r
+def _rglru_gates(pre_a, pre_x, log_lambda, xb):
+    """The recurrence's (a, b) from the gates' pre-activations."""
+    r = torch.sigmoid(pre_a)
+    i = torch.sigmoid(pre_x)
+    log_a = -_RGLRU_C * F.softplus(log_lambda) * r
     a = torch.exp(log_a)
     # sqrt(1 - a^2) keeps the state's variance bounded.
     b = torch.sqrt(torch.clamp_min(1.0 - a.square(), 1e-6)) * (i * xb)
     return a, b
+
+
+def _refuse_state(x, state):
+    if is_sharded(x) and state is not None:
+        raise NotImplementedError("a sharded block runs cache-free: the decode rules "
+                                  "under a mesh are not ported")
 
 
 def apply_rglru_block(params, x: torch.Tensor, cfg, *,
@@ -76,32 +109,45 @@ def apply_rglru_block(params, x: torch.Tensor, cfg, *,
     and the conv tail is taken at each row's last valid tokens.  Must be a
     prefix mask per row.
     """
-    b_, t, _ = x.shape
-    y = F.gelu(x @ params["w_y"], approximate="tanh")           # gate branch
-    xb = x @ params["w_x"]                                       # recurrent branch
+    _refuse_state(x, state)
+    g = is_sharded(x) and cfg.fsdp_gather_weights      # a mesh's option only
+
+    def proj(z, name):
+        w = gather_for_use(params[name], ("embed", "rnn"), g)
+        return constrain(dense(z, w), "batch", "seq", "rnn")
+
+    y = smap(lambda t: F.gelu(t, approximate="tanh"), proj(x, "w_y"))   # gate branch
+    xb = proj(x, "w_x")                                                 # recurrent branch
 
     # Temporal conv (width 4): the token-shift elevator chain.
     if state is not None:
         ext = torch.cat([state.conv.to(xb.dtype), xb], dim=1)
         xb_conv = token_shift(ext, params["conv_w"])[:, state.conv.shape[1]:]
     else:
-        xb_conv = token_shift(xb, params["conv_w"])
+        xb_conv = smap(token_shift, xb, along(params["conv_w"], xb))
+    h32 = None
 
-    a, bb = _rglru_gates(params, xb_conv)
-    a32, b32 = a.float(), bb.float()
-    if token_mask is not None and state is not None:
-        # Masked tokens are identity steps: h passes through, so h[:, -1] is
-        # each request's state at its last valid token.
-        m = token_mask[:, :, None]
-        a32 = torch.where(m, a32, torch.ones((), device=x.device))
-        b32 = torch.where(m, b32, torch.zeros((), device=x.device))
-    h0 = state.h.float() if state is not None else None
-    h32 = elevator_scan(a32.contiguous(), b32.contiguous(), h0,
-                        decode=state is not None)
-    h = h32.to(x.dtype)
+    def scan(xl, pa, px, lam, yl):
+        nonlocal h32
+        a, bb = _rglru_gates(pa, px, lam, xl)
+        a32, b32 = a.float(), bb.float()
+        if token_mask is not None and state is not None:
+            # Masked tokens are identity steps: h passes through, so h[:, -1]
+            # is each request's state at its last valid token.
+            m = token_mask[:, :, None]
+            a32 = torch.where(m, a32, torch.ones((), device=xl.device))
+            b32 = torch.where(m, b32, torch.zeros((), device=xl.device))
+        h0 = state.h.float() if state is not None else None
+        h32 = elevator_scan(a32.contiguous(), b32.contiguous(), h0,
+                            decode=state is not None)
+        return h32.to(xl.dtype) * yl
+
+    hy = smap(scan, xb_conv, proj(xb_conv, "gate_a"), proj(xb_conv, "gate_x"),
+              along(params["log_lambda"], xb), y)
 
     new_state = None
     if state is not None:
+        b_ = x.shape[0]
         width = cfg.conv_width - 1
         if token_mask is None:
             conv_tail = ext[:, ext.shape[1] - width:]
@@ -115,8 +161,8 @@ def apply_rglru_block(params, x: torch.Tensor, cfg, *,
         # The state is read off the f32 scan output, not the model-dtype
         # cast: a frozen slot round-trips bit for bit even in bf16.
         new_state = RecState(h=h32[:, -1], conv=conv_tail)
-    out = (h * y) @ params["w_out"]
-    return out, new_state
+    out = dense(hy, gather_for_use(params["w_out"], ("rnn", "embed"), g))
+    return constrain(out, "batch", "seq", "act_embed"), new_state
 
 
 # ==========================================================================
@@ -177,62 +223,74 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
     unchanged, and the token-shift state is taken at each row's last valid
     token.  Must be a prefix mask per row.
     """
-    b, t, d = x.shape
-    dh = RWKV_HEAD_DIM
-    h = d // dh
+    _refuse_state(x, state)
+    gg = is_sharded(x) and cfg.fsdp_gather_weights     # a mesh's option only
+    d, dh = x.shape[-1], RWKV_HEAD_DIM
+    x_prev = state.conv if state is not None else None
 
-    x_prev = (
-        state.conv.to(x.dtype) if state is not None
-        else torch.zeros((b, 1, d), dtype=x.dtype, device=x.device)
-    )
-    mu = params["mu"]
-    xr, xk, xv, xg, xw = (_rwkv_mix(x, x_prev, mu[i]) for i in range(5))
+    def mix(t, mu):
+        prev = x_prev.to(t.dtype) if x_prev is not None else torch.zeros_like(t[:, :1])
+        return tuple(_rwkv_mix(t, prev, mu[i]) for i in range(5))
 
-    r = xr @ params["w_r"]
-    k = xk @ params["w_k"]
-    v = xv @ params["w_v"]
-    g = F.silu(xg @ params["w_g"])
-    # Data-dependent decay in (0, 1): exp(-exp(...)).  The logit is clamped
-    # so |log w| <= 4: the chunked kernel holds per-chunk decay ratios in
-    # f32, which stay finite while chunk * |log w| < ~80 (WKV_CHUNK -> 64).
-    decay_logit = params["w_decay_base"] + (
-        torch.tanh(xw @ params["w_decay_lora_a"]) @ params["w_decay_lora_b"]
-    )
-    decay_logit = decay_logit.float().clamp(-6.0, 1.386)
-    w = torch.exp(-torch.exp(decay_logit))
+    xr, xk, xv, xg, xw = smap(mix, x, constrain(params["mu"], None, None), n_out=5)
 
-    def heads(z):
-        return z.reshape(b, t, h, dh).transpose(1, 2).contiguous()  # (B,H,T,Dh)
+    def proj(z, name):
+        w = gather_for_use(params[name], ("embed", "heads_out"), gg)
+        return constrain(dense(z, w), "batch", "seq", "act_heads")
 
-    # w reaches the kernel in the model dtype (bf16 at full size).
-    r_, k_, v_, w_ = heads(r), heads(k), heads(v), heads(w.to(x.dtype))
-    if token_mask is not None and state is not None:
-        # Masked tokens are identity steps for S: decay 1, zero k^T v.
-        m = token_mask[:, None, :, None]                 # (B, 1, T, 1)
-        w_ = torch.where(m, w_, torch.ones((), dtype=w_.dtype, device=w_.device))
-        k_ = torch.where(m, k_, torch.zeros((), dtype=k_.dtype, device=k_.device))
-    u = params["u_bonus"].reshape(h, dh)
+    r, k, v = proj(xr, "w_r"), proj(xk, "w_k"), proj(xv, "w_v")
+    g = smap(F.silu, proj(xg, "w_g"))
+    lora = smap(torch.tanh, constrain(dense(xw, params["w_decay_lora_a"]),
+                                      "batch", "seq", None))
+    delta = constrain(dense(lora, params["w_decay_lora_b"]), "batch", "seq", "act_heads")
+    heads_split = not is_sharded(x) or (d // dh) % axes_size(x.mesh, r.dims[-1]) == 0
+    if not heads_split:          # heads that do not divide the model axis
+        sharded = r.dims
+        r, k, v, delta = (reshard(z, z.dims[:-1] + ((),)) for z in (r, k, v, delta))
+    S = None
 
-    h0 = (
-        state.h.float() if state is not None
-        else torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
-    )
-    seq_plan = _seq_plan(b, t)
-    if seq_plan is not None:
-        # Sequence-parallel rules: each shard sweeps its own tokens and only
-        # the O(Dh²) (decay, state) summary crosses the seq axis.
-        mesh, seq_ax, batch_ax = seq_plan
-        out, S = wkv_seqshard(r_, k_, v_, w_, u, h0, mesh=mesh, seq_axis=seq_ax,
-                              batch_axis=batch_ax, chunk=WKV_CHUNK)
-    else:
-        out, S = wkv_fused(
-            r_, k_, v_, w_, u, h0, chunk=WKV_CHUNK, decode=state is not None,
-            warn_scope=cfg.name,
-        )
+    def wkv(rl, kl, vl, dl, base, ul):
+        nonlocal S
+        b, t, dl_ = rl.shape
+        h = dl_ // dh
+        # Data-dependent decay in (0, 1): exp(-exp(...)).  The logit is
+        # clamped so |log w| <= 4: the chunked kernel holds per-chunk decay
+        # ratios in f32, which stay finite while chunk * |log w| < ~80
+        # (WKV_CHUNK -> 64).
+        w = torch.exp(-torch.exp((base + dl).float().clamp(-6.0, 1.386)))
 
-    out = out.transpose(1, 2).reshape(b, t, d).to(x.dtype)
-    out = rms_norm(params["out_norm"], out, cfg.norm_eps) * g
-    out = out @ params["w_o"]
+        def heads(z):
+            return z.reshape(b, t, h, dh).transpose(1, 2).contiguous()  # (B,H,T,Dh)
+
+        # w reaches the kernel in the model dtype (bf16 at full size).
+        r_, k_, v_, w_ = heads(rl), heads(kl), heads(vl), heads(w.to(rl.dtype))
+        if token_mask is not None and state is not None:
+            # Masked tokens are identity steps for S: decay 1, zero k^T v.
+            m = token_mask[:, None, :, None]                 # (B, 1, T, 1)
+            w_ = torch.where(m, w_, torch.ones((), dtype=w_.dtype, device=w_.device))
+            k_ = torch.where(m, k_, torch.zeros((), dtype=k_.dtype, device=k_.device))
+        u = ul.reshape(h, dh)
+        h0 = (state.h.float() if state is not None
+              else torch.zeros((b, h, dh, dh), dtype=torch.float32, device=rl.device))
+        seq_plan = _seq_plan(b, t)
+        if seq_plan is not None:
+            # Sequence-parallel rules: each shard sweeps its own tokens and
+            # only the O(Dh²) (decay, state) summary crosses the seq axis.
+            mesh, seq_ax, batch_ax = seq_plan
+            out, S = wkv_seqshard(r_, k_, v_, w_, u, h0, mesh=mesh, seq_axis=seq_ax,
+                                  batch_axis=batch_ax, chunk=WKV_CHUNK)
+        else:
+            out, S = wkv_fused(r_, k_, v_, w_, u, h0, chunk=WKV_CHUNK,
+                               decode=state is not None, warn_scope=cfg.name)
+        return out.transpose(1, 2).reshape(b, t, dl_).to(rl.dtype)
+
+    out = smap(wkv, r, k, v, delta, along(params["w_decay_base"], r),
+               along(params["u_bonus"], r))
+    out = rms_norm(params["out_norm"], out, cfg.norm_eps)
+    if not heads_split:
+        out = reshard(out, sharded)
+    out = dense(out * g, gather_for_use(params["w_o"], ("heads_out", "embed"), gg))
+    out = constrain(out, "batch", "seq", "act_embed")
 
     new_state = None
     if state is not None:
@@ -241,8 +299,9 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
         else:
             # Token-shift state = each row's last valid token (row `count`
             # of [x_prev | x]); an all-False row keeps x_prev.
+            b = x.shape[0]
             counts = token_mask.sum(dim=1)
-            ext = torch.cat([x_prev, x], dim=1)
+            ext = torch.cat([x_prev.to(x.dtype), x], dim=1)
             conv = ext[torch.arange(b, device=x.device), counts][:, None]
         new_state = RecState(h=S, conv=conv)
     return out, new_state

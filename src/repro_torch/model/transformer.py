@@ -21,7 +21,10 @@ same checkpoint with a selective policy: the outputs of the matrix products
 with no batch dims (``aten.mm``, ``aten.addmm``: the projections) are saved
 and everything else, batched products (``bmm``) included, is recomputed.
 ``"none"`` keeps every activation.  Without grad (serving) the stack runs
-plain.
+plain.  On a (data, model) mesh the residual stream is a
+:class:`~repro_torch.model.sharding.Sharded` tensor (batch over data,
+replicated over model), each block's layers make their own collectives,
+and a recomputed period makes its forward's collectives again.
 """
 
 from __future__ import annotations

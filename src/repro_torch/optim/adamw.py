@@ -7,6 +7,11 @@ returns new trees (and its launcher donates the old ones), the port
 updates the parameters and moments in place under ``torch.no_grad()``.
 Stacked leaves (a leading layer axis) update one layer slice at a time, as
 the reference's ``lax.map`` does, so the f32 working set is one layer.
+
+On sharded leaves (:class:`~repro_torch.model.sharding.Sharded`) every
+shard updates its own piece; the global norm of the clip sums each
+shard's squares (a replicated leaf's divided by its replicas) and
+all-reduces the sum over every mesh axis.
 """
 
 from __future__ import annotations
@@ -15,8 +20,10 @@ import dataclasses
 import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.model import sharding as sh
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -83,23 +90,63 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in tree_leaves(tree)))
+def global_norm(tree):
+    leaves = tree_leaves(tree)
+    if not sh.is_sharded(leaves[0]):
+        return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    first = leaves[0]
+    sq = np.empty(first.shards.shape, dtype=object)
+    for c in first.cells():
+        with sh.cell_scope(c):
+            sq[c] = sum(g.shards[c].float().square().sum() / sh.replicas(g) for g in leaves)
+    total = sh.Sharded(first.mesh, (), sq, (),
+                       tuple(a for a, n in first.mesh.shape.items() if n > 1))
+    return sh.smap(torch.sqrt, sh.reshard(total, ()))
+
+
+def _scalars(cfg, gnorm, step):
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    step = step + 1
+    lr = schedule(cfg, step)
+    s = step.float()
+    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=s.device), s)
+    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=s.device), s)
+    return scale, step, lr, bc1, bc2
 
 
 @torch.no_grad()
 def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
     """One AdamW step in place.  Returns ``(params, state, metrics)``: the
     same parameter tree, updated, the new state (its moments updated in
-    place) and ``{"grad_norm", "lr"}`` as 0-d f32 tensors."""
+    place) and ``{"grad_norm", "lr"}`` as 0-d f32 tensors (of the first
+    shard, for a sharded tree)."""
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
-    step = state.step + 1
-    lr = schedule(cfg, step)
-    s = step.float()
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=s.device), s)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=s.device), s)
+    if sh.is_sharded(gnorm):
+        return _apply_sharded(params, grads, state, cfg, gnorm)
+    scale, step, lr, bc1, bc2 = _scalars(cfg, gnorm, state.step)
+    _update_leaves(cfg, zip(tree_leaves(params), tree_leaves(grads),
+                            tree_leaves(state.mu), tree_leaves(state.nu)),
+                   scale, lr, bc1, bc2)
+    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}
 
+
+def _apply_sharded(params, grads, state, cfg, gnorm):
+    step_sh = state.step
+    new_step = np.empty(step_sh.shards.shape, dtype=object)
+    lr0 = None
+    leaves = [tree_leaves(t) for t in (params, grads, state.mu, state.nu)]
+    for c in step_sh.cells():
+        with sh.cell_scope(c):
+            scale, new_step[c], lr, bc1, bc2 = _scalars(cfg, gnorm.shards[c], step_sh.shards[c])
+            lr0 = lr if lr0 is None else lr0
+            _update_leaves(cfg, ((p.shards[c], g.shards[c], m.shards[c], v.shards[c])
+                                 for p, g, m, v in zip(*leaves)), scale, lr, bc1, bc2)
+    step = sh.Sharded(step_sh.mesh, step_sh.dims, new_step, step_sh.shape)
+    return params, AdamWState(step, state.mu, state.nu), {
+        "grad_norm": gnorm.shards.flat[0], "lr": lr0}
+
+
+def _update_leaves(cfg, leaves, scale, lr, bc1, bc2):
     def upd(p, g, m, v):
         g = g.float() * scale
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
@@ -108,12 +155,9 @@ def apply_updates(params, grads, state: AdamWState, cfg: AdamWConfig):
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p32
         p.copy_(p32 - lr * delta)
 
-    leaves = zip(tree_leaves(params), tree_leaves(grads),
-                 tree_leaves(state.mu), tree_leaves(state.nu))
     for p, g, m, v in leaves:
         if p.ndim >= 3 and p.shape[0] > 1:
             for i in range(p.shape[0]):
                 upd(p[i], g[i], m[i], v[i])
         else:
             upd(p, g, m, v)
-    return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr}

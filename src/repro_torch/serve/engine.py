@@ -64,9 +64,10 @@ from repro_torch.ft.watchdog import StepTimeout, StepWatchdog, StragglerDetector
 from repro_torch.kernels.common import resolve_device
 from repro_torch.model import model as M
 from repro_torch.model.attention import KVCache, PagedKVCache
-from repro_torch.model.sharding import make_rules, sharding_context
+from repro_torch.model.sharding import is_sharded, make_rules, sharding_context, smap
 from repro_torch.serve import paging
 from repro_torch.serve.chaos import DispatchDropped
+from repro_torch.tree import tree_leaves
 
 #: Prompts at/above this length take the sequence-parallel rules when a
 #: mesh is given; below it, the summary hops cost more than the per-shard
@@ -96,23 +97,37 @@ def make_prefill_step(cfg):
     multiple of n the batch goes through one forward.  Sequences are
     independent, but an MoE layer's capacity counts the tokens of its call,
     so for the MoE archs the chunked logits are the reference's chunked
-    ones, not the one-forward ones."""
+    ones, not the one-forward ones.
 
-    def prefill_step(params, tokens, **kw):
-        n, b = cfg.prefill_chunks, tokens.shape[0]
-        if n <= 1 or b % n:
-            return M.forward(params, cfg, tokens, **kw)
-        c = b // n
+    With sharded parameters (under a prefill sharding context) each chunk
+    runs the sharded forward and the logits come back as one
+    :class:`~repro_torch.model.sharding.Sharded` tensor (n, B / n, S, V),
+    chunk by chunk as the reference's scan stacks them, every chunk split
+    over the data axis and the vocabulary over the model axis."""
 
-        def chunk(key, v, i):
+    def chunks(params, tokens, kw, n):
+        """Each of the ``n`` chunks' logits, in order."""
+        c = tokens.shape[0] // n
+
+        def part(key, v, i):
             if key == "positions" and v.ndim == 3 and v.shape[0] == 3:
                 return v[:, i * c:(i + 1) * c]
             return v[i * c:(i + 1) * c]
 
-        out = None
         for i in range(n):
-            logits = M.forward(params, cfg, tokens[i * c:(i + 1) * c],
-                               **{key: chunk(key, v, i) for key, v in kw.items()})
+            yield M.forward(params, cfg, tokens[i * c:(i + 1) * c],
+                            **{key: part(key, v, i) for key, v in kw.items()})
+
+    def prefill_step(params, tokens, **kw):
+        n, b = cfg.prefill_chunks, tokens.shape[0]
+        if is_sharded(tree_leaves(params)[0]):
+            outs = list(chunks(params, tokens, kw, n if n > 1 and b % n == 0 else 1))
+            return smap(lambda *ls: torch.stack(ls), *outs, dims=((),) + outs[0].dims)
+        if n <= 1 or b % n:
+            return M.forward(params, cfg, tokens, **kw)
+        c = b // n
+        out = None
+        for i, logits in enumerate(chunks(params, tokens, kw, n)):
             if out is None:
                 out = logits.new_empty((b,) + logits.shape[1:])
             out[i * c:(i + 1) * c] = logits

@@ -8,15 +8,28 @@ and donates the state; the port loops over microbatches in Python, sums
 their grads into f32 buffers, and updates the state's parameters and
 moments in place.  ``metrics`` holds 0-d tensors (``loss``,
 ``grad_norm``, ``lr``) on the parameters' device.
+
+A train state of :class:`~repro_torch.model.sharding.Sharded` leaves
+(:func:`shard_train_state`, under ``sharding_context(mesh,
+make_rules(mesh, "train"))``) trains sharded: each microbatch of the
+global batch is split over the data axis, the loss is the vocab-sharded
+cross-entropy (its max and its sums all-reduced over the vocabulary's
+shards, the token sum over data), each shard's gradients accumulate in
+f32, and once a step the gradients of every leaf replicated over a mesh
+axis are all-reduced over it (the data-parallel all-reduce; over the
+model axis for a leaf every model shard used, whose shards hold partial
+sums).  AdamW then updates every shard in place.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.model import model as M
+from repro_torch.model import sharding as sh
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import (
     ErrorFeedbackState,
@@ -69,9 +82,55 @@ def train_state_pspecs(cfg, rules) -> TrainState:
     return TrainState(params=pspecs, opt=adamw.state_pspecs(pspecs), ef=None)
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def shard_train_state(state: TrainState, cfg, mesh, rules) -> TrainState:
+    """``state`` split over ``mesh`` by :func:`train_state_pspecs` under
+    ``rules``: every parameter shard a leaf that requires grad, the
+    moments and the step placed alike (no error-feedback residuals)."""
+    if state.ef is not None:
+        raise NotImplementedError("gradient compression is not ported to sharded states")
+    specs = train_state_pspecs(cfg, rules)
+    params = sh.device_put_tree(state.params, specs.params, mesh, requires_grad=True)
+    opt = adamw.AdamWState(
+        step=sh.device_put(state.opt.step, sh.NamedSharding(mesh, specs.opt.step)),
+        mu=sh.device_put_tree(state.opt.mu, specs.opt.mu, mesh, requires_grad=False),
+        nu=sh.device_put_tree(state.opt.nu, specs.opt.nu, mesh, requires_grad=False))
+    return TrainState(params, opt, None)
+
+
+def cross_entropy(logits, labels):
+    """Mean token cross-entropy in f32.  Sharded logits (split over the
+    vocabulary) take the max and the sums over the vocabulary's shards by
+    all-reduces and the token sum over the batch's; the result is a
+    replicated 0-d :class:`~repro_torch.model.sharding.Sharded`."""
+    if sh.is_sharded(logits):
+        return _sharded_cross_entropy(logits, labels)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, labels[..., None].long())[..., 0].mean()
+
+
+def _sharded_cross_entropy(logits, labels):
+    labels = M._place(labels, "batch", "seq")
+    vocab = logits.dims[-1]
+    row = logits.dims[:-1] + ((),)
+    m = sh.smap(lambda t: t.detach().float().amax(dim=-1, keepdim=True), logits, dims=row)
+    m = sh.all_reduce_max(m, vocab)
+    s = sh.smap(lambda t, mm: torch.exp(t.float() - mm).sum(dim=-1, keepdim=True),
+                logits, m, dims=row)
+    s.partial = vocab
+
+    def pick(cell, t, y):
+        ids = y.long()[..., None] - sh.offset(logits, -1, cell)
+        hit = (ids >= 0) & (ids < t.shape[-1])
+        z = torch.gather(t.float(), -1, ids.clamp(0, t.shape[-1] - 1))
+        return torch.where(hit, z, torch.zeros((), device=z.device))
+
+    z = sh.smap(pick, logits, labels, cell=True, dims=row)
+    z.partial = vocab
+    s, z = sh.reshard(s, row), sh.reshard(z, row)
+    total = sh.smap(lambda mm, ss, zz: (mm + torch.log(ss) - zz).sum(), m, s, z, dims=())
+    total.partial = tuple(a for d in row for a in d)
+    n = logits.shape[0] * logits.shape[1]
+    return sh.smap(lambda t: t / n, sh.reshard(total, ()))
 
 
 def _model_kwargs(batch):
@@ -125,6 +184,11 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None, *,
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state.params
         leaves = tree_leaves(params)
+        if sh.is_sharded(leaves[0]):
+            if compress:
+                raise NotImplementedError("gradient compression is not ported to "
+                                          "sharded states")
+            return _sharded_step(state, batch, loss_fn, n_micro, accum_dtype, opt_cfg)
         if n_micro == 1:
             loss = loss_fn(params, batch)
             grads = list(torch.autograd.grad(loss, leaves))
@@ -151,6 +215,58 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig | None = None, *,
         return TrainState(params, opt, ef), {"loss": loss, **opt_metrics}
 
     return train_step
+
+
+def sharded_loss_and_grads(params, batch, loss_fn, n_micro: int = 1,
+                           accum_dtype=torch.float32):
+    """``(loss, grads)`` of sharded ``params`` over ``n_micro`` microbatches
+    of ``batch``: the mean loss (a 0-d tensor of the first shard) and a
+    tree of :class:`~repro_torch.model.sharding.Sharded` gradients laid
+    out as the parameters, each microbatch's summed in ``accum_dtype`` on
+    its shard, divided by their number and, for every leaf replicated over
+    a mesh axis, all-reduced over it (the data-parallel all-reduce: a
+    replicated value's cotangent is held as partial sums on its replicas)."""
+    leaves = tree_leaves(params)
+    shards = [leaf.shards[c] for leaf in leaves for c in leaf.cells()]
+    acc = [torch.zeros(t.shape, dtype=accum_dtype, device=t.device) for t in shards]
+    micro = _split_micro(batch, n_micro) if n_micro > 1 else None
+    loss = None
+    for i in range(n_micro):
+        mb = batch if micro is None else {k: v[i] for k, v in micro.items()}
+        loss_i = loss_fn(params, mb)
+        # Every replica of the loss seeds its 1 / n share: the cotangent of a
+        # replicated value is held as partial sums on its replicas, and each
+        # shard runs the same backward, as every card of a mesh does.
+        seeds = list(loss_i.shards.flat)
+        ones = [torch.full_like(t, 1.0 / len(seeds)) for t in seeds]
+        grads = torch.autograd.grad(seeds, shards, ones, allow_unused=True)
+        for a, g in zip(acc, grads):
+            if g is not None:
+                a.add_(g.to(accum_dtype))
+        part = sh.smap(torch.Tensor.detach, loss_i)
+        loss = part if loss is None else loss + part
+        del loss_i, seeds, grads
+    if n_micro > 1:
+        loss = sh.smap(lambda t: t / n_micro, loss)
+        for a in acc:
+            a.div_(n_micro)
+    it = iter(acc)
+    grads = []
+    for leaf in leaves:
+        arr = np.empty(leaf.shards.shape, dtype=object)
+        for c in leaf.cells():
+            arr[c] = next(it)
+        used = {a for d in leaf.dims for a in d}
+        g = sh.Sharded(leaf.mesh, leaf.dims, arr, leaf.shape,
+                       tuple(a for a, n in leaf.mesh.shape.items() if n > 1 and a not in used))
+        grads.append(sh.reshard(g, g.dims) if g.partial else g)
+    return loss.shards.flat[0], tree_unflatten(params, grads)
+
+
+def _sharded_step(state: TrainState, batch, loss_fn, n_micro: int, accum_dtype, opt_cfg):
+    loss, grads = sharded_loss_and_grads(state.params, batch, loss_fn, n_micro, accum_dtype)
+    params, opt, opt_metrics = adamw.apply_updates(state.params, grads, state.opt, opt_cfg)
+    return TrainState(params, opt, state.ef), {"loss": loss, **opt_metrics}
 
 
 def audit_dispatch_entrypoints(cfg, *, device=None, batch: int | None = None, seq: int = 16):

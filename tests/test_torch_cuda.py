@@ -1986,3 +1986,45 @@ def test_dry_run_trace_matches_the_card(cuda, arch, kind):
         lambda o: o[0] if kind == "decode" else o)
     assert first(out).shape == first(meta_out).shape and first(out).dtype == first(meta_out).dtype
     assert bool(torch.isfinite(first(out)).all())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b", "qwen2-0.5b",
+                                  "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("fsdp", [False, True], ids=["move-activations", "gather-weights"])
+def test_sharded_reduced_step_on_a_mesh_of_the_card_matches_unsharded(cuda, arch, fsdp):
+    """One train step of the reduced f32 model, sharded on a (2, 4) mesh of
+    the card, against the same step unsharded on the card: loss, grad norm,
+    each gradient leaf (AdamW's first moment) and parameters, with each
+    shard's kernels launched on its own heads and channels."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import sharding as S
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), microbatch=2,
+                              fsdp_gather_weights=fsdp)
+    params = TS.init_train_state(cfg, 1, device="cpu").params
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=8,
+                                  seed=2), 0, device="cuda")
+    moved = tree_map(lambda p: p.detach().to(cuda, copy=True).requires_grad_(True), params)
+    state, m = TS.make_train_step(cfg)(TS.TrainState(moved, adamw.init_state(moved), None),
+                                       batch)
+    want = (float(m["loss"]), float(m["grad_norm"]),
+            [p.detach().cpu() for p in tree_leaves(state.params)], tree_leaves(state.opt.mu))
+    mesh = make_debug_mesh(2, 4)
+    rules = S.make_rules(mesh, "train")
+    counters = _all_counters()
+    with S.sharding_context(mesh, rules):
+        sharded = TS.shard_train_state(
+            TS.TrainState(tree_map(lambda p: p.detach().to(cuda, copy=True), params),
+                          adamw.init_state(tree_map(lambda p: p.to(cuda), params)), None),
+            cfg, mesh, rules)
+        for fn in counters.values():
+            fn.launches = 0
+        sharded, m = TS.make_train_step(cfg)(sharded, batch)
+        torch.cuda.synchronize()
+    launched = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    assert launched, "the sharded step launched no kernel"
+    assert float(m["loss"]) == pytest.approx(want[0], rel=1e-5)
+    assert float(m["grad_norm"]) == pytest.approx(want[1], rel=1e-4)
+    _first_moments_close([S.to_global(x) for x in tree_leaves(sharded.opt.mu)], want[3])
+    got = [S.to_global(p).detach().cpu() for p in tree_leaves(sharded.params)]
+    assert max(float((a - b).abs().max()) for a, b in zip(got, want[2])) <= 1e-5

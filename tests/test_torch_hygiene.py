@@ -151,6 +151,20 @@ def test_decoder_arch_modules_are_checked():
     assert not bad
 
 
+def test_dense_sharding_modules_are_checked():
+    """The sharded dense layers' modules, the closed forms of their hops
+    and the hill-climb are among the sources the import checks read, and
+    import neither JAX nor the reference."""
+    names = {str(p.relative_to(PORT)) for p in SOURCES if p.is_relative_to(PORT)}
+    mods = ("model/sharding.py", "core/device_comm.py", "analysis/dense_hops.py",
+            "launch/hillclimb.py", "launch/dryrun.py", "checkpoint/checkpoint.py",
+            "train/step.py", "optim/adamw.py")
+    for mod in mods:
+        assert mod in names, f"{mod} is not among the sources the import checks read"
+        bad = [m for m in _imports(PORT / mod) if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+        assert not bad, (mod, bad)
+
+
 def test_meshes_need_the_card_by_default(no_card):
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh_mod.make_seq_mesh(4)

@@ -145,6 +145,39 @@ class TestDispatch:
             assert ops.resolve_chunk(64, 16, scope="scope-a") == 16
         assert len(rec) == 2
 
+    def test_chunk_warning_scope_and_reset_all_scopes(self):
+        """The reference's tests/test_analysis.py:267 case on the port: the
+        context manager scopes call sites that name no scope, a per-scope
+        reset forgets one scope only, ``all_scopes`` every one."""
+        ops.reset_chunk_warnings(all_scopes=True)
+        try:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                assert ops.resolve_chunk(10, 4, scope="cfg-a") == 2
+                ops.resolve_chunk(10, 4, scope="cfg-a")      # deduped
+                ops.resolve_chunk(10, 4, scope="cfg-b")      # fresh scope
+            assert len(rec) == 2, [str(w.message) for w in rec]
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                with ops.chunk_warning_scope("cfg-c"):
+                    ops.resolve_chunk(10, 4)
+                    ops.resolve_chunk(10, 4)                 # deduped in scope
+                ops.resolve_chunk(10, 4)                     # None scope: new
+            assert len(rec) == 2, [str(w.message) for w in rec]
+            ops.reset_chunk_warnings("cfg-a")
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                ops.resolve_chunk(10, 4, scope="cfg-a")      # warns again
+                ops.resolve_chunk(10, 4, scope="cfg-b")      # still deduped
+            assert len(rec) == 1, [str(w.message) for w in rec]
+            ops.reset_chunk_warnings(all_scopes=True)
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                ops.resolve_chunk(10, 4, scope="cfg-b")      # every scope forgotten
+            assert len(rec) == 1
+        finally:
+            ops.reset_chunk_warnings(all_scopes=True)
+
     def test_use_kernel_false_on_cpu_is_plain(self):
         args = _torch(_np_inputs(1, 1, 8, 64, seed=2))
         a = ops.wkv_fused(*args, use_kernel=False, decode=True)
