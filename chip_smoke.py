@@ -312,6 +312,29 @@ Phases (any failure raises and exits non-zero, with no result line):
    state (rwkv6-1.6b at full width cut to 2 layers) saved after a step,
    restored with ``restore(..., shardings=)`` onto the mesh, and its next
    step bit-identical to the in-memory state's;
+3s. the decode rules and the encoder-decoder arch sharded on a (data=2,
+   model=4) mesh of the card, through ``serve/engine.py:make_decode_step``
+   (and ``make_prefill_step``) under ``sharding_context(mesh,
+   make_rules(mesh, "decode" | "decode_long" | "prefill"))``, the state
+   split by ``model.shard_decode_state``: full-width qwen2-0.5b decode_32k
+   (``decode``, 4 layers, B=128, 32768-slot caches filled to 32744 with
+   seeded rows), gemma3-1b long_500k (``decode_long``, one period of 6
+   layers: a 524288-slot global layer and 576-slot local rings over all 8
+   shards, B=1), rwkv6-1.6b long_500k (``decode_long``, every layer, B=1)
+   and seamless-m4t-large-v2 decoding (``decode``, 4 + 4 layers, B=4,
+   1024 frames a row over the model axis), each a prompt window then 8
+   single tokens, sharded and unsharded from the same weights (seed 0) in
+   f32 and in bf16: the f32 logits and the gathered final state within
+   1e-4 of the unsharded ones relative to their rms, the bf16 logits'
+   distance from the f32 run at most 1.5 times the unsharded bf16 run's,
+   greedy agreement printed, every call's hops equal to
+   ``dense_hops.decode_hops``, every call's launches 8 times the unsharded
+   call's, the wall a step and the busy and copy shares of a profiled
+   step; seamless's scoring (``prefill``, B=2, 1024 frames, 256 tokens)
+   held alike; a planted fault (one shard's partial left out of each
+   combine group) caught by the f32 hold; the six reduced f32 archs under
+   both decode rules on the mesh of the card against a mesh of ``cpu``
+   shards;
 3f. the paper demo: the 5-point stencil against its plain version in f32
    (bit for bit) and bf16 (hotspot and SRAD coefficients on the suite's
    256 x 512 grid, boundary 5.0 at 64 x 128, the odd 257 x 383, and 8192 x
@@ -714,6 +737,10 @@ def main():
     # ---- 3r. the dense layers sharded on a (data, model) mesh of the card --
     _free(torch, "phase 3r")
     _dense_sharding(torch, np)
+
+    # ---- 3s. the decode rules and the encoder-decoder arch on the mesh ------
+    _free(torch, "phase 3s")
+    _sharded_decode(torch, np)
 
     # ---- 3f. the paper demo: stencil, matmul and the Rodinia suite --------
     worst.update(_paper_kernel_checks(torch))
@@ -1294,30 +1321,25 @@ def _profile_generate(torch, engine, prompts):
     _profile(torch, lambda: engine.generate(prompts, 16), "generate B=4 P=256 +16 K=8")
 
 
-def _profile(torch, fn, what, top=8, host_ops=True):
+def _profile(torch, fn, what, top=8):
     """Wall time of ``fn()``, the card's busy and idle shares, and the
     kernels with the most device time, from the device-side kernel events
     of ``torch.profiler`` (whose own overhead lengthens the wall time, so
-    the busy share it gives is a lower bound).  ``host_ops=False`` records
-    the device's kernels alone, not every host op, and reads the raw
-    device events: a run of hundreds of thousands of ops (a sharded
-    step's) is then not slowed by the recording and its processing."""
+    the busy share it gives is a lower bound).  It records the device's
+    kernels alone and reads the raw device events: recording every host op
+    too, and reading the events through the host's tree, cost tens of
+    seconds a long run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    if host_ops:
-        device = ((e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == DeviceType.CUDA)
-    else:                    # the raw device events: no host-side tree to build
-        device = ((e.name(), e.duration_ns() / 1e3)
-                  for e in prof.profiler.kineto_results.events()
-                  if e.device_type() == DeviceType.CUDA)
+    device = ((e.name(), e.duration_ns() / 1e3)
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA)
     by_name: dict[str, list] = {}
     for name, us in device:
         acc = by_name.setdefault(name, [0.0, 0])
@@ -5335,7 +5357,7 @@ def _profiled(torch, counters, fn, what):
     for c in counters.values():
         c.launches = 0
     torch.cuda.synchronize()
-    sh = _profile(torch, fn, what, top=5, host_ops=False)
+    sh = _profile(torch, fn, what, top=5)
     counts = {n: c.launches for n, c in counters.items()}
     if "busy_us" in sh:
         print(f"[dense] {what}: wall {sh['wall_us'] / 1e3:.1f} ms under the profiler, card busy "
@@ -5864,6 +5886,397 @@ def _dense_sharding(torch, np):
     _dense_restore(torch, np)
     walls["restore"] = time.perf_counter() - t0 - sum(walls.values())
     print(f"[time] phase 3r wall: {time.perf_counter() - t0:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()) + ")")
+
+
+# ---------------------------------------------------------------------------
+# The decode rules and the encoder-decoder arch sharded on a (data, model)
+# mesh of the card (phase 3s).
+# ---------------------------------------------------------------------------
+
+#: Phase 3s's mesh of the card.
+DECODE_MESH = (2, 4)
+#: The sharded f32 logits (and each gathered state leaf) against the
+#: unsharded f32 run's, relative to their rms: summation orders only.
+DECODE_F32_RTOL = 1e-4
+#: Single-token steps after each decode cell's prompt window.
+DECODE_STEPS = 8
+#: The decode cells: (label, arch, rules, layers kept (None: all), B,
+#: max_len, prompt window K, position the cache is filled to before it,
+#: frames a row (the encoder-decoder arch) or None).
+DECODE_CELLS = (
+    ("decode_32k", "qwen2-0.5b", "decode", 4, 128, 32768, 16, 32768 - 16 - DECODE_STEPS, None),
+    ("long_500k", "gemma3-1b", "decode_long", 6, 1, 524288, 64, 524288 - 64 - DECODE_STEPS,
+     None),
+    ("long_500k", "rwkv6-1.6b", "decode_long", None, 1, 524288, 64, 0, None),
+    ("decoding", "seamless-m4t-large-v2", "decode", 4, 4, 128, 64, 0, 1024),
+)
+#: The seamless scoring cell under prefill rules: (B, frames, tokens,
+#: layers of each stack).
+DECODE_SCORE = (2, 1024, 256, 4)
+
+
+def _decode_state(torch, M, cfg, b, max_len, iw, fill_to, seed, dev):
+    """A zero decode state with every KV cache filled to ``fill_to``
+    positions with seeded N(0, 1) rows rounded to bf16 (the same values in
+    both dtypes), its lengths set to ``fill_to``."""
+    state = M.init_decode_state(cfg, b, max_len, iw, device=dev)
+    if fill_to:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        for node in M.state_nodes(state):
+            if isinstance(node, M.KVCache):
+                for leaf in (node.k, node.v):
+                    for part in leaf.view(-1, *leaf.shape[-2:]).unbind(0):
+                        part.copy_(torch.randn(part.shape, generator=g, device=dev)
+                                   .to(torch.bfloat16))
+                node.length.fill_(fill_to)
+    return state
+
+
+def _decode_calls(torch, cfg, b, k, fill_to, frames, seed, dev):
+    """The cell's inputs: the prompt window, the single tokens, the
+    lengths of each call and, for the encoder-decoder arch, frames."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    window = torch.randint(0, cfg.vocab_size, (b, k), generator=g).to(dev)
+    steps = torch.randint(0, cfg.vocab_size, (DECODE_STEPS, b, 1), generator=g).to(dev)
+    calls = [(window, fill_to)] + [(steps[i], fill_to + k + i) for i in range(DECODE_STEPS)]
+    enc = (torch.randn((b, frames, cfg.d_model), generator=g).to(dev) if frames else None)
+    return calls, enc
+
+
+def _decode_sequence(torch, step, params, state, calls, enc_out, counters, profile=None):
+    """Every call of the cell through ``step`` (``make_decode_step``):
+    (logits of each call, the launches of each, the hops of each, the
+    seconds of each); ``profile``: profile the second single step under
+    that name."""
+    from repro_torch.core.device_comm import record_hops
+
+    out = []
+    for i, (tokens, length) in enumerate(calls):
+        with torch.inference_mode(), record_hops() as hops:
+            run = lambda: step(params, state, tokens, length, enc_out)  # noqa: E731
+            if profile and i == 2:
+                (logits, state), dt, n = _profiled(torch, counters, run, profile)
+            else:
+                (logits, state), dt, n = _counted(torch, counters, run)
+        out.append((logits, n, hops, dt))
+    return out, state
+
+
+def _decode_cell(torch, np, label, name, mode, layers, b, max_len, k, fill_to, frames,
+                 fault=False, dev="cuda"):
+    """One decode cell of phase 3s (:data:`DECODE_CELLS`), sharded on
+    :data:`DECODE_MESH` of the card against unsharded: returns the worst
+    f32 rms share."""
+    from repro_torch.analysis.dense_hops import decode_hops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import device_comm as comm
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model import sharding as S
+    from repro_torch.serve.engine import make_decode_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    base = get_config(name)
+    if layers:
+        base = dataclasses.replace(base, num_layers=layers,
+                                   encoder_layers=layers if base.is_enc_dec else 0)
+    mesh = make_debug_mesh(*DECODE_MESH, device=dev)
+    rules = S.make_rules(mesh, mode)
+    shards = mesh.size
+    iw = M.split_insert_window(base, k, mesh, rules)
+    depth = f"{base.num_layers} layers" + ("" if layers is None else f" of {get_config(name).num_layers}")
+    tag = f"[decode {name} {label}]"
+    t0 = time.perf_counter()
+    counters = _counters()
+    calls, frames_t = _decode_calls(torch, base, b, k, fill_to, frames, 11, dev)
+    p32 = M.init_params(dataclasses.replace(base, dtype="float32"), seed=0, device=dev)
+    for x in tree_leaves(p32):                 # the bf16 weights, held in f32
+        x.copy_(x.to(torch.bfloat16))
+    runs, states = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype, remat="none", microbatch=1)
+        params = p32 if dtype == "float32" else tree_map(lambda x: x.to(torch.bfloat16), p32)
+        enc_out = None
+        if frames:
+            with torch.inference_mode():
+                enc_out = M.encode(params, cfg, frames_t)
+        step = make_decode_step(cfg)
+        plain = _decode_state(torch, M, cfg, b, max_len, iw, fill_to, 5, dev)
+        with S.sharding_context(mesh, rules):
+            sharded = M.shard_decode_state(plain, mesh, rules)
+            sparams = S.device_put_tree(params, M.param_pspecs(cfg, rules), mesh)
+        if fault and dtype == "float32":
+            # One shard's partial left out of the combine: the f32 hold must
+            # catch it.
+            with S.sharding_context(mesh, rules):
+                faulty = M.shard_decode_state(plain, mesh, rules)
+            real = comm.softmax_combine
+
+            def dropped(parts, **kw):
+                parts = list(parts)            # [max | denominator | numerators]
+                parts[1] = torch.cat([parts[1][..., :1], torch.zeros_like(parts[1][..., 1:])],
+                                     dim=-1)
+                return real(parts, **kw)
+
+            comm.softmax_combine = dropped
+            try:
+                with S.sharding_context(mesh, rules):
+                    bad, _ = _decode_sequence(torch, step, sparams, faulty, calls[:1], enc_out,
+                                              counters)
+            finally:
+                comm.softmax_combine = real
+            del faulty
+        want, plain = _decode_sequence(torch, step, params, plain, calls, enc_out, counters)
+        with S.sharding_context(mesh, rules):
+            got, sharded = _decode_sequence(
+                torch, step, sparams, sharded, calls, enc_out, counters,
+                profile=f"{name} {label} {dtype} sharded single step" if dtype == "bfloat16"
+                else None)
+        itemsize = 4 if dtype == "float32" else 2
+        for i, ((lg, n, hops, dt), (lw, nw, _, dtw)) in enumerate(zip(got, want)):
+            t = calls[i][0].shape[1]
+            _hold_hops(f"{tag} {dtype} call {i} (t={t})", hops,
+                       decode_hops(cfg, *DECODE_MESH, b, t, itemsize, mode, s_enc=frames))
+            wanted = {kk: v * shards for kk, v in nw.items()}
+            if n != wanted:
+                raise SystemExit(f"{tag} {dtype} call {i}: launches {n} != {wanted} "
+                                 f"({shards} shards x the unsharded call's)")
+        v = cfg.vocab_size
+        runs[dtype] = ([S.to_global(lg)[..., :v].float() for lg, _, _, _ in got],
+                       [lw[..., :v].float() for lw, _, _, _ in want],
+                       [dt for _, _, _, dt in got], [dt for _, _, _, dt in want],
+                       {kk: sum(n[kk] for _, n, _, _ in got) for kk in counters})
+        # The state after the last step, gathered leaf by leaf.
+        states[dtype] = max(_rms(S.to_global(a), w) / max(_rms(w), 1e-30)
+                            for a, w in zip(tree_leaves(sharded), tree_leaves(plain)))
+        if fault and dtype == "float32":
+            share = _rms(S.to_global(bad[0][0]).float(), runs[dtype][1][0]) / _rms(
+                runs[dtype][1][0])
+            caught = share > DECODE_F32_RTOL
+            print(f"{tag} planted fault, one shard's partial left out of the combine: the "
+                  f"window's logits {share:.3e} of rms from the unsharded run (hold "
+                  f"{DECODE_F32_RTOL:g}): {'caught' if caught else 'MISSED'}")
+            if not caught:
+                raise SystemExit(f"{tag}: the f32 hold missed the planted combine fault")
+            del bad
+        del sparams, sharded, plain, params, got, want
+        torch.cuda.empty_cache() if dev == "cuda" else None
+        t0 = _lap(tag, t0, f"{dtype}: unsharded and sharded runs, hops held")
+    g32, w32, dt_s, dt_p, launched = runs["float32"]
+    share = max(_rms(g, w) / _rms(w) for g, w in zip(g32, w32))
+    st_share = states["float32"]
+    gb, wb, dtb_s, dtb_p, launched_b = runs["bfloat16"]
+    e_sh = math.sqrt(sum(_rms(g, w) ** 2 for g, w in zip(gb, w32)) / len(w32))
+    e_pl = math.sqrt(sum(_rms(g, w) ** 2 for g, w in zip(wb, w32)) / len(w32))
+    ratio = e_sh / max(e_pl, 1e-30)
+    agree32 = float(np.mean([float((g.argmax(-1) == w.argmax(-1)).float().mean())
+                             for g, w in zip(g32, w32)]))
+    agree16 = float(np.mean([float((g.argmax(-1) == w.argmax(-1)).float().mean())
+                             for g, w in zip(gb, wb)]))
+    st16 = states["bfloat16"]
+    ok = (share <= DECODE_F32_RTOL and st_share <= DECODE_F32_RTOL
+          and ratio <= DENSE_BF16_ERROR_RATIO
+          and all(bool(torch.isfinite(g).all()) for g in gb))
+    # The single steps' walls off the profiler: the sharded run profiles
+    # call 2, so that call is left out on both sides.
+    step_ms, plain_ms = (1e3 * float(np.mean([d for i, d in enumerate(dts) if i not in (0, 2)]))
+                         for dts in (dtb_s, dtb_p))
+    print(f"{tag} {mode} on {DECODE_MESH[0]}x{DECODE_MESH[1]} of the card, {depth}, B={b}, "
+          f"{max_len} slots, cache filled to {fill_to}, a {k}-token window (insert window "
+          f"{iw}) then {DECODE_STEPS} single tokens"
+          + (f", {frames} frames a row split over {rules['kv_seq']}" if frames else "")
+          + f": f32 logits {share:.3e} of rms from the unsharded run (hold "
+          f"{DECODE_F32_RTOL:g}), gathered state {st_share:.3e}; bf16 logits' distance from "
+          f"the f32 run {e_sh:.4f} sharded against {e_pl:.4f} unsharded (ratio {ratio:.3f}, "
+          f"bound {DENSE_BF16_ERROR_RATIO}), gathered bf16 state {st16:.3e} of rms; greedy "
+          f"tokens agree {100 * agree32:.2f}% (f32) {100 * agree16:.2f}% (bf16); bf16 wall a "
+          f"single step (the {DECODE_STEPS - 1} unprofiled ones) {step_ms:.1f} ms sharded "
+          f"against {plain_ms:.1f} ms unsharded, the "
+          f"window {1e3 * dtb_s[0]:.1f} against {1e3 * dtb_p[0]:.1f} ms; launches (bf16, all "
+          f"calls) {_nonzero(launched_b)} = {shards} x the unsharded run's "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{tag}: the sharded decode disagrees with the unsharded one")
+    del runs, states, p32
+    return share
+
+
+def _seamless_scoring_sharded(torch, np, dev="cuda"):
+    """Seamless's scoring under prefill rules on :data:`DECODE_MESH`
+    (phase 3s), sharded against unsharded, f32 and bf16."""
+    from repro_torch.analysis.dense_hops import forward_hops
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.device_comm import record_hops
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import model as M
+    from repro_torch.model import sharding as S
+    from repro_torch.serve.engine import make_prefill_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    b, frames, t, layers = DECODE_SCORE
+    base = dataclasses.replace(get_config("seamless-m4t-large-v2"), num_layers=layers,
+                               encoder_layers=layers)
+    tag = f"[decode {base.name} scoring]"
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh(*DECODE_MESH, device=dev)
+    rules = S.make_rules(mesh, "prefill")
+    counters = _counters()
+    g = torch.Generator(device="cpu").manual_seed(13)
+    tokens = torch.randint(0, base.vocab_size, (b, t), generator=g).to(dev)
+    fr = torch.randn((b, frames, base.d_model), generator=g).to(dev)
+    p32 = M.init_params(dataclasses.replace(base, dtype="float32"), seed=0, device=dev)
+    for x in tree_leaves(p32):
+        x.copy_(x.to(torch.bfloat16))
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        params = p32 if dtype == "float32" else tree_map(lambda x: x.to(torch.bfloat16), p32)
+        step = make_prefill_step(cfg)
+        with torch.inference_mode():
+            want, dt_p, n_p = _counted(torch, counters,
+                                       lambda: step(params, tokens, enc_tokens_embeds=fr))
+        with S.sharding_context(mesh, rules):
+            sparams = S.device_put_tree(params, M.param_pspecs(cfg, rules), mesh)
+            with torch.inference_mode(), record_hops() as hops:
+                run = lambda: step(sparams, tokens, enc_tokens_embeds=fr)  # noqa: E731
+                got, dt, n = (_profiled(torch, counters, run, f"{base.name} {dtype} sharded "
+                                        "scoring") if dtype == "bfloat16"
+                              else _counted(torch, counters, run))
+            if dtype == "bfloat16":        # the wall again, off the profiler
+                with torch.inference_mode():
+                    got, dt, _ = _counted(torch, counters, run)
+        _hold_hops(f"{tag} {dtype}", hops,
+                   forward_hops(cfg, *DECODE_MESH, b, t, 4 if dtype == "float32" else 2,
+                                s_enc=frames))
+        wanted = {kk: v * mesh.size for kk, v in n_p.items()}
+        if n != wanted or not n["flash_attention_cuda"]:
+            raise SystemExit(f"{tag} {dtype}: launches {n} != {wanted}")
+        v = cfg.vocab_size
+        out[dtype] = (S.to_global(got).reshape(want.shape)[..., :v].float(),
+                      want[..., :v].float(), dt, dt_p, n)
+        del sparams, params, got, want
+    g32, w32, dt, dt_p, n = out["float32"]
+    gb, wb, dtb, dtb_p, nb = out["bfloat16"]
+    share = _rms(g32, w32) / _rms(w32)
+    e_sh, e_pl = _rms(gb, w32) / _rms(w32), _rms(wb, w32) / _rms(w32)
+    ratio = e_sh / max(e_pl, 1e-30)
+    agree = float((gb.argmax(-1) == wb.argmax(-1)).float().mean())
+    ok = share <= DECODE_F32_RTOL and ratio <= DENSE_BF16_ERROR_RATIO
+    print(f"{tag} prefill on {DECODE_MESH[0]}x{DECODE_MESH[1]} of the card, {layers} + "
+          f"{layers} layers, B={b}, {frames} frames, {t} tokens: f32 logits {share:.3e} of "
+          f"rms from the unsharded run (hold {DECODE_F32_RTOL:g}); bf16 distance from f32 "
+          f"{e_sh:.4f} sharded against {e_pl:.4f} (ratio {ratio:.3f}, bound "
+          f"{DENSE_BF16_ERROR_RATIO}); argmax agree {100 * agree:.2f}% (bf16); bf16 wall "
+          f"{dtb * 1e3:.1f} ms sharded (off the profiler) against {dtb_p * 1e3:.1f} ms; "
+          f"flash launches {nb['flash_attention_cuda']} = {mesh.size} x "
+          f"{nb['flash_attention_cuda'] // mesh.size} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{tag}: the sharded scoring disagrees")
+    _lap(tag, t0, "the scoring, held")
+    return share
+
+
+#: The reduced archs phase 3s decodes on the card and on ``cpu`` shards.
+DECODE_REDUCED_ARCHS = ("rwkv6-1.6b", "recurrentgemma-2b", "gemma3-1b", "qwen2-0.5b",
+                        "qwen3-moe-235b-a22b", "seamless-m4t-large-v2")
+
+
+def _decode_reduced_cfg(name):
+    """The reduced f32 config, its local window cut to 8 so that a 64-slot
+    cache's rings wrap within a few calls."""
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(name).reduced()
+    return dataclasses.replace(cfg, attn_window=8) if cfg.attn_window else cfg
+
+
+def _decode_reduced_inputs(torch, cfg):
+    """Seeded inputs of :func:`_decode_reduced_on_mesh` (on the CPU): two
+    8-token windows (B=4), 3 single tokens, the first window's ragged mask
+    (8, 5, 8, 3 tokens) and 16 encoder frames a row (None but for the
+    encoder-decoder arch)."""
+    g = torch.Generator().manual_seed(2)
+    return (torch.randint(0, cfg.vocab_size, (2, 4, 8), generator=g),
+            torch.randint(0, cfg.vocab_size, (3, 4, 1), generator=g),
+            torch.arange(8)[None] < torch.tensor([8, 5, 8, 3])[:, None],
+            torch.randn(4, 16, cfg.d_model, generator=g) if cfg.is_enc_dec else None)
+
+
+def _decode_reduced_on_mesh(torch, cfg, params, mesh, mode, inputs):
+    """``inputs`` through the sharded ``decode_step`` on ``mesh`` under
+    ``mode``'s rules (max_len 64): the ragged window, the full one, then
+    the single tokens.  Every call's logits and the final state's leaves,
+    gathered to the CPU."""
+    from repro_torch.model import model as M
+    from repro_torch.model import sharding as S
+    from repro_torch.tree import tree_leaves
+
+    toks, singles, mask, enc = inputs
+    dev = mesh.devices.flat[0]
+    rules = S.make_rules(mesh, mode)
+    iw = M.split_insert_window(cfg, toks.shape[-1], mesh, rules)
+    with torch.inference_mode(), S.sharding_context(mesh, rules):
+        params = S.device_put_tree(_to(params, dev), M.param_pspecs(cfg, rules), mesh)
+        state = M.shard_decode_state(M.init_decode_state(cfg, 4, 64, iw, device=dev), mesh,
+                                     rules)
+        e = None if enc is None else enc.to(dev)
+        lens = mask.sum(1).to(dev)
+        seq = [M.decode_step(params, cfg, state, toks[0].to(dev), 0, token_mask=mask.to(dev),
+                             enc_out=e, max_len=64)[0],
+               M.decode_step(params, cfg, state, toks[1].to(dev), lens, enc_out=e,
+                             max_len=64)[0]]
+        for i in range(len(singles)):
+            seq.append(M.decode_step(params, cfg, state, singles[i].to(dev), lens + 8 + i,
+                                     enc_out=e)[0])
+    return ([S.to_global(x).cpu() for x in seq],
+            [S.to_global(x).cpu() for x in tree_leaves(state)])
+
+
+def _decode_reduced_card_vs_cpu(torch, np):
+    """The reduced f32 archs decoding under ``decode`` and ``decode_long``
+    on :data:`DECODE_MESH` of the card against the same mesh of ``cpu``
+    shards (phase 3s): :func:`_decode_reduced_on_mesh`'s logits within
+    1e-4."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.model import model as M
+
+    worst = 0.0
+    for name in DECODE_REDUCED_ARCHS:
+        cfg = _decode_reduced_cfg(name)
+        p_cpu = M.init_params(cfg, 1, device="cpu")
+        inputs = _decode_reduced_inputs(torch, cfg)
+        for mode in ("decode", "decode_long"):
+            logits = {dev: _decode_reduced_on_mesh(
+                torch, cfg, p_cpu, make_debug_mesh(*DECODE_MESH, device=dev), mode, inputs)[0]
+                for dev in ("cpu", "cuda")}
+            err = max(float((a - b).abs().max() / b.abs().max())
+                      for a, b in zip(logits["cuda"], logits["cpu"]))
+            worst = max(worst, err)
+            if err > 1e-4:
+                raise SystemExit(f"[decode reduced] {name} {mode}: card vs CPU shards {err:.2e}")
+    print(f"[decode reduced] six reduced f32 archs under decode and decode_long on "
+          f"{DECODE_MESH[0]}x{DECODE_MESH[1]} of the card against cpu shards: logits within "
+          f"{worst:.2e} of max|cpu| (tol 1e-4) ok")
+
+
+def _sharded_decode(torch, np):
+    """Phase 3s."""
+    t0 = time.perf_counter()
+    walls = {}
+    for label, name, mode, layers, b, max_len, k, fill_to, frames in DECODE_CELLS:
+        t1 = time.perf_counter()
+        _decode_cell(torch, np, label, name, mode, layers, b, max_len, k, fill_to, frames,
+                     fault=name == "gemma3-1b")
+        _free(torch, f"phase 3s after {name}")
+        walls[f"{name} {label}"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    _seamless_scoring_sharded(torch, np)
+    walls["seamless scoring"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    _decode_reduced_card_vs_cpu(torch, np)
+    walls["reduced vs cpu"] = time.perf_counter() - t1
+    print(f"[time] phase 3s wall: {time.perf_counter() - t0:.1f}s ("
           + ", ".join(f"{k} {v:.1f}s" for k, v in walls.items()) + ")")
 
 

@@ -16,7 +16,8 @@ shards share a device (n shards on one card), a peer copy between cards.
 :func:`all_to_all` the exchange where every shard sends to every other
 (the expert-parallel MoE's), and :func:`all_gather`, :func:`all_reduce`
 and :func:`reduce_scatter` the collectives of the sharded dense layers
-(:mod:`repro_torch.model.sharding`).  All are differentiable, each
+(:mod:`repro_torch.model.sharding`), and :func:`softmax_combine` the
+merge of attention partials over a split key sequence (sharded decode).  All are differentiable, each
 backward the forward's transpose: the opposite hop for a ppermute (so
 autograd through a sweep runs the device-space reverse elevator, as
 ``jax.grad`` does in the reference), the inverse exchange for an
@@ -55,6 +56,7 @@ __all__ = [
     "all_reduce",
     "reduce_scatter",
     "all_to_all",
+    "softmax_combine",
     "device_shift",
     "halo_exchange",
     "ring_pass",
@@ -337,6 +339,25 @@ def all_reduce(xs, *, axis: str | None = None, n: int | None = None, op: str = "
     if op != "sum":
         raise ValueError(f"unknown all-reduce op {op!r}")
     return list(_AllReduce.apply(axis, n, *xs))
+
+
+def softmax_combine(parts, *, axis: str | None = None, n: int | None = None):
+    """Merge the softmax partials of the shards of one mesh axis, each over
+    its own keys: a part (..., 2 + D) f32 packs each row's maximum ``m``,
+    denominator ``l`` and numerators ``o`` (D), taken against ``m``.  Two
+    hops: an all-reduce max of the maxima (``M``), then one all-reduce sum
+    of each shard's ``[l, o] * exp(m - M)``.  Every shard receives ``[M, L,
+    O]``, the partial of all the axis's keys (the same bits on each).  Not
+    differentiable (decode).  Logged as two :class:`Hop` of kind
+    ``"all_reduce"``: 2 (n - 1) / n of the rows, and of (D + 1) x the
+    rows."""
+    big = all_reduce([p[..., :1] for p in parts], axis=axis, n=n, op="max")
+    with torch.no_grad():
+        scaled = [_on(p, lambda p=p, mx=mx: p[..., 1:] * torch.exp(p[..., :1] - mx))
+                  for p, mx in zip(parts, big)]
+        tot = all_reduce(scaled, axis=axis, n=n)
+        return [_on(mx, lambda mx=mx, t=t: torch.cat([mx, t], dim=-1))
+                for mx, t in zip(big, tot)]
 
 
 def device_shift(xs, delta: int = 1, fill=0.0):

@@ -17,7 +17,11 @@ import torch
 
 from repro_torch.kernels.common import by_device, on_kernel_device
 from repro_torch.kernels.local_attention.kernel import flash_attention_cuda, flash_attention_meta
-from repro_torch.kernels.local_attention.ref import attention_blockwise, attention_ref
+from repro_torch.kernels.local_attention.ref import (
+    attention_blockwise,
+    attention_ref,
+    attention_ref_lse,
+)
 from repro_torch.kernels.local_attention.vjp import FlashAttentionFunction
 
 #: Above this many queries or keys the plain path goes blockwise.
@@ -37,3 +41,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_blockwise(q, k, v, causal=causal, window=window,
                                    scale=scale, block=512)
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        scale: float | None = None):
+    """:func:`flash_attention` and each row's natural log-sum-exp of the
+    visible ``scale * q.k``, (B, Hq, T) f32 (+inf for a row that sees no
+    key): the training forward's instantiation, which a softmax split over
+    key shards combines from (sharded decode's cross-attention).  No
+    autograd."""
+    if on_kernel_device(q):
+        fn = by_device(q, flash_attention_cuda, flash_attention_meta)
+        return fn(q, k, v, causal=causal, window=window, scale=scale, lse=True)
+    return attention_ref_lse(q, k, v, causal=causal, window=window, scale=scale)

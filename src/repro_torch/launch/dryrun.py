@@ -43,16 +43,14 @@ share of the state (parameters, the optimizer moments of a train cell,
 the decode state of a decode cell, and the inputs) from the spec trees
 under the cell's rules, every dimension divided by its mesh axes' extent
 and rounded up, as XLA pads, and whether that share fits the card's
-:data:`~repro_torch.core.h100.HBM_BYTES`.  A train or prefill cell of a
-decoder-only arch, whose dense layers run sharded, is also traced: one
-card's program of the sharded step on the mesh's representative form
+:data:`~repro_torch.core.h100.HBM_BYTES`.  Every cell is also traced
+(its dense layers run sharded under the cell's rules): one card's program
+of the sharded step on the mesh's representative form
 (:func:`~repro_torch.launch.mesh.representative`), on ``meta``, gives that
 card's FLOPs by class, bytes, launches and live-bytes peak
 (``peak_estimate_bytes`` is the state's share plus it), the collective
 bytes it sends by op and by mesh axis, and the roofline terms with the
-collective term over each axis's link rate.  Decode cells and the
-encoder-decoder arch keep the dense layers whole under a mesh (their
-rules are the next slice): their rows say so.  No card is touched::
+collective term over each axis's link rate.  No card is touched::
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh production --all
 """
@@ -86,7 +84,7 @@ from repro_torch.tree import tree_leaves
 
 __all__ = ["MESH_TAG", "MEMORY_RESERVE", "ALLOC_ROUND", "DEFAULT_OUT", "SkipCell", "Cell",
            "make_cell", "trace_cell", "run_cell", "tree_bytes", "production_mesh_tag",
-           "per_card_bytes", "production_state", "runs_sharded", "trace_sharded_step",
+           "per_card_bytes", "production_state", "trace_sharded_step",
            "per_card_row", "production_memory", "production_row", "run_production_cell",
            "main"]
 
@@ -413,39 +411,48 @@ def production_state(cfg, shape, mesh) -> dict:
             "inputs": (inputs, in_specs)}
 
 
-def runs_sharded(cfg, shape) -> bool:
-    """Whether the cell's step runs its dense layers sharded on a mesh: a
-    train or prefill cell of a decoder-only arch."""
-    shape = SHAPES[shape] if isinstance(shape, str) else shape
-    return shape.kind in ("train", "prefill") and not cfg.is_enc_dec
-
-
 def trace_sharded_step(cfg, shape, mesh) -> tuple[CostCounter, list]:
     """Trace the cell's sharded step on ``mesh`` (a mesh of ``meta``
     devices, or its representative form) under the cell's rules: the
-    train step from the abstract train state, or the prefill step from the
-    abstract parameters, their leaves split by the spec trees before the
-    trace (what each card holds), the global batch split inside it.
-    Returns the :class:`~repro_torch.core.lowering.CostCounter` (its
-    ``cells``: each card's tally) and the hops."""
+    train step from the abstract train state, the prefill step from the
+    abstract parameters, or one decode step (``remat="none"``,
+    ``microbatch=1``) from the abstract parameters and decode state, with
+    (B, 1) tokens, a 0-d length and, for the encoder-decoder arch,
+    ``enc_out`` (the reference's ``lower_cell`` branches); every leaf
+    split by its spec tree before the trace (what each card holds), the
+    inputs split inside it.  Returns the
+    :class:`~repro_torch.core.lowering.CostCounter` (its ``cells``: each
+    card's tally) and the hops."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     rules = make_rules(mesh, _mode_for(shape.name, shape.kind))
-    batch, _ = I.batch_specs(cfg, shape)
     with sh.sharding_context(mesh, rules):
         if shape.kind == "train":
+            batch, _ = I.batch_specs(cfg, shape)
             state = train_mod.shard_train_state(train_mod.abstract_train_state(cfg), cfg,
                                                 mesh, rules)
             step = train_mod.make_train_step(cfg)
             with cost_counting() as counter, record_hops() as hops:
                 step(state, batch)
-        else:
+        elif shape.kind == "prefill":
+            batch, _ = I.batch_specs(cfg, shape)
             params = sh.device_put_tree(M.abstract_params(cfg), M.param_pspecs(cfg, rules),
                                         mesh)
             kw = {k2: batch[k1] for k1, k2 in (("frontend_embeds", "frontend_embeds"),
-                                              ("positions", "positions")) if k1 in batch}
+                                              ("positions", "positions"),
+                                              ("enc_embeds", "enc_tokens_embeds"))
+                  if k1 in batch}
             prefill = engine.make_prefill_step(cfg)
             with torch.inference_mode(), cost_counting() as counter, record_hops() as hops:
                 prefill(params, batch["tokens"], **kw)
+        else:
+            dcfg = dataclasses.replace(cfg, remat="none", microbatch=1)
+            params = sh.device_put_tree(M.abstract_params(dcfg), M.param_pspecs(dcfg, rules),
+                                        mesh)
+            state, tokens, length, extras, _ = I.decode_specs(dcfg, shape)
+            state = M.shard_decode_state(state, mesh, rules)
+            decode = engine.make_decode_step(dcfg)
+            with torch.inference_mode(), cost_counting() as counter, record_hops() as hops:
+                decode(params, state, tokens, length, **extras)
     return counter, hops
 
 
@@ -485,16 +492,9 @@ def production_memory(cfg, shape, mesh) -> dict:
 
 def production_row(cfg, shape, mesh) -> dict:
     """One cell on ``mesh``: ``memory`` (:func:`production_memory` and the
-    peak) and, for a cell that runs sharded, ``per_card``: one card's
-    program traced on the mesh's representative form
-    (:func:`per_card_row`)."""
+    peak) and ``per_card``: one card's program traced on the mesh's
+    representative form (:func:`per_card_row`)."""
     memory = production_memory(cfg, shape, mesh)
-    if not runs_sharded(cfg, shape):
-        memory["peak_estimate_bytes"] = None
-        memory["peak_note"] = (
-            "not traced: decode cells and the encoder-decoder arch keep the dense "
-            "layers whole under a mesh (their rules are the next slice)")
-        return {"memory": memory}
     t0 = time.time()
     counter, hops = trace_sharded_step(cfg, shape, mesh_mod.representative(mesh))
     per_card = per_card_row(counter, hops, memory["state_bytes_per_card"])
@@ -539,13 +539,10 @@ def production_line(tag: str, result: dict) -> str:
         parts = " ".join(f"{k}={v / 2**30:.2f}" for k, v in m["state_per_card_by_part"].items())
         extra = (f" state/card={m['state_bytes_per_card'] / 2**30:.2f}GiB ({parts}) "
                  f"of {m['cards']} cards, fits={m['state_fits']}")
-        if m["peak_estimate_bytes"] is None:
-            extra += ", peak not traced"
-        else:
-            r = result["per_card"]["roofline"]
-            extra += (f", peak/card={m['peak_estimate_bytes'] / 2**30:.2f}GiB "
-                      f"fits={m['fits']} comp={r['compute_s']:.4f}s mem={r['memory_s']:.4f}s "
-                      f"coll={r['collective_s']:.4f}s dom={r['dominant']}")
+        r = result["per_card"]["roofline"]
+        extra += (f", peak/card={m['peak_estimate_bytes'] / 2**30:.2f}GiB "
+                  f"fits={m['fits']} comp={r['compute_s']:.4f}s mem={r['memory_s']:.4f}s "
+                  f"coll={r['collective_s']:.4f}s dom={r['dominant']}")
     if "error" in result:
         extra += f" {result['error']}"
     return f"[{status}] {tag} ({result['total_s']}s){extra}"

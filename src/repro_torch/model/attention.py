@@ -19,10 +19,11 @@ the decoder and K/V from the encoder's output ``x_kv`` of its own length
 S, with no RoPE and no cache: every call projects K/V again and runs the
 flash kernel non-causally, as the reference does.
 
-On a (data, model) mesh (:mod:`repro_torch.model.sharding`; cache-free
-self-attention only) the projections are column-parallel over the heads
-and the output projection row-parallel, as the reference's
-``attention.py:103-112, 202-205`` place them, and the flash kernel runs
+On a (data, model) mesh (:mod:`repro_torch.model.sharding`) the
+projections are column-parallel over the heads and the output projection
+row-parallel, as the reference's ``attention.py:103-112, 202-205`` place
+them.  A cache-free call (and cross-attention under train or prefill
+rules, whose frames stay whole on each batch shard) runs the flash kernel
 once a shard on that shard's heads.  Where the heads do not divide the
 model axis (:func:`heads_plan`), the port replicates what GSPMD would:
 
@@ -34,6 +35,24 @@ model axis (:func:`heads_plan`), the port replicates what GSPMD would:
   8, where ``head_pad=4`` makes 32): Q, K and V are all-gathered and every
   shard computes every head, then keeps its slice of the output for the
   row-parallel ``wo``.
+
+Under the decode rules the keys are split over the KV sequence's mesh
+axes (``model`` under ``decode``, every axis under ``decode_long``), and
+each shard holds every head of its slots.  So q and the window's new K/V
+rows are all-gathered over the model axis (heads whole: at most a window
+of rows), each shard writes the rows whose ring slot (position mod the
+global cache length S) it owns and attends over its slots, and the
+shards' softmax partials are merged by
+:func:`~repro_torch.model.sharding.combine_partials` (an all-reduce max of
+the row maxima, then an all-reduce sum of the rescaled numerators and
+denominators, over each KV axis); the merged output is whole on every
+shard and splits onto its heads for ``wo`` at no cost.  Cross-attention
+under ``decode`` takes the encoder's frames split over the KV sequence's
+axes: each shard runs the flash kernel's log-sum-exp instantiation over
+its frames and the same combine merges them.  One spec cannot map the
+model axis twice, so there ``wk`` and ``wv`` are gathered whole (over the
+model axis, and over data where FSDP splits them) and the frames stay
+split: each shard projects every head of its own frames.
 """
 
 from __future__ import annotations
@@ -44,15 +63,17 @@ from typing import ClassVar, NamedTuple
 
 import torch
 
-from repro_torch.kernels.local_attention.ops import flash_attention
+from repro_torch.kernels.local_attention.ops import flash_attention, flash_attention_lse
 from repro_torch.model.layers import apply_rope, init_rmsnorm, rms_norm
 from repro_torch.model.sharding import (
     along,
     axes_size,
+    combine_partials,
     constrain,
     dense,
     gather_for_use,
     is_sharded,
+    offset,
     reshard,
     rule_axes,
     shard_index,
@@ -184,10 +205,14 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
     the reference.
     """
     cross = x_kv is not None
-    if is_sharded(x) and (cross or kv_cache is not None):
-        raise NotImplementedError(
-            "sharded attention runs cache-free self-attention only: the "
-            "decode rules and cross-attention under a mesh are not ported")
+    if is_sharded(x) and cross and x_kv.dims[1]:
+        return _cross_split_frames(params, x, x_kv, cfg), None
+    if kv_cache is not None and not cross:
+        if not isinstance(kv_cache, PagedKVCache):
+            return _decode_dense(params, x, cfg, kind, positions, kv_cache, token_mask)
+        if is_sharded(x):
+            raise NotImplementedError("a paged cache under a mesh is not ported: its pools "
+                                      "are replicated while its tables split by batch")
     nq, nkv, hd = cfg.num_heads + cfg.head_pad, cfg.num_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(params, x, x_kv if cross else x, cfg)
     plan, heads_axes = "split", ()
@@ -200,14 +225,12 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
             q = reshard(q, whole)
         if plan != "split":
             k, v = reshard(k, whole), reshard(v, whole)
-    norms = ((params["q_norm"]["scale"], params["k_norm"]["scale"]) if cfg.qk_norm
-             else (None, None))
     window = cfg.attn_window if kind == "local" else None
     new_cache = None
 
     def core(cell, ql, kl, vl, pos, qn, kn):
         """One shard's heads (all of them off a mesh): qk-norm, RoPE, and
-        flash attention or the cache's decode attention."""
+        flash attention or the paged cache's decode attention."""
         nonlocal new_cache
         b, t = ql.shape[:2]
         q, k, v = _heads(ql, hd), _heads(kl, hd), _heads(vl, hd)
@@ -215,41 +238,141 @@ def apply_attention(params, x: torch.Tensor, cfg, *, kind: str = "attn",
             m, nql = shard_index(x.mesh, cell, heads_axes), nq // tp
             lo, hi = m * nql * nkv // nq, ((m + 1) * nql - 1) * nkv // nq + 1
             k, v = k[:, lo:hi], v[:, lo:hi]
-        if cfg.qk_norm:
-            q = rms_norm({"scale": qn}, q, cfg.norm_eps)
-            k = rms_norm({"scale": kn}, k, cfg.norm_eps)
-        if not cross:
-            if pos is None:
-                pos = torch.arange(t, device=ql.device)[None].expand(b, t)
-            q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
-            k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+        if not cross and pos is None:
+            pos = torch.arange(t, device=ql.device)[None].expand(b, t)
+        q, k = _norm_rope(cfg, q, k, qn, kn, None if cross else pos)
         if kv_cache is not None and not cross:
-            advance = (torch.full((), t, dtype=torch.int32, device=ql.device)
-                       if token_mask is None else token_mask.sum(dim=1, dtype=torch.int32))
-            if isinstance(kv_cache, PagedKVCache):
-                # Write the window into the slots' mapped pages in place,
-                # gather the dense-shaped view back and run the same
-                # positional-mask attention: every valid slot holds the dense
-                # cache's value.
-                _paged_insert(kv_cache, k, v, token_mask)
-                new_cache = kv_cache._replace(length=kv_cache.length + advance)
-                k_cache = _paged_gather(kv_cache, kv_cache.k)
-                v_cache = _paged_gather(kv_cache, kv_cache.v)
-            else:
-                k_cache = _masked_insert(kv_cache.k, k, kv_cache.length, token_mask)
-                v_cache = _masked_insert(kv_cache.v, v, kv_cache.length, token_mask)
-                new_cache = KVCache(k_cache, v_cache, kv_cache.length + advance)
-            out = _decode_attention(q, k_cache, v_cache, kv_cache.length, cfg,
-                                    window=window)
+            # A paged cache: write the window into the slots' mapped pages
+            # in place, gather the dense-shaped view back and run the same
+            # positional-mask attention: every valid slot holds the dense
+            # cache's value.
+            _paged_insert(kv_cache, k, v, token_mask)
+            new_cache = kv_cache._replace(length=kv_cache.length + _advance(token_mask, t, ql))
+            parts = _decode_partials(q, _paged_gather(kv_cache, kv_cache.k),
+                                     _paged_gather(kv_cache, kv_cache.v), kv_cache.length, cfg,
+                                     window=window)
+            out = combine_partials(*parts, ()).to(q.dtype)
         else:
             out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal and not cross, window=window)
         return out.transpose(1, 2).reshape(b, t, -1)
 
-    out = constrain(smap(core, q, k, v, positions, *norms, cell=True),
+    out = constrain(smap(core, q, k, v, positions, *_norms(params, cfg), cell=True),
                     "batch", "seq", "act_heads")
     wo = gather_for_use(params["wo"], ("heads_out", "embed"), cfg.fsdp_gather_weights)
     return constrain(dense(out, wo), "batch", "seq", "act_embed"), new_cache
+
+
+def _whole(z):
+    """``z`` (B, T, H*Dh) with its heads whole on every shard: an
+    all-gather over the axes that split them (a plain tensor as it is)."""
+    return reshard(z, z.dims[:-1] + ((),)) if is_sharded(z) else z
+
+
+def _advance(token_mask, t, like):
+    """How far a window of ``t`` tokens moves each request's length: ``t``,
+    or its unmasked tokens."""
+    if token_mask is None:
+        return torch.full((), t, dtype=torch.int32, device=like.device)
+    return token_mask.sum(dim=1, dtype=torch.int32)
+
+
+def _finish_split(parts, axes, q, params, cfg):
+    """The shards' softmax ``parts`` (row maxima, denominators (B, Hq, t,
+    1) and numerators (B, Hq, t, Dh)) merged over the KV ``axes``
+    (:func:`~repro_torch.model.sharding.combine_partials`; plain tensors
+    are only normalised), as (B, t, Hq*Dh) in q's dtype and layout, its
+    heads onto the model axis (a split) and through the row-parallel
+    ``wo``."""
+    out = smap(lambda z: z.to(q.dtype).transpose(1, 2).reshape(z.shape[0], z.shape[2], -1),
+               combine_partials(*parts, axes), dims=q.dims if is_sharded(q) else None)
+    out = constrain(out, "batch", "seq", "act_heads")
+    wo = gather_for_use(params["wo"], ("heads_out", "embed"), cfg.fsdp_gather_weights)
+    return constrain(dense(out, wo), "batch", "seq", "act_embed")
+
+
+def _norms(params, cfg):
+    """The qk-norm scales, or (None, None)."""
+    if cfg.qk_norm:
+        return params["q_norm"]["scale"], params["k_norm"]["scale"]
+    return None, None
+
+
+def _norm_rope(cfg, q, k, qn, kn, pos):
+    """q and k (B, H, T, Dh) through the qk-norm (where the config has one)
+    and RoPE at ``pos`` (none for ``pos=None``: cross-attention)."""
+    if cfg.qk_norm:
+        q = rms_norm({"scale": qn}, q, cfg.norm_eps)
+        k = rms_norm({"scale": kn}, k, cfg.norm_eps)
+    if pos is not None:
+        q = apply_rope(q, pos, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_rope(k, pos, cfg.rope_theta, cfg.mrope_sections)
+    return q, k
+
+
+def _decode_dense(params, x, cfg, kind, positions, kv_cache: KVCache, token_mask):
+    """Self-attention of a decode window against a dense cache, whole or
+    split over the KV sequence's mesh axes (module docstring); off a mesh
+    every slot is the one shard's."""
+    hd = cfg.head_dim
+    q, k, v = (_whole(z) for z in _project_qkv(params, x, x, cfg))
+    window = cfg.attn_window if kind == "local" else None
+    kc = kv_cache
+    s_total = kc.k.shape[2]
+
+    def part(cell, ql, kl, vl, pos, qn, kn, k_old, v_old, length, mask):
+        b, t = ql.shape[:2]
+        if pos is None:
+            pos = torch.arange(t, device=ql.device)[None].expand(b, t)
+        qh, kh = _norm_rope(cfg, _heads(ql, hd), _heads(kl, hd), qn, kn, pos)
+        vh = _heads(vl, hd)
+        slot0 = offset(kc.k, 2, cell)
+        k_new = _masked_insert(k_old, kh, length, mask, slot0=slot0, s_total=s_total)
+        v_new = _masked_insert(v_old, vh, length, mask, slot0=slot0, s_total=s_total)
+        parts = _decode_partials(qh, k_new, v_new, length, cfg, window=window, slot0=slot0,
+                                 s_total=s_total)
+        return (k_new, v_new, length + _advance(mask, t, ql)) + parts
+
+    split = is_sharded(kc.k)
+    pd = (x.dims[0], (), (), ()) if split else None
+    k_new, v_new, length, *parts = smap(
+        part, q, k, v, positions, *_norms(params, cfg), kc.k, kc.v, kc.length, token_mask,
+        cell=True, n_out=6,
+        dims=[kc.k.dims, kc.v.dims, kc.length.dims, pd, pd, pd] if split else None)
+    return (_finish_split(parts, kc.k.dims[2] if split else (), q, params, cfg),
+            KVCache(k_new, v_new, length))
+
+
+def _cross_split_frames(params, x, x_kv, cfg):
+    """Cross-attention over frames split over the KV sequence's mesh axes
+    (module docstring): q's heads all-gathered, ``wk`` and ``wv`` gathered
+    whole, the flash kernel's log-sum-exp instantiation a shard over its
+    frames, then the combine."""
+    hd, g = cfg.head_dim, cfg.fsdp_gather_weights
+    q = constrain(dense(x, gather_for_use(params["wq"], ("embed", "heads_out"), g)),
+                  "batch", "seq", "act_heads")
+    if cfg.qkv_bias:
+        q = smap(torch.add, q, along(params["bq"], q))
+    q = _whole(q)
+    kv = []
+    for w, bias in (("wk", "bk"), ("wv", "bv")):
+        z = dense(x_kv, reshard(params[w], ((), ())))
+        if cfg.qkv_bias:
+            z = smap(torch.add, z, along(params[bias], z))
+        kv.append(z)
+
+    def part(ql, kl, vl, qn, kn):
+        """Flash's output is normalised against its own log-sum-exp: the
+        part (lse, 1, out)."""
+        qh, kh = _norm_rope(cfg, _heads(ql, hd), _heads(kl, hd), qn, kn, None)
+        o, lse = flash_attention_lse(qh.contiguous(), kh.contiguous(),
+                                     _heads(vl, hd).contiguous(), causal=False)
+        lse = lse[..., None]
+        return lse, torch.ones_like(lse), o.float()
+
+    pd = (x.dims[0], (), (), ())
+    parts = smap(part, q, *kv, *_norms(params, cfg), n_out=3, dims=[pd, pd, pd])
+    return _finish_split(parts, x_kv.dims[1], q, params, cfg)
 
 
 def _lengths_2d(length: torch.Tensor, b: int) -> torch.Tensor:
@@ -258,19 +381,24 @@ def _lengths_2d(length: torch.Tensor, b: int) -> torch.Tensor:
 
 
 def _masked_insert(cache: torch.Tensor, new: torch.Tensor, length: torch.Tensor,
-                   token_mask: torch.Tensor | None = None) -> torch.Tensor:
+                   token_mask: torch.Tensor | None = None, *, slot0: int = 0,
+                   s_total: int | None = None) -> torch.Tensor:
     """``cache`` with ``new`` (B, H, t, D) written at absolute positions
     length..length+t-1 of each request, ring-aware (slot = position mod S).
-    A masked token writes nothing.  Returns a new tensor."""
+    A masked token writes nothing.  Returns a new tensor.  A shard of a
+    cache split along its slots holds global slots ``slot0..slot0+s-1`` of
+    ``s_total``: it writes the rows that land there, every other slot
+    bit-identical."""
     b, _, s, _ = cache.shape
+    s_total = s if s_total is None else s_total
     t = new.shape[2]
-    if t > s:
+    if t > s_total:
         raise ValueError(
-            f"decode window of {t} tokens exceeds cache size {s}; build the "
+            f"decode window of {t} tokens exceeds cache size {s_total}; build the "
             f"state with init_decode_state(insert_window >= {t})")
-    idx = torch.arange(s, device=cache.device)
+    idx = torch.arange(slot0, slot0 + s, device=cache.device)
     # The window token landing on each slot; t <= S: at most one per slot.
-    off = torch.remainder(idx[None, :] - _lengths_2d(length, b), s)    # (B, S)
+    off = torch.remainder(idx[None, :] - _lengths_2d(length, b), s_total)    # (B, S)
     sel = off < t
     src = off.clamp(0, t - 1)
     if token_mask is not None:
@@ -352,26 +480,33 @@ def _paged_insert(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
                                                         device=pool.device)))
 
 
-def _decode_attention(q, k_cache, v_cache, cur_pos, cfg, *, window=None):
-    """Attention of a window of t >= 1 queries at positions
+def _decode_partials(q, k_cache, v_cache, cur_pos, cfg, *, window=None, slot0: int = 0,
+                     s_total: int | None = None):
+    """The softmax partial of a window of t >= 1 queries at positions
     cur_pos..cur_pos+t-1 per request (``cur_pos`` (B,) or a scalar, the
-    pre-insert length) against a cache that already holds the window.
-    Slot i of request b holds absolute position last_b - ((last_b - i) mod S)
-    with last_b = cur_pos[b] + t - 1; query j sees the slots at absolute
-    positions in [0, cur_pos[b] + j] (and inside the window).  f32 math."""
+    pre-insert length) over cache slots ``slot0..slot0+s-1`` of a ring of
+    ``s_total`` (default: the whole cache) that already holds the window.
+    Slot i of request b holds absolute position last_b - ((last_b - i) mod
+    S) with last_b = cur_pos[b] + t - 1; query j sees the slots at absolute
+    positions in [0, cur_pos[b] + j] (and inside the window).  f32 math:
+    returns each row's maximum and denominator (B, Hq, t, 1) and its
+    numerators (B, Hq, t, Dh) against that maximum (what
+    :func:`~repro_torch.model.sharding.combine_partials` merges, or
+    normalises)."""
     b, hq, t, hd = q.shape
     nkv = k_cache.shape[1]
     group = hq // nkv
     s = k_cache.shape[2]
+    s_total = s if s_total is None else s_total
     qg = q.reshape(b, nkv, group, t, hd)
     logits = torch.einsum("bhgtd,bhsd->bhgts", qg.float(), k_cache.float())
     logits = logits * (1.0 / math.sqrt(hd))
     logits = _softcap(logits, cfg.attn_logit_softcap)
 
-    slot = torch.arange(s, device=q.device)
+    slot = torch.arange(slot0, slot0 + s, device=q.device)
     cur2 = _lengths_2d(cur_pos, b).to(torch.int64)                    # (B, 1)
     last = cur2 + t - 1
-    abs_pos = last - torch.remainder(last - slot[None, :], s)         # (B, S)
+    abs_pos = last - torch.remainder(last - slot[None, :], s_total)   # (B, S)
     qpos = cur2 + torch.arange(t, device=q.device)[None]              # (B, t)
     valid = (abs_pos[:, None, :] >= 0) & (abs_pos[:, None, :] <= qpos[:, :, None])
     if window is not None:
@@ -383,5 +518,4 @@ def _decode_attention(q, k_cache, v_cache, cur_pos, cfg, *, window=None):
     p = torch.where(valid, p, torch.zeros((), device=q.device))
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgts,bhsd->bhgtd", p, v_cache.float())
-    out = out / denom.clamp_min(1e-30)
-    return out.reshape(b, hq, t, hd).to(q.dtype)
+    return m.reshape(b, hq, t, 1), denom.reshape(b, hq, t, 1), out.reshape(b, hq, t, hd)

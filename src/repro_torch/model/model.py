@@ -185,11 +185,23 @@ def encode(params, cfg, enc_tokens_embeds: torch.Tensor) -> torch.Tensor:
     arch: the frame embeddings (B, S, D), cast to the model's dtype with no
     sqrt(d) scale, through the encoder's layers non-causally (RoPE at
     0..S-1) and its final norm.  What :func:`forward` hands the decoder,
-    and what :func:`decode_step` takes as ``enc_out``."""
-    ex = enc_tokens_embeds.to(dtype_of(cfg))
+    and what :func:`decode_step` takes as ``enc_out``.  With sharded
+    parameters (under a sharding context) the frames are split as
+    ``("batch", "seq", "act_embed")`` and ``enc_out`` comes back so."""
+    if sh.is_sharded(params["enc_final_norm"]["scale"]):
+        enc_tokens_embeds = _place(enc_tokens_embeds, "batch", "seq", "act_embed")
+    ex = sh.smap(lambda t: t.to(dtype_of(cfg)), enc_tokens_embeds)
     ex, _ = tf.apply_stack(params["encoder"], ex, _encoder_cfg(cfg), causal=False,
                            num_layers=cfg.encoder_layers)
     return rms_norm(params["enc_final_norm"], ex, cfg.norm_eps)
+
+
+def _need_mesh():
+    if sh.active_mesh() is None:
+        raise NotImplementedError(
+            "sharded parameters run under a train, prefill, decode or decode_long "
+            "sharding context; under prefill_seq the dense layers stay whole (their "
+            "sharding there is ROADMAP Queue 1, item 7c)")
 
 
 def _need_frames(cfg, given, what: str):
@@ -217,18 +229,15 @@ def forward(params, cfg, tokens: torch.Tensor, *,
     (:func:`~repro_torch.model.sharding.to_global` reads them whole)."""
     enc_out = None
     if sh.is_sharded(params["tok"]["embedding"]):
-        # The sharded forward (decoder-only archs, train and prefill rules):
-        # logits stay split over the vocabulary.
-        if cfg.is_enc_dec or sh.active_mesh() is None:
-            raise NotImplementedError(
-                "sharded parameters run the decoder-only archs' forward under a "
-                "train or prefill sharding context only")
+        # The sharded forward (train and prefill rules): logits stay split
+        # over the vocabulary.
+        _need_mesh()
         tokens = _place(tokens, "batch", "seq")
         if positions is not None:
             positions = _place(positions, *((None,) if positions.ndim == 3 else ()),
                                "batch", "seq")
         frontend_embeds = _place(frontend_embeds, "batch", "seq", "act_embed")
-    elif cfg.is_enc_dec:
+    if cfg.is_enc_dec:
         _need_frames(cfg, enc_tokens_embeds, "forward needs enc_tokens_embeds")
         enc_out = encode(params, cfg, enc_tokens_embeds)
     x = _embed(params, cfg, tokens, frontend_embeds)
@@ -342,7 +351,13 @@ def decode_state_pspecs(cfg, batch: int, max_len: int, rules: dict,
     with the conv tail's channels on ``rnn``; paged pools stay replicated
     (any slot's table may map any page), their tables and lengths shard
     along the batch."""
-    abstract = abstract_decode_state(cfg, batch, max_len, insert_window, paged)
+    return state_pspecs(abstract_decode_state(cfg, batch, max_len, insert_window, paged),
+                        rules)
+
+
+def state_pspecs(state, rules: dict):
+    """The partition specs of a decode state's leaves under ``rules``
+    (:func:`decode_state_pspecs` of the state it is)."""
 
     def node_spec(node):
         if isinstance(node, KVCache):
@@ -362,9 +377,34 @@ def decode_state_pspecs(cfg, batch: int, max_len: int, rules: dict,
         return RecState(h=to_pspec(h_axes, rules),
                         conv=to_pspec(prefix + ("batch", None, "rnn"), rules))
 
-    return {"scanned": None if abstract["scanned"] is None
-            else [node_spec(n) for n in abstract["scanned"]],
-            "remainder": [node_spec(n) for n in abstract["remainder"]]}
+    return {"scanned": None if state["scanned"] is None
+            else [node_spec(n) for n in state["scanned"]],
+            "remainder": [node_spec(n) for n in state["remainder"]]}
+
+
+def shard_decode_state(state, mesh, rules: dict):
+    """An unsharded decode ``state`` split over ``mesh`` by its specs under
+    ``rules`` (:func:`state_pspecs`): each shard a copy of its piece on its
+    device, what the sharded :func:`decode_step` updates in place.
+    :func:`~repro_torch.model.sharding.to_global` of each leaf gives the
+    state back whole.  Every cache's slots must split evenly over the KV
+    sequence's axes: a local ring's do for the insert window
+    :func:`split_insert_window` gives."""
+    return sh.device_put_tree(state, state_pspecs(state, rules), mesh)
+
+
+def split_insert_window(cfg, k: int, mesh, rules: dict) -> int:
+    """The smallest insert window >= ``k`` whose local-attention ring
+    (``attn_window + insert_window - 1`` slots) splits evenly over the KV
+    sequence's mesh axes under ``rules``: the ``insert_window`` that
+    :func:`init_decode_state` takes for a state :func:`shard_decode_state`
+    splits (``k`` where the config has no local window, or the rules do
+    not split the KV sequence)."""
+    n = sh.axes_size(mesh, rules.get("kv_seq"))
+    iw = k
+    while cfg.attn_window and (cfg.attn_window + iw - 1) % n:
+        iw += 1
+    return iw
 
 
 def state_nodes(state):
@@ -515,6 +555,11 @@ def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
     refuses a call without it, where the reference would silently skip
     its cross-attention.
 
+    With :class:`~repro_torch.model.sharding.Sharded` parameters and a
+    state split by :func:`shard_decode_state`, under a ``decode`` or
+    ``decode_long`` sharding context, the step runs sharded and the logits
+    come back split over the vocabulary.
+
     Returns (logits (B, K, V) or (B, 1, V), state).
     """
     _need_frames(cfg, enc_out, "decode_step needs enc_out (see encode)")
@@ -527,16 +572,26 @@ def decode_step(params, cfg, state, tokens: torch.Tensor, lengths, *,
     _check_ring_slack(cfg, state, t, max_len)
     positions = (lengths.to(tokens.device).reshape(-1, 1)
                  + torch.arange(t, device=tokens.device)[None]).expand(b, t)
+    if sh.is_sharded(params["tok"]["embedding"]):
+        # The sharded decode (decode and decode_long rules): the state split
+        # by its specs, the tokens, positions and mask by batch, the frames'
+        # encoding by (batch, kv_seq); logits split over the vocabulary.
+        _need_mesh()
+        tokens, positions, token_mask = (_place(z, "batch", None)
+                                         for z in (tokens, positions, token_mask))
+        enc_out = _place(enc_out, "batch", "kv_seq", "act_embed")
     x = _embed(params, cfg, tokens)
     x, state = tf.apply_stack(params["decoder"], x, cfg, positions=positions,
                               states=state, enc_out=enc_out, token_mask=token_mask)
     if last_only:
-        if token_mask is None:
-            x = x[:, -1:]
-        else:
+        def last(z, mask):
+            if mask is None:
+                return z[:, -1:]
             # Per-row last valid position (clamped: an all-False row yields
             # logits the caller must ignore).
-            idx = (token_mask.sum(dim=1) - 1).clamp(0, t - 1)
-            x = x[torch.arange(b, device=x.device), idx][:, None]
+            idx = (mask.sum(dim=1) - 1).clamp(0, t - 1)
+            return z[torch.arange(z.shape[0], device=z.device), idx][:, None]
+
+        x = sh.smap(last, x, token_mask)
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     return logits_projection(params["tok"], x, cfg), state

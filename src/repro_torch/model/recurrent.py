@@ -29,6 +29,17 @@ gates gather the conv output over the model axis to contract against
 their (``embed``, ``rnn``) weights, and ``w_out`` is row-parallel.  Heads
 that do not divide the model axis (RWKV's 2 reduced heads over 4) are
 all-gathered and every shard runs every head, then keeps its slice.
+
+Stateful calls (the decode rules) run the same layout on states in their
+spec layout (``repro.model.model.decode_state_pspecs``): ``h`` split by
+batch and whole over the model axis, the conv tail (RG-LRU's last taps,
+RWKV's previous token) with its channels over ``rnn``.  Each shard runs
+the decode window (WKV, or the elevator window and the token shift) on
+its own heads or channels from its slice of ``h``; the new ``h`` is
+all-gathered over the model axis back into its layout (none where every
+shard ran every head).  RWKV's previous token is all-gathered over the
+model axis for the token shift and its new value split back (no bytes);
+RG-LRU's conv tail is already split as the channels it extends.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from repro_torch.model.sharding import (
     dense,
     gather_for_use,
     is_sharded,
+    offset,
     reshard,
     seq_shard_info,
     smap,
@@ -93,12 +105,6 @@ def _rglru_gates(pre_a, pre_x, log_lambda, xb):
     return a, b
 
 
-def _refuse_state(x, state):
-    if is_sharded(x) and state is not None:
-        raise NotImplementedError("a sharded block runs cache-free: the decode rules "
-                                  "under a mesh are not ported")
-
-
 def apply_rglru_block(params, x: torch.Tensor, cfg, *,
                       state: RecState | None = None,
                       token_mask: torch.Tensor | None = None):
@@ -109,7 +115,6 @@ def apply_rglru_block(params, x: torch.Tensor, cfg, *,
     and the conv tail is taken at each row's last valid tokens.  Must be a
     prefix mask per row.
     """
-    _refuse_state(x, state)
     g = is_sharded(x) and cfg.fsdp_gather_weights      # a mesh's option only
 
     def proj(z, name):
@@ -121,46 +126,52 @@ def apply_rglru_block(params, x: torch.Tensor, cfg, *,
 
     # Temporal conv (width 4): the token-shift elevator chain.
     if state is not None:
-        ext = torch.cat([state.conv.to(xb.dtype), xb], dim=1)
-        xb_conv = token_shift(ext, params["conv_w"])[:, state.conv.shape[1]:]
+        ext = smap(lambda c, t: torch.cat([c.to(t.dtype), t], dim=1), state.conv, xb)
+        xb_conv = smap(lambda e, w: token_shift(e, w)[:, state.conv.shape[1]:], ext,
+                       along(params["conv_w"], xb))
     else:
         xb_conv = smap(token_shift, xb, along(params["conv_w"], xb))
-    h32 = None
 
-    def scan(xl, pa, px, lam, yl):
-        nonlocal h32
+    def scan(cell, xl, pa, px, lam, yl, h0, mask):
         a, bb = _rglru_gates(pa, px, lam, xl)
         a32, b32 = a.float(), bb.float()
-        if token_mask is not None and state is not None:
+        if mask is not None and state is not None:
             # Masked tokens are identity steps: h passes through, so h[:, -1]
             # is each request's state at its last valid token.
-            m = token_mask[:, :, None]
+            m = mask[:, :, None]
             a32 = torch.where(m, a32, torch.ones((), device=xl.device))
             b32 = torch.where(m, b32, torch.zeros((), device=xl.device))
-        h0 = state.h.float() if state is not None else None
+        if h0 is not None:              # this shard's channels of the state
+            h0 = h0.float().narrow(-1, offset(xb, 2, cell), xl.shape[-1]).contiguous()
         h32 = elevator_scan(a32.contiguous(), b32.contiguous(), h0,
                             decode=state is not None)
-        return h32.to(xl.dtype) * yl
+        # The state is read off the f32 scan output, not the model-dtype
+        # cast: a frozen slot round-trips bit for bit even in bf16.
+        return h32.to(xl.dtype) * yl, h32[:, -1]
 
-    hy = smap(scan, xb_conv, proj(xb_conv, "gate_a"), proj(xb_conv, "gate_x"),
-              along(params["log_lambda"], xb), y)
+    hy, h_last = smap(scan, xb_conv, proj(xb_conv, "gate_a"), proj(xb_conv, "gate_x"),
+                      along(params["log_lambda"], xb), y,
+                      state.h if state is not None else None, token_mask, cell=True,
+                      n_out=2, dims=None if not is_sharded(xb) else
+                      [xb.dims, (xb.dims[0], xb.dims[2])])
 
     new_state = None
     if state is not None:
-        b_ = x.shape[0]
         width = cfg.conv_width - 1
-        if token_mask is None:
-            conv_tail = ext[:, ext.shape[1] - width:]
-        else:
+
+        def tail(e, mask):
+            if mask is None:
+                return e[:, e.shape[1] - width:]
             # Rows count..count+width-1 of [old tail | window]: an all-False
             # row keeps the old tail.
-            counts = token_mask.sum(dim=1)
-            idx = counts[:, None] + torch.arange(width, device=x.device)[None]
-            conv_tail = torch.gather(
-                ext, 1, idx[:, :, None].expand(b_, width, ext.shape[2]))
-        # The state is read off the f32 scan output, not the model-dtype
-        # cast: a frozen slot round-trips bit for bit even in bf16.
-        new_state = RecState(h=h32[:, -1], conv=conv_tail)
+            counts = mask.sum(dim=1)
+            idx = counts[:, None] + torch.arange(width, device=e.device)[None]
+            return torch.gather(e, 1, idx[:, :, None].expand(e.shape[0], width, e.shape[2]))
+
+        conv_tail = smap(tail, ext, token_mask)
+        if is_sharded(h_last):          # h whole over the model axis again
+            h_last = reshard(h_last, state.h.dims)
+        new_state = RecState(h=h_last, conv=conv_tail)
     out = dense(hy, gather_for_use(params["w_out"], ("rnn", "embed"), g))
     return constrain(out, "batch", "seq", "act_embed"), new_state
 
@@ -223,16 +234,18 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
     unchanged, and the token-shift state is taken at each row's last valid
     token.  Must be a prefix mask per row.
     """
-    _refuse_state(x, state)
     gg = is_sharded(x) and cfg.fsdp_gather_weights     # a mesh's option only
     d, dh = x.shape[-1], RWKV_HEAD_DIM
-    x_prev = state.conv if state is not None else None
+    x_prev = None
+    if state is not None:               # the previous token, whole over the model axis
+        x_prev = (reshard(state.conv, state.conv.dims[:-1] + ((),))
+                  if is_sharded(state.conv) else state.conv)
 
-    def mix(t, mu):
-        prev = x_prev.to(t.dtype) if x_prev is not None else torch.zeros_like(t[:, :1])
+    def mix(t, mu, prev):
+        prev = prev.to(t.dtype) if prev is not None else torch.zeros_like(t[:, :1])
         return tuple(_rwkv_mix(t, prev, mu[i]) for i in range(5))
 
-    xr, xk, xv, xg, xw = smap(mix, x, constrain(params["mu"], None, None), n_out=5)
+    xr, xk, xv, xg, xw = smap(mix, x, constrain(params["mu"], None, None), x_prev, n_out=5)
 
     def proj(z, name):
         w = gather_for_use(params[name], ("embed", "heads_out"), gg)
@@ -247,10 +260,8 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
     if not heads_split:          # heads that do not divide the model axis
         sharded = r.dims
         r, k, v, delta = (reshard(z, z.dims[:-1] + ((),)) for z in (r, k, v, delta))
-    S = None
 
-    def wkv(rl, kl, vl, dl, base, ul):
-        nonlocal S
+    def wkv(cell, rl, kl, vl, dl, base, ul, h_state, mask):
         b, t, dl_ = rl.shape
         h = dl_ // dh
         # Data-dependent decay in (0, 1): exp(-exp(...)).  The logit is
@@ -264,14 +275,16 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
 
         # w reaches the kernel in the model dtype (bf16 at full size).
         r_, k_, v_, w_ = heads(rl), heads(kl), heads(vl), heads(w.to(rl.dtype))
-        if token_mask is not None and state is not None:
+        if mask is not None and state is not None:
             # Masked tokens are identity steps for S: decay 1, zero k^T v.
-            m = token_mask[:, None, :, None]                 # (B, 1, T, 1)
+            m = mask[:, None, :, None]                       # (B, 1, T, 1)
             w_ = torch.where(m, w_, torch.ones((), dtype=w_.dtype, device=w_.device))
             k_ = torch.where(m, k_, torch.zeros((), dtype=k_.dtype, device=k_.device))
         u = ul.reshape(h, dh)
-        h0 = (state.h.float() if state is not None
-              else torch.zeros((b, h, dh, dh), dtype=torch.float32, device=rl.device))
+        if h_state is not None:         # this shard's heads of the state
+            h0 = h_state.float().narrow(1, offset(r, 2, cell) // dh, h).contiguous()
+        else:
+            h0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=rl.device)
         seq_plan = _seq_plan(b, t)
         if seq_plan is not None:
             # Sequence-parallel rules: each shard sweeps its own tokens and
@@ -282,10 +295,12 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
         else:
             out, S = wkv_fused(r_, k_, v_, w_, u, h0, chunk=WKV_CHUNK,
                                decode=state is not None, warn_scope=cfg.name)
-        return out.transpose(1, 2).reshape(b, t, dl_).to(rl.dtype)
+        return out.transpose(1, 2).reshape(b, t, dl_).to(rl.dtype), S
 
-    out = smap(wkv, r, k, v, delta, along(params["w_decay_base"], r),
-               along(params["u_bonus"], r))
+    out, S = smap(wkv, r, k, v, delta, along(params["w_decay_base"], r),
+                  along(params["u_bonus"], r), state.h if state is not None else None,
+                  token_mask, cell=True, n_out=2,
+                  dims=None if not is_sharded(r) else [r.dims, (r.dims[0], r.dims[2], (), ())])
     out = rms_norm(params["out_norm"], out, cfg.norm_eps)
     if not heads_split:
         out = reshard(out, sharded)
@@ -294,14 +309,17 @@ def apply_rwkv_block(params, x: torch.Tensor, cfg, *,
 
     new_state = None
     if state is not None:
-        if token_mask is None:
-            conv = x[:, -1:]
-        else:
+        def last(t, prev, mask):
+            if mask is None:
+                return t[:, -1:]
             # Token-shift state = each row's last valid token (row `count`
             # of [x_prev | x]); an all-False row keeps x_prev.
-            b = x.shape[0]
-            counts = token_mask.sum(dim=1)
-            ext = torch.cat([x_prev.to(x.dtype), x], dim=1)
-            conv = ext[torch.arange(b, device=x.device), counts][:, None]
+            ext = torch.cat([prev.to(t.dtype), t], dim=1)
+            return ext[torch.arange(t.shape[0], device=t.device), mask.sum(dim=1)][:, None]
+
+        conv = smap(last, x, x_prev, token_mask)
+        if is_sharded(S):               # back into the state's layout: h whole over
+            S = reshard(S, state.h.dims)             # the model axis, the token split
+            conv = reshard(conv, state.conv.dims)
         new_state = RecState(h=S, conv=conv)
     return out, new_state

@@ -52,17 +52,29 @@ explicitly (:mod:`repro_torch.core.device_comm`), each a logged hop:
 Gradients follow the transposes: the cotangent of a replicated value is
 held as partial sums on its replicas (the all-reduce of a replicated
 leaf's grads is the data-parallel all-reduce, ``train/step.py``).
-``prefill_seq``, ``decode`` and ``decode_long`` keep the dense layers
-whole on the input's device (the seq path), and so does the
-encoder-decoder arch: their rules under a mesh are the next slice.
+
+**Decode** runs sharded too, under ``decode`` (batch over data, the KV
+sequence over model) and ``decode_long`` (batch whole, the KV sequence
+over every axis): the decode state is split by its specs
+(:func:`repro_torch.model.model.shard_decode_state`), each shard writes
+a window's K/V rows into the cache slots it owns and attends over them,
+and the shards' softmax partials meet in :func:`combine_partials`, an
+all-reduce of the row maxima and one of the rescaled numerators and
+denominators over the KV sequence's axes (flash-decoding).  Recurrent
+states stay in their spec layout between calls.  The encoder-decoder arch
+runs sharded under all three modes.  Only ``prefill_seq`` keeps the dense
+layers whole on the input's device (the seq path).
 
 A mesh on ``meta`` may be *representative*
 (:func:`repro_torch.launch.mesh.representative`): one shard runs one
 card's program and each collective is sized from its axis's extent; a
 dim that its axes do not divide is padded there, as XLA pads.  A dim
-split over two mesh axes (``("pod", "data")``) is resharded on such a
-mesh only, where shapes and bytes are all that is read; elsewhere it
-raises ``NotImplementedError``.
+split over two mesh axes (``("pod", "data")``, or ``decode_long``'s KV
+sequence over ``("data", "model")``) is placed, read back and combined
+over on any mesh; gathering its outer axis off it
+(:func:`reshard`) is sized on a representative mesh only, where shapes
+and bytes are all that is read, and raises ``NotImplementedError``
+elsewhere.
 
 One rule differs: under ``prefill_seq`` the reference maps ``seq`` to the
 ``model`` axis, so a mesh without one (``make_seq_mesh``'s 1-D ``seq``
@@ -91,7 +103,7 @@ __all__ = ["make_rules", "sharding_context", "axes_size", "seq_shard_info",
            "NamedSharding", "Sharded", "device_put", "device_put_tree", "to_global",
            "constrain", "gather_for_use", "dense", "smap", "reshard", "active_mesh",
            "is_sharded", "rule_axes", "shard_index", "offset", "transpose", "all_reduce_max",
-           "replicas", "along", "cell_scope"]
+           "replicas", "along", "cell_scope", "combine_partials", "copy_into"]
 
 
 class PartitionSpec(tuple):
@@ -343,6 +355,16 @@ class Sharded:
     def __mul__(self, other):
         return self._binary(other, torch.mul)
 
+    def __getitem__(self, i: int) -> "Sharded":
+        """Slice ``i`` of an unsharded leading dim (a stacked layer axis):
+        each shard's view of it."""
+        if not isinstance(i, int) or self.dims[0]:
+            raise ValueError(f"index {i!r} of {self}: an int on an unsharded leading dim")
+        arr = np.empty(self.shards.shape, dtype=object)
+        for c in self.cells():
+            arr[c] = self.shards[c][i]
+        return Sharded(self.mesh, self.dims[1:], arr, self.shape[1:], self.partial)
+
     def unbind(self, dim: int = 0):
         """The slices of an unsharded leading dim (a stacked layer axis)."""
         if dim != 0 or self.dims[0]:
@@ -362,10 +384,12 @@ def is_sharded(x) -> bool:
 
 def active_mesh():
     """The mesh of the active context when the dense layers run sharded
-    there: the rules of a train or prefill mode (``seq`` unsharded) on a
-    mesh of more than one shard; else None."""
+    there: the rules of a train, prefill, decode or decode_long mode on a
+    mesh of more than one shard; else None.  Under ``prefill_seq``
+    (``seq`` mapped) the dense layers stay whole: their sharding there is
+    ROADMAP Queue 1, item 7c."""
     mesh, rules = _CTX.mesh, _CTX.rules
-    if mesh is None or rules is None or rules.get("seq") or rules.get("kv_seq"):
+    if mesh is None or rules is None or rules.get("seq"):
         return None
     return mesh if mesh.size > 1 else None
 
@@ -634,6 +658,40 @@ def all_reduce_max(x: Sharded, axes) -> Sharded:
                     _over(x, a, lambda g, n, a=a: comm.all_reduce(g, axis=a, n=n, op="max")),
                     x.shape)
     return x
+
+
+def combine_partials(m, l, o, axes):
+    """The softmax over keys split across ``axes``, from each shard's
+    partial over its own keys: each row's maximum ``m`` and denominator
+    ``l`` (..., 1) and its numerators ``o`` (..., D), f32, taken against
+    that maximum (flash-decoding).  On a mesh the three are packed (..., 2
+    + D) and merged one axis at a time
+    (:func:`repro_torch.core.device_comm.softmax_combine`: an all-reduce
+    max, then one all-reduce sum), after which every shard holds the whole
+    softmax's partial.  Returns the numerators over the denominator, (...,
+    D), laid out as ``o`` (a row that saw no key: 0); plain tensors, and
+    axes of extent 1, are only normalised."""
+    axes = [a for a in axes if is_sharded(o) and o.mesh.shape[a] > 1]
+    if axes:
+        parts = smap(lambda *z: torch.cat(z, dim=-1), m, l, o)
+        for a in axes:
+            arr = _over(parts, a, lambda g, n, a=a: comm.softmax_combine(g, axis=a, n=n))
+            parts = Sharded(parts.mesh, parts.dims, arr, parts.shape)
+        l, o = smap(lambda p: (p[..., 1:2], p[..., 2:]), parts, n_out=2)
+    return smap(lambda l, o: o / l.clamp_min(1e-30), l, o)
+
+
+def copy_into(dst, src):
+    """Write ``src`` into ``dst`` in place, shard by shard (``src`` laid
+    out as ``dst`` first); plain tensors by ``copy_``."""
+    if not isinstance(dst, Sharded):
+        dst.copy_(src)
+        return
+    if src.dims != dst.dims or src.partial:
+        src = reshard(src, dst.dims)
+    for c in dst.cells():
+        with cell_scope(c):
+            dst.shards[c].copy_(src.shards[c])
 
 
 def replicas(x: Sharded) -> int:

@@ -24,7 +24,10 @@ and everything else, batched products (``bmm``) included, is recomputed.
 plain.  On a (data, model) mesh the residual stream is a
 :class:`~repro_torch.model.sharding.Sharded` tensor (batch over data,
 replicated over model), each block's layers make their own collectives,
-and a recomputed period makes its forward's collectives again.
+and a recomputed period makes its forward's collectives again.  Under the
+decode rules the state's leaves are sharded too: each layer reads views of
+its shards and writes its new state back into them, shard by shard; a
+cross-attention block takes the encoder's output as it is laid out.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from repro_torch.model import moe as moe_mod
 from repro_torch.model import moe_a2a
 from repro_torch.model import recurrent as rec_mod
 from repro_torch.model.layers import apply_mlp, init_mlp, init_rmsnorm, rms_norm
-from repro_torch.model.sharding import remat_context
+from repro_torch.model.sharding import copy_into, remat_context
 
 ATTN_KINDS = ("attn", "local", "global")
 
@@ -171,7 +174,8 @@ def _context_fn(cfg):
 
 
 def _layer_view(node, p: int):
-    """Period ``p`` of a stacked state node, as views of its tensors."""
+    """Period ``p`` of a stacked state node, as views of its tensors (of
+    each shard's, for a sharded state)."""
     if isinstance(node, attn_mod.PagedKVCache):
         return node.layer(p)
     return type(node)(*(leaf[p] for leaf in node))
@@ -179,13 +183,14 @@ def _layer_view(node, p: int):
 
 def _write_back(node, new):
     """Copy a layer's new state into its node of the decode state, leaf by
-    leaf, in place.  A paged node's pools were written in place and its
-    table is unchanged: only its lengths are copied."""
+    leaf, in place (shard by shard, each new leaf in its node's layout).  A
+    paged node's pools were written in place and its table is unchanged:
+    only its lengths are copied."""
     if isinstance(node, attn_mod.PagedKVCache):
         node.length.copy_(new.length)
         return
     for dst, src in zip(node, new):
-        dst.copy_(src)
+        copy_into(dst, src)
 
 
 def apply_stack(stack_params, x, cfg, *, positions=None, causal=True, states=None,

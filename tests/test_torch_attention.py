@@ -29,6 +29,7 @@ from repro_torch.kernels.local_attention import ref as FR
 from repro_torch.model import attention as A
 from repro_torch.model import convert
 from repro_torch.model import layers as L
+from repro_torch.model import sharding as S
 
 jax.config.update("jax_platform_name", "cpu")
 # Tiny tensors: one intra-op thread, so parallel test workers do not
@@ -151,8 +152,9 @@ def test_decode_attention_matches_reference(window):
     pos = np.array([0, 7, 20], np.int32)
     want = JA._decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
                                 jnp.asarray(pos), cfg_j, window=window)
-    got = A._decode_attention(torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
-                              torch.from_numpy(pos), cfg, window=window)
+    parts = A._decode_partials(torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+                               torch.from_numpy(pos), cfg, window=window)
+    got = S.combine_partials(*parts, ())
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=TOL, atol=TOL)
 
 

@@ -2028,3 +2028,49 @@ def test_sharded_reduced_step_on_a_mesh_of_the_card_matches_unsharded(cuda, arch
     _first_moments_close([S.to_global(x) for x in tree_leaves(sharded.opt.mu)], want[3])
     got = [S.to_global(p).detach().cpu() for p in tree_leaves(sharded.params)]
     assert max(float((a - b).abs().max()) for a, b in zip(got, want[2])) <= 1e-5
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _chip_smoke()
+#: The archs whose decode launches a kernel: each shard launches it on its
+#: own heads or channels (flash for seamless's cross-attention).
+DECODE_KERNELS = {"rwkv6-1.6b": "wkv_decode_cuda", "recurrentgemma-2b":
+                  "elevator_decode_window_cuda", "seamless-m4t-large-v2": "flash_attention_cuda"}
+
+
+@pytest.mark.parametrize("mode", ["decode", "decode_long"])
+@pytest.mark.parametrize("arch", SMOKE.DECODE_REDUCED_ARCHS)
+def test_sharded_decode_reduced_on_a_mesh_of_the_card_matches_cpu_shards(cuda, arch, mode):
+    """The reduced f32 model decoding under ``decode`` / ``decode_long``
+    rules on a (2, 4) mesh of the card against the same mesh of ``cpu``
+    shards (``chip_smoke.py`` phase 3s's run): every call's logits and the
+    final state within 1e-4 of the largest, each kernel of the path
+    launched by every shard."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    cfg = SMOKE._decode_reduced_cfg(arch)
+    params = M.init_params(cfg, 1, device="cpu")
+    inputs = SMOKE._decode_reduced_inputs(torch, cfg)
+    want, want_state = SMOKE._decode_reduced_on_mesh(
+        torch, cfg, params, make_debug_mesh(*SMOKE.DECODE_MESH, device="cpu"), mode, inputs)
+    counters = _all_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    got, got_state = SMOKE._decode_reduced_on_mesh(
+        torch, cfg, params, make_debug_mesh(*SMOKE.DECODE_MESH), mode, inputs)
+    torch.cuda.synchronize()
+    for a, b in zip(got + got_state, want + want_state, strict=True):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= 1e-4 * max(1.0, float(b.abs().max()))
+    if arch in DECODE_KERNELS:
+        n = counters[DECODE_KERNELS[arch]].launches
+        assert n > 0 and n % 8 == 0, n

@@ -12,9 +12,10 @@ trace, on the CPU.
   a group); the peak of live bytes within 10%: the single controller holds
   a group's collective outputs together and runs autograd's nodes across
   the shards in one order, where the representative runs one card's.
-* A production-mesh row of a sharded cell carries one card's costs, its
+* A production-mesh row (a prefill and a decode cell of gemma3-1b, a
+  decode cell of seamless-m4t-large-v2) carries one card's costs, its
   collective bytes by op and by axis, a collective term summed over each
-  axis's link rate, and a peak; a decode row says why it has none.
+  axis's link rate, and a peak.
 """
 
 import dataclasses
@@ -90,7 +91,8 @@ def test_run_variant_on_a_small_meta_mesh(tmp_path):
 @pytest.mark.parametrize("name,fsdp,kind", [
     ("qwen2-0.5b", False, "prefill"), ("qwen2-0.5b", True, "prefill"),
     ("rwkv6-1.6b", True, "prefill"), ("recurrentgemma-2b", False, "prefill"),
-    ("qwen3-moe-235b-a22b", False, "train"), ("qwen3-moe-235b-a22b", True, "train")])
+    ("qwen3-moe-235b-a22b", False, "train"), ("qwen3-moe-235b-a22b", True, "train"),
+    ("gemma3-1b", False, "decode"), ("seamless-m4t-large-v2", True, "decode")])
 def test_representative_shard_equals_the_enumerated_shards(name, fsdp, kind):
     cfg = dataclasses.replace(get_config(name).reduced(), fsdp_gather_weights=fsdp,
                               microbatch=2, prefill_chunks=1)
@@ -112,8 +114,14 @@ def test_representative_shard_equals_the_enumerated_shards(name, fsdp, kind):
     assert got == Counter({k: n * groups[k[1]] for k, n in want.items()})
 
 
-def test_production_rows_trace_one_card():
-    row = dryrun.run_production_cell("gemma3-1b", "prefill_32k", verbose=False)
+PRODUCTION_CELLS = [("gemma3-1b", "prefill_32k"), ("gemma3-1b", "decode_32k"),
+                    ("seamless-m4t-large-v2", "decode_32k")]
+
+
+@pytest.mark.parametrize("arch,shape", PRODUCTION_CELLS, ids=[f"{a}-{s}" for a, s in
+                                                              PRODUCTION_CELLS])
+def test_production_rows_trace_one_card(arch, shape):
+    row = dryrun.run_production_cell(arch, shape, verbose=False)
     pc, mem = row["per_card"], row["memory"]
     assert mem["peak_estimate_bytes"] == mem["state_bytes_per_card"] + mem[
         "peak_live_bytes_per_card"] > mem["state_bytes_per_card"]
@@ -125,8 +133,5 @@ def test_production_rows_trace_one_card():
     link = mesh_mod.LINK_BW
     assert pc["roofline"]["collective_s"] == pytest.approx(sum(
         sum(ops.values()) / link[a] for a, ops in pc["collectives_by_axis"].items()))
-    skipped = dryrun.run_production_cell("gemma3-1b", "decode_32k", verbose=False)
-    assert skipped["memory"]["peak_estimate_bytes"] is None
-    assert "next slice" in skipped["memory"]["peak_note"]
 
 

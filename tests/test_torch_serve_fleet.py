@@ -37,11 +37,13 @@ from repro.model import model as JM
 from repro.model.recurrent import RecState as JRecState
 from repro.serve import chaos as JCH
 from repro.serve import engine as JE
+from repro.ft import watchdog as JW
 from repro.serve import fleet as JF
 from repro_torch.checkpoint import checkpoint as C
 from repro_torch.configs.registry import get_config
 from repro_torch.core import cost_model as CM
 from repro_torch.core.cost_model import serve_fleet_drain
+from repro_torch.ft import watchdog as W
 from repro_torch.launch import serve as launcher
 from repro_torch.model import convert
 from repro_torch.model import model as M
@@ -58,6 +60,46 @@ torch.set_num_threads(1)
 
 SPEC = [(5, 9), (12, 3), (7, 14), (3, 6), (9, 11)]
 _SETUPS = {}
+
+#: The window observations (1-based, per detector) that a straggler
+#: detector flags; empty outside the planted drill.
+_PLANTED: set = set()
+#: The planted drill's windows: three consecutive flags after the warmup
+#: window degrade a replica's monitor.
+STRAGGLER_WINDOWS = {2, 3, 4}
+
+
+def _planted_observe(self, step_time_s):
+    """``StragglerDetector.observe`` with the host clock left out: the
+    ``n``-th window of a detector is a straggler iff ``n`` is planted."""
+    self._seen += 1
+    flagged = self._seen in _PLANTED
+    self.flagged += flagged
+    return flagged
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _deterministic_stragglers():
+    """Both frameworks' straggler detectors on :func:`_planted_observe` for
+    the module: the fleet's monitors read the flags, and a loaded host
+    would otherwise flag windows at random, in either framework's run."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(W.StragglerDetector, "observe", _planted_observe)
+        mp.setattr(JW.StragglerDetector, "observe", _planted_observe)
+        yield
+
+
+class _plant:
+    """``with _plant(windows):`` flags those windows of every detector."""
+
+    def __init__(self, windows):
+        self.windows = set(windows)
+
+    def __enter__(self):
+        _PLANTED.update(self.windows)
+
+    def __exit__(self, *exc):
+        _PLANTED.clear()
 
 
 def _setup(arch):
@@ -174,6 +216,20 @@ def reference_runs():
                         [JE.Request(tokens=r.tokens, max_new_tokens=r.max_new_tokens)
                          for r in _requests(cfg_j.vocab_size)], slots=2, max_queue=1)
     runs["shed"] = _summary(fl, fl.run())
+    # The planted stragglers: the fault-free drill with the same windows
+    # flagged in every detector, the straggler counters compared too.
+    with _plant(STRAGGLER_WINDOWS):
+        reqs = [JE.Request(tokens=r.tokens, max_new_tokens=r.max_new_tokens)
+                for r in _requests(cfg_j.vocab_size)]
+        root = tempfile.mkdtemp(prefix="fleet_ref_")
+        try:
+            fl = JF.FleetRouter(pools[("rwkv6-1.6b", False)], reqs, slots=2, snapshot_every=1,
+                                snapshot_root=root, checksum_every=2, seed=0)
+            outs = fl.run()
+            runs["stragglers"] = dict(_summary(fl, outs),
+                                      flagged=[s["stragglers"] for s in fl.stats_by_replica()])
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
     return runs
 
 
@@ -232,6 +288,22 @@ class TestSnapshotHandoffParity:
         assert fl.stats["assignments"] == len(reqs)
         _assert_streams_equal(base, outs)
         assert _summary(fl, outs) == reference_runs["fault_free"]
+
+    def test_planted_stragglers_degrade_as_the_reference(self, reference_runs):
+        """The same windows flagged in both frameworks' detectors: the
+        straggler -> monitor -> routing path gives the reference's
+        degraded monitors, fleet counters and streams, and the streams
+        still equal a fault-free single engine's."""
+        reqs = _requests(_setup("rwkv6-1.6b")[1].vocab_size)
+        base = _engine("rwkv6-1.6b").serve(reqs, slots=2, seed=0, recoverable=True)
+        with _plant(STRAGGLER_WINDOWS):
+            fl, outs = _port_drill("fault_free")
+        got = dict(_summary(fl, outs),
+                   flagged=[s["stragglers"] for s in fl.stats_by_replica()])
+        assert H.DEGRADED in got["monitors"]
+        assert sum(got["flagged"]) >= len(STRAGGLER_WINDOWS)
+        _assert_streams_equal(base, outs)
+        assert got == reference_runs["stragglers"]
 
 
 class TestBitflipDetection:
